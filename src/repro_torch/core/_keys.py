@@ -1,0 +1,38 @@
+"""One random-generator policy for every solver.
+
+Counterpart of ``repro.core._keys``: a solver takes an explicit
+``torch.Generator`` where the reference takes a PRNG key.  When none is
+given, :func:`resolve_generator` keeps a deterministic default (seed 0)
+but warns, so implicit seeding is always visible.  The two packages draw
+different numbers from the same seed; tests hand both the same start
+vector instead.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Optional
+
+import torch
+
+IMPLICIT_KEY_MSG = (
+    "{caller}: no torch.Generator was supplied; falling back to a "
+    "generator seeded with 0. Pass generator= explicitly (or a warm-start "
+    "q1) to silence this warning and control reproducibility."
+)
+
+
+class ImplicitKeyWarning(UserWarning):
+    """Raised (as a warning) when a solver self-seeds with seed 0."""
+
+
+def resolve_generator(generator: Optional[torch.Generator], *,
+                      caller: str = "solver", device=None,
+                      warn: bool = True) -> torch.Generator:
+    """Return ``generator`` or a seed-0 generator on ``device``, warning on
+    the latter."""
+    if generator is None:
+        if warn:
+            warnings.warn(IMPLICIT_KEY_MSG.format(caller=caller),
+                          ImplicitKeyWarning, stacklevel=3)
+        return torch.Generator(device=device or "cpu").manual_seed(0)
+    return generator

@@ -1,0 +1,248 @@
+"""Wrappers around the fused GK half-step kernels of ``csrc/gk_step.cu``.
+
+Counterpart of ``repro.kernels.gk_step`` (the four Pallas kernels):
+
+  ``mv_qtv``     (u, c)  = (A p − α y, Qᵀ u)      stage 1, left half-step
+  ``rmv_qtv``    (v, c)  = (Aᵀ q − β y, Pᵀ v)     stage 1, right half-step
+  ``proj_qtv``   (w, c') = (u − Q c, Qᵀ w)        one pass over Q
+  ``proj_norm``  (v, ‖v‖²) = (u − Q c, Σ v²)      one pass over Q
+
+Vectors are 1-D f32 tensors; A and the basis are 2-D, contiguous, f32 or
+bf16 each.  ``alpha`` / ``beta`` are a Python number or a one-element f32
+tensor on the device (a device scalar never forces a host sync).
+
+Each wrapper checks its inputs and raises on what the kernel does not
+take, allocates outputs and scratch with ``torch.empty``, launches on the
+current stream and adds one to ``LAUNCHES[name]``.  For CPU tensors, and
+only for them, it returns the plain version from ``kernels.ref`` instead
+(and counts nothing).  There is no fallback: a CUDA tensor either runs
+the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+Tensor = torch.Tensor
+F32, BF16 = torch.float32, torch.bfloat16
+
+STORAGE_DTYPES = (F32, BF16)
+THREADS = 256          # threads per block, as in the CUDA source
+GROUP = THREADS // 32  # rows a block of the row kernel handles at once
+MAX_BLOCKS = 2048      # grid cap of the row kernel
+RMV_TARGET_BLOCKS = 4096   # (column tile, row chunk) blocks rmv aims for
+MAX_CHUNKS = 65535     # gridDim.y limit
+MAX_K = 49152          # basis columns: k f32 of shared memory per block
+
+# Calls of each TPU-kernel-level function that launched on the card (a
+# call may be more than one launch: its finishing pass is part of it).
+LAUNCHES = {"mv_qtv": 0, "rmv_qtv": 0, "proj_qtv": 0, "proj_norm": 0}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "gk_mv_qtv": [_P, _I, _P, _P, _P, _P, _I, _L, _L, _I, _L, _I,
+                  _P, _P, _P, _P],
+    "gk_rmv_qtv": [_P, _I, _P, _P, _P, _P, _I, _L, _L, _I, _L, _I, _P,
+                   _L, _I, _P, _P, _P, _P],
+    "gk_proj_qtv": [_P, _P, _I, _P, _L, _I, _L, _I, _P, _P, _P, _P],
+    "gk_proj_norm": [_P, _P, _I, _P, _L, _I, _L, _I, _P, _P, _P, _P],
+    "gk_error_string": [_I],
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("gk_step", _SIGNATURES)
+    lib.gk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def rows_plan(L: int) -> tuple[int, int]:
+    """(rows per block, blocks) of the row kernel for a length-L vector.
+
+    A function of L alone, so the blocking, and with it the order of every
+    cross-block sum, is the same on every run and every card."""
+    per = -(-L // MAX_BLOCKS)
+    per = max(GROUP, -(-per // GROUP) * GROUP)
+    return per, -(-L // per)
+
+
+def chunk_plan(m: int, n: int) -> tuple[int, int]:
+    """(rows per chunk, chunks) of the ``Aᵀq`` partial-sum kernel: enough
+    row chunks that (column tiles × chunks) reaches about
+    ``RMV_TARGET_BLOCKS`` blocks, without chunks shorter than 64 rows."""
+    tiles = -(-n // THREADS)
+    chunks = max(1, min(-(-RMV_TARGET_BLOCKS // tiles), -(-m // 64),
+                        MAX_CHUNKS))
+    per = -(-m // chunks)
+    return per, -(-m // per)
+
+
+# --- input checks ---------------------------------------------------------
+
+def _matrix(name: str, X: Tensor, rows: Optional[int] = None) -> None:
+    if not isinstance(X, Tensor) or X.dim() != 2:
+        raise ValueError(f"{name} must be a 2-D tensor")
+    if X.dtype not in STORAGE_DTYPES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {X.dtype}")
+    if rows is not None and X.shape[0] != rows:
+        raise ValueError(f"{name} has {X.shape[0]} rows, expected {rows}")
+
+
+def _vector(name: str, x: Tensor, length: int) -> None:
+    if not isinstance(x, Tensor) or x.dim() != 1 or x.shape[0] != length:
+        raise ValueError(f"{name} must be a 1-D tensor of length {length}")
+    if x.dtype != F32:
+        raise TypeError(f"{name} must be float32, got {x.dtype}")
+
+
+def _on_cuda(*tensors: Tensor) -> bool:
+    """True if all tensors are on one CUDA device, False if all are on the
+    CPU; raises otherwise, or on a non-contiguous CUDA tensor."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs are on different devices: {devices}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("the kernel takes contiguous tensors only")
+    return True
+
+
+def _scalar(x, device: torch.device) -> Tensor:
+    """A one-element f32 device tensor (a view when ``x`` already is one)."""
+    if isinstance(x, Tensor):
+        if x.numel() != 1 or x.dtype != F32 or x.device != device:
+            raise ValueError("the scalar must be a one-element float32 "
+                             f"tensor on {device}")
+        return x.reshape(1)
+    return torch.full((1,), float(x), dtype=F32, device=device)
+
+
+def _basis_width(Q: Tensor) -> int:
+    k = Q.shape[1]
+    if k > MAX_K:
+        raise ValueError(f"basis has {k} columns; the kernel takes at most "
+                         f"{MAX_K}")
+    return k
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = _lib().gk_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+# --- the four kernels -----------------------------------------------------
+
+def mv_qtv(A: Tensor, p: Tensor, y: Tensor, alpha,
+           Q: Tensor) -> tuple[Tensor, Tensor]:
+    """(u, c) = (A p − α y, Qᵀ u) in one pass over A and Q.
+    A (m, n); p (n,); y (m,); Q (m, k) → u (m,), c (k,) f32."""
+    _matrix("A", A)
+    m, n = A.shape
+    _vector("p", p, n)
+    _vector("y", y, m)
+    _matrix("Q", Q, rows=m)
+    if not _on_cuda(A, p, y, Q):
+        return ref.mv_qtv(A, p, y, alpha, Q)
+    if m == 0 or n == 0:
+        raise ValueError(f"empty operand {tuple(A.shape)}")
+    k = _basis_width(Q)
+    per, grid = rows_plan(m)
+    a = _scalar(alpha, A.device)
+    u = torch.empty(m, dtype=F32, device=A.device)
+    c = torch.empty(k, dtype=F32, device=A.device)
+    part = torch.empty(k * grid, dtype=F32, device=A.device)
+    rc = _lib().gk_mv_qtv(
+        A.data_ptr(), int(A.dtype == BF16), p.data_ptr(), y.data_ptr(),
+        a.data_ptr(), Q.data_ptr(), int(Q.dtype == BF16), m, n, k, per, grid,
+        u.data_ptr(), part.data_ptr(), c.data_ptr(), _stream())
+    _check(rc, "mv_qtv")
+    LAUNCHES["mv_qtv"] += 1
+    return u, c
+
+
+def rmv_qtv(A: Tensor, q: Tensor, y: Tensor, beta,
+            P: Tensor) -> tuple[Tensor, Tensor]:
+    """(v, c) = (Aᵀ q − β y, Pᵀ v) from row-major A, no stored transpose.
+    A (m, n); q (m,); y (n,); P (n, k) → v (n,), c (k,) f32."""
+    _matrix("A", A)
+    m, n = A.shape
+    _vector("q", q, m)
+    _vector("y", y, n)
+    _matrix("P", P, rows=n)
+    if not _on_cuda(A, q, y, P):
+        return ref.rmv_qtv(A, q, y, beta, P)
+    if m == 0 or n == 0:
+        raise ValueError(f"empty operand {tuple(A.shape)}")
+    k = _basis_width(P)
+    per_chunk, chunks = chunk_plan(m, n)
+    per, grid = rows_plan(n)
+    b = _scalar(beta, A.device)
+    vpart = torch.empty(chunks * n, dtype=F32, device=A.device)
+    v = torch.empty(n, dtype=F32, device=A.device)
+    c = torch.empty(k, dtype=F32, device=A.device)
+    part = torch.empty(k * grid, dtype=F32, device=A.device)
+    rc = _lib().gk_rmv_qtv(
+        A.data_ptr(), int(A.dtype == BF16), q.data_ptr(), y.data_ptr(),
+        b.data_ptr(), P.data_ptr(), int(P.dtype == BF16), m, n, k, per_chunk,
+        chunks, vpart.data_ptr(), per, grid, v.data_ptr(), part.data_ptr(),
+        c.data_ptr(), _stream())
+    _check(rc, "rmv_qtv")
+    LAUNCHES["rmv_qtv"] += 1
+    return v, c
+
+
+def _proj(name: str, plain, u: Tensor, Q: Tensor, c: Tensor):
+    _matrix("Q", Q)
+    L, k = Q.shape
+    _vector("u", u, L)
+    _vector("c", c, k)
+    if not _on_cuda(u, Q, c):
+        return plain(u, Q, c)
+    if L == 0:
+        raise ValueError("empty basis")
+    _basis_width(Q)
+    per, grid = rows_plan(L)
+    w = torch.empty(L, dtype=F32, device=u.device)
+    nout = 1 if name == "proj_norm" else k
+    out = torch.empty(nout, dtype=F32, device=u.device)
+    part = torch.empty(nout * grid, dtype=F32, device=u.device)
+    fn = getattr(_lib(), f"gk_{name}")
+    rc = fn(u.data_ptr(), Q.data_ptr(), int(Q.dtype == BF16), c.data_ptr(),
+            L, k, per, grid, w.data_ptr(), part.data_ptr(), out.data_ptr(),
+            _stream())
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return w, out
+
+
+def proj_qtv(u: Tensor, Q: Tensor, c: Tensor) -> tuple[Tensor, Tensor]:
+    """(w, c') = (u − Q c, Qᵀ w) in one pass over Q.
+    u (L,); Q (L, k); c (k,) → w (L,), c' (k,) f32."""
+    return _proj("proj_qtv", ref.proj_qtv, u, Q, c)
+
+
+def proj_norm(u: Tensor, Q: Tensor, c: Tensor) -> tuple[Tensor, Tensor]:
+    """(v, ‖v‖²) = (u − Q c, Σ v²) in one pass over Q.
+    u (L,); Q (L, k); c (k,) → v (L,), ‖v‖² () f32."""
+    v, nrm2 = _proj("proj_norm", ref.proj_norm, u, Q, c)
+    return v, nrm2.reshape(())

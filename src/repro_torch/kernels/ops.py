@@ -1,0 +1,47 @@
+"""The fused GK half-steps the operators call (``DenseOp(backend="pallas")``).
+
+Counterpart of ``repro.kernels.ops.gk_step_fused`` / ``gk_rstep_fused``:
+stage 1 (``mv_qtv`` or ``rmv_qtv``), then ``passes − 1`` × ``proj_qtv``,
+then ``proj_norm``, so the basis is read ``passes + 1`` times and the
+candidate vector meets its first CGS product before it is stored.  The
+reference pads A to tile multiples first; the CUDA kernels mask ragged
+edges themselves, so nothing here pads or copies A.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import gk_step as gs
+
+Tensor = torch.Tensor
+
+
+def _f32(x: Tensor) -> Tensor:
+    return x.to(torch.float32).contiguous()
+
+
+def gk_step_fused(A: Tensor, p: Tensor, y: Tensor, alpha, Q: Tensor,
+                  passes: int = 2) -> tuple[Tensor, Tensor]:
+    """Left GK half-step: ``u = A p − α y`` reorthogonalized CGS^passes
+    against Q, plus its norm.  A (m, n); p (n,); y (m,); Q (m, k) →
+    (u (m,) f32, ‖u‖ () f32)."""
+    u, c = gs.mv_qtv(A, _f32(p), _f32(y), alpha, Q)
+    return _project(u, Q, c, passes)
+
+
+def gk_rstep_fused(A: Tensor, q: Tensor, y: Tensor, beta, P: Tensor,
+                   passes: int = 2) -> tuple[Tensor, Tensor]:
+    """Right GK half-step: ``v = Aᵀ q − β y`` against the P basis.
+    A (m, n); q (m,); y (n,); P (n, k) → (v (n,) f32, ‖v‖ () f32)."""
+    v, c = gs.rmv_qtv(A, _f32(q), _f32(y), beta, P)
+    return _project(v, P, c, passes)
+
+
+def _project(u: Tensor, Q: Tensor, c: Tensor,
+             passes: int) -> tuple[Tensor, Tensor]:
+    if passes == 0:
+        return u, torch.linalg.vector_norm(u)
+    for _ in range(passes - 1):
+        u, c = gs.proj_qtv(u, Q, c)
+    v, nrm2 = gs.proj_norm(u, Q, c)
+    return v, torch.sqrt(nrm2)

@@ -1,0 +1,84 @@
+"""Plain-torch versions of the kernels (the allclose reference).
+
+Counterpart of ``repro.kernels.ref``: every function upcasts its inputs
+to f32 and accumulates in f32, as the kernels do.  The kernel wrappers in
+``kernels.gk_step`` call these for CPU tensors only.
+"""
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+F32 = torch.float32
+
+
+def _scalar(x, like: Tensor) -> Tensor:
+    return torch.as_tensor(x, dtype=F32, device=like.device).reshape(())
+
+
+def matvec_fused(A: Tensor, p: Tensor, y: Tensor, alpha) -> Tensor:
+    """u = A @ p − alpha * y   (GK line 5 / 12, f32 accumulate)."""
+    return A.to(F32) @ p.to(F32) - _scalar(alpha, A) * y.to(F32)
+
+
+def rmatvec_fused(A: Tensor, q: Tensor, y: Tensor, beta) -> Tensor:
+    """v = Aᵀ @ q − beta * y."""
+    return A.to(F32).T @ q.to(F32) - _scalar(beta, A) * y.to(F32)
+
+
+def qtv(Q: Tensor, v: Tensor) -> Tensor:
+    """c = Qᵀ v."""
+    return Q.to(F32).T @ v.to(F32)
+
+
+def subtract_qc(v: Tensor, Q: Tensor, c: Tensor) -> Tensor:
+    """w = v − Q c."""
+    return v.to(F32) - Q.to(F32) @ c.to(F32)
+
+
+def reorth(v: Tensor, Q: Tensor, passes: int = 2) -> Tensor:
+    for _ in range(passes):
+        v = subtract_qc(v, Q, qtv(Q, v))
+    return v
+
+
+def gk_step(A: Tensor, p: Tensor, y: Tensor, alpha, Q: Tensor,
+            passes: int = 2) -> tuple[Tensor, Tensor]:
+    """Left GK half-step: u = A p − α y, CGS^passes vs Q, and ‖u‖."""
+    u = reorth(matvec_fused(A, p, y, alpha), Q, passes)
+    return u, torch.linalg.vector_norm(u)
+
+
+def gk_rstep(A: Tensor, q: Tensor, y: Tensor, beta, P: Tensor,
+             passes: int = 2) -> tuple[Tensor, Tensor]:
+    """Right GK half-step: v = Aᵀ q − β y, CGS^passes vs P, and ‖v‖."""
+    v = reorth(rmatvec_fused(A, q, y, beta), P, passes)
+    return v, torch.linalg.vector_norm(v)
+
+
+# --- the four stages of the fused pipeline (kernels/gk_step.py) ---------
+
+def mv_qtv(A: Tensor, p: Tensor, y: Tensor, alpha,
+           Q: Tensor) -> tuple[Tensor, Tensor]:
+    """(u, c) = (A p − α y, Qᵀ u)."""
+    u = matvec_fused(A, p, y, alpha)
+    return u, qtv(Q, u)
+
+
+def rmv_qtv(A: Tensor, q: Tensor, y: Tensor, beta,
+            P: Tensor) -> tuple[Tensor, Tensor]:
+    """(v, c) = (Aᵀ q − β y, Pᵀ v)."""
+    v = rmatvec_fused(A, q, y, beta)
+    return v, qtv(P, v)
+
+
+def proj_qtv(u: Tensor, Q: Tensor, c: Tensor) -> tuple[Tensor, Tensor]:
+    """(w, c') = (u − Q c, Qᵀ w)."""
+    w = subtract_qc(u, Q, c)
+    return w, qtv(Q, w)
+
+
+def proj_norm(u: Tensor, Q: Tensor, c: Tensor) -> tuple[Tensor, Tensor]:
+    """(v, ‖v‖²) = (u − Q c, Σ v²); the second output is 0-d."""
+    v = subtract_qc(u, Q, c)
+    return v, torch.dot(v, v)

@@ -20,6 +20,10 @@ def pytest_configure(config):
         "distributed: needs >= 8 jax devices; run under "
         "XLA_FLAGS=--xla_force_host_platform_device_count=8 (auto-skipped "
         "otherwise)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (skipped without one); run on the card "
+        "with PYTHONPATH=src python -m pytest -m gpu tests/test_torch_*.py")
 
 
 def pytest_collection_modifyitems(config, items):

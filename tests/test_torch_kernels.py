@@ -1,0 +1,216 @@
+"""The port's fused GK-step kernels (repro_torch.kernels) against the
+reference's Pallas kernels (repro.kernels, interpret mode on the CPU).
+
+On CPU tensors the port's wrappers take their plain-torch versions, so
+these tests hold the port's stage arithmetic and its half-step
+composition (stage 1, passes−1 × proj_qtv, proj_norm) against the
+reference's.  Inputs are made with numpy from a seed and handed to both.
+The CUDA kernels themselves are checked on the card by
+``tests/test_torch_gpu.py``.
+
+Tolerances are those of tests/test_kernels.py:151-187: rtol 1e-5 with
+atol 1e-5·max|ref| in f32 (only the summation order differs), 3e-2 where
+A or the basis is stored bf16.
+"""
+import ctypes
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import gk_step as jgs
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import _build
+from repro_torch.kernels import gk_step as gs
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref
+
+# GK_STEP_SHAPES of tests/test_kernels.py:136, those within 300 × 520
+# (Pallas interpret mode is slow on the CPU).
+SHAPES = [(64, 48, 4), (300, 517, 17), (257, 129, 31), (127, 383, 9),
+          (300, 200, 5)]
+PASSES = [0, 1, 2, 3]
+
+
+def _inputs(m, n, k, seed, left=True):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n)).astype(np.float32)
+    x = rng.standard_normal(n if left else m).astype(np.float32)
+    y = rng.standard_normal(m if left else n).astype(np.float32)
+    Q = np.linalg.qr(rng.standard_normal((m if left else n, k)))[0]
+    return A, x, y, Q.astype(np.float32)
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(x)).to(dtype)
+
+
+def _close(got, want, rtol=1e-5):
+    want = np.asarray(want, np.float32)
+    scale = float(np.max(np.abs(want))) if want.size else 0.0
+    np.testing.assert_allclose(got.detach().float().numpy(), want,
+                               rtol=rtol, atol=rtol * scale)
+
+
+@pytest.mark.parametrize("m,n,k", SHAPES)
+@pytest.mark.parametrize("passes", PASSES)
+def test_gk_step_fused_matches_reference(m, n, k, passes):
+    A, p, y, Q = _inputs(m, n, k, m * n + k)
+    want_u, want_b = jops.gk_step_fused(A, p, y, 0.37, Q, passes)
+    got_u, got_b = ops.gk_step_fused(_t(A), _t(p), _t(y), 0.37, _t(Q),
+                                     passes)
+    _close(got_u, want_u)
+    _close(got_b, want_b)
+
+
+@pytest.mark.parametrize("m,n,k", SHAPES)
+@pytest.mark.parametrize("passes", PASSES)
+def test_gk_rstep_fused_matches_reference(m, n, k, passes):
+    A, q, y, P = _inputs(m, n, k, m + 3 * n + k, left=False)
+    want_v, want_a = jops.gk_rstep_fused(A, q, y, 1.7, P, passes)
+    got_v, got_a = ops.gk_rstep_fused(_t(A), _t(q), _t(y), 1.7, _t(P),
+                                      passes)
+    _close(got_v, want_v)
+    _close(got_a, want_a)
+
+
+@pytest.mark.parametrize("direction", ["left", "right"])
+def test_fused_step_bf16_storage(direction):
+    """bf16 A and basis, f32 accumulation: the port's bf16 step tracks the
+    reference's bf16 step and the f32 oracle to bf16 input rounding."""
+    m, n, k = 300, 517, 17
+    left = direction == "left"
+    A, x, y, Q = _inputs(m, n, k, m ^ n, left=left)
+    jfn = jops.gk_step_fused if left else jops.gk_rstep_fused
+    tfn = ops.gk_step_fused if left else ops.gk_rstep_fused
+    want_u, want_b = jfn(jnp.asarray(A, jnp.bfloat16), x, y, 0.37,
+                         jnp.asarray(Q, jnp.bfloat16), 2)
+    got_u, got_b = tfn(_t(A, torch.bfloat16), _t(x), _t(y), 0.37,
+                       _t(Q, torch.bfloat16), 2)
+    _close(got_u, want_u, rtol=3e-2)
+    _close(got_b, want_b, rtol=3e-2)
+    oracle = jref.gk_step if left else jref.gk_rstep
+    f32_u, f32_b = oracle(A, x, y, 0.37, Q, 2)
+    _close(got_u, f32_u, rtol=3e-2)
+    _close(got_b, f32_b, rtol=3e-2)
+
+
+@pytest.mark.parametrize("m,n,k", [(64, 48, 4), (257, 129, 31)])
+def test_stage_one_matches_reference(m, n, k):
+    """mv_qtv / rmv_qtv against the reference's stage-1 kernels."""
+    A, p, y, Q = _inputs(m, n, k, 7 * m + n)
+    want_u, want_c = jops.local_mv_qtv(A, p[:, None], y[:, None], 0.37, Q)
+    got_u, got_c = gs.mv_qtv(_t(A), _t(p), _t(y), 0.37, _t(Q))
+    _close(got_u, want_u[:, 0])
+    _close(got_c, want_c[:, 0])
+    _, q, yn, P = _inputs(m, n, k, 11 * m + n, left=False)
+    want_v, want_c = jops.local_rmv_qtv(A, q[:, None], yn[:, None], 1.7, P)
+    got_v, got_c = gs.rmv_qtv(_t(A), _t(q), _t(yn), 1.7, _t(P))
+    _close(got_v, want_v[:, 0])
+    _close(got_c, want_c[:, 0])
+
+
+@pytest.mark.parametrize("L,k", [(48, 4), (300, 17), (129, 31)])
+def test_projection_stages_match_reference(L, k):
+    """proj_qtv / proj_norm against the reference's stage-2/3 kernels."""
+    rng = np.random.default_rng(L * k)
+    u = rng.standard_normal(L).astype(np.float32)
+    Q = np.linalg.qr(rng.standard_normal((L, k)))[0].astype(np.float32)
+    c = rng.standard_normal(k).astype(np.float32)
+    want_w, want_c = jgs.proj_qtv(u[:, None], Q, c[:, None], bm=L)
+    got_w, got_c = gs.proj_qtv(_t(u), _t(Q), _t(c))
+    _close(got_w, want_w[:, 0])
+    _close(got_c, want_c[:, 0])
+    want_v, want_n = jgs.proj_norm(u[:, None], Q, c[:, None], bm=L)
+    got_v, got_n = gs.proj_norm(_t(u), _t(Q), _t(c))
+    _close(got_v, want_v[:, 0])
+    _close(got_n, want_n[0, 0])
+    assert got_n.shape == ()
+
+
+def test_plain_versions_match_reference_oracles():
+    A, p, y, Q = _inputs(40, 30, 6, 3)
+    cases = [
+        (ref.matvec_fused(_t(A), _t(p), _t(y), 0.5),
+         jref.matvec_fused(A, p, y, 0.5)),
+        (ref.rmatvec_fused(_t(A), _t(y), _t(p), 0.5),
+         jref.rmatvec_fused(A, y, p, 0.5)),
+        (ref.qtv(_t(Q), _t(y)), jref.qtv(Q, y)),
+        (ref.reorth(_t(y), _t(Q), 2), jref.reorth(y, Q, 2)),
+    ]
+    for got, want in cases:
+        _close(got, want)
+
+
+def test_cpu_path_counts_no_launches():
+    gs.reset_launches()
+    A, p, y, Q = _inputs(64, 48, 4, 0)
+    ops.gk_step_fused(_t(A), _t(p), _t(y), 0.37, _t(Q), 2)
+    ops.gk_rstep_fused(_t(A), _t(y), _t(p), 0.37, _t(_inputs(
+        64, 48, 4, 1, left=False)[3]), 2)
+    assert gs.LAUNCHES == {"mv_qtv": 0, "rmv_qtv": 0, "proj_qtv": 0,
+                           "proj_norm": 0}
+
+
+def test_wrappers_reject_what_the_kernel_does_not_take():
+    A, p, y, Q = (_t(x) for x in _inputs(32, 24, 3, 5))
+    with pytest.raises(TypeError):
+        gs.mv_qtv(A.double(), p, y, 0.1, Q)
+    with pytest.raises(TypeError):
+        gs.mv_qtv(A, p.double(), y, 0.1, Q)
+    with pytest.raises(ValueError):
+        gs.mv_qtv(A, p[:-1], y, 0.1, Q)
+    with pytest.raises(ValueError):
+        gs.mv_qtv(A, p, y, 0.1, Q[:-1])
+    with pytest.raises(ValueError):
+        gs.rmv_qtv(A, y, p, 0.1, Q)          # P must have n rows
+    with pytest.raises(ValueError):
+        gs.proj_qtv(y, Q, torch.zeros(4))
+    with pytest.raises(ValueError):
+        gs.proj_norm(y[:, None], Q, torch.zeros(3))
+    meta = torch.empty(32, 24, device="meta")
+    with pytest.raises(ValueError):
+        gs.mv_qtv(meta, p, y, 0.1, Q)        # mixed devices
+
+
+@pytest.mark.parametrize("L", [1, 7, 8, 9, 2047, 2048 * 8 + 1, 100_000,
+                               80_000])
+def test_rows_plan_covers_every_row_once(L):
+    per, grid = gs.rows_plan(L)
+    assert per % gs.GROUP == 0
+    assert grid <= gs.MAX_BLOCKS
+    assert (grid - 1) * per < L <= grid * per
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (64, 48), (2000, 100_000),
+                                 (100_000, 2000), (100_000, 80_000),
+                                 (10**7, 3)])
+def test_chunk_plan_covers_every_row_once(m, n):
+    per, chunks = gs.chunk_plan(m, n)
+    assert 1 <= chunks <= gs.MAX_CHUNKS
+    assert (chunks - 1) * per < m <= chunks * per
+    tiles = -(-n // gs.THREADS)
+    if m >= 64 * gs.RMV_TARGET_BLOCKS:
+        assert tiles * chunks >= gs.RMV_TARGET_BLOCKS
+
+
+def test_build_targets_sm90a_with_a_plain_c_interface():
+    assert _build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
+    assert {"-O3", "-shared", "-fPIC"} <= set(_build.NVCC_FLAGS)
+    lib = _build.library_path("gk_step")
+    assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
+    # the ctypes signatures agree with the C prototypes in the source
+    src = _build.source("gk_step").read_text()
+    protos = dict(re.findall(r"^(?:int|const char\*) (gk_\w+)\(([^)]*)\)",
+                             src, flags=re.M))
+    assert set(protos) == set(gs._SIGNATURES)
+    for name, argtypes in gs._SIGNATURES.items():
+        params = [a.strip() for a in protos[name].split(",")]
+        assert len(params) == len(argtypes), name
+        for param, t in zip(params, argtypes):
+            want = (ctypes.c_void_p if "*" in param else ctypes.c_longlong
+                    if param.startswith("long long") else ctypes.c_int)
+            assert t is want, (name, param)
