@@ -7,9 +7,10 @@
     est = estimate_rank(A, SVDSpec(max_iters=256, backend="pallas"),
                         generator=g)
 
-Only ``method="fsvd"`` is ported so far; the other reference methods
-raise ``NotImplementedError`` naming their ``ROADMAP.md`` row.  The plan
-cache and sessions of ``repro.api`` are later slices.
+Ported methods: ``fsvd``, ``rsvd``, ``rbk``, ``gnystrom`` and
+``fsvd_blocked``; ``fsvd_sharded`` raises ``NotImplementedError`` naming
+its ``ROADMAP.md`` row.  The plan cache and sessions of ``repro.api`` are
+later slices.
 """
 from repro_torch.api.callbacks import (CaptureCallback, ConvergenceCallback,
                                        ConvergenceInfo, RecordingCallback)
@@ -20,13 +21,15 @@ from repro_torch.api.results import Factorization, RankEstimate
 from repro_torch.api.spec import METHODS, SVDSpec
 from repro_torch.core._keys import ImplicitKeyWarning, resolve_generator
 from repro_torch.core.operators import (DenseOp, GramOp, Operator,
-                                        TransposedOp, as_operator)
+                                        SinglePassOp, TransposedOp,
+                                        as_operator)
 
 __all__ = [
     "SVDSpec", "METHODS", "factorize", "estimate_rank", "resolve_method",
     "ConvergenceInfo", "ConvergenceCallback", "RecordingCallback",
     "CaptureCallback", "Factorization", "RankEstimate",
     "register_solver", "get_solver", "available_solvers",
-    "Operator", "DenseOp", "TransposedOp", "GramOp", "as_operator",
+    "Operator", "DenseOp", "TransposedOp", "GramOp", "SinglePassOp",
+    "as_operator",
     "resolve_generator", "ImplicitKeyWarning",
 ]

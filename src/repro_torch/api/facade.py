@@ -39,13 +39,16 @@ def _is_matrix_free(op) -> bool:
 def resolve_method(spec: SVDSpec, like: Any = None) -> str:
     """Resolve ``method="auto"`` under the reference's rule
     (``repro.api.plan.resolve_method``) for the operators ported so far:
-    matrix-free operands → fsvd_blocked, and dense operands → rsvd when
+    an operand flagged ``single_pass_only`` → gnystrom, matrix-free
+    operands → fsvd_blocked, and dense operands → rsvd when
     ``power_iters > 0`` or ``tol >= 1e-4``, else fsvd."""
     if spec.method != "auto":
         return spec.method
     if like is not None:
         op = like if isinstance(like, Operator) else as_operator(
             like, backend=spec.backend)
+        if getattr(op, "single_pass_only", False):
+            return "gnystrom"
         if _is_matrix_free(op):
             return "fsvd_blocked"
     if spec.power_iters > 0 or spec.tol >= _AUTO_SKETCH_TOL:
@@ -67,7 +70,8 @@ def factorize(A, spec: Optional[SVDSpec] = None, *,
 
     ``generator`` draws the GK start vector (warns and seeds 0 when
     omitted); ``q1`` is an optional start vector (e.g.
-    ``prev.warm_start()``, or the reference's own draw in a parity test);
+    ``prev.warm_start()``, or the reference's own draw in a parity test;
+    ``fsvd`` and ``fsvd_blocked`` read it);
     ``callback`` a ``ConvergenceCallback``.  Keyword overrides merge into
     the spec: ``factorize(A, rank=20)`` == ``factorize(A, SVDSpec(rank=20))``.
     """

@@ -36,3 +36,22 @@ def resolve_generator(generator: Optional[torch.Generator], *,
                           ImplicitKeyWarning, stacklevel=3)
         return torch.Generator(device=device or "cpu").manual_seed(0)
     return generator
+
+
+def normal(generator: torch.Generator, shape, *, device=None,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Standard normal draws of ``shape``, made in f32 on the generator's
+    own device and moved to ``device`` (default: that device) and
+    ``dtype``."""
+    z = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return z.to(device=device or generator.device, dtype=dtype)
+
+
+def integers(generator: torch.Generator, high: int, shape, *,
+             device=None) -> torch.Tensor:
+    """Uniform int32 draws from [0, high), made on the generator's device
+    and moved to ``device``."""
+    z = torch.randint(0, high, shape, generator=generator, dtype=torch.int32,
+                      device=generator.device)
+    return z.to(device or generator.device)

@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch._device import to_tensor
-from repro_torch.core._keys import resolve_generator
+from repro_torch.core._keys import normal, resolve_generator
 from repro_torch.core.operators import as_operator, cgs
 
 Tensor = torch.Tensor
@@ -103,9 +103,8 @@ def start_vector(generator: torch.Generator, m: int,
                  dtype: torch.dtype = torch.float32, device=None) -> Tensor:
     """Paper Alg 1 line 1: q1 ~ N(2, 1)^{m}, drawn from ``generator`` on
     its own device (``device`` defaults to it)."""
-    z = torch.randn(m, generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    return (2.0 + z).to(device=device or generator.device, dtype=dtype)
+    return (2.0 + normal(generator, m)).to(
+        device=device or generator.device, dtype=dtype)
 
 
 def _setup(op, k, generator, q1, dtype, precision, caller, device):

@@ -2,19 +2,21 @@
 
 The paper's algorithms touch A only through ``A @ p`` / ``Aᵀ @ q``.  Each
 operator is a frozen dataclass exposing ``shape``, ``dtype``, ``device``,
-``mv``, ``rmv``, the fused three-term forms, the fused Lanczos half-steps
-and the block forms:
+``mv``, ``rmv``, the fused three-term forms, the fused Lanczos half-steps,
+the block forms and the one-sweep ``sketch_pass``:
 
   * ``DenseOp(A, backend=...)`` — in-memory matrix.  ``backend="pallas"``
     (the reference's name, kept so one ``SVDSpec`` means the same thing to
     both packages) routes the Lanczos half-steps through the hand-written
-    CUDA kernels of ``kernels.gk_step``; ``"xla"`` composes plain torch
-    ops.
+    CUDA kernels of ``kernels.gk_step`` (its fused matvecs for a float64
+    operand) and ``sketch_pass`` through ``kernels.sketch_matvec``;
+    ``"xla"`` composes plain torch ops.
   * ``TransposedOp(inner)`` — ``Aᵀ`` without a stored transpose.
   * ``GramOp(inner, side)`` — ``AᵀA`` / ``AAᵀ`` applied as two matvecs.
+  * ``SinglePassOp(inner)`` — marks an operand that may be swept once.
 
-The sparse, Kronecker, low-rank, sum and scaled operators and the sketch
-seam are later slices (``ROADMAP.md`` Queue 1 item 5).
+The sparse, Kronecker, low-rank, sum and scaled operators are a later
+slice (``ROADMAP.md`` Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -23,7 +25,6 @@ import dataclasses
 import torch
 
 from repro_torch._device import to_tensor
-from repro_torch.kernels import ref as kref
 
 Tensor = torch.Tensor
 
@@ -33,14 +34,9 @@ _GRAM_SIDES = ("ata", "aat")
 # rows of a narrow-storage basis widened to f32 at a time by the mixed
 # products below: the basis itself is never upcast in memory.
 _MIXED_ROWS = 1 << 16
-
-GK_MATVEC_NOT_PORTED = (
-    "DenseOp(backend='pallas') on a CUDA {dtype} operand needs the fused "
-    "matvec kernels of src/repro/kernels/gk_matvec.py (matvec_fused / "
-    "rmatvec_fused, kernel table rows 5-6), which are not ported yet "
-    "(ROADMAP.md Queue 2 item 2); use float32 or bfloat16, or "
-    "backend='xla'")
-
+# elements of a wide right-hand side that mixed_tmm rounds and widens at a
+# time (256 MiB of f32): X may be the whole operand, or a view of it.
+_MIXED_ELEMS = 1 << 26
 
 def mixed_mm(B: Tensor, X: Tensor) -> Tensor:
     """``B @ X`` with X rounded to B's dtype and f32 accumulation, for a
@@ -55,13 +51,17 @@ def mixed_mm(B: Tensor, X: Tensor) -> Tensor:
 
 
 def mixed_tmm(B: Tensor, X: Tensor) -> Tensor:
-    """``Bᵀ @ X`` under the same contract as :func:`mixed_mm`; the row-block
-    contributions are summed in a fixed order."""
-    Xr = X.to(B.dtype).to(torch.float32)
+    """``Bᵀ @ X`` under the same contract as :func:`mixed_mm`; B and X are
+    rounded and widened together one row block at a time, never whole (X
+    may be the operand, as in a Gaussian sketch's ``Tᵀ A``), and the
+    row-block contributions are summed in a fixed order."""
+    width = max(1, X[:1].numel())
+    rows = max(1, min(_MIXED_ROWS, _MIXED_ELEMS // width))
     out = torch.zeros((B.shape[1],) + tuple(X.shape[1:]),
                       dtype=torch.float32, device=B.device)
-    for r in range(0, B.shape[0], _MIXED_ROWS):
-        out += B[r:r + _MIXED_ROWS].to(torch.float32).T @ Xr[r:r + _MIXED_ROWS]
+    for r in range(0, B.shape[0], rows):
+        out += (B[r:r + rows].to(torch.float32).T
+                @ X[r:r + rows].to(B.dtype).to(torch.float32))
     return out
 
 
@@ -97,8 +97,12 @@ class Operator:
 
     Subclasses define ``shape``, ``dtype``, ``device``, ``mv`` and ``rmv``
     and may override the fused three-term forms, the half-steps, the block
-    forms and ``T`` with cheaper specializations.
+    forms, ``sketch_pass`` and ``T`` with cheaper specializations.
     """
+
+    # Streaming hint: True means the operand can afford only ONE sweep;
+    # ``resolve_method`` routes such operands to ``gnystrom``.
+    single_pass_only: bool = False
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -148,6 +152,13 @@ class Operator:
     def rmatmat(self, Q: Tensor) -> Tensor:
         return torch.stack([self.rmv(Q[:, j]) for j in range(Q.shape[1])], 1)
 
+    def sketch_pass(self, omega, psi) -> tuple[Tensor, Tensor]:
+        """ONE sweep over the operator capturing both sketch directions,
+        ``(A Ω, Aᵀ Ψ)``, for test matrices Ω (n, k) and Ψ (m, l) from
+        ``core.sketch``: the seam ``gnystrom`` builds on.  The default
+        composes the block forms on the densified (panel-sized) tests."""
+        return self.matmat(omega.dense()), self.rmatmat(psi.dense())
+
     @property
     def T(self) -> "Operator":
         return TransposedOp(self)
@@ -156,9 +167,11 @@ class Operator:
 @dataclasses.dataclass(frozen=True, eq=False)
 class DenseOp(Operator):
     """In-memory (m, n) matrix.  ``backend="pallas"`` runs the Lanczos
-    half-steps through the CUDA kernels (A streamed once per half-step);
-    ``"xla"`` composes plain torch GEMVs.  A numpy ``A`` goes to the CUDA
-    card (and raises without one); pass a tensor to choose its device."""
+    half-steps and the fused matvecs through the CUDA kernels (A streamed
+    once per half-step) and both sketch products through the sketch
+    kernel; ``"xla"`` composes plain torch ops.  A numpy ``A`` goes to the
+    CUDA card (and raises without one); pass a tensor to choose its
+    device."""
 
     A: Tensor
     backend: str = "xla"
@@ -196,24 +209,15 @@ class DenseOp(Operator):
 
     def mv_fused(self, p, y, alpha):
         if self.backend == "pallas":
-            self._refuse_on_card()
-            return kref.matvec_fused(self.A, p, y, alpha)
+            from repro_torch.kernels import ops as kops
+            return kops.matvec_fused(self.A, p, y, alpha)
         return self.mv(p) - alpha * y
 
     def rmv_fused(self, q, y, beta):
         if self.backend == "pallas":
-            self._refuse_on_card()
-            return kref.rmatvec_fused(self.A, q, y, beta)
+            from repro_torch.kernels import ops as kops
+            return kops.rmatvec_fused(self.A, q, y, beta)
         return self.rmv(q) - beta * y
-
-    def _refuse_on_card(self):
-        """The reference routes these through the gk_matvec kernels, which
-        the port has not written yet: on the card, raise rather than
-        quietly running torch ops (on the CPU the plain version stands in,
-        as it does for every kernel)."""
-        if self.A.device.type != "cpu":
-            raise NotImplementedError(
-                GK_MATVEC_NOT_PORTED.format(dtype=self.A.dtype))
 
     def lanczos_step(self, p, y, alpha, basis, *, passes=2):
         if self._kernels():
@@ -234,6 +238,14 @@ class DenseOp(Operator):
 
     def rmatmat(self, Q):
         return promote_mm(self.A.T, Q)
+
+    def sketch_pass(self, omega, psi):
+        if self.backend == "pallas":
+            # both directions through the sketch kernel: (A Ω)ᵀ = Ωᵀ Aᵀ and
+            # (Aᵀ Ψ)ᵀ = Ψᵀ A are each one Tᵀ X apply; Aᵀ is a view, read in
+            # place by the kernel (never copied).
+            return omega.tapply(self.A.T).T, psi.tapply(self.A).T
+        return Operator.sketch_pass(self, omega, psi)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -329,6 +341,49 @@ class GramOp(Operator):
     @property
     def T(self):
         return self
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SinglePassOp(Operator):
+    """Marks an operand as affordable to sweep only ONCE (streamed, or too
+    large to touch twice); pure forwarding otherwise.  ``resolve_method``
+    sees ``single_pass_only`` and routes to ``gnystrom``, whose whole
+    contract is one ``sketch_pass``."""
+
+    inner: Operator
+
+    single_pass_only = True
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.inner.shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.inner.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.inner.device
+
+    def mv(self, p):
+        return self.inner.mv(p)
+
+    def rmv(self, q):
+        return self.inner.rmv(q)
+
+    def matmat(self, V):
+        return self.inner.matmat(V)
+
+    def rmatmat(self, Q):
+        return self.inner.rmatmat(Q)
+
+    def sketch_pass(self, omega, psi):
+        return self.inner.sketch_pass(omega, psi)
+
+    @property
+    def T(self):
+        return SinglePassOp(self.inner.T)
 
 
 def as_operator(A, *, backend: str = "xla", device=None) -> Operator:

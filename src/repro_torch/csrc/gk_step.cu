@@ -1,14 +1,20 @@
 // Fused Golub-Kahan half-step kernels for Hopper (sm_90a).
 //
-// Replaces the four Pallas kernels of src/repro/kernels/gk_step.py:
+// Replaces the four Pallas kernels of src/repro/kernels/gk_step.py and the
+// two of src/repro/kernels/gk_matvec.py:
 //
 //   gk_mv_qtv     <- mv_qtv    (gk_step.py:147)  u = A p - alpha y ; c = Q^T u
 //   gk_rmv_qtv    <- rmv_qtv   (gk_step.py:178)  v = A^T q - beta y ; c = P^T v
 //   gk_proj_qtv   <- proj_qtv  (gk_step.py:206)  w = u - Q c ; c' = Q^T w
 //   gk_proj_norm  <- proj_norm (gk_step.py:232)  v = u - Q c ; ||v||^2
+//   gk_matvec_fused  <- matvec_fused  (gk_matvec.py:71)   u = A p - alpha y
+//   gk_rmatvec_fused <- rmatvec_fused (gk_matvec.py:92)   v = A^T q - beta y
 //
 // One GK half-step is stage 1 (mv or rmv), then (passes-1) x proj_qtv, then
-// proj_norm; the composition lives in repro_torch/kernels/ops.py.
+// proj_norm; the composition lives in repro_torch/kernels/ops.py.  The two
+// fused matvecs are stage 1 with an empty basis (k = 0: no c = Q^T u
+// epilogue and no finishing launch); the operator calls them for the
+// half-steps of a float64 DenseOp(backend="pallas").
 //
 // What bounds them.  Every kernel does about one multiply-add per element it
 // reads, far below the card's ~20 flop/byte f32 ridge, so each is bound by
@@ -40,99 +46,19 @@
 //  * Nothing is padded or copied: the kernels mask ragged edges themselves.
 //  * A and the basis are each f32 or bf16; bf16 is widened with
 //    __bfloat162float and every product accumulates in f32.  Outputs f32.
+//    The fused matvecs also take an f64 A, each element narrowed to f32
+//    before it is multiplied, as the reference kernels cast every A tile
+//    with .astype(jnp.float32): an f64 operand is read at 8 bytes an
+//    element but multiplied in f32.
 //
 // C interface for ctypes: every entry point launches on the given stream,
 // allocates nothing (the caller passes outputs and scratch) and returns
-// cudaGetLastError() as an int.
+// cudaGetLastError() as an int.  The fused matvecs' a_kind: 0 f32, 1 bf16,
+// 2 f64.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gk_rows.cuh"  // row_dot, rmv_partial_kernel, ld
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRmvUnroll = 8;
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
-}
-
-// acc += a[0:V] . x[0:V], V elements per lane per step.
-template <typename T, int V>
-struct Step {
-  static __device__ __forceinline__ float apply(const T* a, const float* x,
-                                              float acc) {
-#pragma unroll
-    for (int t = 0; t < V; ++t) acc = fmaf(ld(a + t), x[t], acc);
-    return acc;
-  }
-};
-
-template <>
-struct Step<float, 4> {
-  static __device__ __forceinline__ float apply(const float* a, const float* x,
-                                              float acc) {
-    const float4 av = *reinterpret_cast<const float4*>(a);
-    const float4 xv = *reinterpret_cast<const float4*>(x);
-    acc = fmaf(av.x, xv.x, acc);
-    acc = fmaf(av.y, xv.y, acc);
-    acc = fmaf(av.z, xv.z, acc);
-    acc = fmaf(av.w, xv.w, acc);
-    return acc;
-  }
-};
-
-template <>
-struct Step<__nv_bfloat16, 8> {
-  static __device__ __forceinline__ float apply(const __nv_bfloat16* a,
-                                              const float* x, float acc) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(a);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float4 x0 = *reinterpret_cast<const float4*>(x);
-    const float4 x1 = *reinterpret_cast<const float4*>(x + 4);
-    float2 f = __bfloat1622float2(h[0]);
-    acc = fmaf(f.x, x0.x, acc);
-    acc = fmaf(f.y, x0.y, acc);
-    f = __bfloat1622float2(h[1]);
-    acc = fmaf(f.x, x0.z, acc);
-    acc = fmaf(f.y, x0.w, acc);
-    f = __bfloat1622float2(h[2]);
-    acc = fmaf(f.x, x1.x, acc);
-    acc = fmaf(f.y, x1.y, acc);
-    f = __bfloat1622float2(h[3]);
-    acc = fmaf(f.x, x1.z, acc);
-    acc = fmaf(f.y, x1.w, acc);
-    return acc;
-  }
-};
-
-// Warp-cooperative dot product of a row a[0:n] with x[0:n]; every lane
-// returns the same value.  V > 1 needs n % V == 0 and 16-byte aligned rows.
-template <typename T, int V>
-__device__ __forceinline__ float row_dot(const T* __restrict__ a,
-                                         const float* __restrict__ x,
-                                         long long n, int lane) {
-  constexpr long long S = 32LL * V;  // one warp-wide step
-  float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
-  long long j = (long long)lane * V;
-  for (; j + 3 * S + V <= n; j += 4 * S) {
-    acc0 = Step<T, V>::apply(a + j, x + j, acc0);
-    acc1 = Step<T, V>::apply(a + j + S, x + j + S, acc1);
-    acc2 = Step<T, V>::apply(a + j + 2 * S, x + j + 2 * S, acc2);
-    acc3 = Step<T, V>::apply(a + j + 3 * S, x + j + 3 * S, acc3);
-  }
-  for (; j + V <= n; j += S) acc0 = Step<T, V>::apply(a + j, x + j, acc0);
-  return warp_sum((acc0 + acc1) + (acc2 + acc3));
-}
 
 // Row scalars: operator()(i, lane) is called by a whole warp for row i.
 template <typename TA, int V>
@@ -238,37 +164,6 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) out[blockIdx.x] = s[0];
 }
 
-// vpart[s, j] = sum over rows i of chunk s of A[i, j] q_i.  Threads own
-// adjacent columns (coalesced row segments); blockIdx.y is the row chunk.
-template <typename TA>
-__global__ void __launch_bounds__(kThreads)
-    rmv_partial_kernel(const TA* __restrict__ A, const float* __restrict__ q,
-                       long long m, long long n, long long rows_per_chunk,
-                       float* __restrict__ vpart) {
-  const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (j >= n) return;
-  const long long i0 = (long long)blockIdx.y * rows_per_chunk;
-  const long long i1 = min(i0 + rows_per_chunk, m);
-  const TA* a = A + i0 * n + j;
-  float acc[kRmvUnroll];
-#pragma unroll
-  for (int t = 0; t < kRmvUnroll; ++t) acc[t] = 0.f;
-  long long i = i0;
-  for (; i + kRmvUnroll <= i1; i += kRmvUnroll) {
-#pragma unroll
-    for (int t = 0; t < kRmvUnroll; ++t)
-      acc[t] = fmaf(ld(a + t * n), q[i + t], acc[t]);
-    a += kRmvUnroll * n;
-  }
-  for (; i < i1; ++i) {
-    acc[0] = fmaf(ld(a), q[i], acc[0]);
-    a += n;
-  }
-  vpart[(long long)blockIdx.y * n + j] =
-      ((acc[0] + acc[1]) + (acc[2] + acc[3])) +
-      ((acc[4] + acc[5]) + (acc[6] + acc[7]));
-}
-
 template <class Row, typename TQ, bool NORM>
 cudaError_t launch_rows(const Row& row, const TQ* Q, int k, long long L,
                         long long rows_per_block, int grid, float* out,
@@ -291,10 +186,6 @@ cudaError_t finish(const float* part, int G, int count, float* out,
   if (count == 0) return cudaSuccess;
   finish_kernel<<<count, kThreads, 0, stream>>>(part, G, out);
   return cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 template <typename TA, int V, typename TQ>
@@ -329,11 +220,8 @@ cudaError_t rmv_qtv(const void* A, const float* q, const float* y,
                     long long n, int k, long long rows_per_chunk, int chunks,
                     float* vpart, long long rows_per_block, int grid,
                     float* v, float* part, float* c, cudaStream_t stream) {
-  const dim3 tiles((unsigned)((n + kThreads - 1) / kThreads),
-                   (unsigned)chunks);
-  rmv_partial_kernel<TA><<<tiles, kThreads, 0, stream>>>(
-      static_cast<const TA*>(A), q, m, n, rows_per_chunk, vpart);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_rmv_partial(static_cast<const TA*>(A), q, m, n,
+                                     rows_per_chunk, chunks, vpart, stream);
   if (e != cudaSuccess) return e;
   const RmvRow row{vpart, chunks, n, y, beta};
   e = launch_rows<RmvRow, TP, false>(row, static_cast<const TP*>(P), k, n,
@@ -431,6 +319,50 @@ int gk_proj_norm(const float* u, const void* Q, int q_bf16,
                                                nrm2, s)
                    : proj<float, true>(u, Q, c_in, L, k, rows_per_block, grid,
                                        v, part, nrm2, s));
+}
+
+int gk_matvec_fused(const void* A, int a_kind, const float* p, const float* y,
+                    const float* alpha, long long m, long long n,
+                    long long rows_per_block, int grid, float* u,
+                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (a_kind == 1)
+    e = mv_qtv_vec<__nv_bfloat16, float>(A, p, y, alpha, nullptr, m, n, 0,
+                                         rows_per_block, grid, u, nullptr,
+                                         nullptr, s);
+  else if (a_kind == 2)
+    e = mv_qtv_vec<double, float>(A, p, y, alpha, nullptr, m, n, 0,
+                                  rows_per_block, grid, u, nullptr, nullptr,
+                                  s);
+  else
+    e = mv_qtv_vec<float, float>(A, p, y, alpha, nullptr, m, n, 0,
+                                 rows_per_block, grid, u, nullptr, nullptr,
+                                 s);
+  return (int)e;
+}
+
+int gk_rmatvec_fused(const void* A, int a_kind, const float* q,
+                     const float* y, const float* beta, long long m,
+                     long long n, long long rows_per_chunk, int chunks,
+                     float* vpart, long long rows_per_block, int grid,
+                     float* v, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (a_kind == 1)
+    e = rmv_qtv<__nv_bfloat16, float>(A, q, y, beta, nullptr, m, n, 0,
+                                      rows_per_chunk, chunks, vpart,
+                                      rows_per_block, grid, v, nullptr,
+                                      nullptr, s);
+  else if (a_kind == 2)
+    e = rmv_qtv<double, float>(A, q, y, beta, nullptr, m, n, 0,
+                               rows_per_chunk, chunks, vpart, rows_per_block,
+                               grid, v, nullptr, nullptr, s);
+  else
+    e = rmv_qtv<float, float>(A, q, y, beta, nullptr, m, n, 0,
+                              rows_per_chunk, chunks, vpart, rows_per_block,
+                              grid, v, nullptr, nullptr, s);
+  return (int)e;
 }
 
 }  // extern "C"

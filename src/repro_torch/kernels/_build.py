@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use into ``build/repro_torch/lib<name>-<digest>.so`` at the root of the
-checkout, where ``<digest>`` hashes the source and the flags, so an edited
-source is never served from a stale library.  Nothing is built when a
-module is imported: the CPU path never needs ``nvcc``.
+checkout, where ``<digest>`` hashes the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is never served from a
+stale library.  Nothing is built when a module is imported: the CPU path
+never needs ``nvcc``.
 """
 from __future__ import annotations
 
@@ -52,6 +53,8 @@ def source(name: str) -> Path:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha1(source(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared loops
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

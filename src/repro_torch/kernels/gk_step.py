@@ -1,15 +1,21 @@
-"""Wrappers around the fused GK half-step kernels of ``csrc/gk_step.cu``.
+"""Wrappers around the fused GK kernels of ``csrc/gk_step.cu``.
 
-Counterpart of ``repro.kernels.gk_step`` (the four Pallas kernels):
+Counterpart of ``repro.kernels.gk_step`` (four Pallas kernels) and of
+``repro.kernels.gk_matvec`` (two):
 
   ``mv_qtv``     (u, c)  = (A p − α y, Qᵀ u)      stage 1, left half-step
   ``rmv_qtv``    (v, c)  = (Aᵀ q − β y, Pᵀ v)     stage 1, right half-step
   ``proj_qtv``   (w, c') = (u − Q c, Qᵀ w)        one pass over Q
   ``proj_norm``  (v, ‖v‖²) = (u − Q c, Σ v²)      one pass over Q
+  ``matvec_fused``   u = A p − α y                stage 1 with no basis
+  ``rmatvec_fused``  v = Aᵀ q − β y
 
 Vectors are 1-D f32 tensors; A and the basis are 2-D, contiguous, f32 or
-bf16 each.  ``alpha`` / ``beta`` are a Python number or a one-element f32
-tensor on the device (a device scalar never forces a host sync).
+bf16 each.  The fused matvecs also take an f64 A: every element is
+converted to f32 before it is multiplied and the sums accumulate in f32,
+as in the reference kernel (so an f64 operand is multiplied in f32).
+``alpha`` / ``beta`` are a Python number or a one-element f32 tensor on
+the device (a device scalar never forces a host sync).
 
 Each wrapper checks its inputs and raises on what the kernel does not
 take, allocates outputs and scratch with ``torch.empty``, launches on the
@@ -32,6 +38,8 @@ Tensor = torch.Tensor
 F32, BF16 = torch.float32, torch.bfloat16
 
 STORAGE_DTYPES = (F32, BF16)
+# storage dtype of A -> a_kind of the fused matvecs
+A_KINDS = {torch.float64: 2, F32: 0, BF16: 1}
 THREADS = 256          # threads per block, as in the CUDA source
 GROUP = THREADS // 32  # rows a block of the row kernel handles at once
 MAX_BLOCKS = 2048      # grid cap of the row kernel
@@ -41,7 +49,8 @@ MAX_K = 49152          # basis columns: k f32 of shared memory per block
 
 # Calls of each TPU-kernel-level function that launched on the card (a
 # call may be more than one launch: its finishing pass is part of it).
-LAUNCHES = {"mv_qtv": 0, "rmv_qtv": 0, "proj_qtv": 0, "proj_norm": 0}
+LAUNCHES = {"mv_qtv": 0, "rmv_qtv": 0, "proj_qtv": 0, "proj_norm": 0,
+            "matvec_fused": 0, "rmatvec_fused": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -51,6 +60,9 @@ _SIGNATURES = {
                    _L, _I, _P, _P, _P, _P],
     "gk_proj_qtv": [_P, _P, _I, _P, _L, _I, _L, _I, _P, _P, _P, _P],
     "gk_proj_norm": [_P, _P, _I, _P, _L, _I, _L, _I, _P, _P, _P, _P],
+    "gk_matvec_fused": [_P, _I, _P, _P, _P, _L, _L, _L, _I, _P, _P],
+    "gk_rmatvec_fused": [_P, _I, _P, _P, _P, _L, _L, _L, _I, _P, _L, _I,
+                         _P, _P],
     "gk_error_string": [_I],
 }
 
@@ -89,11 +101,14 @@ def chunk_plan(m: int, n: int) -> tuple[int, int]:
 
 # --- input checks ---------------------------------------------------------
 
-def _matrix(name: str, X: Tensor, rows: Optional[int] = None) -> None:
+def _matrix(name: str, X: Tensor, rows: Optional[int] = None,
+            dtypes=STORAGE_DTYPES) -> None:
     if not isinstance(X, Tensor) or X.dim() != 2:
         raise ValueError(f"{name} must be a 2-D tensor")
-    if X.dtype not in STORAGE_DTYPES:
-        raise TypeError(f"{name} must be float32 or bfloat16, got {X.dtype}")
+    if X.dtype not in dtypes:
+        names = [str(d).removeprefix("torch.") for d in dtypes]
+        raise TypeError(f"{name} must be {', '.join(names[:-1])} or "
+                        f"{names[-1]}, got {X.dtype}")
     if rows is not None and X.shape[0] != rows:
         raise ValueError(f"{name} has {X.shape[0]} rows, expected {rows}")
 
@@ -246,3 +261,52 @@ def proj_norm(u: Tensor, Q: Tensor, c: Tensor) -> tuple[Tensor, Tensor]:
     u (L,); Q (L, k); c (k,) → v (L,), ‖v‖² () f32."""
     v, nrm2 = _proj("proj_norm", ref.proj_norm, u, Q, c)
     return v, nrm2.reshape(())
+
+
+# --- the fused matvecs: stage 1 with an empty basis ------------------------
+
+def matvec_fused(A: Tensor, p: Tensor, y: Tensor, alpha) -> Tensor:
+    """u = A p − α y in one pass over A.  A (m, n) f64/f32/bf16; p (n,);
+    y (m,) → (m,) f32."""
+    _matrix("A", A, dtypes=A_KINDS)
+    m, n = A.shape
+    _vector("p", p, n)
+    _vector("y", y, m)
+    if not _on_cuda(A, p, y):
+        return ref.matvec_fused(A, p, y, alpha)
+    if m == 0 or n == 0:
+        raise ValueError(f"empty operand {tuple(A.shape)}")
+    per, grid = rows_plan(m)
+    a = _scalar(alpha, A.device)
+    u = torch.empty(m, dtype=F32, device=A.device)
+    rc = _lib().gk_matvec_fused(
+        A.data_ptr(), A_KINDS[A.dtype], p.data_ptr(), y.data_ptr(),
+        a.data_ptr(), m, n, per, grid, u.data_ptr(), _stream())
+    _check(rc, "matvec_fused")
+    LAUNCHES["matvec_fused"] += 1
+    return u
+
+
+def rmatvec_fused(A: Tensor, q: Tensor, y: Tensor, beta) -> Tensor:
+    """v = Aᵀ q − β y in one pass over row-major A.  A (m, n) f64/f32/bf16;
+    q (m,); y (n,) → (n,) f32."""
+    _matrix("A", A, dtypes=A_KINDS)
+    m, n = A.shape
+    _vector("q", q, m)
+    _vector("y", y, n)
+    if not _on_cuda(A, q, y):
+        return ref.rmatvec_fused(A, q, y, beta)
+    if m == 0 or n == 0:
+        raise ValueError(f"empty operand {tuple(A.shape)}")
+    per_chunk, chunks = chunk_plan(m, n)
+    per, grid = rows_plan(n)
+    b = _scalar(beta, A.device)
+    vpart = torch.empty(chunks * n, dtype=F32, device=A.device)
+    v = torch.empty(n, dtype=F32, device=A.device)
+    rc = _lib().gk_rmatvec_fused(
+        A.data_ptr(), A_KINDS[A.dtype], q.data_ptr(), y.data_ptr(),
+        b.data_ptr(), m, n, per_chunk, chunks, vpart.data_ptr(), per, grid,
+        v.data_ptr(), _stream())
+    _check(rc, "rmatvec_fused")
+    LAUNCHES["rmatvec_fused"] += 1
+    return v

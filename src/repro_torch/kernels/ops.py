@@ -1,23 +1,48 @@
-"""The fused GK half-steps the operators call (``DenseOp(backend="pallas")``).
+"""The kernel entry points the operators and sketches call.
 
-Counterpart of ``repro.kernels.ops.gk_step_fused`` / ``gk_rstep_fused``:
-stage 1 (``mv_qtv`` or ``rmv_qtv``), then ``passes − 1`` × ``proj_qtv``,
-then ``proj_norm``, so the basis is read ``passes + 1`` times and the
-candidate vector meets its first CGS product before it is stored.  The
-reference pads A to tile multiples first; the CUDA kernels mask ragged
-edges themselves, so nothing here pads or copies A.
+Counterpart of ``repro.kernels.ops``:
+
+  * ``gk_step_fused`` / ``gk_rstep_fused`` (``DenseOp(backend="pallas")``
+    half-steps): stage 1 (``mv_qtv`` or ``rmv_qtv``), then ``passes − 1`` ×
+    ``proj_qtv``, then ``proj_norm``, so the basis is read ``passes + 1``
+    times and the candidate vector meets its first CGS product before it
+    is stored;
+  * ``matvec_fused`` / ``rmatvec_fused`` (``DenseOp.mv_fused`` /
+    ``rmv_fused``): vectors and the scalar of any float dtype, cast to
+    f32 as the reference wrapper does;
+  * ``sketch_matmat`` (``SparseSignSketch.tapply``).
+
+The reference pads A, the sketch rows and the block to tile multiples
+first; the CUDA kernels mask ragged edges themselves, so nothing here pads
+or copies an operand.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import gk_step as gs
+from repro_torch.kernels.sketch_matvec import sketch_matmat  # noqa: F401
 
 Tensor = torch.Tensor
 
 
 def _f32(x: Tensor) -> Tensor:
     return x.to(torch.float32).contiguous()
+
+
+def _f32_scalar(x):
+    """A device scalar in f32 (a device op: never a host sync)."""
+    return x.to(torch.float32) if isinstance(x, Tensor) else x
+
+
+def matvec_fused(A: Tensor, p: Tensor, y: Tensor, alpha) -> Tensor:
+    """u = A p − α y (f32).  A (m, n) f64/f32/bf16; p (n,); y (m,)."""
+    return gs.matvec_fused(A, _f32(p), _f32(y), _f32_scalar(alpha))
+
+
+def rmatvec_fused(A: Tensor, q: Tensor, y: Tensor, beta) -> Tensor:
+    """v = Aᵀ q − β y (f32).  A (m, n) f64/f32/bf16; q (m,); y (n,)."""
+    return gs.rmatvec_fused(A, _f32(q), _f32(y), _f32_scalar(beta))
 
 
 def gk_step_fused(A: Tensor, p: Tensor, y: Tensor, alpha, Q: Tensor,

@@ -1,8 +1,9 @@
 """Plain-torch versions of the kernels (the allclose reference).
 
 Counterpart of ``repro.kernels.ref``: every function upcasts its inputs
-to f32 and accumulates in f32, as the kernels do.  The kernel wrappers in
-``kernels.gk_step`` call these for CPU tensors only.
+to f32 and accumulates in f32, as the kernels do.  The kernel wrappers
+(``kernels.gk_step``, ``kernels.sketch_matvec``) call these for CPU
+tensors only.
 """
 from __future__ import annotations
 
@@ -54,6 +55,12 @@ def gk_rstep(A: Tensor, q: Tensor, y: Tensor, beta, P: Tensor,
     """Right GK half-step: v = Aᵀ q − β y, CGS^passes vs P, and ‖v‖."""
     v = reorth(rmatvec_fused(A, q, y, beta), P, passes)
     return v, torch.linalg.vector_norm(v)
+
+
+def sketch_matmat(signs: Tensor, idx: Tensor, X: Tensor) -> Tensor:
+    """Y = Tᵀ X for T in the sparse-sign ELL pack (signs / idx (d, ζ),
+    X (N, b)): sketch row i sums its ζ signed source rows of X."""
+    return torch.einsum("ds,dsb->db", signs.to(F32), X.to(F32)[idx.long()])
 
 
 # --- the four stages of the fused pipeline (kernels/gk_step.py) ---------

@@ -236,26 +236,39 @@ def test_spec_dtype_is_a_torch_dtype():
 
 
 def test_methods_not_ported_name_their_roadmap_row():
+    """Five of the reference's six methods are ported; only fsvd_sharded
+    still raises, naming its ROADMAP.md row."""
     A = torch.from_numpy(np.array(make_lowrank(jax.random.PRNGKey(0),
                                                  40, 30, 4)))
-    assert available_solvers() == ("fsvd",)
-    for method in ("rsvd", "fsvd_blocked", "rbk", "gnystrom",
-                   "fsvd_sharded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            factorize(A, SVDSpec(method=method, rank=3))
+    assert available_solvers() == ("fsvd", "fsvd_blocked", "gnystrom",
+                                   "rbk", "rsvd")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
+        factorize(A, SVDSpec(method="fsvd_sharded", rank=3))
+    g = torch.Generator().manual_seed(0)
+    for method in ("rsvd", "fsvd_blocked", "rbk", "gnystrom"):
+        out = factorize(A, SVDSpec(method=method, rank=3), generator=g)
+        assert out.method == method and out.s.shape == (3,)
     with pytest.raises(KeyError):
         factorize(A, SVDSpec(method="nope", rank=3))
 
 
 def test_auto_resolution_follows_the_reference_rule():
+    """auto → rsvd for tol ≥ 1e-4 or power iterations (and that solve now
+    runs), fsvd otherwise, fsvd_blocked on matrix-free operands."""
     A = torch.zeros(20, 10)
     for kw in (dict(), dict(tol=1e-3), dict(power_iters=2),
                dict(method="fsvd", tol=1e-3)):
         assert resolve_method(SVDSpec(**kw), A) == rapi.resolve_method(
             rapi.SVDSpec(**kw), jnp.zeros((20, 10)))
     assert resolve_method(SVDSpec(), GramOp(DenseOp(A))) == "fsvd_blocked"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        factorize(A, SVDSpec(tol=1e-3, rank=2))
+    B = torch.from_numpy(np.array(make_lowrank(jax.random.PRNGKey(3),
+                                                 40, 30, 4)))
+    out = factorize(B, SVDSpec(tol=1e-3, rank=2),
+                    generator=torch.Generator().manual_seed(0))
+    assert out.method == "rsvd"
+    s = np.linalg.svd(B.numpy().astype(np.float64), compute_uv=False)
+    assert np.max(np.abs(out.s.numpy() - s[:2])) / s[0] \
+        < SOLVERS["rsvd"]["stol"]
 
 
 def test_generators_and_devices():

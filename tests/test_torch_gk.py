@@ -152,6 +152,22 @@ def test_mixed_products_widen_by_row_blocks(monkeypatch):
         whole, B.float() @ X.bfloat16().float(), rtol=0, atol=0)
 
 
+def test_mixed_tmm_rounds_a_wide_operand_by_row_blocks(monkeypatch):
+    """A wide right-hand side (the operand, or its transposed view, under
+    a bf16 Gaussian sketch) is rounded and widened a row block at a time,
+    the block sized by its width: the blocked product equals the
+    one-shot one."""
+    rng = np.random.default_rng(7)
+    T = torch.from_numpy(rng.standard_normal((40, 5)).astype(
+        np.float32)).bfloat16()
+    A = torch.from_numpy(rng.standard_normal((30, 40)).astype(np.float32))
+    want = T.float().T @ A.T.bfloat16().float()
+    monkeypatch.setattr(operators, "_MIXED_ELEMS", 90)   # 3 rows a block
+    torch.testing.assert_close(operators.mixed_tmm(T, A.T), want)
+    torch.testing.assert_close(operators.mixed_tmm(T, A.T.contiguous()),
+                               want)
+
+
 def test_transposed_and_gram_operators():
     A = torch.from_numpy(_lowrank(12, 9, 3, 2))
     op = DenseOp(A, backend="pallas")

@@ -8,17 +8,21 @@ JAX), so on the card it runs without the repository's conftest:
 
 Tolerances: rtol 1e-5 with atol 1e-5·max|plain| when A and the basis are
 f32 (the kernel and the plain version differ only in summation order),
-3e-2 where either is stored bf16 (tests/test_kernels.py:151-187).
+3e-2 where either is stored bf16 (tests/test_kernels.py:151-187).  The
+fused matvecs multiply in f32 whatever A's storage (f64 included), and
+the sketch apply widens bf16 exactly, so both are held at f32 bounds.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.api import SVDSpec, estimate_rank, factorize
+from repro_torch.core import sketch as tsketch
 from repro_torch.core.operators import DenseOp
 from repro_torch.kernels import gk_step as gs
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import sketch_matvec as skm
 
 pytestmark = pytest.mark.gpu
 
@@ -76,7 +80,9 @@ def test_kernels_match_plain_versions(cuda, m, n, k, adt, qdt):
         for a, b in zip(got, kern()):      # deterministic cross-block sums
             assert torch.equal(a, b)
     torch.cuda.synchronize()
-    assert all(gs.LAUNCHES[name] == before[name] + 2 for name in before)
+    stages = ("mv_qtv", "rmv_qtv", "proj_qtv", "proj_norm")
+    assert gs.LAUNCHES == dict(before, **{name: before[name] + 2
+                                          for name in stages})
 
 
 @pytest.mark.parametrize("passes", [0, 1, 2, 3])
@@ -90,16 +96,111 @@ def test_fused_steps_match_plain_versions(cuda, passes):
 
 
 def test_f64_pallas_operand_raises(cuda):
-    op = DenseOp(torch.randn(40, 30, dtype=torch.float64, device=cuda),
+    """No longer raises: a float64 DenseOp(backend="pallas") takes its
+    half-steps through matvec_fused / rmatvec_fused (the reference's f64
+    leg), which match their plain versions."""
+    op = DenseOp(torch.randn(400, 300, dtype=torch.float64, device=cuda),
                  backend="pallas")
-    q = torch.randn(40, dtype=torch.float64, device=cuda)
-    p = torch.randn(30, dtype=torch.float64, device=cuda)
-    with pytest.raises(NotImplementedError, match="gk_matvec"):
-        op.lanczos_step(p, q, 0.5, torch.zeros(40, 3, dtype=torch.float64,
-                                               device=cuda))
-    with pytest.raises(NotImplementedError, match="gk_matvec"):
-        op.lanczos_rstep(q, p, 0.5, torch.zeros(30, 3, dtype=torch.float64,
-                                                device=cuda))
+    q = torch.randn(400, dtype=torch.float64, device=cuda)
+    p = torch.randn(300, dtype=torch.float64, device=cuda)
+    Q = torch.zeros(400, 3, dtype=torch.float64, device=cuda)
+    P = torch.zeros(300, 3, dtype=torch.float64, device=cuda)
+    gs.reset_launches()
+    u, _ = op.lanczos_step(p, q, torch.tensor(0.5, dtype=torch.float64,
+                                              device=cuda), Q)
+    v, _ = op.lanczos_rstep(q, p, 0.5, P)
+    assert gs.LAUNCHES == dict(dict.fromkeys(gs.LAUNCHES, 0),
+                               matvec_fused=1, rmatvec_fused=1)
+    _assert_close([u, v], [ref.matvec_fused(op.A, p, q, 0.5),
+                           ref.rmatvec_fused(op.A, q, p, 0.5)], 1e-5)
+
+
+@pytest.mark.parametrize("m,n", [(64, 48), (300, 517), (257, 129),
+                                 (127, 383), (1024, 512), (4099, 2050)])
+@pytest.mark.parametrize("adt", [torch.float64, torch.float32,
+                                 torch.bfloat16])
+def test_fused_matvecs_match_plain_versions(cuda, m, n, adt):
+    A, p, q, ym, yn, _, _ = _inputs(m, n, 1, adt, torch.float32, m ^ n)
+    alpha = torch.tensor([0.37], device=cuda)
+    before = dict(gs.LAUNCHES)
+    cases = [(lambda: gs.matvec_fused(A, p, ym, alpha),
+              ref.matvec_fused(A, p, ym, alpha)),
+             (lambda: gs.rmatvec_fused(A, q, yn, 1.7),
+              ref.rmatvec_fused(A, q, yn, 1.7))]
+    for kern, want in cases:
+        got = kern()
+        _assert_close([got], [want], 1e-5)
+        assert torch.equal(got, kern())       # fixed-order chunk sums
+    torch.cuda.synchronize()
+    assert gs.LAUNCHES == dict(before,
+                               matvec_fused=before["matvec_fused"] + 2,
+                               rmatvec_fused=before["rmatvec_fused"] + 2)
+
+
+@pytest.mark.parametrize("n,d,b", [(300, 64, 24), (128, 130, 16),
+                                   (70, 16, 48), (48, 48, 48),
+                                   (200, 96, 32), (5000, 300, 4000)])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["row_major", "transposed_view"])
+def test_sketch_matmat_matches_plain_version(cuda, n, d, b, xdt, layout):
+    g = torch.Generator(device=cuda).manual_seed(n * d + b)
+    sk = tsketch.make_sketch(g, n, d, backend="pallas")
+    if layout == "row_major":
+        X = torch.randn(n, b, generator=g, device=cuda).to(xdt)
+    else:
+        X = torch.randn(b, n, generator=g, device=cuda).to(xdt).T
+    before = skm.LAUNCHES["sketch_matmat"]
+    got = skm.sketch_matmat(sk.signs, sk.idx, X)
+    _assert_close([got], [ref.sketch_matmat(sk.signs, sk.idx, X)], 2e-5)
+    _assert_close([got], [sk.dense().T @ X.float()], 2e-5)
+    assert torch.equal(got, skm.sketch_matmat(sk.signs, sk.idx, X))
+    torch.cuda.synchronize()
+    assert skm.LAUNCHES["sketch_matmat"] == before + 2
+
+
+def test_sketch_pass_reads_the_operand_in_place(cuda):
+    """DenseOp(backend="pallas").sketch_pass launches the kernel on A and
+    on the view Aᵀ, allocating only the panels (no copy of A)."""
+    m, n = 4096, 3000
+    A = torch.randn(m, n, device=cuda)
+    op = DenseOp(A, backend="pallas")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    om = tsketch.make_sketch(g, n, 64, backend="pallas")
+    ps = tsketch.make_sketch(g, m, 128, backend="pallas")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    skm.reset_launches()
+    Y, Z = op.sketch_pass(om, ps)
+    torch.cuda.synchronize()
+    assert skm.LAUNCHES["sketch_matmat"] == 2
+    assert torch.cuda.max_memory_allocated() - base < A.numel() * 4 // 4
+    _assert_close([Y, Z], [A @ om.dense(), A.T @ ps.dense()], 1e-5)
+
+
+def test_gaussian_bf16_gnystrom_widens_the_operand_by_row_blocks(
+        cuda, monkeypatch):
+    """A bf16 Gaussian sketch applies Tᵀ to A and to the view Aᵀ a row
+    block at a time: the solve's peak holds no bf16 or f32 copy of A.
+    The block budget is cut so that A spans many blocks here."""
+    from repro_torch.core import operators
+    monkeypatch.setattr(operators, "_MIXED_ELEMS", 1 << 20)
+    m, n = 4096, 3000
+    g = torch.Generator(device=cuda).manual_seed(5)
+    A = torch.randn(m, 20, generator=g, device=cuda) @ torch.randn(
+        20, n, generator=g, device=cuda)
+    s_true = torch.linalg.svdvals(A.double())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = factorize(A, SVDSpec(method="gnystrom", rank=8, sketch_dim=48,
+                               sketch_kind="gaussian", precision="bf16",
+                               backend="pallas"),
+                    generator=torch.Generator(cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < A.numel() * 4 // 4
+    err = float((got.s.double() - s_true[:8]).abs().max() / s_true[0])
+    assert err < 5e-2                         # BF16_STOL["gnystrom"]
 
 
 def test_wrappers_reject_strided_input(cuda):
@@ -129,3 +230,43 @@ def test_solvers_run_through_the_kernels(cuda):
     est = estimate_rank(A, SVDSpec(max_iters=40, backend="pallas"),
                         generator=torch.Generator(device=cuda).manual_seed(0))
     assert int(est) == 12
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("gnystrom", dict(sketch_dim=48)), ("rbk", dict(passes=2, sketch_dim=16)),
+    ("rsvd", dict(oversample=30, power_iters=1)), ("fsvd_blocked", dict())])
+def test_sketch_and_blocked_solvers_on_the_card(cuda, method, kw):
+    """The four solvers on a card tensor: σ within the reference's stol
+    of the exact spectrum, the same bits on a rerun, and gnystrom's one
+    sweep through three sketch_matmat launches."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    M = torch.randn(3000, 30, generator=g, device=cuda)
+    N = torch.randn(30, 2000, generator=g, device=cuda)
+    A = M @ N
+    s_true = torch.linalg.svdvals(A.double())
+    spec = SVDSpec(method=method, rank=8, backend="pallas", **kw)
+    skm.reset_launches()
+    got = factorize(A, spec, generator=torch.Generator(cuda).manual_seed(2))
+    if method == "gnystrom":
+        assert skm.LAUNCHES["sketch_matmat"] == 3
+    again = factorize(A, spec, generator=torch.Generator(cuda).manual_seed(2))
+    assert torch.equal(got.s, again.s)
+    stol = {"gnystrom": 1e-3, "rbk": 5e-4, "rsvd": 5e-2,
+            "fsvd_blocked": 5e-4}[method]        # SOLVERS[method]["stol"]
+    err = float((got.s.double() - s_true[:8]).abs().max() / s_true[0])
+    assert err < stol, (method, err)
+
+
+def test_f64_fsvd_runs_through_the_fused_matvecs(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    A = (torch.randn(2000, 20, generator=g, device=cuda, dtype=torch.float64)
+         @ torch.randn(20, 1500, generator=g, device=cuda,
+                       dtype=torch.float64))
+    s_true = torch.linalg.svdvals(A)
+    gs.reset_launches()
+    got = factorize(A, SVDSpec(method="fsvd", rank=8, max_iters=40,
+                               backend="pallas"),
+                    generator=torch.Generator(cuda).manual_seed(0))
+    assert gs.LAUNCHES == dict(dict.fromkeys(gs.LAUNCHES, 0),
+                               matvec_fused=40, rmatvec_fused=39)
+    assert float((got.s - s_true[:8]).abs().max() / s_true[0]) < 5e-4

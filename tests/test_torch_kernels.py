@@ -1,32 +1,38 @@
-"""The port's fused GK-step kernels (repro_torch.kernels) against the
-reference's Pallas kernels (repro.kernels, interpret mode on the CPU).
+"""The port's kernels (repro_torch.kernels) against the reference's
+Pallas kernels (repro.kernels, interpret mode on the CPU).
 
 On CPU tensors the port's wrappers take their plain-torch versions, so
-these tests hold the port's stage arithmetic and its half-step
-composition (stage 1, passes−1 × proj_qtv, proj_norm) against the
-reference's.  Inputs are made with numpy from a seed and handed to both.
-The CUDA kernels themselves are checked on the card by
-``tests/test_torch_gpu.py``.
+these tests hold the port's arithmetic — the GK-step stages and their
+half-step composition (stage 1, passes−1 × proj_qtv, proj_norm), the
+fused matvecs and the sparse-sign sketch apply — against the
+reference's.  Inputs are made with numpy from a seed (the sketch packs
+with the reference's own ``make_sketch``) and handed to both.  The CUDA
+kernels themselves are checked on the card by ``tests/test_torch_gpu.py``.
 
 Tolerances are those of tests/test_kernels.py:151-187: rtol 1e-5 with
 atol 1e-5·max|ref| in f32 (only the summation order differs), 3e-2 where
-A or the basis is stored bf16.
+A or the basis is stored bf16; the sketch apply is held at the 2e-5 of
+tests/test_kernels.py:271-300.
 """
 import ctypes
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core.sketch import make_sketch as ref_make_sketch
 from repro.kernels import gk_step as jgs
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch import bridge
 from repro_torch.kernels import _build
 from repro_torch.kernels import gk_step as gs
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import sketch_matvec as skm
 
 # GK_STEP_SHAPES of tests/test_kernels.py:136, those within 300 × 520
 # (Pallas interpret mode is slow on the CPU).
@@ -152,7 +158,8 @@ def test_cpu_path_counts_no_launches():
     ops.gk_rstep_fused(_t(A), _t(y), _t(p), 0.37, _t(_inputs(
         64, 48, 4, 1, left=False)[3]), 2)
     assert gs.LAUNCHES == {"mv_qtv": 0, "rmv_qtv": 0, "proj_qtv": 0,
-                           "proj_norm": 0}
+                           "proj_norm": 0, "matvec_fused": 0,
+                           "rmatvec_fused": 0}
 
 
 def test_wrappers_reject_what_the_kernel_does_not_take():
@@ -200,17 +207,171 @@ def test_chunk_plan_covers_every_row_once(m, n):
 def test_build_targets_sm90a_with_a_plain_c_interface():
     assert _build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
     assert {"-O3", "-shared", "-fPIC"} <= set(_build.NVCC_FLAGS)
-    lib = _build.library_path("gk_step")
-    assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
-    # the ctypes signatures agree with the C prototypes in the source
-    src = _build.source("gk_step").read_text()
-    protos = dict(re.findall(r"^(?:int|const char\*) (gk_\w+)\(([^)]*)\)",
-                             src, flags=re.M))
-    assert set(protos) == set(gs._SIGNATURES)
-    for name, argtypes in gs._SIGNATURES.items():
-        params = [a.strip() for a in protos[name].split(",")]
-        assert len(params) == len(argtypes), name
-        for param, t in zip(params, argtypes):
-            want = (ctypes.c_void_p if "*" in param else ctypes.c_longlong
-                    if param.startswith("long long") else ctypes.c_int)
-            assert t is want, (name, param)
+    for name, module in (("gk_step", gs), ("sketch_matvec", skm)):
+        lib = _build.library_path(name)
+        assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
+        # the ctypes signatures agree with the C prototypes in the source
+        src = _build.source(name).read_text()
+        protos = dict(re.findall(r"^(?:int|const char\*) (\w+)\(([^)]*)\)",
+                                 src, flags=re.M))
+        assert set(protos) == set(module._SIGNATURES), name
+        for fn, argtypes in module._SIGNATURES.items():
+            params = [a.strip() for a in protos[fn].split(",")]
+            assert len(params) == len(argtypes), fn
+            for param, t in zip(params, argtypes):
+                want = (ctypes.c_void_p if "*" in param else ctypes.c_longlong
+                        if param.startswith("long long") else ctypes.c_int)
+                assert t is want, (fn, param)
+
+
+def test_library_digest_covers_the_shared_header(tmp_path, monkeypatch):
+    """Every source includes csrc/gk_rows.cuh: an edit of the header must
+    change every library's name (no stale build)."""
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build.library_path(n)
+              for n in ("gk_step", "sketch_matvec")}
+    header = tmp_path / "gk_rows.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name, path in before.items():
+        assert _build.library_path(name) != path
+
+
+# --------------------------------------------------------------------------
+# fused matvecs (gk_step.matvec_fused / rmatvec_fused): the float64 leg of DenseOp(backend="pallas")
+# --------------------------------------------------------------------------
+
+# tests/test_kernels.py:10 SHAPES (m, n) and :82 RAGGED
+MATVEC_SHAPES = [(64, 48), (300, 200), (1024, 512), (100, 700), (512, 128),
+                 (300, 517), (257, 129), (127, 383)]
+A_DTYPES = {"f64": (np.float64, None), "f32": (np.float32, None),
+            "bf16": (np.float32, torch.bfloat16)}
+
+
+def _operand(m, n, dt, seed):
+    """(numpy A for the reference, torch A for the port) of one storage
+    dtype; bf16 is rounded once and handed to both."""
+    np_dt, torch_dt = A_DTYPES[dt]
+    A = np.random.default_rng(seed).standard_normal((m, n)).astype(np_dt)
+    if torch_dt is None:
+        return A, torch.from_numpy(A)
+    At = torch.from_numpy(A).to(torch_dt)
+    return jnp.asarray(A, jnp.bfloat16), At
+
+
+@pytest.mark.parametrize("dt", sorted(A_DTYPES))
+@pytest.mark.parametrize("m,n", MATVEC_SHAPES)
+def test_fused_matvecs_match_reference(m, n, dt):
+    """matvec_fused / rmatvec_fused (plain versions on the CPU) against
+    the reference's Pallas kernels; f64 A is multiplied in f32 by both."""
+    A, At = _operand(m, n, dt, m * n)
+    rng = np.random.default_rng(m + n)
+    p, q = (rng.standard_normal(k).astype(np.float32) for k in (n, m))
+    ym, yn = (rng.standard_normal(k).astype(np.float32) for k in (m, n))
+    gs.reset_launches()
+    got = ops.matvec_fused(At, _t(p), _t(ym), 0.37)
+    assert got.dtype == torch.float32 and got.shape == (m,)
+    _close(got, jops.matvec_fused(A, p, ym, 0.37))
+    got = ops.rmatvec_fused(At, _t(q), _t(yn), 1.7)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    _close(got, jops.rmatvec_fused(A, q, yn, 1.7))
+    assert gs.LAUNCHES == dict.fromkeys(gs.LAUNCHES, 0)
+
+
+def test_fused_matvec_entry_points_cast_vectors_and_scalars():
+    """ops.matvec_fused takes vectors and the scalar in any float dtype
+    (the f64 GK loop hands it f64 device scalars) and casts to f32, as
+    the reference wrapper does."""
+    A, At = _operand(40, 30, "f64", 1)
+    rng = np.random.default_rng(2)
+    p, y = rng.standard_normal(30), rng.standard_normal(40)
+    got = ops.matvec_fused(At, torch.from_numpy(p), torch.from_numpy(y),
+                           torch.tensor(0.25, dtype=torch.float64))
+    _close(got, jref.matvec_fused(A.astype(np.float32), p.astype(np.float32),
+                                  y.astype(np.float32), 0.25))
+    got = ops.rmatvec_fused(At, torch.from_numpy(y), torch.from_numpy(p),
+                            torch.tensor(0.25, dtype=torch.float64))
+    _close(got, jref.rmatvec_fused(A.astype(np.float32),
+                                   y.astype(np.float32),
+                                   p.astype(np.float32), 0.25))
+
+
+def test_fused_matvec_wrappers_reject_what_the_kernel_does_not_take():
+    A = torch.zeros(8, 6)
+    p, y = torch.zeros(6), torch.zeros(8)
+    with pytest.raises(TypeError, match="float64, float32 or bfloat16"):
+        gs.matvec_fused(A.half(), p, y, 0.1)
+    with pytest.raises(TypeError):
+        gs.matvec_fused(A, p.double(), y, 0.1)
+    with pytest.raises(ValueError):
+        gs.matvec_fused(A, p[:-1], y, 0.1)
+    with pytest.raises(ValueError):
+        gs.rmatvec_fused(A, p, y, 0.1)            # q must have m rows
+    with pytest.raises(ValueError):
+        gs.rmatvec_fused(A[0], y, p, 0.1)
+    with pytest.raises(ValueError):
+        gs.matvec_fused(torch.empty(8, 6, device="meta"), p, y, 0.1)
+
+
+# --------------------------------------------------------------------------
+# sparse-sign sketch apply (sketch_matvec)
+# --------------------------------------------------------------------------
+
+# tests/test_kernels.py:271-300
+SKETCH_SHAPES = [(300, 64, 24), (128, 130, 16), (70, 16, 48), (48, 48, 48),
+                 (200, 96, 32)]
+
+
+def _sketch(n, d, seed=0):
+    ref_sk = ref_make_sketch(jax.random.PRNGKey(n * d + seed), n, d,
+                             kind="sparse_sign", dtype=jnp.float32)
+    return ref_sk, bridge.sketch(ref_sk, backend="pallas", device="cpu")
+
+
+@pytest.mark.parametrize("layout", ["row_major", "transposed_view"])
+@pytest.mark.parametrize("n,d,b", SKETCH_SHAPES)
+def test_sketch_matmat_matches_reference(n, d, b, layout):
+    """The plain sketch_matmat (the wrapper's CPU path) against the
+    reference's plain version, its Pallas kernel in interpret mode and
+    the dense TᵀX, on a row-major X and on a transposed view of one."""
+    ref_sk, sk = _sketch(n, d)
+    X = np.random.default_rng(b).standard_normal((n, b)).astype(np.float32)
+    Xt = torch.from_numpy(X) if layout == "row_major" else \
+        torch.from_numpy(np.ascontiguousarray(X.T)).T
+    assert Xt.is_contiguous() == (layout == "row_major")
+    skm.reset_launches()
+    got = ops.sketch_matmat(sk.signs, sk.idx, Xt)
+    assert got.dtype == torch.float32 and got.shape == (d, b)
+    assert skm.LAUNCHES["sketch_matmat"] == 0
+    for want in (jref.sketch_matmat(ref_sk.signs, ref_sk.idx, X),
+                 jops.sketch_matmat(ref_sk.signs, ref_sk.idx, X),
+                 np.asarray(ref_sk.dense()).T @ X):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(sk.dense().numpy(), np.asarray(ref_sk.dense()),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_sketch_matmat_bf16_block():
+    """A bf16 block is widened exactly: the same result as its f32 copy."""
+    _, sk = _sketch(300, 64)
+    X = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (300, 24)).astype(np.float32)).to(torch.bfloat16)
+    torch.testing.assert_close(ops.sketch_matmat(sk.signs, sk.idx, X),
+                               ops.sketch_matmat(sk.signs, sk.idx, X.float()),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_sketch_matmat_wrapper_rejects_what_the_kernel_does_not_take():
+    _, sk = _sketch(48, 16)
+    X = torch.zeros(48, 5)
+    with pytest.raises(TypeError, match="int32"):
+        skm.sketch_matmat(sk.signs, sk.idx.long(), X)
+    with pytest.raises(ValueError, match="shape of signs"):
+        skm.sketch_matmat(sk.signs, sk.idx[:, :3], X)
+    with pytest.raises(TypeError):
+        skm.sketch_matmat(sk.signs, sk.idx, X.int())
+    with pytest.raises(ValueError, match="different devices"):
+        skm.sketch_matmat(sk.signs, sk.idx, torch.zeros(48, 5,
+                                                        device="meta"))
