@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--m 100000] [--n 80000]
                           [--m64 20000] [--n64 16000]
+                          [--sm 480189] [--sn 17770]
 
 Phases (any failure exits non-zero; there is no CPU fallback):
 
@@ -16,14 +17,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      f64, f32 and bf16 A on the shapes of tests/test_kernels.py:22-110 and
      at the main shape; sketch_matmat on the shapes of
      tests/test_kernels.py:271-300 and at gnystrom's three main-path
-     shapes, on row-major X and on a transposed view of X; every kernel
-     twice, bitwise equal;
+     shapes, on row-major X and on a transposed view of X; sparse_matvec
+     on the shapes of tests/test_kernels.py:210-245 (empty rows,
+     duplicates, both packs, one vector and 20-column blocks, f32 and
+     bf16 values); lowrank_matmul on tests/test_kernels.py's SHAPES and
+     RAGGED and at the update's 30 x 30 core (r = 10, a transposed view);
+     every kernel twice, bitwise equal;
   3. main path — A = M N with Gaussian M (m x 100) and N (100 x n) made on
      the card from --seed (the paper's numerical-rank-100 input, §6.1);
      factorize(A, SVDSpec(method="fsvd", rank=20, max_iters=200,
      backend="pallas")) against sigma(A) = sigma(R_M R_N^T) from thin QRs,
      with exact launch counts, a bitwise rerun, a bf16-basis run, and
-     estimate_rank(A) == 100 through the host loop;
+     estimate_rank(A) == 100 through the host loop; then the rank-k
+     update: update_factorization of that r = 20 factorization by a
+     seeded rank-10 LowRankOp (s ~ 1e-2 sigma_max, beta 0.9,
+     backend="pallas"): zero iterations, one lowrank_matmul launch, held
+     against its plain version on the update's own core, and sigma within
+     1e-5 sigma_max of the same update in f64 on the same bases; with the
+     bases orthonormalized in f64, within 1e-5 sigma_max of the exact
+     sigma of the factored operator;
   4. the sketch and blocked solvers on the same operand, backend="pallas":
      gnystrom (one sketch_pass, three sketch_matmat launches, bitwise
      rerun), rbk (5 sweeps, bitwise rerun), rsvd and fsvd_blocked, each
@@ -31,12 +43,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      peak device memory that shows no copy of A or A^T;
      then every kernel is timed at its main shape beside its bound, its
      plain version and a PyTorch yardstick;
-  5. the float64 leg — the f32 operand freed, an f64 operand of numerical
-     rank 100 (--m64 x --n64): matvec_fused / rmatvec_fused held against
-     their plain versions on it (twice, bitwise), then factorize(
-     method="fsvd", rank=20, max_iters=200, backend="pallas"), whose
-     half-steps run through them: exact launch counts, sigma within 5e-4,
-     and both kernels timed at that shape.
+     after A is freed, materialize_lowrank of a rank-20 LowRankOp at the
+     main shape through lowrank_matmul (32 GB written once), held against
+     its plain version by row blocks and timed;
+  5. the float64 leg — an f64 operand of numerical rank 100 (--m64 x
+     --n64): matvec_fused / rmatvec_fused held against their plain
+     versions on it (twice, bitwise), then factorize(method="fsvd",
+     rank=20, max_iters=200, backend="pallas"), whose half-steps run
+     through them: exact launch counts, sigma within 5e-4, and both
+     kernels timed at that shape;
+  6. the sparse operand — a matrix of the Netflix Prize's shape (--sm
+     users x --sn movies), built on the card from --seed as COO: a row-
+     and column-permuted block diagonal of 100 rank-1 blocks, so its
+     rank is 100 and its exact sigma is known.  SparseOp(backend=
+     "pallas") packs both directions; sparse_matvec is held against its
+     plain version on both packs; fsvd (exact launch counts, bitwise
+     rerun), "auto" (must pick fsvd_blocked) and estimate_rank (must give
+     100) run on it, with a peak device memory far below one dense
+     copy; sparse_matvec is timed both ways at b = 1 and b = 20.
 
 The line before the last is the card as nvidia-smi reports it; the last is
 {"ok": true, "device": {...}}.  A kernels JSON line precedes them.
@@ -44,6 +68,7 @@ The line before the last is the card as nvidia-smi reports it; the last is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -68,6 +93,17 @@ MATVEC_SHAPES = [(64, 48), (300, 200), (1024, 512), (100, 700), (512, 128),
                  (300, 517), (257, 129), (127, 383)]  # tests/test_kernels.py
 SKETCH_SHAPES = [(300, 64, 24), (128, 130, 16), (70, 16, 48), (48, 48, 48),
                  (200, 96, 32)]                 # tests/test_kernels.py:271
+SPARSE_SHAPES = [(300, 517, 0.02), (257, 129, 0.1), (64, 48, 0.3),
+                 (128, 1000, 0.005)]               # tests/test_kernels.py:214
+LOWRANK_SHAPES = [(64, 48, 4), (300, 200, 17), (1024, 512, 64),
+                  (100, 700, 5), (512, 128, 128),  # tests/test_kernels.py:10
+                  (300, 517, 7), (257, 129, 7), (127, 383, 7),
+                  (300, 200, 7),                   # RAGGED, :84 (r = 7)
+                  (30, 30, 10)]       # phase 3b's core: (r+k, r+k), r = k
+DELTA_RANK = 10               # the update phase's drift
+UPDATE_GATE = 1e-5            # GATE, tests/test_update.py:26
+SPARSE_STOL = 5e-4            # SOLVERS["fsvd"] / ["fsvd_blocked"] stol
+SPARSE_PEAK = 8               # GiB; one dense f32 copy of the cell is 34 GB
 GIB = 2 ** 30
 # phase 4: (method, spec fields, sigma bound as a fraction of sigma_max)
 SKETCH_SOLVES = [
@@ -86,11 +122,15 @@ REPLACES = {"mv_qtv": "src/repro/kernels/gk_step.py:147",
             "proj_norm": "src/repro/kernels/gk_step.py:232",
             "matvec_fused": "src/repro/kernels/gk_matvec.py:71",
             "rmatvec_fused": "src/repro/kernels/gk_matvec.py:92",
-            "sketch_matmat": "src/repro/kernels/sketch_matvec.py:65"}
+            "sketch_matmat": "src/repro/kernels/sketch_matvec.py:65",
+            "lowrank_matmul": "src/repro/kernels/lowrank_update.py:34",
+            "sparse_matvec": "src/repro/kernels/sparse_matvec.py:75"}
 SOURCES = {"mv_qtv": "gk_step.cu", "rmv_qtv": "gk_step.cu",
            "proj_qtv": "gk_step.cu", "proj_norm": "gk_step.cu",
            "matvec_fused": "gk_step.cu", "rmatvec_fused": "gk_step.cu",
-           "sketch_matmat": "sketch_matvec.cu"}
+           "sketch_matmat": "sketch_matvec.cu",
+           "lowrank_matmul": "lowrank_update.cu",
+           "sparse_matvec": "sparse_matvec.cu"}
 GK_STEP = ("mv_qtv", "rmv_qtv", "proj_qtv", "proj_norm")
 MATVECS = ("matvec_fused", "rmatvec_fused")
 
@@ -388,7 +428,7 @@ def phase_main(A, s_true, seed):
           f"estimate_rank skipped a kernel: {rank_launches}")
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 3: peak device memory {peak / GIB:.2f} GiB", flush=True)
-    return launches, peak
+    return launches, peak, fact
 
 
 def counting_op(inner):
@@ -708,6 +748,454 @@ def phase_f64(seed, m, n):
     return launches, errs, times
 
 
+# --- slice 3: sparse_matvec and lowrank_matmul ----------------------------
+
+def sparse_coo(gen, m, n, density):
+    """COO triplets of a random (m, n) matrix on the card: Bernoulli
+    entries, the first two rows empty, entry 0 duplicated, and a shuffled
+    entry order; int32 indices."""
+    import torch
+    A = torch.randn(m, n, generator=gen, device=DEV)
+    A = A * (torch.rand(m, n, generator=gen, device=DEV) < density)
+    A[:2] = 0
+    idx = torch.nonzero(A)
+    idx = torch.cat([idx, idx[:1]])
+    idx = idx[torch.randperm(idx.shape[0], generator=gen, device=DEV)]
+    return A[idx[:, 0], idx[:, 1]], idx.to(torch.int32)
+
+
+def check_spmv(tag, vals, cols, X):
+    """sparse_matvec against its plain version (bf16 values are widened
+    exactly, so f32 bounds hold); returns the max abs error."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_matvec as spm
+    name = f"sparse_matvec {tag}"
+    got = bitwise_twice(name, lambda: (spm.sparse_matvec(vals, cols, X),))
+    err = compare(name, got, (ref.sparse_matvec(vals, cols, X),),
+                  (torch.float32,))
+    torch.cuda.synchronize()
+    return err
+
+
+def check_lowrank(tag, U, s, Vt):
+    import torch
+    from repro_torch.kernels import lowrank_update as klu
+    from repro_torch.kernels import ref
+    name = f"lowrank_matmul {tag}"
+    got = bitwise_twice(name, lambda: (klu.lowrank_matmul(U, s, Vt),))
+    err = compare(name, got, (ref.lowrank_matmul(U, s, Vt),),
+                  (torch.float32,))
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_slice3_kernels(gen):
+    """Phase 2 rows of sparse_matvec and lowrank_matmul on the shapes of
+    tests/test_kernels.py (their main-path shapes come in phases 3b/6)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sparse_matvec as spm
+    n_cases = 0
+    for m, n, density in SPARSE_SHAPES:
+        data, idx = sparse_coo(gen, m, n, density)
+        for vdt in (torch.float32, torch.bfloat16):
+            for shape, ix in (((m, n), idx), ((n, m), idx.flip(1))):
+                vals, cols = spm.ell_pack(data.to(vdt), ix, shape)
+                for b in (1, 20):
+                    X = torch.randn(shape[1], b, generator=gen, device=DEV)
+                    X = X[:, 0].contiguous() if b == 1 else X
+                    check_spmv(f"({shape[0]}x{shape[1]}, b={b}, {vdt})",
+                               vals, cols, X)
+                    n_cases += 1
+    # tests/test_kernels.py:232-242: empty rows and duplicates, exactly
+    data = torch.tensor([1.0, 2.0, 3.0, 4.0], device=DEV)
+    idx = torch.tensor([[0, 1], [0, 1], [3, 0], [3, 2]], dtype=torch.int32,
+                       device=DEV)
+    vals, cols = spm.ell_pack(data, idx, (5, 3))
+    y = kops.sparse_matvec(vals, cols, torch.tensor([1.0, 10.0, 100.0],
+                                                    device=DEV))
+    check(y.tolist() == [30.0, 0.0, 0.0, 403.0, 0.0],
+          f"sparse_matvec empty rows / duplicates gave {y.tolist()}")
+    for m, n, r in LOWRANK_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            U = torch.randn(m, r, generator=gen, device=DEV).to(dt)
+            sv = torch.rand(r, generator=gen, device=DEV) + 0.5
+            Vt = torch.randn(r, n, generator=gen, device=DEV).to(dt)
+            check_lowrank(f"({m}x{n}, r={r}, {dt})", U, sv, Vt)
+            check_lowrank(f"({m}x{n}, r={r}, {dt}, Vt a view)", U, sv,
+                          Vt.T.contiguous().T)
+            n_cases += 2
+    print(f"phase 2: {n_cases + 1} shape/type cases of sparse_matvec (both "
+          f"packs, b = 1 and 20, f32/bf16 values, empty rows and "
+          f"duplicates) and lowrank_matmul (f32/bf16, row-major and "
+          f"transposed-view Vt) match the plain versions, bitwise stable",
+          flush=True)
+
+
+def exact_update_sigma(fact, C, sd, Dt, beta):
+    """sigma of beta U S V^T + C diag(sd) Dt, independently in f64: the
+    Householder QRs of [U | C] and [V | Dt^T], then svdvals of the small
+    core."""
+    import torch
+    Ra = torch.linalg.qr(torch.cat([fact.U, C], 1).double())[1]
+    Rb = torch.linalg.qr(torch.cat([fact.V, Dt.T], 1).double())[1]
+    core = torch.cat([beta * fact.s.double(), sd.double()])
+    return torch.linalg.svdvals(Ra @ torch.diag(core) @ Rb.T)
+
+
+def orthonormal_bases(fact):
+    """The same operator U S V^T with bases orthonormal to f32 rounding:
+    U = Q_U R_U and V = Q_V R_V in f64, then the SVD of R_U S R_V^T (the
+    update's precondition; the reference's update assumes it)."""
+    import torch
+    from repro_torch.api import Factorization
+    Qu, Ru = torch.linalg.qr(fact.U.double())
+    Qv, Rv = torch.linalg.qr(fact.V.double())
+    X, sx, Yt = torch.linalg.svd(Ru @ torch.diag(fact.s.double()) @ Rv.T)
+    return Factorization((Qu @ X).float(), sx.float(), (Qv @ Yt.T).float(),
+                         fact.iterations, fact.breakdown, method=fact.method)
+
+
+def defect(Q):
+    """||Q^T Q - I||_2 in f64."""
+    import torch
+    G = Q.double().T @ Q.double()
+    return float(torch.linalg.matrix_norm(
+        G - torch.eye(G.shape[0], dtype=G.dtype, device=G.device), ord=2))
+
+
+def update_with_inputs(f, delta, beta):
+    """update_factorization(backend="pallas") of f by delta, timed, with
+    the launch count and the arguments its one lowrank_matmul launch was
+    given (the core's Chat, ones and the transposed view Dhat.T)."""
+    from repro_torch.api import update_factorization
+    from repro_torch.kernels import lowrank_update as klu
+    from repro_torch.kernels import ops as kops
+    seen = []
+    real = kops.lowrank_matmul
+
+    def spy(U, s, Vt):
+        seen.append((U, s, Vt))
+        return real(U, s, Vt)
+
+    kops.lowrank_matmul = spy
+    try:
+        klu.reset_launches()
+        upd, wall = timed(lambda: update_factorization(
+            f, delta, beta=beta, backend="pallas"))
+        launches = klu.LAUNCHES["lowrank_matmul"]
+    finally:
+        kops.lowrank_matmul = real
+    return upd, wall, launches, seen
+
+
+def update_in_f64(f, C, sd, Dt, beta):
+    """The same update on the same bases, every step in float64 (the
+    plain core product): what the f32 pallas run would give without its
+    own rounding."""
+    import torch
+    from repro_torch.api import Factorization, LowRankOp, update_factorization
+    f64 = Factorization(f.U.double(), f.s.double(), f.V.double(),
+                        f.iterations, f.breakdown, method=f.method)
+    return update_factorization(
+        f64, LowRankOp(C.double(), sd.double(), Dt.double()), beta=beta,
+        backend="xla").s.to(torch.float64)
+
+
+def phase_update(fact, seed):
+    """update_factorization of phase 3's r = 20 factorization by a seeded
+    rank-10 drift.  The core product's kernel is held against its plain
+    version on the arguments the update gave it.  The update assumes
+    orthonormal bases, and the f32 fsvd's bases are not orthonormal to
+    f32 rounding, so two runs are gated: on the raw bases against the same
+    update in f64 on those bases (the port's own error), and on the bases
+    orthonormalized in f64 against the exact sigma of beta U S V^T +
+    C diag(s) Dt.  The raw run's distance from its exact sigma is printed
+    beside the f64 run's (the precondition's share).  Returns (launches,
+    wall seconds, sigma error of the raw run against f64)."""
+    import torch
+    from repro_torch.api import LowRankOp
+    m, n = fact.shape
+    smax = float(fact.s[0])
+    g = torch.Generator(device=DEV).manual_seed(seed + 8)
+    C = torch.randn(m, DELTA_RANK, generator=g, device=DEV) / m ** 0.5
+    Dt = torch.randn(DELTA_RANK, n, generator=g, device=DEV) / n ** 0.5
+    sd = 1e-2 * smax * torch.linspace(1.0, 0.5, DELTA_RANK, device=DEV)
+    delta, beta = LowRankOp(C, sd, Dt), 0.9
+    r = fact.rank
+    errs = {}
+    for name, f in (("raw", fact), ("orthonormal", orthonormal_bases(fact))):
+        upd, wall, launches, seen = update_with_inputs(f, delta, beta)
+        check(int(upd.iterations) == 0, "the update ran GK iterations")
+        check(launches == 1, f"update launched lowrank_matmul {launches} "
+                             f"times")
+        (Uc, ones, Vc), = seen
+        core_err = check_lowrank(
+            f"update core ({Uc.shape[0]}x{Vc.shape[1]}, r={Uc.shape[1]}, "
+            f"Vt a view {tuple(Vc.stride())})", Uc, ones, Vc)
+        s_exact = exact_update_sigma(f, C, sd, Dt, beta)
+        s64 = update_in_f64(f, C, sd, Dt, beta)
+        errs[name] = {
+            "exact": float((upd.s.double() - s_exact[:r]).abs().max()
+                           / s_exact[0]),
+            "f64": float((upd.s.double() - s64).abs().max() / s_exact[0]),
+            "f64_exact": float((s64 - s_exact[:r]).abs().max()
+                               / s_exact[0])}
+        e = errs[name]
+        print(f"phase 3b: update_factorization ({name} bases: "
+              f"||U^T U - I|| {defect(f.U):.3e}, ||V^T V - I|| "
+              f"{defect(f.V):.3e}; r = {r}, rank-{DELTA_RANK} drift, beta "
+              f"{beta}) wall {wall * 1e3:.3f} ms, iterations "
+              f"{int(upd.iterations)}, lowrank_matmul launches {launches} "
+              f"(core {tuple(Uc.shape)} x {tuple(Vc.shape)} matches its "
+              f"plain version, max abs err {core_err:.3e}, bitwise "
+              f"stable); max|sigma - .|/sigma_max: vs the f64 update on "
+              f"the same bases {e['f64']:.3e}, vs exact {e['exact']:.3e} "
+              f"(f64 update vs exact {e['f64_exact']:.3e})", flush=True)
+    raw, orth = errs["raw"]["f64"], errs["orthonormal"]["exact"]
+    print(f"phase 3b: gate {UPDATE_GATE}: raw bases vs the f64 update "
+          f"{raw:.3e}, orthonormal bases vs exact {orth:.3e}", flush=True)
+    check(raw < UPDATE_GATE, f"update sigma error vs f64 {raw:.3e}")
+    check(orth < UPDATE_GATE, f"update sigma error vs exact {orth:.3e}")
+    return launches, wall, raw
+
+
+def phase_materialize(seed, m, n):
+    """materialize_lowrank of a rank-20 LowRankOp at (m, n) through the
+    kernel, held against the plain version by row blocks (no second
+    (m, n) buffer), then timed beside its bound, the plain version and
+    torch.matmul(U*s, Vt).  Returns (launches, max abs error, times)."""
+    import torch
+    from repro_torch.api import LowRankOp
+    from repro_torch.core.update import materialize_lowrank
+    from repro_torch.kernels import lowrank_update as klu
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=DEV).manual_seed(seed + 10)
+    r = R_WANT
+    U = torch.randn(m, r, generator=g, device=DEV)
+    sv = torch.rand(r, generator=g, device=DEV) + 0.5
+    Vt = torch.randn(r, n, generator=g, device=DEV)
+    delta = LowRankOp(U, sv, Vt)
+    klu.reset_launches()
+    W, wall = timed(lambda: materialize_lowrank(delta, backend="pallas"))
+    launches = klu.LAUNCHES["lowrank_matmul"]
+    check(launches == 1, f"materialize launched lowrank_matmul {launches}")
+    rows = 1 << 13
+    err = 0.0
+    for r0 in range(0, m, rows):
+        err = max(err, compare(f"materialize_lowrank rows {r0}+",
+                               (W[r0:r0 + rows],),
+                               (ref.lowrank_matmul(U[r0:r0 + rows], sv, Vt),),
+                               (torch.float32,)))
+    again = klu.lowrank_matmul(U, sv, Vt)
+    check(torch.equal(W, again), "lowrank_matmul differs bitwise on a rerun")
+    del W, again
+    torch.cuda.empty_cache()
+    print(f"phase 3c: materialize_lowrank {m}x{n} r = {r} "
+          f"({m * n * 4 / 1e9:.1f} GB) wall {wall * 1e3:.3f} ms, launches "
+          f"{launches}, matches the plain version by row blocks (max abs "
+          f"err {err:.3e}), bitwise stable", flush=True)
+    row = time_row("lowrank_matmul", lambda: klu.lowrank_matmul(U, sv, Vt),
+                   lambda: ref.lowrank_matmul(U, sv, Vt),
+                   lambda: torch.matmul(U * sv, Vt),
+                   4 * (m * r + r + r * n + m * n), 2 * m * n * r,
+                   f"({m}x{n}, r={r}, f32)", phase="3c")
+    torch.cuda.empty_cache()
+    return launches, err, row
+
+
+def netflix_operand(seed, m, n):
+    """COO triplets (on the card, int32 indices) of a row- and column-
+    permuted block diagonal: block k of RANK joins ~m/RANK users and
+    ~n/RANK movies as the rank-1 c_k m_k n_k^T (Gaussian m, n; c_k in
+    [0.5, 1]).
+    Returns (data, indices, exact sigma descending in f64)."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(seed + 9)
+    rp = torch.randperm(m, generator=g, device=DEV)
+    cp = torch.randperm(n, generator=g, device=DEV)
+    rb = torch.arange(m, device=DEV) * RANK // m     # block of row position
+    cb = torch.arange(n, device=DEV) * RANK // n
+    col_cnt = torch.bincount(cb, minlength=RANK)
+    col_start = torch.cumsum(col_cnt, 0) - col_cnt
+    per_row = col_cnt[rb]
+    j = torch.repeat_interleave(torch.arange(m, device=DEV), per_row)
+    first = torch.cumsum(per_row, 0) - per_row
+    cpos = col_start[rb[j]] + (torch.arange(j.shape[0], device=DEV)
+                               - first[j])
+    mv = torch.randn(m, generator=g, device=DEV)
+    nv = torch.randn(n, generator=g, device=DEV)
+    c = 0.5 + 0.5 * torch.rand(RANK, generator=g, device=DEV)
+    data = c[rb[j]] * mv[j] * nv[cpos]
+    idx = torch.stack([rp[j], cp[cpos]], 1).to(torch.int32)
+    del j, cpos, first
+    nm = torch.zeros(RANK, dtype=torch.float64, device=DEV).index_add_(
+        0, rb, mv.double() ** 2)
+    nn = torch.zeros(RANK, dtype=torch.float64, device=DEV).index_add_(
+        0, cb, nv.double() ** 2)
+    s_true = torch.sort(c.double() * nm.sqrt() * nn.sqrt(),
+                        descending=True).values
+    return data, idx, s_true
+
+
+def csr_of_pack(vals, cols):
+    """The (rows, L) ELL pack as a CSR tensor (columns sorted in each row;
+    the padding slots stay as explicit zeros) for the library yardstick."""
+    import torch
+    rows, L = cols.shape
+    c, order = torch.sort(cols.long(), dim=1)
+    v = torch.gather(vals.float(), 1, order)
+    crow = torch.arange(0, rows * L + 1, L, device=DEV)
+    with warnings.catch_warnings():       # "CSR support is in beta state"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(crow, c.reshape(-1), v.reshape(-1),
+                                       size=(rows, int(cols.max()) + 1),
+                                       check_invariants=False)
+
+
+def phase_sparse(seed, m, n):
+    """Phase 6: the sparse operand.  Returns (launches, max abs error,
+    timing row) of sparse_matvec."""
+    import torch
+    from repro_torch.api import SVDSpec, estimate_rank, factorize
+    from repro_torch.core.operators import SparseOp
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_matvec as spm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (data, idx, s_true), t_coo = timed(
+        lambda: netflix_operand(seed, m, n))
+    nnz = data.shape[0]
+    S, t_pack = timed(lambda: SparseOp.from_coo(data, idx, (m, n),
+                                                backend="pallas"))
+    peak_build = torch.cuda.max_memory_allocated()
+    packs = {"forward": (S.ell[0], S.ell[1], n),
+             "transposed": (S.ell[2], S.ell[3], m)}
+    desc = ", ".join(f"{k} {v.shape[0]} rows x L {v.shape[1]} (fill "
+                     f"{nnz / v.numel():.4f})" for k, (v, _, _)
+                     in packs.items())
+    print(f"phase 6: sparse operand {m}x{n}, {RANK} rank-1 blocks, nnz "
+          f"{nnz} (density {nnz / (m * n):.3e}), COO on the card in "
+          f"{t_coo:.3f} s, both ELL packs in {t_pack:.3f} s: {desc}; peak "
+          f"{peak_build / GIB:.2f} GiB while building (one dense f32 copy: "
+          f"{m * n * 4 / GIB:.1f} GiB)", flush=True)
+    err = 0.0
+    gen = torch.Generator(device=DEV).manual_seed(seed + 11)
+    for name, (vals, cols, nx) in packs.items():
+        for vdt in (torch.float32, torch.bfloat16):
+            v = vals if vdt == torch.float32 else vals.to(vdt)
+            for b in (1, 20):
+                X = torch.randn(nx, b, generator=gen, device=DEV)
+                X = X[:, 0].contiguous() if b == 1 else X
+                e = check_spmv(f"cell {name} b={b} {vdt}", v, cols, X)
+                if vdt == torch.float32:
+                    err = max(err, e)
+    print(f"phase 6: sparse_matvec matches its plain version on both packs "
+          f"(b = 1 and 20, f32 and bf16 values), bitwise stable; max abs "
+          f"err (f32) {err:.3e}", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    smax = float(s_true[0])
+    spec = SVDSpec(method="fsvd", rank=R_WANT, max_iters=MAX_ITERS,
+                   backend="pallas")
+
+    def gen_f():
+        return torch.Generator(device=DEV).manual_seed(seed + 12)
+
+    guard = counting_op(S)
+    spm.reset_launches()
+    fact, wall = timed(lambda: factorize(guard, spec, generator=gen_f()))
+    launches = spm.LAUNCHES["sparse_matvec"]
+    k = MAX_ITERS
+    touches = {kk: v for kk, v in guard.counts.items() if v}
+    ferr = float((fact.s.double() - s_true[:R_WANT]).abs().max()) / smax
+    print(f"phase 6: fsvd wall {wall:.3f} s, iterations "
+          f"{int(fact.iterations)}, breakdown {bool(fact.breakdown)}, "
+          f"max|sigma - sigma_true|/sigma_max {ferr:.3e} (bound "
+          f"{SPARSE_STOL}), sparse_matvec launches {launches} (touches "
+          f"{touches})", flush=True)
+    check(touches == {"mv": k, "rmv": k, "matmat": 1},
+          f"fsvd touched the sparse operand {touches}")
+    check(launches == 2 * k + 1, f"fsvd launched sparse_matvec {launches} "
+                                 f"times, not {2 * k + 1}")
+    check(ferr < SPARSE_STOL, f"sparse fsvd sigma error {ferr:.3e}")
+    again, wall2 = timed(lambda: factorize(S, spec, generator=gen_f()))
+    check(torch.equal(fact.s, again.s), "sparse fsvd sigma differs bitwise "
+                                        "on a rerun")
+    print(f"phase 6: fsvd rerun wall {wall2:.3f} s, sigma bitwise equal",
+          flush=True)
+
+    auto_spec = SVDSpec(method="auto", rank=R_WANT, backend="pallas")
+    spm.reset_launches()
+    auto, wall3 = timed(lambda: factorize(S, auto_spec, generator=gen_f()))
+    auto_launches = spm.LAUNCHES["sparse_matvec"]
+    aerr = float((auto.s.double() - s_true[:R_WANT]).abs().max()) / smax
+    # the same solve behind a counting wrapper (which "auto" would not
+    # see as sparse): each block product must be one launch
+    guard = counting_op(S)
+    spm.reset_launches()
+    counted = factorize(guard, auto_spec.replace(method=auto.method),
+                        generator=gen_f())
+    touches = sum(guard.counts.values())
+    print(f"phase 6: auto -> {auto.method} wall {wall3:.3f} s, block passes "
+          f"{int(auto.iterations)}, sigma error {aerr:.3e} (bound "
+          f"{SPARSE_STOL}), sparse_matvec launches {auto_launches} for "
+          f"{touches} operator products", flush=True)
+    check(auto.method == "fsvd_blocked", f"auto picked {auto.method}")
+    check(auto_launches == spm.LAUNCHES["sparse_matvec"] == touches,
+          "a block product was not one sparse_matvec launch")
+    check(torch.equal(auto.s, counted.s), "fsvd_blocked sigma differs "
+                                          "bitwise on a rerun")
+    check(aerr < SPARSE_STOL, f"sparse fsvd_blocked sigma error {aerr:.3e}")
+
+    est, wall4 = timed(lambda: estimate_rank(
+        S, SVDSpec(max_iters=RANK_ITERS, backend="pallas"),
+        generator=gen_f()))
+    print(f"phase 6: estimate_rank wall {wall4:.3f} s, rank {int(est)}, GK "
+          f"iterations {int(est.iterations)}", flush=True)
+    check(int(est) == RANK, f"estimate_rank returned {int(est)}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 6: peak device memory over the solves {peak / GIB:.2f} "
+          f"GiB (bound {SPARSE_PEAK} GiB)", flush=True)
+    check(peak < SPARSE_PEAK * GIB, f"sparse peak {peak / GIB:.2f} GiB")
+
+    rows = []
+    vb = S.ell[0].element_size()
+    for name, (vals, cols, nx) in packs.items():
+        csr = csr_of_pack(vals, cols)
+        ny = vals.shape[0]
+        for b in (1, 20):
+            X = torch.randn(nx, b, generator=gen, device=DEV)
+            if b == 1:
+                x = X[:, 0].contiguous()
+                lib = (lambda csr=csr, x=x: csr @ x)
+            else:
+                x = X
+                lib = (lambda csr=csr, x=x: torch.sparse.mm(csr, x))
+            nbytes = nnz * (vb + 4) + 4 * b * (nx + ny)
+            row = time_row(
+                f"sparse_matvec {name} b={b}",
+                lambda v=vals, c=cols, x=x: spm.sparse_matvec(v, c, x),
+                lambda v=vals, c=cols, x=x: ref.sparse_matvec(v, c, x), lib,
+                nbytes, 2 * nnz * b, f"({ny} rows x L {vals.shape[1]}, "
+                f"x {nx}x{b}, f32)", phase=6)
+            row["call"] = f"{name} b={b}"
+            rows.append(row)
+        del csr
+    # the row of the kernels line: the GK half-steps (b = 1, both packs),
+    # 400 of the fsvd solve's 401 launches, as the mean per launch
+    half = [r for r in rows if r["call"].endswith("b=1")]
+    out = {key: sum(r[key] for r in half) / len(half)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["bound_by"] = "bytes"
+    out["calls"] = [{k: r[k] for k in ("call", "ms", "plain_ms",
+                                       "library_ms", "bound_ms")}
+                    for r in rows]
+    return launches, err, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -715,6 +1203,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=80_000)
     ap.add_argument("--m64", type=int, default=20_000)
     ap.add_argument("--n64", type=int, default=16_000)
+    # the Netflix Prize rating matrix: 480,189 users x 17,770 movies
+    ap.add_argument("--sm", type=int, default=480_189)
+    ap.add_argument("--sn", type=int, default=17_770)
     args = ap.parse_args(argv)
 
     import torch
@@ -743,12 +1234,21 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=DEV).manual_seed(args.seed + 2)
         errs = phase_kernels(gen, A)
         errs.update(phase_new_kernels(gen, A))
-        launches, peak3 = phase_main(A, s_true, args.seed)
+        phase_slice3_kernels(gen)
+        launches, peak3, fact = phase_main(A, s_true, args.seed)
+        update_launches, _, _ = phase_update(fact, args.seed)
+        del fact
         launches["sketch_matmat"] = phase_sketch(A, s_true, args.seed, peak3)
         times = phase_times(A, args.seed)
         times.update(phase_times_new(A, args.seed))
+        # the counting wrappers of phase 4 are classes made in a function,
+        # so reference cycles keep their operand (A) until a collection
         del A, s_true
+        gc.collect()
         torch.cuda.empty_cache()
+        (launches["lowrank_matmul"], errs["lowrank_matmul"],
+         times["lowrank_matmul"]) = phase_materialize(args.seed, args.m,
+                                                      args.n)
         # the matvecs' main path is the f64 leg: its run gives their
         # launches, errors and times; the f32 1e5 x 8e4 figures stay
         # beside them for the comparison with mv_qtv / rmv_qtv
@@ -762,6 +1262,9 @@ def main(argv=None) -> int:
         launches.update(f64_launches)
         errs.update(f64_errs)
         times.update(f64_times)
+        torch.cuda.empty_cache()
+        (launches["sparse_matvec"], errs["sparse_matvec"],
+         times["sparse_matvec"]) = phase_sparse(args.seed, args.sm, args.sn)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -779,6 +1282,12 @@ def main(argv=None) -> int:
         if name in MATVECS:
             row["shape"] = f"{args.m64}x{args.n64} f64"
             row["f32_main"] = f32_main[name]
+        if name == "lowrank_matmul":
+            row["shape"] = f"{args.m}x{args.n} r={R_WANT}"
+            row["launches_update"] = update_launches
+        if name == "sparse_matvec":
+            row["shape"] = f"{args.sm}x{args.sn}, {RANK} blocks"
+            row["calls"] = times[name]["calls"]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(card)

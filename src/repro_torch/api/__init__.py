@@ -9,7 +9,11 @@
 
 Ported methods: ``fsvd``, ``rsvd``, ``rbk``, ``gnystrom`` and
 ``fsvd_blocked``; ``fsvd_sharded`` raises ``NotImplementedError`` naming
-its ``ROADMAP.md`` row.  The plan cache and sessions of ``repro.api`` are
+its ``ROADMAP.md`` row.  Operands: dense tensors and every operator of
+``core.operators`` (sparse, Kronecker, low-rank, sums, scalings,
+transposes, Gram).  The rank-k update (``update_factorization``,
+``downdate_rows``, ``downdate_cols``) revises a factorization with zero
+Krylov iterations.  The plan cache and sessions of ``repro.api`` are
 later slices.
 """
 from repro_torch.api.callbacks import (CaptureCallback, ConvergenceCallback,
@@ -20,16 +24,21 @@ from repro_torch.api.registry import (available_solvers, get_solver,
 from repro_torch.api.results import Factorization, RankEstimate
 from repro_torch.api.spec import METHODS, SVDSpec
 from repro_torch.core._keys import ImplicitKeyWarning, resolve_generator
-from repro_torch.core.operators import (DenseOp, GramOp, Operator,
-                                        SinglePassOp, TransposedOp,
-                                        as_operator)
+from repro_torch.core.operators import (DenseOp, GramOp, KroneckerOp,
+                                        LowRankOp, Operator, ScaledOp,
+                                        SinglePassOp, SparseOp, SumOp,
+                                        TransposedOp, as_operator)
+from repro_torch.core.update import (downdate_cols, downdate_rows,
+                                     update_factorization)
 
 __all__ = [
     "SVDSpec", "METHODS", "factorize", "estimate_rank", "resolve_method",
     "ConvergenceInfo", "ConvergenceCallback", "RecordingCallback",
     "CaptureCallback", "Factorization", "RankEstimate",
+    "update_factorization", "downdate_rows", "downdate_cols",
     "register_solver", "get_solver", "available_solvers",
-    "Operator", "DenseOp", "TransposedOp", "GramOp", "SinglePassOp",
+    "Operator", "DenseOp", "LowRankOp", "SumOp", "ScaledOp",
+    "TransposedOp", "SparseOp", "KroneckerOp", "GramOp", "SinglePassOp",
     "as_operator",
     "resolve_generator", "ImplicitKeyWarning",
 ]

@@ -18,8 +18,9 @@ from repro_torch.api.registry import get_solver
 from repro_torch.api.results import Factorization, RankEstimate
 from repro_torch.api.spec import SVDSpec
 from repro_torch.core._keys import resolve_generator
-from repro_torch.core.operators import (GramOp, Operator, TransposedOp,
-                                        as_operator)
+from repro_torch.core.operators import (GramOp, KroneckerOp, Operator,
+                                        ScaledOp, SparseOp, SumOp,
+                                        TransposedOp, as_operator)
 from repro_torch.core.rank import numerical_rank
 
 __all__ = ["factorize", "estimate_rank", "resolve_method"]
@@ -29,18 +30,25 @@ _AUTO_SKETCH_TOL = 1e-4
 
 
 def _is_matrix_free(op) -> bool:
-    if isinstance(op, GramOp):
+    """True when materializing ``op`` densely would defeat its structure
+    (sparse, Kronecker and Gram operands, through transposes, scalings
+    and sums): "auto" then picks the streaming blocked solver."""
+    if isinstance(op, (SparseOp, KroneckerOp, GramOp)):
         return True
     if isinstance(op, TransposedOp):
         return _is_matrix_free(op.inner)
+    if isinstance(op, ScaledOp):
+        return _is_matrix_free(op.op)
+    if isinstance(op, SumOp):
+        return any(_is_matrix_free(t) for t in op.terms)
     return False
 
 
 def resolve_method(spec: SVDSpec, like: Any = None) -> str:
     """Resolve ``method="auto"`` under the reference's rule
-    (``repro.api.plan.resolve_method``) for the operators ported so far:
-    an operand flagged ``single_pass_only`` → gnystrom, matrix-free
-    operands → fsvd_blocked, and dense operands → rsvd when
+    (``repro.api.plan.resolve_method``, less its sharded branch): an
+    operand flagged ``single_pass_only`` → gnystrom, matrix-free operands
+    → fsvd_blocked, and other operands → rsvd when
     ``power_iters > 0`` or ``tol >= 1e-4``, else fsvd."""
     if spec.method != "auto":
         return spec.method

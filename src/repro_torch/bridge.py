@@ -1,9 +1,10 @@
 """State carried across from the reference package, as numpy arrays.
 
 The parity tests run ``repro`` (JAX) and ``repro_torch`` on the same
-inputs.  These functions turn what the reference holds — an operand, a
-start vector, a sketch test matrix, a ``Factorization`` and an
-``SVDSpec`` — into the port's objects, given as numpy arrays
+inputs.  These functions turn what the reference holds — an operand (dense,
+sparse COO triplets, low-rank factors, or any reference operator), a
+matrix-free problem, a start vector, a sketch test matrix, a
+``Factorization`` and an ``SVDSpec`` — into the port's objects, given as numpy arrays
 (``np.asarray`` of a JAX array) or as objects with the reference's field
 names.  Nothing here imports JAX.
 """
@@ -18,13 +19,79 @@ import torch
 from repro_torch._device import to_tensor, torch_dtype
 from repro_torch.api.results import Factorization
 from repro_torch.api.spec import SVDSpec
+from repro_torch.core import operators as ops
 from repro_torch.core.operators import DenseOp
 from repro_torch.core.sketch import GaussianSketch, SparseSignSketch
+from repro_torch.data.synthetic import MatrixFreeProblem
 
 
 def operand(A, *, backend: str = "xla", device=None) -> DenseOp:
     """The reference's dense operand ``A`` (m, n) as a :class:`DenseOp`."""
     return DenseOp(to_tensor(np.asarray(A), device=device), backend=backend)
+
+
+def sparse_operand(data, indices, spshape, *, backend: str = "xla",
+                   device=None) -> ops.SparseOp:
+    """A reference ``SparseOp``'s COO triplets (``data`` (nnz,),
+    ``indices`` (nnz, 2), ``spshape``) as the port's, in the same entry
+    order, so both packages build the same ELL pack."""
+    return ops.SparseOp.from_coo(
+        to_tensor(np.asarray(data), device=device),
+        to_tensor(np.asarray(indices, np.int32), device=device),
+        tuple(int(d) for d in spshape), backend=backend)
+
+
+def lowrank(U, s, Vt, extra=(), scale=1.0, *, device=None) -> ops.LowRankOp:
+    """A reference ``LowRankOp``'s fields as the port's."""
+    def arr(x):
+        return to_tensor(np.asarray(x), device=device)
+    sc = scale if isinstance(scale, (int, float)) else arr(scale)
+    return ops.LowRankOp(arr(U), arr(s), arr(Vt),
+                         extra=tuple((arr(L), arr(R)) for L, R in extra),
+                         scale=sc)
+
+
+def operator(ref: Any, *, backend=None, device=None) -> ops.Operator:
+    """Any reference operator (``DenseOp``, ``SparseOp``, ``LowRankOp``,
+    ``KroneckerOp``, ``SumOp``, ``ScaledOp``, ``TransposedOp``, ``GramOp``,
+    ``SinglePassOp``), read by its class name and fields, as the port's.
+    ``backend`` overrides the dense and sparse operators' own."""
+    kind = type(ref).__name__
+
+    def sub(x):
+        return operator(x, backend=backend, device=device)
+
+    if kind == "DenseOp":
+        return operand(ref.A, backend=backend or ref.backend, device=device)
+    if kind == "SparseOp":
+        return sparse_operand(ref.data, ref.indices, ref.spshape,
+                              backend=backend or ref.backend, device=device)
+    if kind == "LowRankOp":
+        return lowrank(ref.U, ref.s, ref.Vt, ref.extra, ref.scale,
+                       device=device)
+    if kind == "KroneckerOp":
+        return ops.KroneckerOp(sub(ref.a), sub(ref.b))
+    if kind == "SumOp":
+        return ops.SumOp(tuple(sub(t) for t in ref.terms))
+    if kind == "ScaledOp":
+        alpha = ref.alpha if isinstance(ref.alpha, (int, float)) else \
+            float(np.asarray(ref.alpha))
+        return ops.ScaledOp(alpha, sub(ref.op))
+    if kind == "TransposedOp":
+        return ops.TransposedOp(sub(ref.inner))
+    if kind == "GramOp":
+        return ops.GramOp(sub(ref.inner), ref.side)
+    if kind == "SinglePassOp":
+        return ops.SinglePassOp(sub(ref.inner))
+    raise TypeError(f"no port of a reference {kind}")
+
+
+def problem(ref: Any, *, backend=None, device=None) -> MatrixFreeProblem:
+    """A reference ``MatrixFreeProblem`` (``op``, ``dense``) as the
+    port's."""
+    return MatrixFreeProblem(
+        operator(ref.op, backend=backend, device=device),
+        to_tensor(np.asarray(ref.dense), device=device))
 
 
 def start_vector(q1, *, device=None,

@@ -1,4 +1,4 @@
-"""Operator protocol: the slice of ``repro.core.operators`` the main path uses.
+"""Operator protocol and algebra: counterpart of ``repro.core.operators``.
 
 The paper's algorithms touch A only through ``A @ p`` / ``Aᵀ @ q``.  Each
 operator is a frozen dataclass exposing ``shape``, ``dtype``, ``device``,
@@ -11,16 +11,24 @@ the block forms and the one-sweep ``sketch_pass``:
     CUDA kernels of ``kernels.gk_step`` (its fused matvecs for a float64
     operand) and ``sketch_pass`` through ``kernels.sketch_matvec``;
     ``"xla"`` composes plain torch ops.
-  * ``TransposedOp(inner)`` — ``Aᵀ`` without a stored transpose.
+  * ``LowRankOp(U, s, Vt, extra=..., scale=...)`` — ``scale · (U diag(s)
+    Vt + Σ L_i R_i)``, never materialized.
+  * ``SumOp``, ``ScaledOp``, ``TransposedOp`` — closure of the algebra
+    under ``A + B``, ``alpha * A`` and ``A.T``.
+  * ``SparseOp`` — COO triplets; ``backend="pallas"`` packs them into ELL
+    rows for both directions once and runs every matvec and block through
+    the CUDA kernel of ``kernels.sparse_matvec`` (a block is one launch);
+    ``"xla"`` multiplies a torch sparse COO tensor.
+  * ``KroneckerOp(a, b)`` — ``a ⊗ b`` through ``(A ⊗ B) vec(X) =
+    vec(A X Bᵀ)`` (row-major vec); the product is never materialized.
   * ``GramOp(inner, side)`` — ``AᵀA`` / ``AAᵀ`` applied as two matvecs.
   * ``SinglePassOp(inner)`` — marks an operand that may be swept once.
-
-The sparse, Kronecker, low-rank, sum and scaled operators are a later
-slice (``ROADMAP.md`` Queue 1 item 5).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Any, Tuple
 
 import torch
 
@@ -116,6 +124,14 @@ class Operator:
     def device(self) -> torch.device:
         raise NotImplementedError
 
+    @property
+    def m(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.shape[1]
+
     def mv(self, p: Tensor) -> Tensor:
         raise NotImplementedError
 
@@ -159,9 +175,48 @@ class Operator:
         composes the block forms on the densified (panel-sized) tests."""
         return self.matmat(omega.dense()), self.rmatmat(psi.dense())
 
+    def to_dense(self) -> Tensor:
+        """Materialize (tests and small operands only)."""
+        return self.matmat(torch.eye(self.n, dtype=self.dtype,
+                                     device=self.device))
+
+    # --- algebra ------------------------------------------------------
     @property
     def T(self) -> "Operator":
         return TransposedOp(self)
+
+    def __matmul__(self, x):
+        if isinstance(x, Operator):
+            return NotImplemented
+        x = to_tensor(x, device=self.device)
+        return self.mv(x) if x.dim() == 1 else self.matmat(x)
+
+    def _check_same_shape(self, other: "Operator") -> "Operator":
+        if tuple(self.shape) != tuple(other.shape):
+            raise ValueError(
+                f"operator shapes disagree: {tuple(self.shape)} + "
+                f"{tuple(other.shape)}")
+        return other
+
+    def _term(self, other) -> "Operator":
+        return self._check_same_shape(as_operator(other, device=self.device))
+
+    def __add__(self, other):
+        return SumOp((self, self._term(other)))
+
+    def __radd__(self, other):
+        return SumOp((self._term(other), self))
+
+    def __sub__(self, other):
+        return SumOp((self, ScaledOp(-1.0, self._term(other))))
+
+    def __mul__(self, alpha):
+        return ScaledOp(alpha, self)
+
+    __rmul__ = __mul__
+
+    def __neg__(self):
+        return ScaledOp(-1.0, self)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -239,6 +294,9 @@ class DenseOp(Operator):
     def rmatmat(self, Q):
         return promote_mm(self.A.T, Q)
 
+    def to_dense(self):
+        return self.A
+
     def sketch_pass(self, omega, psi):
         if self.backend == "pallas":
             # both directions through the sketch kernel: (A Ω)ᵀ = Ωᵀ Aᵀ and
@@ -246,6 +304,158 @@ class DenseOp(Operator):
             # place by the kernel (never copied).
             return omega.tapply(self.A.T).T, psi.tapply(self.A).T
         return Operator.sketch_pass(self, omega, psi)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LowRankOp(Operator):
+    """``scale · (U diag(s) Vt + Σ_i L_i R_i)`` — never materialized.
+
+    ``extra`` is a tuple of (L_i (m, k_i), R_i (k_i, n)) addend factor
+    pairs: e.g. ``W − eta Z`` (a manifold point minus a tangent step), or
+    a rank-k drift for ``core.update``.  Every factor goes to U's device
+    (U itself, if not a tensor, to the CUDA card).
+    """
+
+    U: Tensor                     # (m, r)
+    s: Tensor                     # (r,)
+    Vt: Tensor                    # (r, n)
+    extra: Tuple[Tuple[Tensor, Tensor], ...] = ()
+    scale: Any = 1.0              # python scalar or 0-d tensor
+
+    def __post_init__(self):
+        U = to_tensor(self.U)
+        dev = U.device
+        object.__setattr__(self, "U", U)
+        object.__setattr__(self, "s", to_tensor(self.s, device=dev))
+        object.__setattr__(self, "Vt", to_tensor(self.Vt, device=dev))
+        object.__setattr__(self, "extra", tuple(
+            (to_tensor(L, device=dev), to_tensor(R, device=dev))
+            for L, R in self.extra))
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.U.shape[0], self.Vt.shape[1])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.U.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.U.device
+
+    def matmat(self, V):
+        y = promote_mm(self.U, self.s[:, None] * promote_mm(self.Vt, V))
+        for L, R in self.extra:
+            y = y + promote_mm(L, promote_mm(R, V))
+        return self.scale * y
+
+    def rmatmat(self, Q):
+        y = promote_mm(self.Vt.T, self.s[:, None] * promote_mm(self.U.T, Q))
+        for L, R in self.extra:
+            y = y + promote_mm(R.T, promote_mm(L.T, Q))
+        return self.scale * y
+
+    def mv(self, p):
+        return self.matmat(p[:, None])[:, 0]
+
+    def rmv(self, q):
+        return self.rmatmat(q[:, None])[:, 0]
+
+    @property
+    def T(self):
+        return LowRankOp(self.Vt.T, self.s, self.U.T,
+                         extra=tuple((R.T, L.T) for L, R in self.extra),
+                         scale=self.scale)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SumOp(Operator):
+    """A + B (+ ...): every product distributes over the terms, summed in
+    term order."""
+
+    terms: Tuple[Operator, ...]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.terms[0].shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return functools.reduce(torch.promote_types,
+                                (t.dtype for t in self.terms))
+
+    @property
+    def device(self) -> torch.device:
+        return self.terms[0].device
+
+    def _sum(self, kind: str, x: Tensor) -> Tensor:
+        y = getattr(self.terms[0], kind)(x)
+        for t in self.terms[1:]:
+            y = y + getattr(t, kind)(x)
+        return y
+
+    def mv(self, p):
+        return self._sum("mv", p)
+
+    def rmv(self, q):
+        return self._sum("rmv", q)
+
+    def matmat(self, V):
+        return self._sum("matmat", V)
+
+    def rmatmat(self, Q):
+        return self._sum("rmatmat", Q)
+
+    @property
+    def T(self):
+        return SumOp(tuple(t.T for t in self.terms))
+
+    def __add__(self, other):     # flatten nested sums
+        other = self._term(other)
+        more = other.terms if isinstance(other, SumOp) else (other,)
+        return SumOp(self.terms + more)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ScaledOp(Operator):
+    """alpha · A (alpha a python scalar or a 0-d tensor)."""
+
+    alpha: Any
+    op: Operator
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.op.shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.op.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.op.device
+
+    def mv(self, p):
+        return self.alpha * self.op.mv(p)
+
+    def rmv(self, q):
+        return self.alpha * self.op.rmv(q)
+
+    def matmat(self, V):
+        return self.alpha * self.op.matmat(V)
+
+    def rmatmat(self, Q):
+        return self.alpha * self.op.rmatmat(Q)
+
+    @property
+    def T(self):
+        return ScaledOp(self.alpha, self.op.T)
+
+    def __mul__(self, a):
+        return ScaledOp(a * self.alpha, self.op)
+
+    __rmul__ = __mul__
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -296,6 +506,201 @@ class TransposedOp(Operator):
     @property
     def T(self):
         return self.inner
+
+
+def _spmm(S: Tensor, X: Tensor) -> Tensor:
+    """``S @ X`` for a sparse COO ``S`` and a vector or block ``X``, under
+    JAX's type promotion."""
+    dt = torch.promote_types(S.dtype, X.dtype)
+    S = S if S.dtype == dt else S.to(dt)
+    Y = torch.sparse.mm(S, (X[:, None] if X.dim() == 1 else X).to(dt))
+    return Y[:, 0] if X.dim() == 1 else Y
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SparseOp(Operator):
+    """Sparse (m, n) matrix in COO triplet form — never densified on the
+    solver path (the GK / F-SVD / rank cores only ask for products).
+
+    ``data`` (nnz,) and ``indices`` (nnz, 2) of [row, col] follow the BCOO
+    convention of the reference: duplicate coordinates sum.
+
+    ``backend="pallas"`` packs the triplets into ELL rows for A and for Aᵀ
+    once, at construction, on the data's device (unless ``ell`` already
+    holds the packs), and runs mv, rmv and the block products through the
+    CUDA kernel of ``kernels.sparse_matvec``: a block of b columns is one
+    launch.  ``backend="xla"`` multiplies a torch sparse COO tensor, built
+    on first use.
+    """
+
+    data: Tensor                  # (nnz,)
+    indices: Tensor               # (nnz, 2) int — [row, col]
+    spshape: Tuple[int, int] = (0, 0)
+    ell: Any = None               # ((m,L) vals, (m,L) cols, (n,L') vals,
+                                  #  (n,L') rows) — the pallas pack, or None
+    backend: str = "xla"
+
+    def __post_init__(self):
+        if self.backend not in _BACKENDS:
+            raise ValueError(
+                f"backend must be one of {_BACKENDS}, got {self.backend!r}")
+        object.__setattr__(self, "spshape",
+                           tuple(int(d) for d in self.spshape))
+        if self.backend == "pallas" and self.ell is None:
+            from repro_torch.kernels.sparse_matvec import ell_pack
+            m, n = self.spshape
+            object.__setattr__(self, "ell", (
+                ell_pack(self.data, self.indices, (m, n))
+                + ell_pack(self.data, self.indices.flip(1), (n, m))))
+
+    # --- constructors -------------------------------------------------
+    @classmethod
+    def from_coo(cls, data, indices, spshape, *, backend: str = "xla",
+                 device=None) -> "SparseOp":
+        """From COO triplets (tensors keep their device; numpy arrays go
+        to ``device``, by default the CUDA card)."""
+        data = to_tensor(data, device=device)
+        indices = to_tensor(indices, device=data.device)
+        return cls(data, indices, tuple(spshape), backend=backend)
+
+    @classmethod
+    def from_coo_tensor(cls, S: Tensor, *,
+                        backend: str = "xla") -> "SparseOp":
+        """From a torch sparse COO tensor (the counterpart of the
+        reference's ``from_bcoo``); an uncoalesced tensor keeps its
+        duplicate entries, which sum."""
+        return cls.from_coo(S._values(), S._indices().T.to(torch.int32),
+                            tuple(S.shape), backend=backend)
+
+    @classmethod
+    def fromdense(cls, A, *, backend: str = "xla",
+                  device=None) -> "SparseOp":
+        """The nonzeros of a dense matrix in row-major order (BCOO's
+        ``fromdense``)."""
+        A = to_tensor(A, device=device)
+        idx = torch.nonzero(A).to(torch.int32)
+        data = A[idx[:, 0].long(), idx[:, 1].long()]
+        return cls.from_coo(data, idx, tuple(A.shape), backend=backend)
+
+    # --- protocol -----------------------------------------------------
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.spshape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def nnz(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def density(self) -> float:
+        m, n = self.spshape
+        return self.nnz / max(m * n, 1)
+
+    @functools.cached_property
+    def _coo(self) -> Tensor:
+        return torch.sparse_coo_tensor(self.indices.T.long(), self.data,
+                                       self.spshape,
+                                       check_invariants=True).coalesce()
+
+    @functools.cached_property
+    def _coo_t(self) -> Tensor:
+        return torch.sparse_coo_tensor(self.indices.flip(1).T.long(),
+                                       self.data, self.spshape[::-1],
+                                       check_invariants=True).coalesce()
+
+    def _forward(self, X):
+        if self.backend == "pallas":
+            from repro_torch.kernels import ops as kops
+            return kops.sparse_matvec(self.ell[0], self.ell[1], X)
+        return _spmm(self._coo, X)
+
+    def _backward(self, X):
+        if self.backend == "pallas":
+            from repro_torch.kernels import ops as kops
+            return kops.sparse_matvec(self.ell[2], self.ell[3], X)
+        return _spmm(self._coo_t, X)
+
+    mv = matmat = _forward
+    rmv = rmatmat = _backward
+
+    def to_dense(self):
+        return self._coo.to_dense()
+
+    @property
+    def T(self):
+        ell = None if self.ell is None else \
+            (self.ell[2], self.ell[3], self.ell[0], self.ell[1])
+        return SparseOp(self.data, self.indices.flip(1), self.spshape[::-1],
+                        ell=ell, backend=self.backend)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class KroneckerOp(Operator):
+    """``a ⊗ b`` — shape (m_a m_b, n_a n_b), never materialized.
+
+    Products use ``(A ⊗ B) vec(X) = vec(A X Bᵀ)`` with a row-major vec
+    (``torch.kron``'s index order ``[i·m_b + k, j·n_b + l]``), so a block
+    of b columns costs one block product with each factor.  Factors are
+    operators themselves: ``KroneckerOp(SparseOp(...), DenseOp(...))``
+    composes.
+    """
+
+    a: Operator
+    b: Operator
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        (ma, na), (mb, nb) = self.a.shape, self.b.shape
+        return (ma * mb, na * nb)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.promote_types(self.a.dtype, self.b.dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return self.a.device
+
+    @staticmethod
+    def _apply(fa, fb, X, n_a, n_b, m_a):
+        """vec(A X_c Bᵀ) for every column c of the (n_a n_b, w) block X:
+        ``fa`` / ``fb`` are the factors' block products."""
+        w = X.shape[1]
+        AX = fa(X.reshape(n_a, n_b * w))                  # (m_a, n_b w)
+        T = AX.reshape(m_a, n_b, w).permute(1, 0, 2).reshape(n_b, m_a * w)
+        BT = fb(T)                                        # (m_b, m_a w)
+        m_b = BT.shape[0]
+        return BT.reshape(m_b, m_a, w).permute(1, 0, 2).reshape(
+            m_a * m_b, w)
+
+    def matmat(self, V):
+        (ma, na), (_, nb) = self.a.shape, self.b.shape
+        return self._apply(self.a.matmat, self.b.matmat, V, na, nb, ma)
+
+    def rmatmat(self, Q):
+        (ma, na), (mb, _) = self.a.shape, self.b.shape
+        return self._apply(self.a.rmatmat, self.b.rmatmat, Q, ma, mb, na)
+
+    def mv(self, x):
+        return self.matmat(x[:, None])[:, 0]
+
+    def rmv(self, y):
+        return self.rmatmat(y[:, None])[:, 0]
+
+    def to_dense(self):
+        return torch.kron(self.a.to_dense(), self.b.to_dense())
+
+    @property
+    def T(self):
+        return KroneckerOp(self.a.T, self.b.T)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -381,6 +786,9 @@ class SinglePassOp(Operator):
     def sketch_pass(self, omega, psi):
         return self.inner.sketch_pass(omega, psi)
 
+    def to_dense(self):
+        return self.inner.to_dense()
+
     @property
     def T(self):
         return SinglePassOp(self.inner.T)
@@ -389,10 +797,11 @@ class SinglePassOp(Operator):
 def as_operator(A, *, backend: str = "xla", device=None) -> Operator:
     """Coerce to the operator protocol.
 
-    Operators (and look-alikes with ``mv`` and ``rmv``) pass through;
-    tensors wrap into a :class:`DenseOp` on their own device (or on
-    ``device``); anything else (numpy arrays) goes to ``device``, by
-    default the CUDA card.
+    Operators (and look-alikes with ``mv`` and ``rmv``, such as
+    ``core.linop.LinOp``) pass through; a torch sparse COO tensor wraps
+    into a :class:`SparseOp`; dense tensors wrap into a :class:`DenseOp`
+    on their own device (or on ``device``); anything else (numpy arrays)
+    goes to ``device``, by default the CUDA card.
     """
     if isinstance(A, Operator):
         return A
@@ -401,4 +810,15 @@ def as_operator(A, *, backend: str = "xla", device=None) -> Operator:
     if backend not in _BACKENDS:
         raise ValueError(
             f"backend must be one of {_BACKENDS}, got {backend!r}")
+    if isinstance(A, Tensor) and A.layout == torch.sparse_coo:
+        if device is not None:
+            A = A.to(device)
+        return SparseOp.from_coo_tensor(A, backend=backend)
     return DenseOp(to_tensor(A, device=device), backend=backend)
+
+
+def to_dense(op) -> Tensor:
+    """Materialize any protocol object (tests and small operands only)."""
+    if isinstance(op, Operator):
+        return op.to_dense()
+    return op.matmat(torch.eye(op.n, dtype=op.dtype, device=op.device))

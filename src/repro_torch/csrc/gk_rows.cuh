@@ -1,5 +1,6 @@
-// Loops of the GEMV-shaped kernels of gk_step.cu (sketch_matvec.cu uses
-// only the element loads ld()).
+// Loops of the GEMV-shaped kernels of gk_step.cu (sketch_matvec.cu,
+// sparse_matvec.cu and lowrank_update.cu use only the element loads ld()
+// and the block shape).
 //
 //  * row_dot: one warp computes the dot product of a row of A with a
 //    vector, lanes on adjacent addresses, 16-byte vector loads where the

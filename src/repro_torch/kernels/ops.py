@@ -10,17 +10,23 @@ Counterpart of ``repro.kernels.ops``:
   * ``matvec_fused`` / ``rmatvec_fused`` (``DenseOp.mv_fused`` /
     ``rmv_fused``): vectors and the scalar of any float dtype, cast to
     f32 as the reference wrapper does;
-  * ``sketch_matmat`` (``SparseSignSketch.tapply``).
+  * ``sketch_matmat`` (``SparseSignSketch.tapply``);
+  * ``sparse_matvec`` (``SparseOp(backend="pallas")`` mv/rmv/matmat/
+    rmatmat): x or a block X of any float dtype, cast to f32;
+  * ``lowrank_matmul`` (``core.update``: the update's core outer product
+    and ``materialize_lowrank``).
 
-The reference pads A, the sketch rows and the block to tile multiples
-first; the CUDA kernels mask ragged edges themselves, so nothing here pads
-or copies an operand.
+The reference pads A, the sketch rows, the ELL pack, the low-rank
+factors and the block to tile multiples first; the CUDA kernels mask
+ragged edges themselves, so nothing here pads or copies an operand.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import gk_step as gs
+from repro_torch.kernels import sparse_matvec as spm
+from repro_torch.kernels.lowrank_update import lowrank_matmul  # noqa: F401
 from repro_torch.kernels.sketch_matvec import sketch_matmat  # noqa: F401
 
 Tensor = torch.Tensor
@@ -43,6 +49,12 @@ def matvec_fused(A: Tensor, p: Tensor, y: Tensor, alpha) -> Tensor:
 def rmatvec_fused(A: Tensor, q: Tensor, y: Tensor, beta) -> Tensor:
     """v = Aᵀ q − β y (f32).  A (m, n) f64/f32/bf16; q (m,); y (n,)."""
     return gs.rmatvec_fused(A, _f32(q), _f32(y), _f32_scalar(beta))
+
+
+def sparse_matvec(vals: Tensor, cols: Tensor, x: Tensor) -> Tensor:
+    """y = A x for A in padded-ELL rows (``sparse_matvec.ell_pack``):
+    x (n,) → (m,) f32, or a block X (n, b) → (m, b) f32 in one launch."""
+    return spm.sparse_matvec(vals, cols, _f32(x))
 
 
 def gk_step_fused(A: Tensor, p: Tensor, y: Tensor, alpha, Q: Tensor,

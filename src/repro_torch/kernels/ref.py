@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.kernels.ref``: every function upcasts its inputs
 to f32 and accumulates in f32, as the kernels do.  The kernel wrappers
-(``kernels.gk_step``, ``kernels.sketch_matvec``) call these for CPU
+(``kernels.gk_step``, ``kernels.sketch_matvec``,
+``kernels.sparse_matvec``, ``kernels.lowrank_update``) call these for CPU
 tensors only.
 """
 from __future__ import annotations
@@ -61,6 +62,19 @@ def sketch_matmat(signs: Tensor, idx: Tensor, X: Tensor) -> Tensor:
     """Y = Tᵀ X for T in the sparse-sign ELL pack (signs / idx (d, ζ),
     X (N, b)): sketch row i sums its ζ signed source rows of X."""
     return torch.einsum("ds,dsb->db", signs.to(F32), X.to(F32)[idx.long()])
+
+
+def sparse_matvec(vals: Tensor, cols: Tensor, X: Tensor) -> Tensor:
+    """Y = A X for A in padded-ELL rows (vals / cols (m, L)), X (n,) or
+    (n, b): row i sums its slots' values times the gathered rows of X."""
+    g = X.to(F32)[cols.long()]                 # (m, L) or (m, L, b)
+    v = vals.to(F32)
+    return (v * g if X.dim() == 1 else v[..., None] * g).sum(1)
+
+
+def lowrank_matmul(U: Tensor, s: Tensor, Vt: Tensor) -> Tensor:
+    """W = U diag(s) Vᵀ (the low-rank materialization), f32."""
+    return (U.to(F32) * s.to(F32)[None, :]) @ Vt.to(F32)
 
 
 # --- the four stages of the fused pipeline (kernels/gk_step.py) ---------

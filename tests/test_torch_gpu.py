@@ -11,18 +11,26 @@ f32 (the kernel and the plain version differ only in summation order),
 3e-2 where either is stored bf16 (tests/test_kernels.py:151-187).  The
 fused matvecs multiply in f32 whatever A's storage (f64 included), and
 the sketch apply widens bf16 exactly, so both are held at f32 bounds.
+The sparse matvec and the low-rank materialization widen their bf16 and
+f64 inputs to f32 before they multiply, so they too are held at f32
+bounds against their plain versions (which widen the same way).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import SVDSpec, estimate_rank, factorize
+from repro_torch.api import (LowRankOp, SVDSpec, estimate_rank, factorize,
+                             update_factorization)
 from repro_torch.core import sketch as tsketch
-from repro_torch.core.operators import DenseOp
+from repro_torch.core.operators import DenseOp, Operator
+from repro_torch.core.update import materialize_lowrank
+from repro_torch.data.synthetic import make_sparse_problem
 from repro_torch.kernels import gk_step as gs
+from repro_torch.kernels import lowrank_update as klu
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import sketch_matvec as skm
+from repro_torch.kernels import sparse_matvec as spm
 
 pytestmark = pytest.mark.gpu
 
@@ -270,3 +278,169 @@ def test_f64_fsvd_runs_through_the_fused_matvecs(cuda):
     assert gs.LAUNCHES == dict(dict.fromkeys(gs.LAUNCHES, 0),
                                matvec_fused=40, rmatvec_fused=39)
     assert float((got.s - s_true[:8]).abs().max() / s_true[0]) < 5e-4
+
+
+def _sparse(m, n, density, vdt, seed, device):
+    """COO triplets on ``device`` (shuffled, with empty rows and one
+    duplicate) and the dense matrix they sum to, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    A = np.where(rng.random((m, n)) < density, rng.standard_normal((m, n)),
+                 0.0)
+    A[:2] = 0
+    rows, cols = np.nonzero(A)
+    idx = np.stack([rows, cols], 1)
+    idx = np.concatenate([idx, idx[:1]])[rng.permutation(len(rows) + 1)]
+    data = A[idx[:, 0], idx[:, 1]]
+    dense = np.zeros((m, n))
+    np.add.at(dense, (idx[:, 0], idx[:, 1]), data)
+    return (torch.from_numpy(data).to(vdt).to(device),
+            torch.from_numpy(idx.astype(np.int32)).to(device), dense)
+
+
+@pytest.mark.parametrize("m,n,density", [(300, 517, 0.02), (257, 129, 0.1),
+                                         (64, 48, 0.3), (128, 1000, 0.005),
+                                         (40, 5000, 0.5), (3000, 60, 0.4)])
+@pytest.mark.parametrize("b", [1, 5, 20, 40])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16,
+                                 torch.float64])
+def test_sparse_matvec_matches_plain_version(cuda, m, n, density, b, vdt):
+    """Both packs of a ragged matrix (rows of 2500 slots take the block-
+    per-row path), one vector and blocks of 5, 20 and 40 columns: against
+    the plain version, twice bitwise, one launch per call."""
+    data, idx, _ = _sparse(m, n, density, vdt, m + n + b, cuda)
+    for shape, ix in (((m, n), idx), ((n, m), idx.flip(1))):
+        vals, cols = spm.ell_pack(data, ix, shape)
+        X = torch.randn(shape[1], b, device=cuda)
+        if b == 1:
+            X = X[:, 0].contiguous()
+        before = spm.LAUNCHES["sparse_matvec"]
+        got = spm.sparse_matvec(vals, cols, X)
+        assert got.shape == ((shape[0],) if b == 1 else (shape[0], b))
+        _assert_close([got], [ref.sparse_matvec(vals, cols, X)], 1e-5)
+        assert torch.equal(got, spm.sparse_matvec(vals, cols, X))
+        torch.cuda.synchronize()
+        assert spm.LAUNCHES["sparse_matvec"] == before + 2
+
+
+def test_ell_pack_on_the_card_is_the_cpu_pack(cuda):
+    data, idx, _ = _sparse(500, 300, 0.05, torch.float32, 1, cuda)
+    for got, want in zip(spm.ell_pack(data, idx, (500, 300)),
+                         spm.ell_pack(data.cpu(), idx.cpu(), (500, 300))):
+        assert torch.equal(got.cpu(), want)
+
+
+def test_directly_built_pallas_sparse_op_launches_the_kernel(cuda):
+    """SparseOp(data, indices, shape, backend="pallas") without from_coo
+    packs itself and runs mv, rmv and a block through sparse_matvec, one
+    launch each."""
+    from repro_torch.core.operators import SparseOp
+    data, idx, dense = _sparse(300, 200, 0.05, torch.float32, 3, cuda)
+    op = SparseOp(data, idx, (300, 200), backend="pallas")
+    D = torch.from_numpy(dense).float().to(cuda)
+    x, q = torch.randn(200, device=cuda), torch.randn(300, device=cuda)
+    V = torch.randn(200, 20, device=cuda)
+    spm.reset_launches()
+    got = [op.mv(x), op.rmv(q), op.matmat(V)]
+    torch.cuda.synchronize()
+    assert spm.LAUNCHES["sparse_matvec"] == 3
+    _assert_close(got, [D @ x, D.T @ q, D @ V], 1e-5)
+
+
+@pytest.mark.parametrize("m,n,r", [(64, 48, 4), (300, 200, 17),
+                                   (1024, 512, 64), (100, 700, 5),
+                                   (512, 128, 128), (300, 517, 7),
+                                   (257, 129, 7), (127, 383, 7),
+                                   (300, 200, 7), (30, 30, 10), (5, 3, 0)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float64])
+def test_lowrank_matmul_matches_plain_version(cuda, m, n, r, dt):
+    g = torch.Generator(device=cuda).manual_seed(m * n + r)
+    U = torch.randn(m, r, generator=g, device=cuda).to(dt)
+    s = torch.rand(r, generator=g, device=cuda) + 0.5
+    Vt = torch.randn(r, n, generator=g, device=cuda).to(dt)
+    Vview = Vt.T.contiguous().T                    # strided, not copied
+    before = klu.LAUNCHES["lowrank_matmul"]
+    for V in (Vt, Vview):
+        got = klu.lowrank_matmul(U, s, V)
+        _assert_close([got], [ref.lowrank_matmul(U, s, V)], 1e-5)
+        assert torch.equal(got, klu.lowrank_matmul(U, s, V))
+    torch.cuda.synchronize()
+    assert klu.LAUNCHES["lowrank_matmul"] == before + 4
+
+
+class _Touches(Operator):
+    """Counts the block and vector products a solver asks of ``inner``."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, 0
+
+    shape = property(lambda self: self.inner.shape)
+    dtype = property(lambda self: self.inner.dtype)
+    device = property(lambda self: self.inner.device)
+
+    def _touch(self, kind, x):
+        self.calls += 1
+        return getattr(self.inner, kind)(x)
+
+    def mv(self, p):
+        return self._touch("mv", p)
+
+    def rmv(self, q):
+        return self._touch("rmv", q)
+
+    def matmat(self, V):
+        return self._touch("matmat", V)
+
+    def rmatmat(self, Q):
+        return self._touch("rmatmat", Q)
+
+
+@pytest.mark.parametrize("method", ["fsvd", "fsvd_blocked"])
+def test_sparse_solvers_on_the_card(cuda, method):
+    """A sparse operand with backend="pallas": every product the solver
+    asks for is one sparse_matvec launch (a block included), σ within
+    SOLVERS stol of the dense spectrum, and the same bits on a rerun."""
+    prob = make_sparse_problem(torch.Generator(device=cuda).manual_seed(4),
+                               2000, 1500, density=0.05, rank=12,
+                               backend="pallas")
+    s_true = torch.linalg.svdvals(prob.dense.double())
+    op = prob.op
+    spec = SVDSpec(method=method, rank=8, max_iters=60, backend="pallas")
+    touches = _Touches(op)
+    spm.reset_launches()
+    got = factorize(touches, spec,
+                    generator=torch.Generator(cuda).manual_seed(2))
+    assert spm.LAUNCHES["sparse_matvec"] == touches.calls > 0
+    if method == "fsvd":
+        assert touches.calls == 2 * 60 + 1
+    again = factorize(op, spec, generator=torch.Generator(cuda).manual_seed(2))
+    assert torch.equal(got.s, again.s)
+    err = float((got.s.double() - s_true[:8]).abs().max() / s_true[0])
+    assert err < 5e-4                             # SOLVERS[method]["stol"]
+
+
+def test_update_and_materialize_through_the_kernel(cuda):
+    """update_factorization(backend="pallas") launches lowrank_matmul once
+    (the core product) and matches the exact σ of the drifted operator;
+    materialize_lowrank launches it once and matches its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    A = torch.randn(900, 10, generator=g, device=cuda) @ torch.randn(
+        10, 700, generator=g, device=cuda)
+    fact = factorize(A, SVDSpec(method="fsvd", rank=10, max_iters=40),
+                     generator=torch.Generator(cuda).manual_seed(0))
+    C = torch.randn(900, 3, generator=g, device=cuda)
+    Dt = torch.randn(3, 700, generator=g, device=cuda)
+    delta = LowRankOp(C, torch.full((3,), 0.05, device=cuda), Dt)
+    klu.reset_launches()
+    upd = update_factorization(fact, delta, beta=0.9, backend="pallas")
+    assert klu.LAUNCHES["lowrank_matmul"] == 1
+    assert int(upd.iterations) == 0
+    A2 = (0.9 * (fact.U * fact.s[None, :]) @ fact.V.T
+          + materialize_lowrank(delta)).double()
+    s_true = torch.linalg.svdvals(A2)
+    assert float((upd.s.double() - s_true[:10]).abs().max()
+                 / s_true[0]) < 1e-5                # tests/test_update.py GATE
+    klu.reset_launches()
+    W = materialize_lowrank(delta, backend="pallas")
+    assert klu.LAUNCHES["lowrank_matmul"] == 1
+    _assert_close([W], [ref.lowrank_matmul(C, delta.s, Dt)], 1e-5)

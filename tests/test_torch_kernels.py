@@ -12,7 +12,9 @@ kernels themselves are checked on the card by ``tests/test_torch_gpu.py``.
 Tolerances are those of tests/test_kernels.py:151-187: rtol 1e-5 with
 atol 1e-5·max|ref| in f32 (only the summation order differs), 3e-2 where
 A or the basis is stored bf16; the sketch apply is held at the 2e-5 of
-tests/test_kernels.py:271-300.
+tests/test_kernels.py:271-300, the sparse matvec and the low-rank
+materialization at the 2e-4 / 3e-2 of tests/test_kernels.py:60-245.  The
+ELL pack is held bit for bit.
 """
 import ctypes
 import re
@@ -25,14 +27,21 @@ import torch
 
 from repro.core.sketch import make_sketch as ref_make_sketch
 from repro.kernels import gk_step as jgs
+from repro.kernels import sparse_matvec as jspm
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import bridge
+from repro_torch.core.operators import SparseOp
 from repro_torch.kernels import _build
 from repro_torch.kernels import gk_step as gs
+from repro_torch.kernels import lowrank_update as klu
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import sketch_matvec as skm
+from repro_torch.kernels import sparse_matvec as spm
+
+KERNEL_MODULES = {"gk_step": gs, "sketch_matvec": skm, "sparse_matvec": spm,
+                  "lowrank_update": klu}
 
 # GK_STEP_SHAPES of tests/test_kernels.py:136, those within 300 × 520
 # (Pallas interpret mode is slow on the CPU).
@@ -207,7 +216,8 @@ def test_chunk_plan_covers_every_row_once(m, n):
 def test_build_targets_sm90a_with_a_plain_c_interface():
     assert _build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
     assert {"-O3", "-shared", "-fPIC"} <= set(_build.NVCC_FLAGS)
-    for name, module in (("gk_step", gs), ("sketch_matvec", skm)):
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(KERNEL_MODULES)
+    for name, module in KERNEL_MODULES.items():
         lib = _build.library_path(name)
         assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
         # the ctypes signatures agree with the C prototypes in the source
@@ -230,8 +240,7 @@ def test_library_digest_covers_the_shared_header(tmp_path, monkeypatch):
     for f in _build.CSRC.iterdir():
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    before = {n: _build.library_path(n)
-              for n in ("gk_step", "sketch_matvec")}
+    before = {n: _build.library_path(n) for n in KERNEL_MODULES}
     header = tmp_path / "gk_rows.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     for name, path in before.items():
@@ -375,3 +384,210 @@ def test_sketch_matmat_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="different devices"):
         skm.sketch_matmat(sk.signs, sk.idx, torch.zeros(48, 5,
                                                         device="meta"))
+
+
+# --------------------------------------------------------------------------
+# ELL pack and sparse matvec (sparse_matvec): the SparseOp(backend="pallas")
+# products
+# --------------------------------------------------------------------------
+
+# tests/test_kernels.py:214-216
+SPARSE_SHAPES = [(300, 517, 0.02), (257, 129, 0.1), (64, 48, 0.3),
+                 (128, 1000, 0.005)]
+
+
+def _coo(m, n, density, seed, dtype=np.float32):
+    """COO triplets in a shuffled order, with empty rows and a duplicate
+    coordinate, made with numpy and handed to both packages."""
+    rng = np.random.default_rng(seed)
+    A = np.where(rng.random((m, n)) < density,
+                 rng.standard_normal((m, n)), 0.0).astype(dtype)
+    A[:3] = 0                                     # empty rows
+    rows, cols = np.nonzero(A)
+    data = A[rows, cols]
+    idx = np.stack([rows, cols], 1).astype(np.int32)
+    if len(data):                                 # a duplicate of entry 0
+        idx = np.concatenate([idx, idx[:1]])
+        data = np.concatenate([data, data[:1]])
+    order = rng.permutation(len(data))
+    return data[order], idx[order]
+
+
+@pytest.mark.parametrize("m,n,density", SPARSE_SHAPES + [(40, 30, 0.0)])
+def test_ell_pack_matches_reference_bit_for_bit(m, n, density):
+    """The port's torch ell_pack gives the reference's NumPy pack bit for
+    bit, both directions: duplicates keep their slots, empty rows and
+    padding hold (0, column 0)."""
+    data, idx = _coo(m, n, density, m + n)
+    for d, ix, shape in ((data, idx, (m, n)),
+                         (data, idx[:, ::-1].copy(), (n, m))):
+        want_v, want_c = jspm.ell_pack(d, ix, shape)
+        got_v, got_c = spm.ell_pack(torch.from_numpy(d), torch.from_numpy(ix),
+                                    shape)
+        assert got_c.dtype == torch.int32 and got_v.dtype == torch.float32
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+        np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+
+
+@pytest.mark.parametrize("bad", [(0, -1), (0, 40), (-1, 0), (50, 0)])
+def test_ell_pack_rejects_indices_outside_the_shape(bad):
+    """A COO index outside (m, n) raises before any pack is built: the
+    kernel gathers X[cols] unchecked, so ell_pack is where it is caught
+    (SparseOp(backend="pallas") and bridge.sparse_operand pack through
+    it)."""
+    data, idx = _coo(50, 40, 0.2, 2)
+    idx[5] = bad
+    with pytest.raises(ValueError, match="outside the shape"):
+        spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx), (50, 40))
+    with pytest.raises(ValueError, match="outside the shape"):
+        SparseOp.from_coo(data, idx, (50, 40), backend="pallas",
+                          device="cpu")
+    with pytest.raises(ValueError, match=r"\(nnz, 2\)"):
+        spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx[:, :1]),
+                     (50, 40))
+
+
+def test_ell_pack_keeps_the_value_dtype():
+    data, idx = _coo(50, 40, 0.2, 1, np.float64)
+    vals, cols = spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx),
+                              (50, 40))
+    want_v, want_c = jspm.ell_pack(data.astype(np.float32), idx, (50, 40))
+    assert vals.dtype == torch.float64
+    np.testing.assert_array_equal(vals.float().numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(cols.numpy(), np.asarray(want_c))
+
+
+@pytest.mark.parametrize("m,n,density", SPARSE_SHAPES)
+def test_sparse_matvec_matches_reference(m, n, density):
+    """The plain sparse_matvec (the wrapper's CPU path) against the
+    reference's plain version, its Pallas kernel in interpret mode and
+    the dense product, on one vector and on a block."""
+    data, idx = _coo(m, n, density, m * n)
+    jv, jc = jspm.ell_pack(data, idx, (m, n))
+    vals, cols = spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx),
+                              (m, n))
+    A = np.zeros((m, n), np.float64)
+    np.add.at(A, (idx[:, 0], idx[:, 1]), data)
+    x = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+    spm.reset_launches()
+    got = ops.sparse_matvec(vals, cols, torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == (m,)
+    for want in (jref.sparse_matvec(jv, jc, x), jops.sparse_matvec(jv, jc, x),
+                 A @ x):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-4, atol=2e-4)
+    X = np.random.default_rng(2).standard_normal((n, 5)).astype(np.float32)
+    got = ops.sparse_matvec(vals, cols, torch.from_numpy(X).double())
+    assert got.dtype == torch.float32 and got.shape == (m, 5)
+    want = np.stack([np.asarray(jops.sparse_matvec(jv, jc, X[:, j]))
+                     for j in range(5)], 1)        # the reference's vmap
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    assert spm.LAUNCHES["sparse_matvec"] == 0
+
+
+def test_sparse_matvec_empty_rows_and_duplicates():
+    """tests/test_kernels.py:232-242: rows with no entry and duplicate
+    coordinates (sum semantics) survive the pack."""
+    data = torch.tensor([1.0, 2.0, 3.0, 4.0])
+    idx = torch.tensor([[0, 1], [0, 1], [3, 0], [3, 2]], dtype=torch.int32)
+    vals, cols = spm.ell_pack(data, idx, (5, 3))
+    got = ops.sparse_matvec(vals, cols, torch.tensor([1.0, 10.0, 100.0]))
+    np.testing.assert_allclose(got.numpy(), [30.0, 0.0, 0.0, 403.0, 0.0],
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("vdt", [torch.bfloat16, torch.float64])
+def test_sparse_matvec_widens_the_values(vdt):
+    """bf16 and f64 values are multiplied in f32, as the reference kernel
+    casts each tile."""
+    data, idx = _coo(120, 90, 0.1, 3)
+    vals, cols = spm.ell_pack(torch.from_numpy(data).to(vdt),
+                              torch.from_numpy(idx), (120, 90))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        90).astype(np.float32))
+    got = ops.sparse_matvec(vals, cols, x)
+    want = ops.sparse_matvec(vals.float(), cols, x)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_sparse_matvec_wrapper_rejects_what_the_kernel_does_not_take():
+    data, idx = _coo(20, 10, 0.3, 5)
+    vals, cols = spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx),
+                              (20, 10))
+    x = torch.zeros(10)
+    with pytest.raises(TypeError, match="int32"):
+        spm.sparse_matvec(vals, cols.long(), x)
+    with pytest.raises(ValueError, match="shape of vals"):
+        spm.sparse_matvec(vals, cols[:, :1], x)
+    with pytest.raises(TypeError, match="float64, float32 or bfloat16"):
+        spm.sparse_matvec(vals.half(), cols, x)
+    with pytest.raises(TypeError, match="float32"):
+        spm.sparse_matvec(vals, cols, x.double())
+    with pytest.raises(ValueError, match="1-D or 2-D"):
+        spm.sparse_matvec(vals, cols, torch.zeros(10, 2, 2))
+    with pytest.raises(ValueError, match="different devices"):
+        spm.sparse_matvec(vals, cols, torch.zeros(10, device="meta"))
+
+
+# --------------------------------------------------------------------------
+# low-rank materialization (lowrank_update): core.update's kernel
+# --------------------------------------------------------------------------
+
+# tests/test_kernels.py:10 SHAPES (m, n, r) and :84 RAGGED (m, n) at r = 7
+LOWRANK_SHAPES = [(64, 48, 4), (300, 200, 17), (1024, 512, 64),
+                  (100, 700, 5), (512, 128, 128), (300, 517, 7),
+                  (257, 129, 7), (127, 383, 7), (300, 200, 7)]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("m,n,r", LOWRANK_SHAPES)
+def test_lowrank_matmul_matches_reference(m, n, r, dt):
+    """The plain lowrank_matmul against the reference's Pallas kernel in
+    interpret mode (its wrapper pads ragged shapes) and its plain
+    version; bf16 factors rounded once and handed to both."""
+    rng = np.random.default_rng(m * n + r)
+    U = rng.standard_normal((m, r)).astype(np.float32)
+    s = np.abs(rng.standard_normal(r)).astype(np.float32)
+    Vt = rng.standard_normal((r, n)).astype(np.float32)
+    tdt = torch.bfloat16 if dt == "bf16" else torch.float32
+    Ut, Vtt = torch.from_numpy(U).to(tdt), torch.from_numpy(Vt).to(tdt)
+    jU, jVt = (jnp.asarray(Ut.float().numpy()).astype(jnp.bfloat16),
+               jnp.asarray(Vtt.float().numpy()).astype(jnp.bfloat16)) \
+        if dt == "bf16" else (U, Vt)
+    klu.reset_launches()
+    got = ops.lowrank_matmul(Ut, torch.from_numpy(s), Vtt)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert klu.LAUNCHES["lowrank_matmul"] == 0
+    tol = 3e-2 if dt == "bf16" else 2e-4
+    for want in (jops.lowrank_matmul(jU, s, jVt),
+                 jref.lowrank_matmul(jU, s, jVt)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                                   atol=tol)
+
+
+def test_lowrank_matmul_reads_strided_factors():
+    """A transposed view for Vt (the update's Dhat.T) and an f64 s give
+    the contiguous f32 result."""
+    rng = np.random.default_rng(9)
+    U = torch.from_numpy(rng.standard_normal((30, 10)).astype(np.float32))
+    D = torch.from_numpy(rng.standard_normal((30, 10)).astype(np.float32))
+    s = torch.ones(10, dtype=torch.float64)
+    torch.testing.assert_close(ops.lowrank_matmul(U, s, D.T),
+                               ops.lowrank_matmul(U, s.float(),
+                                                  D.T.contiguous()))
+
+
+def test_lowrank_matmul_wrapper_rejects_what_the_kernel_does_not_take():
+    U, s, Vt = torch.zeros(8, 3), torch.ones(3), torch.zeros(3, 5)
+    with pytest.raises(ValueError, match="length 3"):
+        klu.lowrank_matmul(U, s[:2], Vt)
+    with pytest.raises(ValueError, match="rows, expected 3"):
+        klu.lowrank_matmul(U, s, Vt[:2])
+    with pytest.raises(TypeError, match="float64, float32 or bfloat16"):
+        klu.lowrank_matmul(U.half(), s, Vt)
+    with pytest.raises(TypeError, match="float tensor"):
+        klu.lowrank_matmul(U, s.int(), Vt)
+    with pytest.raises(ValueError, match="2-D"):
+        klu.lowrank_matmul(U[0], s, Vt)
+    with pytest.raises(ValueError, match="different devices"):
+        klu.lowrank_matmul(U, s, torch.zeros(3, 5, device="meta"))
