@@ -22,7 +22,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      duplicates, both packs, one vector and 20-column blocks, f32 and
      bf16 values); lowrank_matmul on tests/test_kernels.py's SHAPES and
      RAGGED and at the update's 30 x 30 core (r = 10, a transposed view);
-     every kernel twice, bitwise equal;
+     qtv, subtract_qc and ops.reorth (passes 1 and 2) on the shapes of
+     tests/test_kernels.py:48-60 and :110-116 with an f32 and a bf16
+     basis; scatter_add bit for bit against its plain version on the CPU
+     (it sums in entry order): the shapes of tests/test_kernels.py:304-363,
+     the forced-duplicates dyadic case, the empty stream (no launch), an
+     all-at-(0, 0) stream, coordinates outside the panel and a 1e6-entry
+     Gaussian stream; every kernel twice, bitwise equal;
   3. main path — A = M N with Gaussian M (m x 100) and N (100 x n) made on
      the card from --seed (the paper's numerical-rank-100 input, §6.1);
      factorize(A, SVDSpec(method="fsvd", rank=20, max_iters=200,
@@ -60,7 +66,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      plain version on both packs; fsvd (exact launch counts, bitwise
      rerun), "auto" (must pick fsvd_blocked) and estimate_rank (must give
      100) run on it, with a peak device memory far below one dense
-     copy; sparse_matvec is timed both ways at b = 1 and b = 20.
+     copy; sparse_matvec is timed both ways at b = 1 and b = 20.  Then
+     the Lanczos basis of gk_bidiag at k = 200 (480,189 x 201 f32):
+     ops.reorth(A p, Q, 2) against its plain version and orthogonal to Q
+     (max|Q^T w| < 1e-4 ||v||, tests/test_kernels.py:59-60), and qtv /
+     subtract_qc timed on it in f32 and on a bf16 copy;
+  7. the sketch-resident state on phase 3's operand (it edits A in place,
+     so it runs after every other use of A): sketch_operand with
+     SVDSpec(method="gnystrom", rank=20, sketch_dim=128,
+     backend="pallas") in one operator sweep; a seeded rank-1 drift on
+     1,024 x 1,024 entries (||D||_F = 0.05 ||A||_F), each coordinate sent
+     twice (a Gaussian part and the rest), shuffled: apply_entries with
+     exactly 2 scatter_add launches, bitwise on a rerun; A += D in place
+     and a fresh sketch with the same seeds within 1e-5 (relative
+     Frobenius) of the folded panels; reconstruct with 0 iterations and
+     the top-20 sigma within 1e-3 sigma_max of the exact sigma of A + D;
+     the same after apply_lowrank_delta of phase 3b's rank-10 drift; the
+     odometer trips on a fold of budget * base_norm and not before; peak
+     memory below phase 3's + 2 GiB; scatter_add timed at both fold
+     shapes (the kernel alone and with its sort).
 
 The line before the last is the card as nvidia-smi reports it; the last is
 {"ok": true, "device": {...}}.  A kernels JSON line precedes them.
@@ -100,6 +124,19 @@ LOWRANK_SHAPES = [(64, 48, 4), (300, 200, 17), (1024, 512, 64),
                   (300, 517, 7), (257, 129, 7), (127, 383, 7),
                   (300, 200, 7),                   # RAGGED, :84 (r = 7)
                   (30, 30, 10)]       # phase 3b's core: (r+k, r+k), r = k
+REORTH_SHAPES = [(64, 4), (300, 17), (1024, 64), (100, 5), (512, 128),
+                 (517, 5), (129, 31)]   # tests/test_kernels.py:48-60, :110
+SCATTER_SHAPES = [(300, 37, 20), (128, 128, 128), (1, 5, 3),
+                  (513, 260, 130)]         # tests/test_kernels.py:304-321
+SCATTER_GAUSSIAN = (10 ** 6, 1000, 128)    # E, m, d of the long stream
+LANCZOS_K = 200               # phase 6's basis: gk_bidiag(S, 200) -> Q (m, 201)
+REORTH_BOUND = 1e-4           # max|Q^T w| / ||v||, tests/test_kernels.py:59
+SKETCHRES_FIELDS = dict(method="gnystrom", rank=20, sketch_dim=128,
+                        backend="pallas")  # phase 7: k = 128, l = 256
+DRIFT_BLOCK = 1024            # phase 7's drift: rows x columns it touches
+DRIFT_MASS = 0.05             # ||D||_F / ||A||_F
+PANEL_BOUND = 1e-5            # fold vs fresh sketch, tests/test_sketchres.py:70-84
+SKETCHRES_STOL = 1e-3         # SOLVERS["gnystrom"]["stol"]
 DELTA_RANK = 10               # the update phase's drift
 UPDATE_GATE = 1e-5            # GATE, tests/test_update.py:26
 SPARSE_STOL = 5e-4            # SOLVERS["fsvd"] / ["fsvd_blocked"] stol
@@ -122,15 +159,20 @@ REPLACES = {"mv_qtv": "src/repro/kernels/gk_step.py:147",
             "proj_norm": "src/repro/kernels/gk_step.py:232",
             "matvec_fused": "src/repro/kernels/gk_matvec.py:71",
             "rmatvec_fused": "src/repro/kernels/gk_matvec.py:92",
-            "sketch_matmat": "src/repro/kernels/sketch_matvec.py:65",
+            "qtv": "src/repro/kernels/reorth.py:50",
+            "subtract_qc": "src/repro/kernels/reorth.py:68",
             "lowrank_matmul": "src/repro/kernels/lowrank_update.py:34",
-            "sparse_matvec": "src/repro/kernels/sparse_matvec.py:75"}
+            "sparse_matvec": "src/repro/kernels/sparse_matvec.py:75",
+            "sketch_matmat": "src/repro/kernels/sketch_matvec.py:65",
+            "scatter_add": "src/repro/kernels/count_sketch.py:75"}
 SOURCES = {"mv_qtv": "gk_step.cu", "rmv_qtv": "gk_step.cu",
            "proj_qtv": "gk_step.cu", "proj_norm": "gk_step.cu",
            "matvec_fused": "gk_step.cu", "rmatvec_fused": "gk_step.cu",
+           "qtv": "reorth.cu", "subtract_qc": "reorth.cu",
            "sketch_matmat": "sketch_matvec.cu",
            "lowrank_matmul": "lowrank_update.cu",
-           "sparse_matvec": "sparse_matvec.cu"}
+           "sparse_matvec": "sparse_matvec.cu",
+           "scatter_add": "count_sketch.cu"}
 GK_STEP = ("mv_qtv", "rmv_qtv", "proj_qtv", "proj_norm")
 MATVECS = ("matvec_fused", "rmatvec_fused")
 
@@ -340,17 +382,30 @@ def phase_kernels(gen, A_main):
 
 # --- phase 3: the main path ------------------------------------------------
 
-def make_operand(seed, m, n, dtype=None):
+def operand_factors(seed, m, n, dtype=None):
+    """The seeded Gaussian factors M (m x RANK) and N (RANK x n) of A."""
     import torch
     gen = torch.Generator(device=DEV).manual_seed(seed)
     M = torch.randn(m, RANK, generator=gen, device=DEV, dtype=dtype)
     N = torch.randn(RANK, n, generator=gen, device=DEV, dtype=dtype)
+    return M, N
+
+
+def factored_sigma(left, right):
+    """sigma(left right^T) = sigma(R_l R_r^T) from the thin QRs left =
+    Q_l R_l and right = Q_r R_r, in f64 — no dense SVD of the (m, n)
+    matrix."""
+    import torch
+    R_l = torch.linalg.qr(left.double())[1]
+    R_r = torch.linalg.qr(right.double())[1]
+    return torch.linalg.svdvals(R_l @ R_r.T)
+
+
+def make_operand(seed, m, n, dtype=None):
+    import torch
+    M, N = operand_factors(seed, m, n, dtype)
     A = M @ N
-    # sigma(M N) = sigma(R_M R_N^T) from the thin QRs M = Q_M R_M and
-    # N^T = Q_N R_N, in f64 — no dense SVD of the (m, n) matrix.
-    R_M = torch.linalg.qr(M.double())[1]
-    R_N = torch.linalg.qr(N.T.double())[1]
-    s_true = torch.linalg.svdvals(R_M @ R_N.T)
+    s_true = factored_sigma(M, N.T)
     torch.cuda.synchronize()
     return A, s_true
 
@@ -833,6 +888,120 @@ def phase_slice3_kernels(gen):
           flush=True)
 
 
+# --- slice 4: the reorth pair and scatter_add ------------------------------
+
+def check_reorth(tag, Q, v, c):
+    """qtv, subtract_qc and ops.reorth (passes 1, 2) on one basis against
+    their plain versions (rtol 1e-5 in f32, 3e-2 with a bf16 basis),
+    each twice bitwise; returns {kernel: max abs error}."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import reorth as kro
+    dts = (Q.dtype,)
+    errs = {}
+    for name, kern, plain in (
+            ("qtv", lambda: (kro.qtv(Q, v),), lambda: (ref.qtv(Q, v),)),
+            ("subtract_qc", lambda: (kro.subtract_qc(v, Q, c),),
+             lambda: (ref.subtract_qc(v, Q, c),))):
+        got = bitwise_twice(f"{name} {tag}", kern)
+        errs[name] = compare(f"{name} {tag}", got, plain(), dts)
+    for passes in (1, 2):
+        got = bitwise_twice(f"reorth p={passes} {tag}",
+                            lambda: (kops.reorth(v, Q, passes),))
+        compare(f"reorth p={passes} {tag}", got,
+                (ref.reorth(v, Q, passes),), dts)
+    torch.cuda.synchronize()
+    return errs
+
+
+def check_scatter(tag, rows, cols, vals, shape):
+    """scatter_add twice (bitwise) against its plain version on the CPU,
+    bit for bit: the kernel sums every cell in entry order, as index_add_
+    does there.  Returns the panel."""
+    import torch
+    from repro_torch.kernels import count_sketch as kcs
+    from repro_torch.kernels import ref
+    name = f"scatter_add {tag}"
+    got = bitwise_twice(name, lambda: (kcs.scatter_add(rows, cols, vals,
+                                                       shape),))[0]
+    want = ref.scatter_add(rows.cpu(), cols.cpu(), vals.cpu(), shape)
+    err = float((got.cpu() - want).abs().max()) if want.numel() else 0.0
+    check(torch.equal(got.cpu(), want),
+          f"{name}: differs from the CPU plain version (max abs {err:.3e})")
+    return got
+
+
+def phase_slice4_kernels(gen):
+    """Phase 2 rows of qtv / subtract_qc / ops.reorth and scatter_add on
+    the shapes of tests/test_kernels.py (their main-path shapes come in
+    phases 6 and 7)."""
+    import torch
+    from repro_torch.kernels import count_sketch as kcs
+    from repro_torch.kernels import ops as kops
+    n_cases = 0
+    for m, k in REORTH_SHAPES:
+        for qdt in (torch.float32, torch.bfloat16):
+            Q = torch.linalg.qr(torch.randn(m, k, generator=gen,
+                                            device=DEV))[0]
+            Q = Q.to(qdt).contiguous()
+            v = torch.randn(m, generator=gen, device=DEV)
+            c = torch.randn(k, generator=gen, device=DEV)
+            check_reorth(f"({m}x{k}, {qdt})", Q, v, c)
+            n_cases += 1
+
+    def stream(E, m, d):
+        rows = torch.randint(0, m, (E,), generator=gen, device=DEV,
+                             dtype=torch.int32)
+        cols = torch.randint(0, d, (E,), generator=gen, device=DEV,
+                             dtype=torch.int32)
+        return rows, cols, torch.randn(E, generator=gen, device=DEV)
+
+    for E, m, d in SCATTER_SHAPES:
+        check_scatter(f"({E} entries, {m}x{d})", *stream(E, m, d), (m, d))
+        n_cases += 1
+    # tests/test_kernels.py:324-340: forced duplicates, dyadic values
+    t = lambda x, dt: torch.tensor(x, dtype=dt, device=DEV)  # noqa: E731
+    i32, f32 = torch.int32, torch.float32
+    got = check_scatter(
+        "dyadic duplicates", t([3, 3, 3, 0, 3, 1, 1], i32),
+        t([1, 1, 1, 0, 1, 2, 2], i32),
+        t([0.25, 0.5, 1.25, -2.0, -0.75, 8.0, -8.0], f32), (5, 4))
+    check((got[3, 1].item(), got[1, 2].item(), got[0, 0].item())
+          == (1.25, 0.0, -2.0), "scatter_add dyadic duplicates gave "
+          f"{got.tolist()}")
+    # :343-357: the empty stream (no launch) and an all-at-(0, 0) stream
+    empty = torch.zeros(0, dtype=i32, device=DEV)
+    kcs.reset_launches()
+    z = kops.scatter_add(empty, empty, torch.zeros(0, device=DEV), (4, 6))
+    check(kcs.LAUNCHES["scatter_add"] == 0 and not z.any()
+          and z.shape == (4, 6), "scatter_add of an empty stream")
+    zeros = torch.zeros(200, dtype=i32, device=DEV)
+    got = check_scatter("all at (0, 0)", zeros, zeros,
+                        torch.ones(200, device=DEV), (3, 3))
+    check(got[0, 0].item() == 200.0 and got.abs().sum().item() == 200.0,
+          f"scatter_add all at (0, 0) gave {got.tolist()}")
+    # coordinates outside the panel (past the end, negative) are dropped
+    got = check_scatter(
+        "outside the panel", t([0, 2, 5, 1, -1, 3, 1], i32),
+        t([0, 3, 0, 4, 1, -2, 1], i32),
+        t([1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 0.5], f32), (4, 4))
+    want = torch.zeros(4, 4)
+    want[0, 0], want[2, 3], want[1, 1] = 1.0, 2.0, 0.5
+    check(torch.equal(got.cpu(), want),
+          f"scatter_add kept a coordinate outside the panel: {got.tolist()}")
+    E, m, d = SCATTER_GAUSSIAN
+    check_scatter(f"Gaussian ({E} entries, {m}x{d})", *stream(E, m, d),
+                  (m, d))
+    n_cases += 5
+    print(f"phase 2: {n_cases} shape/type cases of qtv / subtract_qc / "
+          f"ops.reorth (f32 and bf16 bases, passes 1 and 2) and "
+          f"scatter_add (dyadic duplicates, empty, all at (0, 0), outside "
+          f"the panel, a {E}-entry Gaussian stream) match the plain "
+          f"versions, scatter_add bit for bit against the CPU, bitwise "
+          f"stable", flush=True)
+
+
 def exact_update_sigma(fact, C, sd, Dt, beta):
     """sigma of beta U S V^T + C diag(sd) Dt, independently in f64: the
     Householder QRs of [U | C] and [V | Dt^T], then svdvals of the small
@@ -913,7 +1082,7 @@ def phase_update(fact, seed):
     orthonormalized in f64 against the exact sigma of beta U S V^T +
     C diag(s) Dt.  The raw run's distance from its exact sigma is printed
     beside the f64 run's (the precondition's share).  Returns (launches,
-    wall seconds, sigma error of the raw run against f64)."""
+    wall seconds, sigma error of the raw run against f64, the drift)."""
     import torch
     from repro_torch.api import LowRankOp
     m, n = fact.shape
@@ -958,7 +1127,7 @@ def phase_update(fact, seed):
           f"{raw:.3e}, orthonormal bases vs exact {orth:.3e}", flush=True)
     check(raw < UPDATE_GATE, f"update sigma error vs f64 {raw:.3e}")
     check(orth < UPDATE_GATE, f"update sigma error vs exact {orth:.3e}")
-    return launches, wall, raw
+    return launches, wall, raw, delta
 
 
 def phase_materialize(seed, m, n):
@@ -1003,6 +1172,208 @@ def phase_materialize(seed, m, n):
                    f"({m}x{n}, r={r}, f32)", phase="3c")
     torch.cuda.empty_cache()
     return launches, err, row
+
+
+# --- phase 7: the sketch-resident state ------------------------------------
+
+def drift_stream(seed, m, n, norm_a):
+    """The seeded rank-1 drift D = c u v^T on DRIFT_BLOCK rows x
+    DRIFT_BLOCK columns (drawn without replacement), ||D||_F = DRIFT_MASS
+    ||A||_F, as a COO stream: each coordinate twice, a Gaussian part a and
+    D_ij - a, shuffled.  Returns (rows, cols, vals, u_full, v_full) with
+    D = u_full v_full^T (c folded into u_full)."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(seed + 15)
+    b = DRIFT_BLOCK
+    R = torch.randperm(m, generator=g, device=DEV)[:b]
+    C = torch.randperm(n, generator=g, device=DEV)[:b]
+    u = torch.randn(b, generator=g, device=DEV)
+    v = torch.randn(b, generator=g, device=DEV)
+    c = DRIFT_MASS * norm_a / (torch.linalg.vector_norm(u)
+                               * torch.linalg.vector_norm(v))
+    D = (c * u)[:, None] * v[None, :]
+    a = torch.randn(b, b, generator=g, device=DEV) * (
+        torch.linalg.vector_norm(D) / b)          # the drift's rms entry
+    rows = R[:, None].expand(b, b).reshape(-1)
+    cols = C[None, :].expand(b, b).reshape(-1)
+    order = torch.randperm(2 * b * b, generator=g, device=DEV)
+    rows = torch.cat([rows, rows])[order].to(torch.int32)
+    cols = torch.cat([cols, cols])[order].to(torch.int32)
+    vals = torch.cat([a.reshape(-1), (D - a).reshape(-1)])[order]
+    u_full = torch.zeros(m, device=DEV).index_copy_(0, R, c * u)
+    v_full = torch.zeros(n, device=DEV).index_copy_(0, C, v)
+    return rows, cols, vals, u_full, v_full
+
+
+def rel_fro(got, want):
+    import torch
+    d = torch.linalg.vector_norm(got.float() - want.float())
+    return float(d / torch.linalg.vector_norm(want.float()))
+
+
+def phase_sketchres(A, seed, peak3, drift):
+    """Phase 7: the sketch-resident state on the main operand (edited in
+    place).  Returns (scatter_add launches, max abs error, timing row)."""
+    import torch
+    from repro_torch import sketchres as sk
+    from repro_torch.api import LowRankOp, SVDSpec
+    from repro_torch.core.operators import DenseOp
+    from repro_torch.kernels import count_sketch as kcs
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    m, n = A.shape
+    spec = SVDSpec(**SKETCHRES_FIELDS)
+    M, N = operand_factors(seed, m, n)
+    left, right = [M], [N.T]                # A = left right^T, in pieces
+
+    def sketch(op):
+        return sk.sketch_operand(op, spec, generator=torch.Generator(
+            device=DEV).manual_seed(seed + 16))
+
+    def exact():
+        return factored_sigma(torch.cat(left, 1), torch.cat(right, 1))
+
+    def check_state(label, st, wall):
+        """Fresh sketch of the edited A (same seeds) against the folded
+        panels, then reconstruct against the exact sigma."""
+        fresh = sketch(DenseOp(A, backend="pallas"))
+        check(fresh.seeds == st.seeds, "a re-sketch drew other seeds")
+        eY, eZ = rel_fro(st.Y, fresh.Y), rel_fro(st.Z, fresh.Z)
+        f, t_rec = timed(lambda: sk.reconstruct(st, spec))
+        s_exact = exact()
+        err = float((f.s.double() - s_exact[:R_WANT]).abs().max()
+                    / s_exact[0])
+        ratio = float(sk.staleness_ratio(st))
+        print(f"phase 7: {label} wall {wall * 1e3:.3f} ms; folded vs fresh "
+              f"sketch (same seeds) |dY|/|Y| {eY:.3e}, |dZ|/|Z| {eZ:.3e} "
+              f"(bound {PANEL_BOUND}); reconstruct {t_rec * 1e3:.3f} ms, "
+              f"iterations {int(f.iterations)}, method {f.method}, "
+              f"max|sigma - sigma_exact|/sigma_max {err:.3e} (bound "
+              f"{SKETCHRES_STOL}; the exact sigma of a rank <= "
+              f"{s_exact.shape[0]} operand); "
+              f"staleness {ratio:.4f}", flush=True)
+        check(eY <= PANEL_BOUND and eZ <= PANEL_BOUND,
+              f"{label}: folded panels {eY:.3e} / {eZ:.3e} from a fresh "
+              f"sketch")
+        check(int(f.iterations) == 0 and f.method == "sketch",
+              f"{label}: reconstruct gave {int(f.iterations)} iterations, "
+              f"method {f.method}")
+        check(err < SKETCHRES_STOL, f"{label}: sigma error {err:.3e}")
+        check(not bool(sk.is_stale(st)), f"{label}: stale at {ratio:.4f}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    guard = counting_op(DenseOp(A, backend="pallas"))
+    st, t_sketch = timed(lambda: sketch(guard))
+    touches = {k: v for k, v in guard.counts.items() if v}
+    k, l = st.panel_dims
+    print(f"phase 7: sketch_operand {m}x{n} (k = {k}, l = {l}; Y "
+          f"{st.Y.numel() * 4 / 1e6:.1f} MB, Z {st.Z.numel() * 4 / 1e6:.1f} "
+          f"MB) wall {t_sketch:.3f} s, operator touches {touches}, "
+          f"base_norm {float(st.base_norm):.4e}", flush=True)
+    check(touches == {"sketch_pass": 1}, f"sketch_operand touched {touches}")
+
+    rows, cols, vals, u_full, v_full = drift_stream(
+        seed, m, n, float(torch.linalg.vector_norm(exact())))
+    E = rows.shape[0]
+    seen = []
+    real = kops.scatter_add
+
+    def spy(r, c, v, shape):
+        seen.append((r, c, v, shape))
+        return real(r, c, v, shape)
+
+    kops.scatter_add = spy
+    try:
+        kcs.reset_launches()
+        folded, t_fold = timed(lambda: sk.apply_entries(st, rows, cols,
+                                                        vals))
+        launches = kcs.LAUNCHES["scatter_add"]
+    finally:
+        kops.scatter_add = real
+    check(launches == 2, f"apply_entries launched scatter_add {launches} "
+                         f"times, not 2")
+    again = sk.apply_entries(st, rows, cols, vals)
+    check(torch.equal(folded.Y, again.Y) and torch.equal(folded.Z, again.Z),
+          "apply_entries differs bitwise on a rerun")
+    del again
+    print(f"phase 7: apply_entries of {E} entries (a rank-1 drift on "
+          f"{DRIFT_BLOCK}x{DRIFT_BLOCK} coordinates, each sent twice) -> "
+          f"{[x[0].shape[0] for x in seen]} expanded entries into panels "
+          f"{[x[3] for x in seen]}: scatter_add launches {launches}, panels "
+          f"bitwise equal on a rerun", flush=True)
+    A.index_put_((rows.long(), cols.long()), vals, accumulate=True)
+    left.append(u_full[:, None])
+    right.append(v_full[:, None])
+    check_state("entry fold", folded, t_fold)
+
+    Cd, sd, Dt = drift.U, drift.s, drift.Vt
+    st2, t_lr = timed(lambda: sk.apply_lowrank_delta(
+        folded, LowRankOp(Cd, sd, Dt)))
+    W = Cd * sd
+    for r0 in range(0, m, 1 << 13):
+        A[r0:r0 + (1 << 13)].addmm_(W[r0:r0 + (1 << 13)], Dt)
+    left.append(W)
+    right.append(Dt.T)
+    check_state(f"low-rank fold (rank {Dt.shape[0]})", st2, t_lr)
+
+    target = (st2.budget * st2.base_norm).reshape(1)
+    zero = torch.zeros(1, dtype=torch.int32, device=DEV)
+    st3 = sk.apply_entries(st2, zero, zero, target)
+    ratio = float(sk.staleness_ratio(st3))
+    print(f"phase 7: odometer: a one-entry fold of budget * base_norm "
+          f"({float(target):.4e}) takes staleness to {ratio:.4f}, stale "
+          f"{bool(sk.is_stale(st3))}", flush=True)
+    check(bool(sk.is_stale(st3)), "the budget fold did not trip is_stale")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 7: peak device memory {peak / GIB:.2f} GiB (phase 3 "
+          f"{peak3 / GIB:.2f} GiB + 2 GiB)", flush=True)
+    check(peak < peak3 + 2 * GIB,
+          f"phase 7 peak {peak / GIB:.2f} GiB: a copy of the operand?")
+    del st, folded, st2, st3, M, N, left, right
+
+    errs, rows_t = [], []
+    for (r, c, v, shape), label in zip(seen, ("Y fold", "Z fold")):
+        got = kcs.scatter_add(r, c, v, shape)
+        want = ref.scatter_add(r.cpu(), c.cpu(), v.cpu(), shape)
+        errs.append(float((got.cpu() - want).abs().max()))
+        check(torch.equal(got.cpu(), want), f"scatter_add at the {label} "
+                                            f"differs from the CPU plain "
+                                            f"version by {errs[-1]:.3e}")
+        del got, want
+        keys, perm = kcs.sort_keys(r, c, shape)
+        flat = r.long() * shape[1] + c.long()
+        panel = torch.zeros(shape[0] * shape[1], device=DEV)
+        nbytes = 12 * r.shape[0] + 4 * shape[0] * shape[1]
+        row = time_row(
+            f"scatter_add {label}",
+            lambda r=r, c=c, v=v, shape=shape: kcs.scatter_add(r, c, v,
+                                                               shape),
+            lambda r=r, c=c, v=v, shape=shape: ref.scatter_add(r, c, v,
+                                                               shape),
+            lambda v=v, flat=flat, panel=panel: panel.zero_().index_add_(
+                0, flat, v),
+            nbytes, r.shape[0], f"({r.shape[0]} entries -> {shape[0]}x"
+            f"{shape[1]}, f32)", phase=7)
+        row["kernel_ms"] = event_ms(
+            lambda keys=keys, perm=perm, v=v, shape=shape: kcs.segment_sum(
+                keys, perm, v, shape))
+        print(f"phase 7: scatter_add {label}: the kernel alone (sorted keys "
+              f"given) {row['kernel_ms']:.4f} ms of the wrapper's "
+              f"{row['ms']:.4f} ms", flush=True)
+        row["call"] = label
+        rows_t.append(row)
+        del keys, perm, flat, panel
+    out = {key: sum(r[key] for r in rows_t) / len(rows_t)
+           for key in ("ms", "kernel_ms", "plain_ms", "library_ms",
+                       "bound_ms")}
+    out["bound_by"] = "bytes"
+    out["calls"] = [{k: r[k] for k in ("call", "ms", "kernel_ms", "plain_ms",
+                                       "library_ms", "bound_ms")}
+                    for r in rows_t]
+    del seen
+    torch.cuda.empty_cache()
+    return launches, max(errs), out
 
 
 def netflix_operand(seed, m, n):
@@ -1054,9 +1425,87 @@ def csr_of_pack(vals, cols):
                                        check_invariants=False)
 
 
+def phase_reorth(S, seed):
+    """Phase 6, the reorthogonalization pair on the sparse operand's
+    Lanczos basis Q (gk_bidiag at k = LANCZOS_K).  Returns ({kernel:
+    launches}, {kernel: max abs error}, {kernel: timing row})."""
+    import torch
+    from repro_torch.core.gk import gk_bidiag
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import reorth as kro
+    m, n = S.shape
+    res, wall = timed(lambda: gk_bidiag(
+        S, LANCZOS_K, generator=torch.Generator(device=DEV).manual_seed(
+            seed + 13)))
+    Q = res.Q
+    g = torch.Generator(device=DEV).manual_seed(seed + 14)
+    v = S.mv(torch.randn(n, generator=g, device=DEV))          # A p
+    kro.reset_launches()
+    w = kops.reorth(v, Q, 2)
+    launches = dict(kro.LAUNCHES)
+    check(launches == {"qtv": 2, "subtract_qc": 2},
+          f"ops.reorth(passes=2) launched {launches}")
+    check(torch.equal(w, kops.reorth(v, Q, 2)),
+          "ops.reorth differs bitwise on a rerun")
+    # A p lies in the range that the basis spans (rank 100, breakdown near
+    # 105), so w is the roundoff remainder of v: the kernel and the plain
+    # version are held to 1e-5 max|v| there, not to 1e-5 max|w|
+    vmax, vn = float(v.abs().max()), float(torch.linalg.vector_norm(v))
+    err_ap = float((w - ref.reorth(v, Q, 2)).abs().max())
+    check(err_ap <= 1e-5 * vmax, f"ops.reorth(A p) differs from its plain "
+                                 f"version by {err_ap:.3e} (max|v| {vmax:.3e})")
+    ortho = float(torch.mv(Q.T, w).abs().max())
+    check(ortho < REORTH_BOUND * vn, f"max|Q^T w| {ortho:.3e} >= "
+                                     f"{REORTH_BOUND} ||v|| ({vn:.3e})")
+    # a Gaussian vector has a remainder of its own size: the usual bounds
+    x = torch.randn(m, generator=g, device=DEV)
+    Qh = Q.to(torch.bfloat16)
+    k = Q.shape[1]
+    errs = check_reorth(f"Lanczos basis ({m}x{k}, f32)", Q, x,
+                        kro.qtv(Q, x))
+    check_reorth(f"Lanczos basis ({m}x{k}, bf16)", Qh, x, kro.qtv(Qh, x))
+    errs = {name: max(e, err_ap) for name, e in errs.items()}
+    print(f"phase 6: Lanczos basis {m}x{k} f32 ({Q.numel() * 4 / 1e6:.1f} "
+          f"MB) from gk_bidiag in {wall:.3f} s (iterations "
+          f"{int(res.kprime)}); ops.reorth(A p, Q, 2) launches {launches}, "
+          f"vs plain {err_ap:.3e} (max|v| {vmax:.3e}), max|Q^T w| "
+          f"{ortho:.3e} < {REORTH_BOUND} ||v|| = {REORTH_BOUND * vn:.3e}; "
+          f"qtv / subtract_qc / reorth on a Gaussian vector match the "
+          f"plain versions (f32 and bf16 basis), bitwise stable", flush=True)
+    rows = {"qtv": [], "subtract_qc": []}
+    for label, B in (("f32", Q), ("bf16", Qh)):
+        eb, mk = B.element_size(), B.numel()
+        c = ref.qtv(B, v)
+        # the library calls take one dtype: in bf16 they multiply in bf16
+        vb, cb = v.to(B.dtype), c.to(B.dtype)
+        shape = f"(Q {m}x{k} {label}, f32 vectors)"
+        row = time_row(f"qtv {label}", lambda B=B: kro.qtv(B, v),
+                       lambda B=B: ref.qtv(B, v),
+                       lambda B=B, vb=vb: torch.mv(B.T, vb),
+                       eb * mk + 4 * (m + k), 2 * mk, shape, phase=6)
+        rows["qtv"].append(dict(row, call=label))
+        row = time_row(f"subtract_qc {label}",
+                       lambda B=B, c=c: kro.subtract_qc(v, B, c),
+                       lambda B=B, c=c: ref.subtract_qc(v, B, c),
+                       lambda B=B, vb=vb, cb=cb: torch.addmv(vb, B, cb,
+                                                             alpha=-1),
+                       eb * mk + 4 * (2 * m + k), 2 * mk, shape, phase=6)
+        rows["subtract_qc"].append(dict(row, call=label))
+    times = {}
+    for name, calls in rows.items():
+        times[name] = {key: calls[0][key] for key in
+                       ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by")}
+        times[name]["calls"] = [{key: r[key] for key in
+                                 ("call", "ms", "plain_ms", "library_ms",
+                                  "bound_ms")} for r in calls]
+    return launches, errs, times
+
+
 def phase_sparse(seed, m, n):
     """Phase 6: the sparse operand.  Returns (launches, max abs error,
-    timing row) of sparse_matvec."""
+    timing row) of sparse_matvec and phase_reorth's results."""
     import torch
     from repro_torch.api import SVDSpec, estimate_rank, factorize
     from repro_torch.core.operators import SparseOp
@@ -1193,7 +1642,7 @@ def phase_sparse(seed, m, n):
     out["calls"] = [{k: r[k] for k in ("call", "ms", "plain_ms",
                                        "library_ms", "bound_ms")}
                     for r in rows]
-    return launches, err, out
+    return launches, err, out, phase_reorth(S, seed)
 
 
 def main(argv=None) -> int:
@@ -1235,12 +1684,17 @@ def main(argv=None) -> int:
         errs = phase_kernels(gen, A)
         errs.update(phase_new_kernels(gen, A))
         phase_slice3_kernels(gen)
+        phase_slice4_kernels(gen)
         launches, peak3, fact = phase_main(A, s_true, args.seed)
-        update_launches, _, _ = phase_update(fact, args.seed)
+        update_launches, _, _, drift = phase_update(fact, args.seed)
         del fact
         launches["sketch_matmat"] = phase_sketch(A, s_true, args.seed, peak3)
         times = phase_times(A, args.seed)
         times.update(phase_times_new(A, args.seed))
+        # phase 7 edits A in place: it comes after every other use of A
+        (launches["scatter_add"], errs["scatter_add"],
+         times["scatter_add"]) = phase_sketchres(A, args.seed, peak3, drift)
+        del drift
         # the counting wrappers of phase 4 are classes made in a function,
         # so reference cycles keep their operand (A) until a collection
         del A, s_true
@@ -1264,7 +1718,12 @@ def main(argv=None) -> int:
         times.update(f64_times)
         torch.cuda.empty_cache()
         (launches["sparse_matvec"], errs["sparse_matvec"],
-         times["sparse_matvec"]) = phase_sparse(args.seed, args.sm, args.sn)
+         times["sparse_matvec"], (reorth_launches, reorth_errs,
+                                  reorth_times)) = phase_sparse(
+            args.seed, args.sm, args.sn)
+        launches.update(reorth_launches)
+        errs.update(reorth_errs)
+        times.update(reorth_times)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1287,6 +1746,13 @@ def main(argv=None) -> int:
             row["launches_update"] = update_launches
         if name == "sparse_matvec":
             row["shape"] = f"{args.sm}x{args.sn}, {RANK} blocks"
+            row["calls"] = times[name]["calls"]
+        if name in ("qtv", "subtract_qc"):
+            row["shape"] = f"Lanczos basis {args.sm}x{LANCZOS_K + 1} f32"
+            row["calls"] = times[name]["calls"]
+        if name == "scatter_add":
+            row["shape"] = "phase 7 folds, mean of Y and Z"
+            row["kernel_ms"] = times[name]["kernel_ms"]
             row["calls"] = times[name]["calls"]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@
 The parity tests run ``repro`` (JAX) and ``repro_torch`` on the same
 inputs.  These functions turn what the reference holds — an operand (dense,
 sparse COO triplets, low-rank factors, or any reference operator), a
-matrix-free problem, a start vector, a sketch test matrix, a
-``Factorization`` and an ``SVDSpec`` — into the port's objects, given as numpy arrays
+matrix-free problem, a start vector, a sketch test matrix, a hashed-sign
+table and a sketch-resident state, a ``Factorization`` and an ``SVDSpec``
+— into the port's objects, given as numpy arrays
 (``np.asarray`` of a JAX array) or as objects with the reference's field
 names.  Nothing here imports JAX.
 """
@@ -23,6 +24,7 @@ from repro_torch.core import operators as ops
 from repro_torch.core.operators import DenseOp
 from repro_torch.core.sketch import GaussianSketch, SparseSignSketch
 from repro_torch.data.synthetic import MatrixFreeProblem
+from repro_torch.sketchres.state import SketchState, _HashedSketch
 
 
 def operand(A, *, backend: str = "xla", device=None) -> DenseOp:
@@ -119,6 +121,34 @@ def sketch(ref: Any, *, backend=None, device=None, dtype=None):
                                                            "xla"))
     return GaussianSketch(to_tensor(np.asarray(ref.T), device=device,
                                     dtype=dtype))
+
+
+def hashed_sketch(slots, signs, d: int, *, device=None) -> _HashedSketch:
+    """A hashed-sign table (``slots`` (n, ζ) in [0, d), ``signs`` (n, ζ))
+    drawn on the reference side — ``repro.sketchres.state._hashed`` — as
+    the port's, to hand to ``sketch_operand(omega=, psi=)``."""
+    slots_np = np.asarray(slots, np.int32)
+    if slots_np.size and (slots_np.min() < 0 or slots_np.max() >= d):
+        raise ValueError(f"slots must lie in [0, {d}), got "
+                         f"[{slots_np.min()}, {slots_np.max()}]")
+    return _HashedSketch(to_tensor(slots_np, device=device),
+                         to_tensor(np.asarray(signs, np.float32),
+                                   device=device), int(d))
+
+
+def sketch_state(ref: Any, omega: _HashedSketch, psi: _HashedSketch, *,
+                 device=None) -> SketchState:
+    """A reference ``SketchState`` (panels ``Y`` / ``Z``, ``folded_mass``,
+    ``base_norm``, ``zeta``, ``budget``, ``backend``) as the port's,
+    carrying the tables ``omega`` / ``psi`` (from :func:`hashed_sketch`)
+    in place of the reference's PRNG keys."""
+    def arr(x):
+        return to_tensor(np.asarray(x), device=device)
+    return SketchState(Y=arr(ref.Y), Z=arr(ref.Z),
+                       folded_mass=arr(ref.folded_mass).to(torch.float32),
+                       base_norm=arr(ref.base_norm).to(torch.float32),
+                       tables=(omega, psi), zeta=int(ref.zeta),
+                       budget=float(ref.budget), backend=ref.backend)
 
 
 def factorization(ref: Any, *, device=None) -> Factorization:

@@ -14,17 +14,23 @@ Counterpart of ``repro.kernels.ops``:
   * ``sparse_matvec`` (``SparseOp(backend="pallas")`` mv/rmv/matmat/
     rmatmat): x or a block X of any float dtype, cast to f32;
   * ``lowrank_matmul`` (``core.update``: the update's core outer product
-    and ``materialize_lowrank``).
+    and ``materialize_lowrank``);
+  * ``reorth`` (CGS^passes against a basis: ``passes`` × (``qtv``,
+    ``subtract_qc``));
+  * ``scatter_add`` (``sketchres.state`` folds of a COO entry stream).
 
-The reference pads A, the sketch rows, the ELL pack, the low-rank
-factors and the block to tile multiples first; the CUDA kernels mask
-ragged edges themselves, so nothing here pads or copies an operand.
+The reference pads A, the basis, the sketch rows, the ELL pack, the
+low-rank factors, the block and the entry stream to tile multiples first;
+the CUDA kernels mask ragged edges themselves, so nothing here pads or
+copies an operand.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import count_sketch as cs
 from repro_torch.kernels import gk_step as gs
+from repro_torch.kernels import reorth as ro
 from repro_torch.kernels import sparse_matvec as spm
 from repro_torch.kernels.lowrank_update import lowrank_matmul  # noqa: F401
 from repro_torch.kernels.sketch_matvec import sketch_matmat  # noqa: F401
@@ -55,6 +61,30 @@ def sparse_matvec(vals: Tensor, cols: Tensor, x: Tensor) -> Tensor:
     """y = A x for A in padded-ELL rows (``sparse_matvec.ell_pack``):
     x (n,) → (m,) f32, or a block X (n, b) → (m, b) f32 in one launch."""
     return spm.sparse_matvec(vals, cols, _f32(x))
+
+
+def reorth(v: Tensor, Q: Tensor, passes: int = 2) -> Tensor:
+    """CGS^passes: ``v − Q (Qᵀ v)``, repeated.  v (m,) of any float dtype;
+    Q (m, k) f32/bf16 → (m,) f32."""
+    w = _f32(v)
+    for _ in range(passes):
+        w = ro.subtract_qc(w, Q, ro.qtv(Q, w))
+    return w
+
+
+def scatter_add(rows: Tensor, cols: Tensor, vals: Tensor,
+                shape: tuple[int, int]) -> Tensor:
+    """Dense (m, d) f32 accumulation of a COO entry stream; duplicate
+    coordinates sum (count-sketch collision semantics) and coordinates
+    outside the panel are dropped.  Indices are taken as int32 and values
+    of any float dtype are accumulated in f32; an empty stream gives zeros
+    without a launch.  Returns a fresh panel."""
+    vals = vals.reshape(-1)
+    if vals.dtype not in cs.KINDS:
+        vals = vals.to(torch.float32)
+    return cs.scatter_add(rows.reshape(-1).to(torch.int32).contiguous(),
+                          cols.reshape(-1).to(torch.int32).contiguous(),
+                          vals.contiguous(), shape)
 
 
 def gk_step_fused(A: Tensor, p: Tensor, y: Tensor, alpha, Q: Tensor,

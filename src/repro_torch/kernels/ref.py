@@ -2,9 +2,9 @@
 
 Counterpart of ``repro.kernels.ref``: every function upcasts its inputs
 to f32 and accumulates in f32, as the kernels do.  The kernel wrappers
-(``kernels.gk_step``, ``kernels.sketch_matvec``,
-``kernels.sparse_matvec``, ``kernels.lowrank_update``) call these for CPU
-tensors only.
+(``kernels.gk_step``, ``kernels.reorth``, ``kernels.sketch_matvec``,
+``kernels.sparse_matvec``, ``kernels.lowrank_update``,
+``kernels.count_sketch``) call these for CPU tensors only.
 """
 from __future__ import annotations
 
@@ -75,6 +75,24 @@ def sparse_matvec(vals: Tensor, cols: Tensor, X: Tensor) -> Tensor:
 def lowrank_matmul(U: Tensor, s: Tensor, Vt: Tensor) -> Tensor:
     """W = U diag(s) Vᵀ (the low-rank materialization), f32."""
     return (U.to(F32) * s.to(F32)[None, :]) @ Vt.to(F32)
+
+
+def scatter_add(rows: Tensor, cols: Tensor, vals: Tensor,
+                shape: tuple[int, int]) -> Tensor:
+    """Dense (m, d) f32 panel of a COO stream (rows / cols / vals (E,)):
+    duplicate coordinates sum, and a coordinate outside the panel is
+    dropped, as the reference's one-hot oracle drops it.  The int64 key
+    ``row·d + col`` of such a coordinate points one past the panel.  On the
+    CPU ``index_add_`` adds the entries one after another in entry order,
+    the order of ``np.add.at`` (``index_put_(accumulate=True)`` adds with
+    threads there, in no fixed order)."""
+    m, d = shape
+    r, c = rows.long(), cols.long()
+    outside = (r < 0) | (r >= m) | (c < 0) | (c >= d)
+    key = torch.where(outside, m * d, r * d + c)
+    out = torch.zeros(m * d + 1, dtype=F32, device=vals.device)
+    out.index_add_(0, key, vals.to(F32))
+    return out[:m * d].view(m, d)
 
 
 # --- the four stages of the fused pipeline (kernels/gk_step.py) ---------

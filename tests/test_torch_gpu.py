@@ -13,8 +13,14 @@ fused matvecs multiply in f32 whatever A's storage (f64 included), and
 the sketch apply widens bf16 exactly, so both are held at f32 bounds.
 The sparse matvec and the low-rank materialization widen their bf16 and
 f64 inputs to f32 before they multiply, so they too are held at f32
-bounds against their plain versions (which widen the same way).
+bounds against their plain versions (which widen the same way).  The
+reorthogonalization pair is held at the same bounds (1e-5 f32, 3e-2 for a
+bf16 basis).  The scatter-add sums each destination in entry order, so it
+is held bit for bit against its plain version on the CPU, and a fold of
+the sketch-resident state on the card equals the same fold on the CPU.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -25,10 +31,13 @@ from repro_torch.core import sketch as tsketch
 from repro_torch.core.operators import DenseOp, Operator
 from repro_torch.core.update import materialize_lowrank
 from repro_torch.data.synthetic import make_sparse_problem
+from repro_torch import sketchres as tsk
+from repro_torch.kernels import count_sketch as cs
 from repro_torch.kernels import gk_step as gs
 from repro_torch.kernels import lowrank_update as klu
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import reorth as rk
 from repro_torch.kernels import sketch_matvec as skm
 from repro_torch.kernels import sparse_matvec as spm
 
@@ -444,3 +453,105 @@ def test_update_and_materialize_through_the_kernel(cuda):
     W = materialize_lowrank(delta, backend="pallas")
     assert klu.LAUNCHES["lowrank_matmul"] == 1
     _assert_close([W], [ref.lowrank_matmul(C, delta.s, Dt)], 1e-5)
+
+
+# --------------------------------------------------------------------------
+# slice 4: the reorthogonalization pair and the scatter-add
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k", [(64, 4), (300, 17), (1024, 64), (100, 5),
+                                 (512, 128), (517, 5), (129, 31),
+                                 (4099, 201)])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+def test_reorth_pair_matches_plain_version(cuda, m, k, qdt):
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    Q = torch.linalg.qr(torch.randn(m, k, generator=g, device=cuda))[0]
+    Q = Q.to(qdt).contiguous()
+    v = torch.randn(m, generator=g, device=cuda)
+    c = torch.randn(k, generator=g, device=cuda)
+    rtol = 1e-5 if qdt == torch.float32 else 3e-2
+    rk.reset_launches()
+    for kern, plain in ((lambda: rk.qtv(Q, v), ref.qtv(Q, v)),
+                        (lambda: rk.subtract_qc(v, Q, c),
+                         ref.subtract_qc(v, Q, c))):
+        got, again = kern(), kern()
+        assert torch.equal(got, again)
+        _assert_close([got], [plain], rtol)
+    assert rk.LAUNCHES == {"qtv": 2, "subtract_qc": 2}
+    for passes in (1, 2):
+        w = ops.reorth(v, Q, passes)
+        assert torch.equal(w, ops.reorth(v, Q, passes))
+        _assert_close([w], [ref.reorth(v, Q, passes)], rtol)
+    if qdt == torch.float32:
+        assert float((Q.T @ w).abs().max()) < 1e-4 * float(v.norm())
+
+
+def _cpu_plain(rows, cols, vals, shape):
+    return ref.scatter_add(rows.cpu(), cols.cpu(), vals.cpu(), shape)
+
+
+@pytest.mark.parametrize("E,m,d,hot", [(300, 37, 20, 0), (128, 128, 128, 0),
+                                       (1, 5, 3, 0), (513, 260, 130, 0),
+                                       (200_000, 1000, 128, 0),
+                                       (100_000, 40, 30, 3)])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+def test_scatter_add_matches_cpu_plain_version_bitwise(cuda, E, m, d, hot,
+                                                       vdt):
+    """Gaussian values, heavy collisions (``hot`` > 0 sends every entry to
+    a 3 x 3 corner) and coordinates past the panel: the kernel sums in
+    entry order, so it equals the CPU plain version bit for bit, twice."""
+    g = torch.Generator(device=cuda).manual_seed(E + m)
+    hi_r, hi_c = (hot, hot) if hot else (m + 2, d + 2)
+    rows = torch.randint(0, hi_r, (E,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    cols = torch.randint(0, hi_c, (E,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    vals = torch.randn(E, generator=g, device=cuda).to(vdt)
+    cs.reset_launches()
+    got = cs.scatter_add(rows, cols, vals, (m, d))
+    again = cs.scatter_add(rows, cols, vals, (m, d))
+    assert cs.LAUNCHES["scatter_add"] == 2
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), _cpu_plain(rows, cols, vals, (m, d)))
+
+
+def test_scatter_add_empty_stream_launches_nothing(cuda):
+    e = torch.zeros(0, dtype=torch.int32, device=cuda)
+    cs.reset_launches()
+    z = ops.scatter_add(e, e, torch.zeros(0, device=cuda), (4, 6))
+    assert cs.LAUNCHES["scatter_add"] == 0
+    assert z.device.type == "cuda" and torch.equal(z.cpu(), torch.zeros(4, 6))
+
+
+def test_fold_on_the_card_equals_the_fold_on_the_cpu(cuda):
+    """The same state (panels and tables) on both devices, the same entry
+    stream: the pallas fold on the card launches the scatter-add twice and
+    gives the CPU fold's panels bit for bit."""
+    gen = torch.Generator().manual_seed(4)
+    A = torch.randn(300, 20, generator=gen) @ torch.randn(20, 200,
+                                                          generator=gen)
+    spec = SVDSpec(method="gnystrom", rank=10, backend="pallas")
+    host = tsk.sketch_operand(A, spec,
+                              generator=torch.Generator().manual_seed(7))
+    om, ps = host.sketches()
+    dev = tsk.SketchState(
+        Y=host.Y.to(cuda), Z=host.Z.to(cuda),
+        folded_mass=host.folded_mass.to(cuda),
+        base_norm=host.base_norm.to(cuda),
+        tables=tuple(type(t)(t.slots.to(cuda), t.signs.to(cuda), t.d)
+                     for t in (om, ps)), backend="pallas")
+    host = dataclasses.replace(host, seeds=None, tables=(om, ps))
+    E = 50_000
+    rows = torch.randint(0, 300, (E,), generator=gen, dtype=torch.int32)
+    cols = torch.randint(0, 200, (E,), generator=gen, dtype=torch.int32)
+    vals = torch.randn(E, generator=gen)
+    cs.reset_launches()
+    folded = tsk.apply_entries(dev, rows.to(cuda), cols.to(cuda),
+                               vals.to(cuda))
+    assert cs.LAUNCHES["scatter_add"] == 2
+    want = tsk.apply_entries(host, rows, cols, vals)
+    assert torch.equal(folded.Y.cpu(), want.Y)
+    assert torch.equal(folded.Z.cpu(), want.Z)
+    assert isinstance(tsk.is_stale(folded), torch.Tensor)
+    f = tsk.reconstruct(folded, spec)
+    assert int(f.iterations) == 0 and f.method == "sketch"

@@ -14,7 +14,13 @@ atol 1e-5·max|ref| in f32 (only the summation order differs), 3e-2 where
 A or the basis is stored bf16; the sketch apply is held at the 2e-5 of
 tests/test_kernels.py:271-300, the sparse matvec and the low-rank
 materialization at the 2e-4 / 3e-2 of tests/test_kernels.py:60-245.  The
-ELL pack is held bit for bit.
+ELL pack is held bit for bit.  The reorthogonalization pair is held at
+rtol 1e-5 (summation order only; a bf16 basis is rounded once and handed
+to both) and ``ops.reorth`` also at the 1e-4 of tests/test_kernels.py:48-60;
+the scatter-add at the 2e-6 of tests/test_kernels.py:304-321 against the
+reference's kernel and oracle, and bit for bit against ``np.add.at`` (the
+port adds in entry order), on dyadic duplicates, empty and padding streams
+and dropped coordinates.
 """
 import ctypes
 import re
@@ -27,21 +33,24 @@ import torch
 
 from repro.core.sketch import make_sketch as ref_make_sketch
 from repro.kernels import gk_step as jgs
+from repro.kernels import reorth as jro
 from repro.kernels import sparse_matvec as jspm
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import bridge
 from repro_torch.core.operators import SparseOp
 from repro_torch.kernels import _build
+from repro_torch.kernels import count_sketch as cs
 from repro_torch.kernels import gk_step as gs
 from repro_torch.kernels import lowrank_update as klu
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import reorth as rk
 from repro_torch.kernels import sketch_matvec as skm
 from repro_torch.kernels import sparse_matvec as spm
 
 KERNEL_MODULES = {"gk_step": gs, "sketch_matvec": skm, "sparse_matvec": spm,
-                  "lowrank_update": klu}
+                  "lowrank_update": klu, "reorth": rk, "count_sketch": cs}
 
 # GK_STEP_SHAPES of tests/test_kernels.py:136, those within 300 × 520
 # (Pallas interpret mode is slow on the CPU).
@@ -591,3 +600,243 @@ def test_lowrank_matmul_wrapper_rejects_what_the_kernel_does_not_take():
         klu.lowrank_matmul(U[0], s, Vt)
     with pytest.raises(ValueError, match="different devices"):
         klu.lowrank_matmul(U, s, torch.zeros(3, 5, device="meta"))
+
+
+# --------------------------------------------------------------------------
+# reorthogonalization (reorth.qtv / subtract_qc, ops.reorth)
+# --------------------------------------------------------------------------
+
+# tests/test_kernels.py:10 SHAPES as (m, k) and :110 RAGGED reorth shapes
+REORTH_SHAPES = [(64, 4), (300, 17), (1024, 64), (100, 5), (512, 128),
+                 (517, 5), (129, 31)]
+
+
+def _basis(m, k, seed, dt="f32"):
+    """(numpy Q for the reference, torch Q for the port, v); a bf16 basis
+    is rounded once and handed to both."""
+    rng = np.random.default_rng(seed)
+    Q = np.linalg.qr(rng.standard_normal((m, k)))[0].astype(np.float32)
+    v = rng.standard_normal(m).astype(np.float32)
+    if dt == "bf16":
+        Qt = torch.from_numpy(Q).to(torch.bfloat16)
+        return jnp.asarray(Qt.float().numpy()).astype(jnp.bfloat16), Qt, v
+    return Q, torch.from_numpy(Q), v
+
+
+@pytest.mark.parametrize("passes", [1, 2])
+@pytest.mark.parametrize("m,k", REORTH_SHAPES)
+def test_reorth_matches_reference(m, k, passes):
+    """ops.reorth against the reference's Pallas pair in interpret mode
+    and its oracle; the result is orthogonal to the basis."""
+    Q, Qt, v = _basis(m, k, m * k + passes)
+    rk.reset_launches()
+    got = ops.reorth(_t(v, torch.float64), Qt, passes)
+    assert got.dtype == torch.float32 and got.shape == (m,)
+    assert rk.LAUNCHES == {"qtv": 0, "subtract_qc": 0}
+    for want in (jops.reorth(v, Q, passes), jref.reorth(v, Q, passes)):
+        _close(got, want)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-4)
+    assert float((Qt.T @ got).abs().max()) < 1e-4 * float(np.linalg.norm(v))
+    assert torch.equal(ops.reorth(_t(v), Qt, 0), _t(v))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("m,k", REORTH_SHAPES)
+def test_qtv_and_subtract_qc_match_reference(m, k, dt):
+    """Each kernel's plain version against the reference's Pallas kernel
+    in interpret mode (one row block: the reference needs m % bm == 0)."""
+    Q, Qt, v = _basis(m, k, 3 * m + k, dt)
+    c = np.random.default_rng(k).standard_normal(k).astype(np.float32)
+    got_c = rk.qtv(Qt, _t(v))
+    assert got_c.shape == (k,) and got_c.dtype == torch.float32
+    _close(got_c, jro.qtv(Q, v[:, None], bm=m)[:, 0])
+    got_w = rk.subtract_qc(_t(v), Qt, _t(c))
+    assert got_w.shape == (m,) and got_w.dtype == torch.float32
+    _close(got_w, jro.subtract_qc(v[:, None], Q, c[:, None], bm=m)[:, 0])
+
+
+def test_reorth_wrappers_reject_what_the_kernel_does_not_take():
+    Q, v, c = torch.zeros(8, 3), torch.zeros(8), torch.zeros(3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rk.qtv(Q.double(), v)
+    with pytest.raises(TypeError, match="float32"):
+        rk.qtv(Q, v.double())
+    with pytest.raises(ValueError, match="length 8"):
+        rk.qtv(Q, v[:-1])
+    with pytest.raises(ValueError, match="length 3"):
+        rk.subtract_qc(v, Q, c[:-1])
+    with pytest.raises(ValueError, match="2-D"):
+        rk.subtract_qc(v, Q[0], c)
+    with pytest.raises(ValueError, match="different devices"):
+        rk.qtv(Q, torch.zeros(8, device="meta"))
+
+
+@pytest.mark.parametrize("m,k", [(1, 1), (300, 17), (480_189, 201),
+                                 (10**7, 3), (100, 5000)])
+def test_qtv_plan_covers_every_row_once(m, k):
+    per, chunks = rk.qtv_plan(m, k)
+    assert 1 <= chunks <= gs.MAX_CHUNKS
+    assert (chunks - 1) * per < m <= chunks * per
+    assert per >= min(m, rk.MIN_CHUNK_ROWS)
+
+
+# --------------------------------------------------------------------------
+# COO scatter-add (count_sketch): the sketch-resident state's fold
+# --------------------------------------------------------------------------
+
+def _stream(E, m, d, seed, dyadic=False):
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, m, E).astype(np.int32)
+    cols = rng.integers(0, d, E).astype(np.int32)
+    vals = (rng.integers(-8, 9, E) * 0.25 if dyadic
+            else rng.standard_normal(E)).astype(np.float32)
+    return rows, cols, vals
+
+
+def _add_at(rows, cols, vals, shape):
+    """np.add.at in f32: one entry after another, in entry order."""
+    out = np.zeros(shape, np.float32)
+    np.add.at(out, (rows, cols), vals)
+    return out
+
+
+def _scatter(rows, cols, vals, shape):
+    return ops.scatter_add(torch.from_numpy(rows), torch.from_numpy(cols),
+                           torch.from_numpy(vals), shape).numpy()
+
+
+@pytest.mark.parametrize("E,m,d", [(300, 37, 20), (128, 128, 128),
+                                   (1, 5, 3), (513, 260, 130)])
+def test_scatter_add_matches_reference(E, m, d):
+    """tests/test_kernels.py:304-321's shapes: against the reference's
+    kernel (interpret mode) and oracle at 2e-6, and bit for bit against
+    np.add.at in f32."""
+    rows, cols, vals = _stream(E, m, d, E * m + d)
+    cs.reset_launches()
+    got = _scatter(rows, cols, vals, (m, d))
+    assert cs.LAUNCHES["scatter_add"] == 0
+    for want in (jops.scatter_add(rows, cols, vals, (m, d)),
+                 jref.scatter_add(rows, cols, vals, (m, d))):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-6,
+                                   atol=2e-6)
+    np.testing.assert_array_equal(got, _add_at(rows, cols, vals, (m, d)))
+
+
+def test_scatter_add_duplicate_slots_bitexact():
+    """Forced collisions on dyadic values: duplicates SUM, bit for bit
+    equal to the reference's kernel, its one-hot oracle and np.add.at."""
+    rows = np.asarray([3, 3, 3, 0, 3, 1, 1], np.int32)
+    cols = np.asarray([1, 1, 1, 0, 1, 2, 2], np.int32)
+    vals = np.asarray([0.25, 0.5, 1.25, -2.0, -0.75, 8.0, -8.0], np.float32)
+    got = _scatter(rows, cols, vals, (5, 4))
+    for want in (jops.scatter_add(rows, cols, vals, (5, 4)),
+                 jref.scatter_add(rows, cols, vals, (5, 4)),
+                 _add_at(rows, cols, vals, (5, 4))):
+        np.testing.assert_array_equal(got, np.asarray(want))
+    assert got[3, 1] == np.float32(1.25)       # 0.25+0.5+1.25-0.75
+    assert got[1, 2] == np.float32(0.0)        # +8 and -8 annihilate
+    assert got[0, 0] == np.float32(-2.0)
+
+
+@pytest.mark.parametrize("E,m,d", [(64, 3, 2), (500, 4, 4), (2000, 1, 1)])
+def test_scatter_add_dyadic_collisions_bitexact(E, m, d):
+    rows, cols, vals = _stream(E, m, d, E + m, dyadic=True)
+    got = _scatter(rows, cols, vals, (m, d))
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.scatter_add(rows, cols, vals, (m, d))))
+    np.testing.assert_array_equal(got, _add_at(rows, cols, vals, (m, d)))
+
+
+def test_scatter_add_empty_and_padding():
+    """E = 0 gives zeros; (0, 0, 0) padding entries are exact, and an
+    all-duplicates stream at (0, 0) counts each entry once."""
+    empty = np.zeros(0, np.int32)
+    z = _scatter(empty, empty, np.zeros(0, np.float32), (4, 6))
+    np.testing.assert_array_equal(z, np.zeros((4, 6), np.float32))
+    np.testing.assert_array_equal(
+        z, np.asarray(jops.scatter_add(empty, empty,
+                                       np.zeros(0, np.float32), (4, 6))))
+    E = 200
+    zeros, ones = np.zeros(E, np.int32), np.ones(E, np.float32)
+    got = _scatter(zeros, zeros, ones, (3, 3))
+    assert got[0, 0] == np.float32(E)
+    assert np.abs(got).sum() == np.float32(E)
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.scatter_add(zeros, zeros, ones, (3, 3))))
+    rows, cols, vals = _stream(37, 9, 7, 5)
+    padded = [np.concatenate([x, np.zeros(27, x.dtype)])
+              for x in (rows, cols, vals)]
+    np.testing.assert_array_equal(_scatter(*padded, (9, 7)),
+                                  _scatter(rows, cols, vals, (9, 7)))
+
+
+def test_scatter_add_drops_coordinates_outside_the_panel():
+    """A row or column outside (m, d) — past the end, or negative — lands
+    nowhere, as in the reference's one-hot oracle; in particular a column
+    past d does not spill into the next row of the flattened panel."""
+    rows = np.asarray([0, 2, 5, 1, -1, 3, 1], np.int32)
+    cols = np.asarray([0, 3, 0, 4, 1, -2, 1], np.int32)
+    vals = np.asarray([1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 0.5], np.float32)
+    got = _scatter(rows, cols, vals, (4, 4))
+    want = np.zeros((4, 4), np.float32)
+    want[0, 0], want[2, 3], want[1, 1] = 1.0, 2.0, 0.5
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.scatter_add(rows, cols, vals, (4, 4))))
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.scatter_add(rows, cols, vals, (4, 4))))
+
+
+def test_sort_keys_is_stable_and_masks_the_outside():
+    rows = torch.tensor([2, 0, 2, 9, 0, 2], dtype=torch.int32)
+    cols = torch.tensor([1, 3, 1, 0, 3, 0], dtype=torch.int32)
+    keys, perm = cs.sort_keys(rows, cols, (3, 4))
+    assert keys.tolist() == [3, 3, 8, 9, 9, 12]
+    assert perm.tolist() == [1, 4, 5, 0, 2, 3]   # equal keys in entry order
+    assert keys.dtype == perm.dtype == torch.int64
+
+
+def test_ops_scatter_add_casts_indices_and_values():
+    rows, cols, vals = _stream(50, 6, 5, 11)
+    want = _scatter(rows, cols, vals, (6, 5))
+    got = ops.scatter_add(torch.from_numpy(rows).long(),
+                          torch.from_numpy(cols).long()[:, None],
+                          torch.from_numpy(vals).half(), (6, 5))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-2, atol=1e-2)
+    assert got.dtype == torch.float32
+
+
+def test_scatter_add_wrapper_rejects_what_the_kernel_does_not_take():
+    r, c, v = torch.zeros(4, dtype=torch.int32), \
+        torch.zeros(4, dtype=torch.int32), torch.zeros(4)
+    with pytest.raises(TypeError, match="int32"):
+        cs.scatter_add(r.long(), c, v, (2, 2))
+    with pytest.raises(TypeError, match="float64, float32 or bfloat16"):
+        cs.scatter_add(r, c, v.half(), (2, 2))
+    with pytest.raises(ValueError, match="one length"):
+        cs.scatter_add(r, c[:3], v, (2, 2))
+    with pytest.raises(ValueError, match="1-D"):
+        cs.scatter_add(r[:, None], c, v, (2, 2))
+    with pytest.raises(ValueError, match="non-negative"):
+        cs.scatter_add(r, c, v, (-1, 2))
+    with pytest.raises(ValueError, match="different devices"):
+        cs.scatter_add(r, c, torch.zeros(4, device="meta"), (2, 2))
+    keys, perm = cs.sort_keys(r, c, (2, 2))
+    with pytest.raises(ValueError, match="CUDA kernel alone"):
+        cs.segment_sum(keys, perm, v, (2, 2))
+
+
+def test_scatter_add_plain_version_adds_in_entry_order():
+    """200,000 Gaussian entries of spread magnitudes on 37 cells: the
+    plain version (the CPU path, and the kernel's bitwise reference on
+    the card) adds each cell's entries one after another in entry order,
+    bit for bit np.add.at in f32."""
+    rng = np.random.default_rng(12)
+    E = 200_000
+    rows = rng.integers(0, 37, E).astype(np.int32)
+    cols = np.zeros(E, np.int32)
+    vals = (rng.standard_normal(E)
+            * 10.0 ** rng.integers(-4, 5, E)).astype(np.float32)
+    np.testing.assert_array_equal(_scatter(rows, cols, vals, (37, 1)),
+                                  _add_at(rows, cols, vals, (37, 1)))
