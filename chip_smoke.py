@@ -28,7 +28,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      (it sums in entry order): the shapes of tests/test_kernels.py:304-363,
      the forced-duplicates dyadic case, the empty stream (no launch), an
      all-at-(0, 0) stream, coordinates outside the panel and a 1e6-entry
-     Gaussian stream; every kernel twice, bitwise equal;
+     Gaussian stream, spread, in one tile and in one cell (each timed,
+     beside the previous design's sorted path);
+     its binning against the plain model, bins of 1 to 128 tiles;
+     every kernel twice, bitwise equal;
   3. main path — A = M N with Gaussian M (m x 100) and N (100 x n) made on
      the card from --seed (the paper's numerical-rank-100 input, §6.1);
      factorize(A, SVDSpec(method="fsvd", rank=20, max_iters=200,
@@ -84,7 +87,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      the same after apply_lowrank_delta of phase 3b's rank-10 drift; the
      odometer trips on a fold of budget * base_norm and not before; peak
      memory below phase 3's + 2 GiB; scatter_add timed at both fold
-     shapes (the kernel alone and with its sort).
+     shapes, stage by stage, beside the previous design's sorted path, and
+     so on two wider panels (480,189 x 128 and 4,194,304 x 128: bins of 8
+     and of 64 tiles) with as many spread entries as the Y fold.
 
 The line before the last is the card as nvidia-smi reports it; the last is
 {"ok": true, "device": {...}}.  A kernels JSON line precedes them.
@@ -129,6 +134,11 @@ REORTH_SHAPES = [(64, 4), (300, 17), (1024, 64), (100, 5), (512, 128),
 SCATTER_SHAPES = [(300, 37, 20), (128, 128, 128), (1, 5, 3),
                   (513, 260, 130)]         # tests/test_kernels.py:304-321
 SCATTER_GAUSSIAN = (10 ** 6, 1000, 128)    # E, m, d of the long stream
+BIN_SHAPES = [(50_000, 300, 37, 7),        # E, m, d, tile_bits: bins of
+              (60_000, 700, 150, 5),       # 1, 8 and 128 tiles
+              (100_000, 2000, 1000, 5)]
+WIDE_FOLDS = [("Netflix-width Y fold", (480_189, 128)),  # bins of 8 tiles
+              ("fold into bins of 64 tiles", (4_194_304, 128))]
 LANCZOS_K = 200               # phase 6's basis: gk_bidiag(S, 200) -> Q (m, 201)
 REORTH_BOUND = 1e-4           # max|Q^T w| / ||v||, tests/test_kernels.py:59
 SKETCHRES_FIELDS = dict(method="gnystrom", rank=20, sketch_dim=128,
@@ -939,6 +949,7 @@ def phase_slice4_kernels(gen):
     import torch
     from repro_torch.kernels import count_sketch as kcs
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
     n_cases = 0
     for m, k in REORTH_SHAPES:
         for qdt in (torch.float32, torch.bfloat16):
@@ -991,15 +1002,55 @@ def phase_slice4_kernels(gen):
     check(torch.equal(got.cpu(), want),
           f"scatter_add kept a coordinate outside the panel: {got.tolist()}")
     E, m, d = SCATTER_GAUSSIAN
-    check_scatter(f"Gaussian ({E} entries, {m}x{d})", *stream(E, m, d),
+    rows, cols, vals = stream(E, m, d)
+    check_scatter(f"Gaussian ({E} entries, {m}x{d})", rows, cols, vals,
                   (m, d))
     n_cases += 5
+    # the binning (steps 1-4) against its plain model, bins of many tiles
+    widths = set()
+    for E2, m2, d2, bits in BIN_SHAPES:
+        r2, c2, v2 = (x.to(dt) for x, dt in zip(
+            stream(E2, m2 + 2, d2 + 2), (i32, i32, torch.float64)))
+        plan = kcs.bin_plan(E2, (m2, d2), bits)
+        got = kcs.bin_entries(r2, c2, v2, plan)
+        want = ref.bin_entries(r2.cpu(), c2.cpu(), v2.cpu(), (m2, d2),
+                               plan.part_bits)
+        check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+              f"bin_entries ({E2} entries, {m2}x{d2}, bins of 2^"
+              f"{plan.bin_bits} cells in parts of 2^{plan.part_bits}) "
+              f"differs from its plain model")
+        widths.add(1 << (plan.bin_bits - plan.tile_bits))
+        n_cases += 1
+    check(widths == {1, 8, 128}, f"the binning cases took bins of {widths} "
+                                 f"tiles")
+    # skew: the Gaussian stream's values all into one tile, then one cell;
+    # each timed beside the sorted path of the previous design
+    def times(r, c):
+        return (event_ms(lambda: kcs.scatter_add(r, c, vals, (m, d)), reps=3),
+                event_ms(lambda: kcs.segment_sum(
+                    *kcs.sort_keys(r, c, (m, d)), vals, (m, d)), reps=3))
+
+    t_spread = times(rows, cols)
+    corner = torch.randint(0, 3, (E,), generator=gen, device=DEV, dtype=i32)
+    check_scatter(f"{E} entries in a 3x3 corner", corner, corner.flip(0),
+                  vals, (m, d))
+    t_corner = times(corner, corner.flip(0))
+    zeros = torch.zeros(E, dtype=i32, device=DEV)
+    check_scatter(f"{E} entries at (0, 0)", zeros, zeros, vals, (m, d))
+    t_cell = times(zeros, zeros)
+    n_cases += 2
     print(f"phase 2: {n_cases} shape/type cases of qtv / subtract_qc / "
-          f"ops.reorth (f32 and bf16 bases, passes 1 and 2) and "
-          f"scatter_add (dyadic duplicates, empty, all at (0, 0), outside "
-          f"the panel, a {E}-entry Gaussian stream) match the plain "
-          f"versions, scatter_add bit for bit against the CPU, bitwise "
-          f"stable", flush=True)
+          f"ops.reorth (f32 and bf16 bases, passes 1 and 2), scatter_add "
+          f"(dyadic duplicates, empty, all at (0, 0), outside the panel, a "
+          f"{E}-entry Gaussian stream, the same into a 3x3 corner and into "
+          f"one cell) and the binning into bins of {sorted(widths)} tiles "
+          f"match the "
+          f"plain versions, scatter_add bit for bit against the CPU, "
+          f"bitwise stable; scatter_add of the {E}-entry stream spread over "
+          f"{m}x{d} {t_spread[0]:.4f} ms, in a 3x3 corner (one tile) "
+          f"{t_corner[0]:.4f} ms, in one cell {t_cell[0]:.4f} ms; the "
+          f"sorted path of the previous design {t_spread[1]:.4f}, "
+          f"{t_corner[1]:.4f} and {t_cell[1]:.4f} ms", flush=True)
 
 
 def exact_update_sigma(fact, C, sd, Dt, beta):
@@ -1211,6 +1262,79 @@ def rel_fro(got, want):
     return float(d / torch.linalg.vector_norm(want.float()))
 
 
+def time_scatter(label, r, c, v, shape):
+    """scatter_add on one stream: bit for bit against the CPU plain
+    version, then timed against the sorted path of the previous design (in
+    turns: sorted, binned, binned, sorted), the plain version on the card
+    and index_add_, with each stage of its plan timed alone.  Returns the
+    timing row, with the largest difference from the CPU under "err"."""
+    import torch
+    from repro_torch.kernels import count_sketch as kcs
+    from repro_torch.kernels import ref
+    got = kcs.scatter_add(r, c, v, shape)
+    want = ref.scatter_add(r.cpu(), c.cpu(), v.cpu(), shape)
+    err = float((got.cpu() - want).abs().max())
+    check(torch.equal(got.cpu(), want), f"scatter_add at the {label} "
+                                        f"differs from the CPU plain "
+                                        f"version by {err:.3e}")
+    del got, want
+    flat = r.long() * shape[1] + c.long()
+    panel = torch.zeros(shape[0] * shape[1], device=DEV)
+    nbytes = 12 * r.shape[0] + 4 * shape[0] * shape[1]
+
+    def binned():
+        return kcs.scatter_add(r, c, v, shape)
+
+    def sorted_path():
+        return kcs.segment_sum(*kcs.sort_keys(r, c, shape), v, shape)
+
+    before = event_ms(sorted_path)
+    row = time_row(
+        f"scatter_add {label}", binned,
+        lambda: ref.scatter_add(r, c, v, shape),
+        lambda: panel.zero_().index_add_(0, flat, v),
+        nbytes, r.shape[0], f"({r.shape[0]} entries -> {shape[0]}x"
+        f"{shape[1]}, f32)", phase=7)
+    row["ms"] = (row["ms"] + event_ms(binned)) / 2
+    row["sorted_ms"] = (before + event_ms(sorted_path)) / 2
+    del flat, panel
+    plan = kcs.bin_plan(r.shape[0], shape)
+    counts = kcs.count_bins(r, c, plan)
+    incl = kcs.scan_counts(counts)
+    pairs = kcs.scatter_bins(r, c, v, plan, counts, incl)
+    stages = {
+        "count_ms": event_ms(lambda: kcs.count_bins(r, c, plan)),
+        "scan_ms": event_ms(lambda: kcs.scan_counts(counts)),
+        "bin_ms": event_ms(
+            lambda: kcs.scatter_bins(r, c, v, plan, counts, incl))}
+    if plan.part_slices:
+        # what step 4 buys: the tile sum over step 3's bins read whole
+        whole = plan._replace(part_bits=plan.bin_bits, part_slices=0)
+        stages["unsplit_sum_ms"] = event_ms(
+            lambda: kcs.sum_tiles(pairs, incl, whole))
+
+        def parts():
+            pc = kcs.count_parts(pairs, incl, plan)
+            pi = kcs.scan_counts(pc)
+            return kcs.scatter_parts(pairs, incl, plan, pc, pi), pi
+
+        stages["part_ms"] = event_ms(parts)
+        pairs, incl = parts()
+    stages["sum_ms"] = event_ms(lambda: kcs.sum_tiles(pairs, incl, plan))
+    row["stages"] = stages
+    print(f"phase 7: scatter_add {label}: binned {row['ms']:.4f} ms (mean "
+          f"of two) against the sorted path's {row['sorted_ms']:.4f} ms "
+          f"(torch.sort + segment sum, mean of two); stages "
+          + ", ".join(f"{k} {t:.4f}" for k, t in stages.items())
+          + f"; plan {plan.bins} bins of 2^{plan.bin_bits} cells, "
+          f"{plan.slices} slices of {plan.slice_len}, "
+          f"{plan.parts} parts a bin in {plan.part_slices} slices",
+          flush=True)
+    row["call"], row["err"] = label, err
+    del counts, incl, pairs
+    return row
+
+
 def phase_sketchres(A, seed, peak3, drift):
     """Phase 7: the sketch-resident state on the main operand (edited in
     place).  Returns (scatter_add launches, max abs error, timing row)."""
@@ -1334,43 +1458,32 @@ def phase_sketchres(A, seed, peak3, drift):
 
     errs, rows_t = [], []
     for (r, c, v, shape), label in zip(seen, ("Y fold", "Z fold")):
-        got = kcs.scatter_add(r, c, v, shape)
-        want = ref.scatter_add(r.cpu(), c.cpu(), v.cpu(), shape)
-        errs.append(float((got.cpu() - want).abs().max()))
-        check(torch.equal(got.cpu(), want), f"scatter_add at the {label} "
-                                            f"differs from the CPU plain "
-                                            f"version by {errs[-1]:.3e}")
-        del got, want
-        keys, perm = kcs.sort_keys(r, c, shape)
-        flat = r.long() * shape[1] + c.long()
-        panel = torch.zeros(shape[0] * shape[1], device=DEV)
-        nbytes = 12 * r.shape[0] + 4 * shape[0] * shape[1]
-        row = time_row(
-            f"scatter_add {label}",
-            lambda r=r, c=c, v=v, shape=shape: kcs.scatter_add(r, c, v,
-                                                               shape),
-            lambda r=r, c=c, v=v, shape=shape: ref.scatter_add(r, c, v,
-                                                               shape),
-            lambda v=v, flat=flat, panel=panel: panel.zero_().index_add_(
-                0, flat, v),
-            nbytes, r.shape[0], f"({r.shape[0]} entries -> {shape[0]}x"
-            f"{shape[1]}, f32)", phase=7)
-        row["kernel_ms"] = event_ms(
-            lambda keys=keys, perm=perm, v=v, shape=shape: kcs.segment_sum(
-                keys, perm, v, shape))
-        print(f"phase 7: scatter_add {label}: the kernel alone (sorted keys "
-              f"given) {row['kernel_ms']:.4f} ms of the wrapper's "
-              f"{row['ms']:.4f} ms", flush=True)
-        row["call"] = label
+        row = time_scatter(label, r, c, v, shape)
+        errs.append(row.pop("err"))
         rows_t.append(row)
-        del keys, perm, flat, panel
+    # wider panels than the phase-7 folds: bins of 8 and of 64 tiles
+    g = torch.Generator(device=DEV).manual_seed(seed + 17)
+    wide = []
+    E = seen[0][0].shape[0]             # as many entries as the Y fold
+    for label, shape in WIDE_FOLDS:
+        r = torch.randint(0, shape[0], (E,), generator=g, device=DEV,
+                          dtype=torch.int32)
+        c = torch.randint(0, shape[1], (E,), generator=g, device=DEV,
+                          dtype=torch.int32)
+        v = torch.randn(E, generator=g, device=DEV)
+        row = time_scatter(label, r, c, v, shape)
+        errs.append(row.pop("err"))
+        wide.append(row)
+        del r, c, v
+        torch.cuda.empty_cache()
     out = {key: sum(r[key] for r in rows_t) / len(rows_t)
-           for key in ("ms", "kernel_ms", "plain_ms", "library_ms",
+           for key in ("ms", "sorted_ms", "plain_ms", "library_ms",
                        "bound_ms")}
     out["bound_by"] = "bytes"
-    out["calls"] = [{k: r[k] for k in ("call", "ms", "kernel_ms", "plain_ms",
-                                       "library_ms", "bound_ms")}
-                    for r in rows_t]
+    keys = ("call", "ms", "sorted_ms", "stages", "plain_ms", "library_ms",
+            "bound_ms")
+    out["calls"] = [{k: r[k] for k in keys} for r in rows_t]
+    out["wide"] = [{k: r[k] for k in keys} for r in wide]
     del seen
     torch.cuda.empty_cache()
     return launches, max(errs), out
@@ -1752,8 +1865,9 @@ def main(argv=None) -> int:
             row["calls"] = times[name]["calls"]
         if name == "scatter_add":
             row["shape"] = "phase 7 folds, mean of Y and Z"
-            row["kernel_ms"] = times[name]["kernel_ms"]
+            row["sorted_ms"] = times[name]["sorted_ms"]
             row["calls"] = times[name]["calls"]
+            row["wide"] = times[name]["wide"]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(card)

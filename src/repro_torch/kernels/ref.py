@@ -95,6 +95,28 @@ def scatter_add(rows: Tensor, cols: Tensor, vals: Tensor,
     return out[:m * d].view(m, d)
 
 
+def bin_entries(rows: Tensor, cols: Tensor, vals: Tensor,
+                shape: tuple[int, int],
+                bin_bits: int) -> tuple[Tensor, Tensor, Tensor]:
+    """The binning of the card's scatter-add (its steps 1–4): the
+    flattened (m, d) panel is cut into bins of ``2**bin_bits`` cells, and
+    each entry inside the panel goes to its bin, in entry order; an entry
+    outside the panel goes nowhere.  Returns (offsets (bins + 1,) int64,
+    cells (N,) int32 inside the bin, values (N,) f32), bin b's entries at
+    ``offsets[b]:offsets[b + 1]``."""
+    m, d = shape
+    r, c = rows.long(), cols.long()
+    inside = (r >= 0) & (r < m) & (c >= 0) & (c < d)
+    key = (r * d + c)[inside]
+    bin_ = key >> bin_bits
+    order = torch.sort(bin_, stable=True).indices
+    bins = -(-(m * d) >> bin_bits)
+    offsets = torch.zeros(bins + 1, dtype=torch.int64, device=vals.device)
+    torch.cumsum(torch.bincount(bin_, minlength=bins), 0, out=offsets[1:])
+    cells = (key[order] & ((1 << bin_bits) - 1)).to(torch.int32)
+    return offsets, cells, vals.to(F32)[inside][order]
+
+
 # --- the four stages of the fused pipeline (kernels/gk_step.py) ---------
 
 def mv_qtv(A: Tensor, p: Tensor, y: Tensor, alpha,

@@ -16,8 +16,10 @@ f64 inputs to f32 before they multiply, so they too are held at f32
 bounds against their plain versions (which widen the same way).  The
 reorthogonalization pair is held at the same bounds (1e-5 f32, 3e-2 for a
 bf16 basis).  The scatter-add sums each destination in entry order, so it
-is held bit for bit against its plain version on the CPU, and a fold of
-the sketch-resident state on the card equals the same fold on the CPU.
+is held bit for bit against its plain version on the CPU, its binning
+(count, scan, stable scatter into bins and into parts of bins) exactly
+against the plain model ``ref.bin_entries``, and a fold of the
+sketch-resident state on the card equals the same fold on the CPU.
 """
 import dataclasses
 
@@ -513,6 +515,94 @@ def test_scatter_add_matches_cpu_plain_version_bitwise(cuda, E, m, d, hot,
     assert cs.LAUNCHES["scatter_add"] == 2
     assert torch.equal(got, again)
     assert torch.equal(got.cpu(), _cpu_plain(rows, cols, vals, (m, d)))
+
+
+def _stream(cuda, E, hi_r, hi_c, vdt, seed, lo=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rows = torch.randint(lo, hi_r, (E,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    cols = torch.randint(lo, hi_c, (E,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    vals = torch.randn(E, generator=g, device=cuda, dtype=torch.float64)
+    return rows, cols, vals.to(vdt)
+
+
+# (E, m, d, tile_bits, lo, hi_r, hi_c, sub): coordinates outside the panel
+# on every side; a ragged last tile; d = 1; empty tiles (a stream on a few
+# rows of a tall panel); one tile that takes everything; bins of 2**sub
+# tiles (4, read whole; 8, 64 and 128, each cut into parts of one tile),
+# so that a panel of 411 to 62,500 tiles has at most 512 bins
+BIN_CASES = [(50_000, 300, 37, 7, -3, 303, 40, 0),
+             (50_000, 400, 100, 5, -1, 401, 101, 2),
+             (20_000, 1000, 1, 6, 0, 1000, 1, 0),
+             (30_000, 5000, 64, 10, 0, 40, 64, 0),
+             (40_000, 100, 100, 14, 0, 100, 100, 0),
+             (60_000, 700, 150, 5, -1, 701, 151, 3),
+             (100_000, 1000, 1000, 5, -1, 1001, 1001, 6),
+             (100_000, 2000, 1000, 5, 0, 2000, 1000, 7)]
+
+
+@pytest.mark.parametrize("E,m,d,bits,lo,hi_r,hi_c,sub", BIN_CASES)
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16,
+                                 torch.float64])
+def test_bin_scatter_matches_the_binning_model(cuda, E, m, d, bits, lo,
+                                               hi_r, hi_c, sub, vdt):
+    """The card's steps 1–4 (count, scan, stable scatter into bins, and
+    into parts of one tile where bins are wider) give the plain model's
+    offsets and (cell, value) stream exactly, with bins of one tile and of
+    many."""
+    plan = cs.bin_plan(E, (m, d), bits)
+    assert plan.bin_bits - plan.tile_bits == sub
+    split = sub > cs.DIRECT_SUB_BITS
+    assert plan.part_bits == (plan.tile_bits if split else plan.bin_bits)
+    rows, cols, vals = _stream(cuda, E, hi_r, hi_c, vdt, E + m, lo)
+    offsets, cells, values = cs.bin_entries(rows, cols, vals, plan)
+    want = ref.bin_entries(rows.cpu(), cols.cpu(), vals.cpu(), (m, d),
+                           plan.part_bits)
+    for got, w in zip((offsets, cells, values), want):
+        assert got.dtype == w.dtype
+        assert torch.equal(got.cpu(), w)
+
+
+@pytest.mark.parametrize("E,m,d,bits,lo,hi_r,hi_c", [
+    (300_000, 1000, 128, 14, 0, 1000, 128),     # across 8 tiles
+    (300_000, 1000, 128, 7, 0, 1000, 128),      # bins of 2 tiles
+    (300_000, 1000, 128, 14, 0, 3, 128),        # all into one tile
+    (300_000, 1000, 128, 14, 0, 1, 1),          # all into one cell
+    (200_000, 1000, 1000, 5, -1, 1001, 1001),   # bins of 64 tiles
+    (200_000, 2000, 1000, 5, 0, 2000, 1000)])   # bins of 128 tiles
+@pytest.mark.parametrize("vdt", [torch.float32, torch.float64])
+def test_scatter_add_streams_bitwise(cuda, E, m, d, bits, lo, hi_r, hi_c,
+                                     vdt):
+    """Streams across tile boundaries, all into one tile or one cell, and
+    into bins of many tiles (the stages of a plan with small tiles), f32
+    and f64 values: bit for bit the CPU plain version, twice; scatter_add
+    itself launches once a call."""
+    rows, cols, vals = _stream(cuda, E, hi_r, hi_c, vdt, E + bits, lo)
+    plan = cs.bin_plan(E, (m, d), bits)
+    got = cs.fold(rows, cols, vals, plan)
+    again = cs.fold(rows, cols, vals, plan)
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), _cpu_plain(rows, cols, vals, (m, d)))
+    cs.reset_launches()
+    assert torch.equal(cs.scatter_add(rows, cols, vals, (m, d)), got)
+    assert cs.LAUNCHES["scatter_add"] == 1
+
+
+@pytest.mark.parametrize("bins,slices", [(cs.BATCH_BINS + 1, 8),
+                                         (0, 8), (4, 12)])
+def test_bin_stages_refuse_tables_they_cannot_hold(cuda, bins, slices):
+    """The binning kernels check the limits their shared-memory tables
+    rely on (at most BATCH_BINS bins, whole blocks of WARPS slices) and
+    raise, rather than write past a table."""
+    rows, cols, vals = _stream(cuda, 1000, 100, 100, torch.float32, 5)
+    plan = cs.bin_plan(1000, (100, 100))._replace(bins=bins, slices=slices)
+    counts = torch.zeros(max(bins, 1) * slices, dtype=torch.int32,
+                         device=cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        cs.count_bins(rows, cols, plan)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        cs.scatter_bins(rows, cols, vals, plan, counts, counts)
 
 
 def test_scatter_add_empty_stream_launches_nothing(cuda):

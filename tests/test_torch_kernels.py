@@ -20,7 +20,10 @@ to both) and ``ops.reorth`` also at the 1e-4 of tests/test_kernels.py:48-60;
 the scatter-add at the 2e-6 of tests/test_kernels.py:304-321 against the
 reference's kernel and oracle, and bit for bit against ``np.add.at`` (the
 port adds in entry order), on dyadic duplicates, empty and padding streams
-and dropped coordinates.
+and dropped coordinates.  The plain model of the card's binning
+(``ref.bin_entries``) is held bit for bit against numpy's stable argsort
+by bin, and binning by bin and then by part inside each bin against
+binning by part at once.
 """
 import ctypes
 import re
@@ -795,6 +798,152 @@ def test_sort_keys_is_stable_and_masks_the_outside():
     assert keys.tolist() == [3, 3, 8, 9, 9, 12]
     assert perm.tolist() == [1, 4, 5, 0, 2, 3]   # equal keys in entry order
     assert keys.dtype == perm.dtype == torch.int64
+
+
+def _np_bins(rows, cols, vals, shape, bits):
+    """numpy's stable argsort of each inside entry's tile: the bins of the
+    card's scatter-add, built independently of the model."""
+    m, d = shape
+    r, c = rows.astype(np.int64), cols.astype(np.int64)
+    inside = (r >= 0) & (r < m) & (c >= 0) & (c < d)
+    key = (r * d + c)[inside]
+    order = np.argsort(key >> bits, kind="stable")
+    bins = -(-(m * d) // (1 << bits))
+    offsets = np.concatenate(
+        [[0], np.cumsum(np.bincount(key >> bits, minlength=bins))])
+    return (offsets, (key[order] & ((1 << bits) - 1)).astype(np.int32),
+            vals[inside][order])
+
+
+# (E, m, d, tile_bits, lo, hi_r, hi_c): coordinates outside the panel;
+# empty tiles (a few rows of a tall panel); a ragged last tile; d = 1;
+# one tile that takes everything
+BIN_CASES = {"outside": (400, 30, 20, 5, -2, 33, 23),
+             "empty tiles": (300, 400, 16, 6, 0, 12, 16),
+             "ragged last tile": (500, 37, 13, 7, 0, 37, 13),
+             "d = 1": (300, 257, 1, 5, 0, 257, 1),
+             "one tile": (600, 50, 40, 14, 0, 50, 40)}
+
+
+@pytest.mark.parametrize("case", list(BIN_CASES))
+def test_bin_entries_is_a_stable_sort_by_tile(case):
+    """The plain model of the card's binning against numpy's stable
+    argsort by bin: the same offsets, cells and values, bit for bit; and
+    the same through the wrapper on CPU tensors, whose plan bins by single
+    tiles at these sizes."""
+    E, m, d, bits, lo, hi_r, hi_c = BIN_CASES[case]
+    rng = np.random.default_rng(E + m)
+    rows = rng.integers(lo, hi_r, E).astype(np.int32)
+    cols = rng.integers(lo, hi_c, E).astype(np.int32)
+    vals = rng.standard_normal(E).astype(np.float32)
+    want = _np_bins(rows, cols, vals, (m, d), bits)
+    t = (torch.from_numpy(rows), torch.from_numpy(cols),
+         torch.from_numpy(vals))
+    plan = cs.bin_plan(E, (m, d), bits)
+    assert plan.bin_bits == plan.part_bits == bits
+    for got in (ref.bin_entries(*t, (m, d), bits),
+                cs.bin_entries(*t, plan)):
+        assert [x.dtype for x in got] == [torch.int64, torch.int32,
+                                          torch.float32]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+    offsets = want[0]
+    assert offsets.shape == (-(-(m * d) >> bits) + 1,)
+    if case == "empty tiles":
+        assert (np.diff(offsets) == 0).any()
+    if case == "one tile":
+        assert offsets.tolist() == [0, E]
+
+
+@pytest.mark.parametrize("case", list(BIN_CASES))
+def test_binning_by_part_inside_bins_is_binning_by_part(case):
+    """The card's step 4 bins each bin's pairs again by part, stably:
+    binning into bins of 4 tiles and then each bin by tile gives the bins
+    of single tiles that binning the stream by tile at once gives."""
+    E, m, d, bits, lo, hi_r, hi_c = BIN_CASES[case]
+    rng = np.random.default_rng(E + d)
+    rows = rng.integers(lo, hi_r, E).astype(np.int32)
+    cols = rng.integers(lo, hi_c, E).astype(np.int32)
+    vals = rng.standard_normal(E).astype(np.float32)
+    offsets, cells, values = _np_bins(rows, cols, vals, (m, d), bits + 2)
+    parts = []
+    for b in range(offsets.shape[0] - 1):
+        seg = slice(offsets[b], offsets[b + 1])
+        order = np.argsort(cells[seg] >> bits, kind="stable")
+        key = (b << (bits + 2)) + cells[seg][order].astype(np.int64)
+        parts.append((key, values[seg][order]))
+    key = np.concatenate([k for k, _ in parts])
+    want = _np_bins(rows, cols, vals, (m, d), bits)
+    np.testing.assert_array_equal(key >> bits,
+                                  np.repeat(np.arange(want[0].shape[0] - 1),
+                                            np.diff(want[0])))
+    np.testing.assert_array_equal(key & ((1 << bits) - 1), want[1])
+    np.testing.assert_array_equal(np.concatenate([v for _, v in parts]),
+                                  want[2])
+
+
+def test_bin_plan_sizes_slices_and_counters():
+    """Phase-7 fold shapes take bins of 2 and 4 tiles and 4,096 slices;
+    every plan has at most BATCH_BINS bins of the fewest tiles (a power of
+    two) that allow it, covers its stream with whole chunks in a multiple
+    of WARPS slices, keeps slices within int32 counts, and each count
+    matrix within MAX_COUNTERS."""
+    for shape, bin_bits, bins in (((100_000, 128), 15, 391),
+                                  ((256, 80_000), 16, 313)):
+        p = cs.bin_plan(16_777_216, shape)
+        assert (p.tile_bits, p.bin_bits, p.bins, p.slices, p.slice_len) == \
+            (14, bin_bits, bins, 4096, 4096)
+    for E, shape, bits in ((1, (1, 1), 5), (200, (3, 3), 14),
+                           (10 ** 6, (1000, 1000), 5),
+                           (1000, (512 << 14, 1), 14),
+                           (1000, ((512 << 14) + 1, 1), 14),
+                           (2 ** 31 - 1, (10 ** 5, 10 ** 5), 14),
+                           (5 * 10 ** 7, (10 ** 7, 256), 15)):
+        p = cs.bin_plan(E, shape, bits)
+        total = shape[0] * shape[1]
+        assert p.bins == -(-total // (1 << p.bin_bits)) <= cs.BATCH_BINS
+        assert p.bin_bits == bits or \
+            -(-total // (1 << (p.bin_bits - 1))) > cs.BATCH_BINS
+        assert p.slices % cs.WARPS == 0 and p.slice_len % cs.CHUNK == 0
+        assert p.slices * p.slice_len >= E
+        assert p.slice_len < 2 ** 31
+        assert p.bins * p.slices <= cs.MAX_COUNTERS
+        assert p.bins * p.parts * p.part_slices <= cs.MAX_COUNTERS
+    assert cs.bin_plan(1000, (512 << 14, 1)).bin_bits == 14
+    assert cs.bin_plan(1000, ((512 << 14) + 1, 1)).bin_bits == 15
+    with pytest.raises(ValueError, match="tile_bits"):
+        cs.bin_plan(10, (4, 4), 16)
+    with pytest.raises(ValueError, match="non-empty"):
+        cs.bin_plan(10, (0, 4))
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        cs.bin_plan(2 ** 31, (4, 4))
+
+
+# (shape, tile_bits) -> tiles a bin in steps 1-3, tiles a bin in step 5:
+# the phase-7 folds, a Netflix-width Y fold, bins of 64 tiles, and a panel
+# of more than BATCH_BINS**2 tiles, whose parts hold 2 tiles each
+PART_CASES = [((100_000, 128), 14, 2), ((256, 80_000), 14, 4),
+              ((480_189, 128), 14, 8), ((4_194_304, 128), 14, 64),
+              ((1 << 20, 1 << 13), 14, 1024), ((2000, 1000), 5, 128)]
+
+
+@pytest.mark.parametrize("shape,bits,width", PART_CASES)
+def test_bin_plan_cuts_wide_bins_into_parts(shape, bits, width):
+    """Bins of more than 2**DIRECT_SUB_BITS tiles are cut into parts of
+    one tile each, at most BATCH_BINS a bin (parts of 2**k tiles past
+    BATCH_BINS**2 tiles), in a multiple of WARPS slices a bin, the count
+    matrix within MAX_COUNTERS; narrower bins are read whole."""
+    p = cs.bin_plan(16_777_216, shape, bits)
+    assert 1 << (p.bin_bits - p.tile_bits) == width
+    tiles = -(-(shape[0] * shape[1]) >> bits)
+    if width <= 1 << cs.DIRECT_SUB_BITS:
+        assert (p.part_bits, p.part_slices, p.parts) == (p.bin_bits, 0, 1)
+        return
+    assert p.parts <= cs.BATCH_BINS
+    assert p.part_bits == max(bits, p.bin_bits - 9)
+    assert (p.part_bits == bits) == (tiles <= cs.BATCH_BINS ** 2)
+    assert p.part_slices % cs.WARPS == 0 and p.part_slices >= cs.WARPS
+    assert p.bins * p.parts * p.part_slices <= cs.MAX_COUNTERS
 
 
 def test_ops_scatter_add_casts_indices_and_values():

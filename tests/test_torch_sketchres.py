@@ -329,6 +329,37 @@ def test_bridge_sketch_state_carries_the_reference_state(precision):
                  tsk.apply_entries(carried, rows, cols, vals), precision)
 
 
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_entry_fold_with_a_range_sketch_narrower_than_zeta(backend):
+    """k = 4 < ZETA = 8 <= l = 8: each table is expanded by its own slot
+    count, so the fold of a stream with duplicate entries equals a fresh
+    sketch of the edited operand with the same seeds.  Port only: the
+    reference tiles both expansions by the range table's slot count and
+    raises here (src/repro/sketchres/state.py:230,236,241)."""
+    from repro_torch.api import SVDSpec
+    rng = np.random.default_rng(16)
+    A = _t(np.asarray(_lowrank(jax.random.PRNGKey(16), 40, 30, 2)))
+    spec = SVDSpec(method="gnystrom", rank=2, sketch_dim=4, backend=backend)
+
+    def sketch(op):
+        return tsk.sketch_operand(op, spec,
+                                  generator=torch.Generator().manual_seed(9))
+
+    st = sketch(A)
+    k, l = st.panel_dims
+    assert k < ZETA <= l
+    rows, cols, vals = _entries(rng, 40, 30, 60, scale=1e-2)
+    rows, cols, vals = (np.concatenate([x, x[:20]])
+                        for x in (rows, cols, vals))     # 20 duplicates
+    folded = tsk.apply_entries(st, _t(rows, torch.int32),
+                               _t(cols, torch.int32), _t(vals))
+    fresh = sketch(_t(np.asarray(_coo_apply(np.asarray(A), rows, cols,
+                                            vals))))
+    assert fresh.seeds == st.seeds
+    assert _rel(folded.Y, fresh.Y) < 1e-5
+    assert _rel(folded.Z, fresh.Z) < 1e-5
+
+
 def test_seeded_state_rederives_its_tables():
     """Without injected tables the state carries two seeds drawn from the
     caller's generator (a missing one warns) and re-derives the same
