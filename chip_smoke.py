@@ -51,7 +51,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      against sigma_true at the reference's stol, with its wall time and a
      peak device memory that shows no copy of A or A^T;
      then every kernel is timed at its main shape beside its bound, its
-     plain version and a PyTorch yardstick;
+     plain version and a PyTorch yardstick; proj_qtv / proj_norm and
+     their yardsticks by device time (60 calls in one CUDA graph, over
+     basis copies that together exceed the L2) at the Q (m x 201) and P
+     (n x 200) bases, f32 and bf16, beside the host loop's figure;
      after A is freed, materialize_lowrank of a rank-20 LowRankOp at the
      main shape through lowrank_matmul (32 GB written once), held against
      its plain version by row blocks and timed;
@@ -604,10 +607,116 @@ def event_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(calls, reps=60, replays=5):
+    """Device ms per call: ``reps`` calls, cycling through ``calls``,
+    captured in one CUDA graph and replayed ``replays`` times between two
+    CUDA events, so no host time between launches enters the figure."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm up outside the capture
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    return ms
+
+
+PROJ_COPIES = {"f32": 2, "bf16": 3}   # basis copies a timing cycles through:
+                                      # together above the 50 MB L2
+
+
+def proj_times(m, n, seed):
+    """proj_qtv / proj_norm and their library yardsticks by device time
+    (``graph_ms``) at both main-path shapes, the left basis Q (m, k+1) and
+    the right basis P (n, k), f32 and bf16.  Each call finds its basis
+    cold, as the main path does after a stage-1 sweep over A: the calls
+    cycle through copies of the basis that together exceed the L2.  The
+    back-to-back figure of ``event_ms`` is printed beside it as the host
+    loop.  Returns the rows of the kernels line: ``ms`` is the f32 Q-side
+    device time, ``device`` every shape's."""
+    import torch
+    from repro_torch.kernels import gk_step as gs
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=DEV).manual_seed(seed + 5)
+    out = {"proj_qtv": [], "proj_norm": []}
+    for side, L, k in (("Q side", m, MAX_ITERS + 1), ("P side", n, MAX_ITERS)):
+        u = torch.randn(L, generator=g, device=DEV)
+        c = torch.randn(k, generator=g, device=DEV)
+        basis = torch.linalg.qr(torch.randn(L, k, generator=g,
+                                            device=DEV))[0].contiguous()
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            copies = [basis.to(dt, copy=True)
+                      for _ in range(PROJ_COPIES[tag])]
+            eb = copies[0].element_size()
+            ub, cb = u.to(dt), c.to(dt)   # the library multiplies in dt
+            cases = {
+                "proj_qtv": (gs.proj_qtv, ref.proj_qtv,
+                             lambda B: (lambda w: (w, torch.mv(B.T, w)))(
+                                 torch.addmv(ub, B, cb, alpha=-1.0)),
+                             4 * (2 * L + 2 * k), 4 * L * k + L),
+                "proj_norm": (gs.proj_norm, ref.proj_norm,
+                              lambda B: (lambda v: (v, torch.dot(v, v)))(
+                                  torch.addmv(ub, B, cb, alpha=-1.0)),
+                              4 * (2 * L + k + 1), 2 * L * k + 3 * L),
+            }
+            for name, (kern, plain, lib, vec_bytes, flops) in cases.items():
+                nbytes = eb * L * k + vec_bytes
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / F32_FLOP_PER_S * 1e3
+                bound = max(t_bytes, t_ops)
+                row = dict(
+                    call=f"{side} {L}x{k} {tag}",
+                    ms=graph_ms([lambda B=B: kern(u, B, c) for B in copies]),
+                    library_ms=graph_ms([lambda B=B: lib(B)
+                                         for B in copies]),
+                    plain_ms=graph_ms([lambda B=B: plain(u, B, c)
+                                       for B in copies]),
+                    host_loop_ms=event_ms(lambda: kern(u, copies[0], c)),
+                    host_loop_library_ms=event_ms(lambda: lib(copies[0])),
+                    bound_ms=bound,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+                row["share_of_bound"] = bound / row["ms"]
+                print(f"phase 3: {name} at {row['call']}, device time over "
+                      f"{len(copies)} cold copies: kernel {row['ms']:.4f} ms "
+                      f"({100 * row['share_of_bound']:.0f} % of the bound "
+                      f"{bound:.4f} ms, {nbytes / row['ms'] / 1e6:.1f} "
+                      f"GB/s), library {row['library_ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms; host loop (back to back, "
+                      f"one basis): kernel {row['host_loop_ms']:.4f} ms, "
+                      f"library {row['host_loop_library_ms']:.4f} ms",
+                      flush=True)
+                out[name].append(row)
+            del copies
+    rows = {}
+    for name, calls in out.items():
+        main = calls[0]                       # Q side, f32
+        rows[name] = {key: main[key] for key in
+                      ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                       "host_loop_ms")}
+        rows[name]["device"] = calls
+    return rows
+
+
 def phase_times(A, seed):
-    """Each kernel at the main shape (f32 A, f32 bases of the main path's
-    widths), its bound, its plain version and a PyTorch yardstick that
-    computes the same function with library calls."""
+    """Each stage-1 kernel at the main shape (f32 A, f32 bases of the
+    main path's widths), its bound, its plain version and a PyTorch
+    yardstick that computes the same function with library calls; then
+    the projection pair by device time (``proj_times``)."""
     import torch
     from repro_torch.kernels import gk_step as gs
     from repro_torch.kernels import ref
@@ -621,7 +730,6 @@ def phase_times(A, seed):
     Q = torch.linalg.qr(torch.randn(m, kq, generator=g, device=DEV))[0]
     P = torch.linalg.qr(torch.randn(n, kp, generator=g, device=DEV))[0]
     Q, P = Q.contiguous(), P.contiguous()
-    c = torch.randn(kq, generator=g, device=DEV)
     alpha = torch.tensor([0.37], device=DEV)
     f = 4  # bytes of an f32
 
@@ -633,14 +741,6 @@ def phase_times(A, seed):
         v = torch.addmv(yn, A.T, q, beta=-1.7)
         return v, torch.mv(P.T, v)
 
-    def lib_proj():
-        w = torch.addmv(ym, Q, c, alpha=-1.0)
-        return w, torch.mv(Q.T, w)
-
-    def lib_norm():
-        v = torch.addmv(ym, Q, c, alpha=-1.0)
-        return v, torch.dot(v, v)
-
     rows = {
         "mv_qtv": (lambda: gs.mv_qtv(A, p, ym, alpha, Q),
                    lambda: ref.mv_qtv(A, p, ym, alpha, Q), lib_mv,
@@ -650,18 +750,14 @@ def phase_times(A, seed):
                     lambda: ref.rmv_qtv(A, q, yn, 1.7, P), lib_rmv,
                     f * (m * n + m + n + n * kp + n + kp),
                     2 * m * n + 2 * n + 2 * n * kp),
-        "proj_qtv": (lambda: gs.proj_qtv(ym, Q, c),
-                     lambda: ref.proj_qtv(ym, Q, c), lib_proj,
-                     f * (m + m * kq + kq + m + kq), 4 * m * kq + m),
-        "proj_norm": (lambda: gs.proj_norm(ym, Q, c),
-                      lambda: ref.proj_norm(ym, Q, c), lib_norm,
-                      f * (m + m * kq + kq + m + 1), 2 * m * kq + 3 * m),
     }
     out = {}
     for name, (kern, plain, lib, nbytes, flops) in rows.items():
         k = kp if name == "rmv_qtv" else kq
         out[name] = time_row(name, kern, plain, lib, nbytes, flops,
                              f"({m}x{n}, k={k}, f32)")
+    del Q, P
+    out.update(proj_times(m, n, seed))
     return out
 
 
@@ -1863,6 +1959,11 @@ def main(argv=None) -> int:
         if name in ("qtv", "subtract_qc"):
             row["shape"] = f"Lanczos basis {args.sm}x{LANCZOS_K + 1} f32"
             row["calls"] = times[name]["calls"]
+        if name in ("proj_qtv", "proj_norm"):
+            row["shape"] = (f"Q side {args.m}x{MAX_ITERS + 1} f32, "
+                            f"device time")
+            row["host_loop_ms"] = times[name]["host_loop_ms"]
+            row["device"] = times[name]["device"]
         if name == "scatter_add":
             row["shape"] = "phase 7 folds, mean of Y and Z"
             row["sorted_ms"] = times[name]["sorted_ms"]

@@ -17,6 +17,12 @@ as in the reference kernel (so an f64 operand is multiplied in f32).
 ``alpha`` / ``beta`` are a Python number or a one-element f32 tensor on
 the device (a device scalar never forces a host sync).
 
+The projection pair is bound by the bytes of the basis, which it reads
+from device memory once a call: each block copies tiles of whole rows,
+one contiguous run of the array whatever k's parity, into shared memory
+in 16-byte chunks, two stages deep, and takes both products from there
+(``proj_plan`` cuts the basis; ``csrc/gk_step.cu`` says more).
+
 Each wrapper checks its inputs and raises on what the kernel does not
 take, allocates outputs and scratch with ``torch.empty``, launches on the
 current stream and adds one to ``LAUNCHES[name]``.  For CPU tensors, and
@@ -27,7 +33,7 @@ the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,6 +52,14 @@ MAX_BLOCKS = 2048      # grid cap of the row kernel
 RMV_TARGET_BLOCKS = 4096   # (column tile, row chunk) blocks rmv aims for
 MAX_CHUNKS = 65535     # gridDim.y limit
 MAX_K = 49152          # basis columns: k f32 of shared memory per block
+# the projection pair's plan, as in the CUDA source (kProjBlocks, ...)
+PROJ_BLOCKS = 264      # grid cap: two blocks on each of 132 SMs
+STAGE_BYTES = {F32: 24576, BF16: 32768}   # basis bytes a tile aims at
+MAX_TILE_ROWS = 512
+SMEM_LIMIT = 232448 - 256  # 227 KB a block can have, less its static part
+STAGES = 2             # copy buffers a block cycles through
+REG_K = 256            # up to this width c and c' sit in registers
+C_SHARED = 1           # ProjPlan.flags: c in shared memory (k > REG_K)
 
 # Calls of each TPU-kernel-level function that launched on the card (a
 # call may be more than one launch: its finishing pass is part of it).
@@ -58,8 +72,10 @@ _SIGNATURES = {
                   _P, _P, _P, _P],
     "gk_rmv_qtv": [_P, _I, _P, _P, _P, _P, _I, _L, _L, _I, _L, _I, _P,
                    _L, _I, _P, _P, _P, _P],
-    "gk_proj_qtv": [_P, _P, _I, _P, _L, _I, _L, _I, _P, _P, _P, _P],
-    "gk_proj_norm": [_P, _P, _I, _P, _L, _I, _L, _I, _P, _P, _P, _P],
+    "gk_proj_qtv": [_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P,
+                    _P],
+    "gk_proj_norm": [_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P,
+                     _P],
     "gk_matvec_fused": [_P, _I, _P, _P, _P, _L, _L, _L, _I, _P, _P],
     "gk_rmatvec_fused": [_P, _I, _P, _P, _P, _L, _L, _L, _I, _P, _L, _I,
                          _P, _P],
@@ -97,6 +113,52 @@ def chunk_plan(m: int, n: int) -> tuple[int, int]:
                         MAX_CHUNKS))
     per = -(-m // chunks)
     return per, -(-m // per)
+
+
+class ProjPlan(NamedTuple):
+    """How ``proj_qtv`` / ``proj_norm`` cut a basis: tiles of ``tile_rows``
+    rows, walked by ``grid`` blocks (block b takes tiles b, b + grid, ...)
+    through a ring of ``stages`` shared-memory buffers; ``flags`` say
+    whether c sits in shared memory too, ``smem`` is its bytes."""
+    tile_rows: int
+    tiles: int
+    grid: int
+    stages: int
+    flags: int
+    smem: int
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def proj_plan(L: int, k: int, dtype: torch.dtype) -> ProjPlan:
+    """The projection pair's plan for an (L, k) basis of ``dtype``.
+
+    A function of (L, k, dtype) alone, so the order of every cross-block
+    sum, and with it σ's bits, is the same on every run and every card.
+    A tile aims at ``STAGE_BYTES[dtype]`` bytes of basis, in a multiple of
+    8 rows (one per warp) where it holds 8 or more, so that with an
+    aligned base every tile starts on a 16-byte boundary.  Up to
+    ``STAGES`` buffers come first.  Up to ``REG_K`` columns c and the sums
+    of c' = Qᵀw sit in registers; past it c takes shared memory where it
+    fits beside the buffers (else it is read from device memory), and the
+    sums of c' accumulate in place in the partials in device memory.
+    ``gk_step.cu`` refuses a plan past its own limits."""
+    row = k * dtype.itemsize
+    rows = MAX_TILE_ROWS if row == 0 else min(
+        MAX_TILE_ROWS, max(1, STAGE_BYTES[dtype] // row))
+    if rows >= GROUP:
+        rows -= rows % GROUP
+    stage = _round16(4 * rows) + _round16(rows * row) + 32
+    stages = max(1, min(STAGES, SMEM_LIMIT // stage))
+    vec = _round16(4 * k)
+    flags, smem = 0, stages * stage
+    if k > REG_K and smem + vec <= SMEM_LIMIT:
+        flags, smem = C_SHARED, smem + vec
+    tiles = -(-L // rows)
+    return ProjPlan(rows, tiles, min(tiles, PROJ_BLOCKS), stages, flags,
+                    smem)
 
 
 # --- input checks ---------------------------------------------------------
@@ -236,15 +298,15 @@ def _proj(name: str, plain, u: Tensor, Q: Tensor, c: Tensor):
     if L == 0:
         raise ValueError("empty basis")
     _basis_width(Q)
-    per, grid = rows_plan(L)
+    plan = proj_plan(L, k, Q.dtype)
     w = torch.empty(L, dtype=F32, device=u.device)
     nout = 1 if name == "proj_norm" else k
     out = torch.empty(nout, dtype=F32, device=u.device)
-    part = torch.empty(nout * grid, dtype=F32, device=u.device)
+    part = torch.empty(nout * plan.grid, dtype=F32, device=u.device)
     fn = getattr(_lib(), f"gk_{name}")
     rc = fn(u.data_ptr(), Q.data_ptr(), int(Q.dtype == BF16), c.data_ptr(),
-            L, k, per, grid, w.data_ptr(), part.data_ptr(), out.data_ptr(),
-            _stream())
+            L, k, plan.tile_rows, plan.grid, plan.stages, plan.flags,
+            w.data_ptr(), part.data_ptr(), out.data_ptr(), _stream())
     _check(rc, name)
     LAUNCHES[name] += 1
     return w, out

@@ -11,9 +11,12 @@ f32 (the kernel and the plain version differ only in summation order),
 3e-2 where either is stored bf16 (tests/test_kernels.py:151-187).  The
 fused matvecs multiply in f32 whatever A's storage (f64 included), and
 the sketch apply widens bf16 exactly, so both are held at f32 bounds.
-The sparse matvec and the low-rank materialization widen their bf16 and
-f64 inputs to f32 before they multiply, so they too are held at f32
-bounds against their plain versions (which widen the same way).  The
+The projection pair is held at f32 bounds with a bf16 basis too: its
+plain version widens the same rounded basis, so only the order of the
+sums differs.  The sparse matvec and the low-rank materialization widen
+their bf16 and f64 inputs to f32 before they multiply, so they too are
+held at f32 bounds against their plain versions (which widen the same
+way).  The
 reorthogonalization pair is held at the same bounds (1e-5 f32, 3e-2 for a
 bf16 basis).  The scatter-add sums each destination in entry order, so it
 is held bit for bit against its plain version on the CPU, its binning
@@ -112,6 +115,91 @@ def test_fused_steps_match_plain_versions(cuda, passes):
                   ref.gk_step(A, p, ym, 0.37, Q, passes), 1e-5)
     _assert_close(ops.gk_rstep_fused(A, q, yn, 1.7, P, passes),
                   ref.gk_rstep(A, q, yn, 1.7, P, passes), 1e-5)
+
+
+# (L, k) of the projection pair's cases: with 24-row f32 / 80-row bf16
+# tiles at k = 201, 7 rows are less than one tile and 2050 end on a ragged
+# tile; "several" is 3 x grid x tile rows + 5 of the dtype's own plan, so
+# each block walks several tiles and the last is ragged.  Past REG_K
+# columns: at k = 1000 and 3000 c sits in shared memory beside two
+# stages, at 20,000 it does so in bf16 only, and at MAX_K it is read from
+# device memory (f32: a tile is one row in one stage).
+PROJ_CASES = [(1, 1), (7, 201), (2050, 201), ("several", 201),
+              (100_000, 201), (80_000, 200), (5000, 1), (5000, 4),
+              (5000, 1000), (300, 3000), (300, 20_000), (40, gs.MAX_K)]
+
+
+def _proj_inputs(cuda, L, k, qdt, seed, extra_rows=0):
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(cuda)
+
+    B = t(rng.standard_normal((L + extra_rows, k)) / np.sqrt(L)).to(qdt)
+    return t(rng.standard_normal(L)), B, t(rng.standard_normal(k))
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,k", PROJ_CASES)
+def test_projection_pair_matches_plain_versions(cuda, L, k, qdt):
+    """proj_qtv / proj_norm against their plain versions (which widen the
+    same bf16 basis to f32: f32 bounds), bitwise on a rerun, one launch
+    counted a call."""
+    if L == "several":
+        plan = gs.proj_plan(1, k, qdt)
+        L = 3 * gs.PROJ_BLOCKS * plan.tile_rows + 5
+        assert gs.proj_plan(L, k, qdt).tiles == 3 * gs.PROJ_BLOCKS + 1
+    u, Q, c = _proj_inputs(cuda, L, k, qdt, L + k)
+    before = dict(gs.LAUNCHES)
+    for kern, plain in ((gs.proj_qtv, ref.proj_qtv),
+                        (gs.proj_norm, ref.proj_norm)):
+        got = kern(u, Q, c)
+        _assert_close(got, plain(u, Q, c), 1e-5)
+        for a, b in zip(got, kern(u, Q, c)):
+            assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert gs.LAUNCHES == dict(before, proj_qtv=before["proj_qtv"] + 2,
+                               proj_norm=before["proj_norm"] + 2)
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [7, 5000])
+def test_projection_pair_reads_an_unaligned_basis(cuda, L, qdt):
+    """A basis whose data_ptr is off a 16-byte boundary (the contiguous view
+    B[1:] of an (L+1, 201) tensor): the tiles' copies peel the array's
+    ends, and the result is the aligned copy's, bit for bit."""
+    u, B, c = _proj_inputs(cuda, L, 201, qdt, L, extra_rows=1)
+    Q = B[1:]
+    assert Q.is_contiguous() and Q.data_ptr() % 16 != 0
+    aligned = Q.clone()
+    assert aligned.data_ptr() % 16 == 0
+    for kern, plain in ((gs.proj_qtv, ref.proj_qtv),
+                        (gs.proj_norm, ref.proj_norm)):
+        got = kern(u, Q, c)
+        _assert_close(got, plain(u, Q, c), 1e-5)
+        for a, b in zip(got, kern(u, aligned, c)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["tile_rows", "grid", "stages", "smem",
+                                 "flags"])
+def test_projection_pair_refuses_plans_past_its_limits(cuda, monkeypatch,
+                                                        bad):
+    """gk_step.cu checks the plan it is handed against its own limits (tile
+    rows, grid cap, ring depth, 227 KB of shared memory, flags it does not
+    know) and refuses it before a launch: the wrapper raises."""
+    L, k = 300, gs.MAX_K if bad == "smem" else 201
+    u, Q, c = _proj_inputs(cuda, L, k, torch.float32, 3)
+    plan = gs.proj_plan(L, k, torch.float32)
+    plan = {"tile_rows": plan._replace(tile_rows=gs.MAX_TILE_ROWS + 1),
+            "grid": plan._replace(grid=gs.PROJ_BLOCKS + 1),
+            "stages": plan._replace(stages=5),
+            "smem": plan._replace(stages=2),
+            "flags": plan._replace(flags=2)}[bad]
+    monkeypatch.setattr(gs, "proj_plan", lambda *args: plan)
+    for kern in (gs.proj_qtv, gs.proj_norm):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            kern(u, Q, c)
 
 
 def test_f64_pallas_operand_raises(cuda):

@@ -26,6 +26,7 @@ by bin, and binning by bin and then by part inside each bin against
 binning by part at once.
 """
 import ctypes
+import inspect
 import re
 
 import jax
@@ -140,19 +141,30 @@ def test_stage_one_matches_reference(m, n, k):
     _close(got_c, want_c[:, 0])
 
 
-@pytest.mark.parametrize("L,k", [(48, 4), (300, 17), (129, 31)])
-def test_projection_stages_match_reference(L, k):
-    """proj_qtv / proj_norm against the reference's stage-2/3 kernels."""
+@pytest.mark.parametrize("L,k,qdt", [
+    pytest.param(48, 4, "f32", id="48-4"),
+    pytest.param(300, 17, "f32", id="300-17"),
+    pytest.param(129, 31, "f32", id="129-31"),
+    pytest.param(257, 201, "f32", id="257-201"),      # odd k: rows unaligned
+    pytest.param(257, 201, "bf16", id="257-201-bf16"),
+    pytest.param(300, 17, "bf16", id="300-17-bf16")])
+def test_projection_stages_match_reference(L, k, qdt):
+    """proj_qtv / proj_norm against the reference's stage-2/3 kernels.  A
+    bf16 basis is rounded once and handed to both (both widen it to f32),
+    so it is held at the f32 bound."""
     rng = np.random.default_rng(L * k)
     u = rng.standard_normal(L).astype(np.float32)
     Q = np.linalg.qr(rng.standard_normal((L, k)))[0].astype(np.float32)
     c = rng.standard_normal(k).astype(np.float32)
-    want_w, want_c = jgs.proj_qtv(u[:, None], Q, c[:, None], bm=L)
-    got_w, got_c = gs.proj_qtv(_t(u), _t(Q), _t(c))
+    tQ = _t(Q, torch.bfloat16 if qdt == "bf16" else torch.float32)
+    jQ = tQ.float().numpy()
+    jQ = jnp.asarray(jQ, jnp.bfloat16) if qdt == "bf16" else jQ
+    want_w, want_c = jgs.proj_qtv(u[:, None], jQ, c[:, None], bm=L)
+    got_w, got_c = gs.proj_qtv(_t(u), tQ, _t(c))
     _close(got_w, want_w[:, 0])
     _close(got_c, want_c[:, 0])
-    want_v, want_n = jgs.proj_norm(u[:, None], Q, c[:, None], bm=L)
-    got_v, got_n = gs.proj_norm(_t(u), _t(Q), _t(c))
+    want_v, want_n = jgs.proj_norm(u[:, None], jQ, c[:, None], bm=L)
+    got_v, got_n = gs.proj_norm(_t(u), tQ, _t(c))
     _close(got_v, want_v[:, 0])
     _close(got_n, want_n[0, 0])
     assert got_n.shape == ()
@@ -211,6 +223,83 @@ def test_rows_plan_covers_every_row_once(L):
     assert per % gs.GROUP == 0
     assert grid <= gs.MAX_BLOCKS
     assert (grid - 1) * per < L <= grid * per
+
+
+PLAN_LS = [1, 7, 8, 2047, 80_000, 100_000, 480_189]
+PLAN_KS = [1, 4, 200, 201, gs.MAX_K]
+PLAN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("dt", sorted(PLAN_DTYPES))
+@pytest.mark.parametrize("k", PLAN_KS)
+@pytest.mark.parametrize("L", PLAN_LS)
+def test_proj_plan_covers_every_row_once(L, k, dt):
+    """The projection pair's tiles cover rows [0, L) once, and the blocks'
+    strided walks (b, b + grid, ...) take every tile once."""
+    plan = gs.proj_plan(L, k, PLAN_DTYPES[dt])
+    T = plan.tile_rows
+    assert 1 <= T <= gs.MAX_TILE_ROWS
+    assert T < gs.GROUP or T % gs.GROUP == 0
+    assert (plan.tiles - 1) * T < L <= plan.tiles * T
+    assert 1 <= plan.grid <= min(plan.tiles, gs.PROJ_BLOCKS)
+    walks = np.concatenate([np.arange(b, plan.tiles, plan.grid)
+                            for b in range(plan.grid)])
+    np.testing.assert_array_equal(np.sort(walks), np.arange(plan.tiles))
+    if L >= gs.PROJ_BLOCKS * T:
+        assert plan.grid == gs.PROJ_BLOCKS
+
+
+def _round16(x):
+    return -(-x // 16) * 16
+
+
+@pytest.mark.parametrize("dt", sorted(PLAN_DTYPES))
+@pytest.mark.parametrize("k", PLAN_KS + [0, 1000, 12_000, 20_000])
+def test_proj_plan_fits_shared_memory(k, dt):
+    """The staged tiles, with c where the plan puts it, fit the 227 KB a
+    block can have; up to STAGES buffers, then (past REG_K columns, below
+    which c and c' sit in registers) c is taken whenever it fits.  The
+    stages also hold the register path's 8 warps' column sums."""
+    dtype = PLAN_DTYPES[dt]
+    plan = gs.proj_plan(100_000, k, dtype)
+    e = dtype.itemsize
+    T = plan.tile_rows
+    stage = _round16(4 * T) + _round16(T * k * e) + 32
+    assert T * k * e <= max(gs.STAGE_BYTES[dtype], k * e)  # one row at least
+    vec = _round16(4 * k)
+    c_shared = bool(plan.flags & gs.C_SHARED)
+    want = stage * plan.stages + vec * c_shared
+    assert plan.smem == want <= gs.SMEM_LIMIT < 227 * 1024
+    assert plan.stages == max(1, min(gs.STAGES, gs.SMEM_LIMIT // stage))
+    assert c_shared == (k > gs.REG_K
+                        and stage * plan.stages + vec <= gs.SMEM_LIMIT)
+    if k <= gs.REG_K:                  # c and c' in registers
+        assert plan.flags == 0
+    if k <= 1000:
+        assert plan.stages == gs.STAGES
+    if gs.REG_K < k <= 1000:
+        assert plan.flags == gs.C_SHARED
+    if k <= gs.REG_K:
+        assert stage * plan.stages >= 4 * gs.GROUP * k
+    if k == gs.MAX_K and dtype == torch.float32:
+        assert (plan.stages, plan.flags, T) == (1, 0, 1)  # a 196,608-byte row
+
+
+def test_proj_plan_depends_only_on_its_arguments():
+    """Same (L, k, dtype), same plan, whatever else the process does: the
+    cross-block order of the sums, and σ's bits, follow from the plan."""
+    cases = [(L, k, d) for L in PLAN_LS for k in PLAN_KS
+             for d in PLAN_DTYPES.values()]
+    first = [gs.proj_plan(*case) for case in cases]
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        again = [gs.proj_plan(*case) for case in reversed(cases)]
+    finally:
+        torch.set_num_threads(threads)
+    assert first == again[::-1]
+    params = list(inspect.signature(gs.proj_plan).parameters)
+    assert params == ["L", "k", "dtype"]
 
 
 @pytest.mark.parametrize("m,n", [(1, 1), (64, 48), (2000, 100_000),
