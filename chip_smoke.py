@@ -20,8 +20,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      shapes, on row-major X and on a transposed view of X; sparse_matvec
      on the shapes of tests/test_kernels.py:210-245 (empty rows,
      duplicates, both packs, one vector and 20-column blocks, f32 and
-     bf16 values); lowrank_matmul on tests/test_kernels.py's SHAPES and
-     RAGGED and at the update's 30 x 30 core (r = 10, a transposed view);
+     bf16 values; long rows of 1,023 to 20,000 slots, f32, bf16 and f64
+     values, in COO order and in the window layout's order, one vector
+     and 20-column blocks); lowrank_matmul on
+     tests/test_kernels.py's SHAPES and RAGGED and at the update's
+     30 x 30 core (r = 10, a transposed view);
      qtv, subtract_qc and ops.reorth (passes 1 and 2) on the shapes of
      tests/test_kernels.py:48-60 and :110-116 with an f32 and a bf16
      basis; scatter_add bit for bit against its plain version on the CPU
@@ -31,7 +34,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      Gaussian stream, spread, in one tile and in one cell (each timed,
      beside the previous design's sorted path);
      its binning against the plain model, bins of 1 to 128 tiles;
-     every kernel twice, bitwise equal;
+     every kernel twice, bitwise equal; matvec_fused's u bit for bit
+     mv_qtv's u (f32 and bf16 A);
   3. main path — A = M N with Gaussian M (m x 100) and N (100 x n) made on
      the card from --seed (the paper's numerical-rank-100 input, §6.1);
      factorize(A, SVDSpec(method="fsvd", rank=20, max_iters=200,
@@ -51,7 +55,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      against sigma_true at the reference's stol, with its wall time and a
      peak device memory that shows no copy of A or A^T;
      then every kernel is timed at its main shape beside its bound, its
-     plain version and a PyTorch yardstick; proj_qtv / proj_norm and
+     plain version and a PyTorch yardstick; mv_qtv, rmv_qtv and the fused
+     matvecs, and their yardsticks, by device time too (6 calls in one
+     CUDA graph: 32 GB a call); proj_qtv / proj_norm and
      their yardsticks by device time (60 calls in one CUDA graph, over
      basis copies that together exceed the L2) at the Q (m x 201) and P
      (n x 200) bases, f32 and bf16, beside the host loop's figure;
@@ -63,16 +69,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      versions on it (twice, bitwise), then factorize(method="fsvd",
      rank=20, max_iters=200, backend="pallas"), whose half-steps run
      through them: exact launch counts, sigma within 5e-4, and both
-     kernels timed at that shape;
+     kernels timed at that shape by device time;
   6. the sparse operand — a matrix of the Netflix Prize's shape (--sm
      users x --sn movies), built on the card from --seed as COO: a row-
      and column-permuted block diagonal of 100 rank-1 blocks, so its
      rank is 100 and its exact sigma is known.  SparseOp(backend=
-     "pallas") packs both directions; sparse_matvec is held against its
-     plain version on both packs; fsvd (exact launch counts, bitwise
-     rerun), "auto" (must pick fsvd_blocked) and estimate_rank (must give
-     100) run on it, with a peak device memory far below one dense
-     copy; sparse_matvec is timed both ways at b = 1 and b = 20.  Then
+     "pallas") packs both directions and holds the transposed pack in
+     its window layout's order, with no second copy (the layout rebuilt
+     from a fresh pack, timed, the same bits; the 20-column block product
+     timed by device time over the pack in both orders); sparse_matvec is
+     held against its plain version on both packs, the transposed one
+     vector with and without the layout; fsvd (exact launch counts,
+     bitwise rerun), "auto" (must pick fsvd_blocked) and estimate_rank
+     (must give 100) run on it, with a peak device memory far below one
+     dense copy; sparse_matvec is timed by device time both ways at b = 1
+     and b = 20, as the operator calls it, beside cuSPARSE.  Then
      the Lanczos basis of gk_bidiag at k = 200 (480,189 x 201 f32):
      ops.reorth(A p, Q, 2) against its plain version and orthogonal to Q
      (max|Q^T w| < 1e-4 ||v||, tests/test_kernels.py:59-60), and qtv /
@@ -103,6 +114,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -127,6 +139,9 @@ SKETCH_SHAPES = [(300, 64, 24), (128, 130, 16), (70, 16, 48), (48, 48, 48),
                  (200, 96, 32)]                 # tests/test_kernels.py:271
 SPARSE_SHAPES = [(300, 517, 0.02), (257, 129, 0.1), (64, 48, 0.3),
                  (128, 1000, 0.005)]               # tests/test_kernels.py:214
+# long rows: L slots each (odd row starts at 1,023 and 4,802), over an x of
+# 98,305 elements (three windows of 49,152, the last of one element)
+LONG_ROWS, LONG_SLOTS, LONG_N = 40, (1023, 1024, 4802, 20_000), 98_305
 LOWRANK_SHAPES = [(64, 48, 4), (300, 200, 17), (1024, 512, 64),
                   (100, 700, 5), (512, 128, 128),  # tests/test_kernels.py:10
                   (300, 517, 7), (257, 129, 7), (127, 383, 7),
@@ -197,6 +212,23 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def ptxas_report(log: str) -> list:
+    """One line per kernel of an nvcc log built with -Xptxas -v: its
+    (mangled) name, registers, shared memory and spills."""
+    out, kernel, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line.strip()
+            kernel = re.sub(r"^_ZN\d+_GLOBAL__N_\w*?_cu_[0-9a-f]{8}\d+", "",
+                            kernel)          # the anonymous namespace
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"{kernel[:110]}: {line.split(':', 1)[1].strip()}; "
+                       f"{spill}")
+    return out
 
 
 def smi_line() -> str:
@@ -310,6 +342,10 @@ def check_matvecs(gen, m, n, adt, A=None):
     for name, (kern, plain) in cases.items():
         got = bitwise_twice(f"{name} {tag}", kern)
         errs[name] = compare(f"{name} {tag}", got, plain(), (torch.float32,))
+    if adt != torch.float64:   # mv_qtv takes f32 / bf16 A
+        u, _ = gs.mv_qtv(A, p, ym, alpha, torch.zeros(m, 1, device=DEV))
+        check(torch.equal(gs.matvec_fused(A, p, ym, alpha), u),
+              f"matvec_fused {tag}: u differs bitwise from mv_qtv's u")
     torch.cuda.synchronize()
     return errs
 
@@ -636,6 +672,7 @@ def graph_ms(calls, reps=60, replays=5):
     return ms
 
 
+MAIN_GRAPH = (6, 2)       # graph_ms at the main shape: 32 GB a call
 PROJ_COPIES = {"f32": 2, "bf16": 3}   # basis copies a timing cycles through:
                                       # together above the 50 MB L2
 
@@ -755,7 +792,7 @@ def phase_times(A, seed):
     for name, (kern, plain, lib, nbytes, flops) in rows.items():
         k = kp if name == "rmv_qtv" else kq
         out[name] = time_row(name, kern, plain, lib, nbytes, flops,
-                             f"({m}x{n}, k={k}, f32)")
+                             f"({m}x{n}, k={k}, f32)", graph=MAIN_GRAPH)
     del Q, P
     out.update(proj_times(m, n, seed))
     return out
@@ -777,7 +814,15 @@ def csr_transpose(sk):
                                        check_invariants=False)
 
 
-def time_row(name, kern, plain, lib, nbytes, flops, shape, phase=3):
+def time_row(name, kern, plain, lib, nbytes, flops, shape, phase=3,
+             graph=None):
+    """One timing row: the kernel, its plain version and its library
+    yardstick, each over 10 back-to-back calls between CUDA events (the
+    host loop), beside the bound.  With ``graph=(reps, replays)`` the
+    kernel and the library call are also timed by device time
+    (``graph_ms``): ``ms`` and ``library_ms`` are then device times, and
+    the host loop's figures stay as ``host_loop_ms`` and
+    ``host_loop_library_ms``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     ms, plain_ms, lib_ms = event_ms(kern), event_ms(plain), event_ms(lib)
@@ -785,10 +830,25 @@ def time_row(name, kern, plain, lib, nbytes, flops, shape, phase=3):
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                nbytes=nbytes)
-    print(f"phase {phase}: {name} at {shape}: kernel {ms:.4f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-          f"{nbytes / ms / 1e6:.1f} GB/s, plain {plain_ms:.4f} ms, "
-          f"library {lib_ms:.4f} ms", flush=True)
+    if graph is None:
+        print(f"phase {phase}: {name} at {shape}: kernel {ms:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"{nbytes / ms / 1e6:.1f} GB/s, plain {plain_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms", flush=True)
+        return row
+    reps, replays = graph
+    row.update(host_loop_ms=ms, host_loop_library_ms=lib_ms,
+               ms=graph_ms([kern], reps, replays),
+               library_ms=graph_ms([lib], reps, replays))
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    share = 100 * row["share_of_bound"]
+    print(f"phase {phase}: {name} at {shape}, device time ({reps} calls a "
+          f"graph): kernel {row['ms']:.4f} ms ({share:.0f} % of the bound "
+          f"{row['bound_ms']:.4f} ms, "
+          f"{nbytes / row['ms'] / 1e6:.1f} GB/s), library "
+          f"{row['library_ms']:.4f} ms; host loop "
+          f"(10 back to back): kernel {ms:.4f} ms, library {lib_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms", flush=True)
     return row
 
 
@@ -815,13 +875,13 @@ def phase_times_new(A, seed):
             lambda: ref.matvec_fused(A, p, ym, alpha),
             lambda: torch.addmv(ym, A, p, beta=-0.37),
             f * (m * n + n + m + 1 + m), 2 * m * n + 2 * m,
-            f"({m}x{n}, f32)"),
+            f"({m}x{n}, f32)", graph=MAIN_GRAPH),
         "rmatvec_fused": time_row(
             "rmatvec_fused", lambda: gs.rmatvec_fused(A, q, yn, 1.7),
             lambda: ref.rmatvec_fused(A, q, yn, 1.7),
             lambda: torch.addmv(yn, A.T, q, beta=-1.7),
             f * (m * n + m + n + 1 + n), 2 * m * n + 2 * n,
-            f"({m}x{n}, f32)"),
+            f"({m}x{n}, f32)", graph=MAIN_GRAPH),
     }
     k = SKETCH_SOLVES[0][1]["sketch_dim"]
     omega, psi = sketch_pack(g, n, k), sketch_pack(g, m, 2 * k)
@@ -898,13 +958,13 @@ def phase_f64(seed, m, n):
             lambda: ref.matvec_fused(A, p, ym, 0.37),
             lambda: torch.addmv(ymd, A, pd, beta=-0.37),
             8 * m * n + 4 * (n + 2 * m + 1), 2 * m * n + 2 * m, shape,
-            phase=5),
+            phase=5, graph=(60, 5)),
         "rmatvec_fused": time_row(
             "rmatvec_fused", lambda: gs.rmatvec_fused(A, q, yn, 1.7),
             lambda: ref.rmatvec_fused(A, q, yn, 1.7),
             lambda: torch.addmv(ynd, A.T, qd, beta=-1.7),
             8 * m * n + 4 * (m + 2 * n + 1), 2 * m * n + 2 * n, shape,
-            phase=5),
+            phase=5, graph=(60, 5)),
     }
     return launches, errs, times
 
@@ -925,14 +985,16 @@ def sparse_coo(gen, m, n, density):
     return A[idx[:, 0], idx[:, 1]], idx.to(torch.int32)
 
 
-def check_spmv(tag, vals, cols, X):
-    """sparse_matvec against its plain version (bf16 values are widened
-    exactly, so f32 bounds hold); returns the max abs error."""
+def check_spmv(tag, vals, cols, X, layout=None):
+    """sparse_matvec (through ``layout`` where given) against its plain
+    version (bf16 values are widened exactly, so f32 bounds hold); returns
+    the max abs error."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import sparse_matvec as spm
-    name = f"sparse_matvec {tag}"
-    got = bitwise_twice(name, lambda: (spm.sparse_matvec(vals, cols, X),))
+    name = f"sparse_matvec {tag}" + (" windows" if layout else "")
+    got = bitwise_twice(name, lambda: (spm.sparse_matvec(vals, cols, X,
+                                                         layout),))
     err = compare(name, got, (ref.sparse_matvec(vals, cols, X),),
                   (torch.float32,))
     torch.cuda.synchronize()
@@ -969,6 +1031,24 @@ def phase_slice3_kernels(gen):
                     check_spmv(f"({shape[0]}x{shape[1]}, b={b}, {vdt})",
                                vals, cols, X)
                     n_cases += 1
+    # long rows, each path: one vector and a 20-column block, over the
+    # pack and over its window layout's pack
+    for L in LONG_SLOTS:
+        cols = torch.randint(0, LONG_N, (LONG_ROWS, L), generator=gen,
+                             device=DEV, dtype=torch.int32)
+        vals = torch.randn(LONG_ROWS, L, generator=gen, device=DEV)
+        X = torch.randn(LONG_N, 20, generator=gen, device=DEV)
+        x = X[:, 0].contiguous()
+        for vdt in (torch.float32, torch.bfloat16, torch.float64):
+            v = vals.to(vdt)
+            tag = f"({LONG_ROWS}x{LONG_N}, L={L}, {vdt})"
+            lay = spm.window_layout(v, cols, LONG_N)
+            check_spmv(tag + " b=1", v, cols, x)
+            check_spmv(tag + " b=1", lay.vals, lay.cols, x, lay)
+            check_spmv(tag + " b=20", v, cols, X)
+            check_spmv(tag + " b=20 window order", lay.vals, lay.cols, X,
+                       lay)
+            n_cases += 4
     # tests/test_kernels.py:232-242: empty rows and duplicates, exactly
     data = torch.tensor([1.0, 2.0, 3.0, 4.0], device=DEV)
     idx = torch.tensor([[0, 1], [0, 1], [3, 0], [3, 2]], dtype=torch.int32,
@@ -989,8 +1069,10 @@ def phase_slice3_kernels(gen):
             n_cases += 2
     print(f"phase 2: {n_cases + 1} shape/type cases of sparse_matvec (both "
           f"packs, b = 1 and 20, f32/bf16 values, empty rows and "
-          f"duplicates) and lowrank_matmul (f32/bf16, row-major and "
-          f"transposed-view Vt) match the plain versions, bitwise stable",
+          f"duplicates; long rows of {LONG_SLOTS} slots in f32/bf16/f64 "
+          f"in COO and in window order) and lowrank_matmul "
+          f"(f32/bf16, row-major and transposed-view Vt) match the plain "
+          f"versions, bitwise stable",
           flush=True)
 
 
@@ -1728,30 +1810,67 @@ def phase_sparse(seed, m, n):
     S, t_pack = timed(lambda: SparseOp.from_coo(data, idx, (m, n),
                                                 backend="pallas"))
     peak_build = torch.cuda.max_memory_allocated()
-    packs = {"forward": (S.ell[0], S.ell[1], n),
-             "transposed": (S.ell[2], S.ell[3], m)}
+    packs = {"forward": (S.ell[0], S.ell[1], n, S.windows[0]),
+             "transposed": (S.ell[2], S.ell[3], m, S.windows[1])}
+    # the Netflix shape: short forward rows, long transposed rows (--sm of
+    # RANK * 1,024 users or more), and only the long ones get a layout
+    check(S.windows[0] is None and S.windows[1] is not None,
+          f"window layouts {[w is not None for w in S.windows]} for rows of "
+          f"{S.ell[1].shape[1]} and {S.ell[3].shape[1]} slots")
     desc = ", ".join(f"{k} {v.shape[0]} rows x L {v.shape[1]} (fill "
-                     f"{nnz / v.numel():.4f})" for k, (v, _, _)
+                     f"{nnz / v.numel():.4f})" for k, (v, *_)
                      in packs.items())
+    # the operator holds its transposed pack in window order alone: rebuild
+    # it from a fresh pack in COO order, and time the block product (which
+    # reads the pack without the layout) over both orders
+    tv, tc = spm.ell_pack(data, idx.flip(1), (n, m))
+    lay, t_win = timed(lambda: spm.window_layout(tv, tc, m))
+    check(all(torch.equal(a, b) for a, b in zip(lay, S.windows[1])),
+          "the window layout differs on a rebuild")
+    check(S.ell[2] is S.windows[1].vals and S.ell[3] is S.windows[1].cols,
+          "the operator holds a second transposed pack beside its layout")
+    off_mb = lay.offsets.numel() * 4 / 1e6
+    del lay
+    Xb = torch.randn(m, 20, generator=torch.Generator(device=DEV)
+                     .manual_seed(seed + 10), device=DEV)
+    coo_ms = graph_ms([lambda: spm.sparse_matvec(tv, tc, Xb)], 60, 5)
+    win_ms = graph_ms([lambda: spm.sparse_matvec(
+        S.ell[2], S.ell[3], Xb, S.windows[1])], 60, 5)
+    del tv, tc, Xb
     print(f"phase 6: sparse operand {m}x{n}, {RANK} rank-1 blocks, nnz "
           f"{nnz} (density {nnz / (m * n):.3e}), COO on the card in "
-          f"{t_coo:.3f} s, both ELL packs in {t_pack:.3f} s: {desc}; peak "
-          f"{peak_build / GIB:.2f} GiB while building (one dense f32 copy: "
-          f"{m * n * 4 / GIB:.1f} GiB)", flush=True)
+          f"{t_coo:.3f} s, both ELL packs and the transposed pack's window "
+          f"layout in {t_pack:.3f} s: {desc}; the layout alone "
+          f"({spm.window_plan(S.ell[3].shape[0], m).windows} windows of "
+          f"{spm.WINDOW} f32; the pack in window order replaces the "
+          f"transposed pack, the offsets add {off_mb:.1f} MB) rebuilt from "
+          f"a fresh pack in {t_win:.3f} s, the same bits; transposed b=20 "
+          f"by device time: pack in window order {win_ms:.4f} ms, in COO "
+          f"order {coo_ms:.4f} ms; peak {peak_build / GIB:.2f} GiB while "
+          f"building (one dense f32 copy: {m * n * 4 / GIB:.1f} GiB)",
+          flush=True)
     err = 0.0
     gen = torch.Generator(device=DEV).manual_seed(seed + 11)
-    for name, (vals, cols, nx) in packs.items():
+    for name, (vals, cols, nx, lay) in packs.items():
         for vdt in (torch.float32, torch.bfloat16):
             v = vals if vdt == torch.float32 else vals.to(vdt)
+            # the same slot order in bf16: the layout's offsets still hold
+            vlay = lay if vdt == torch.float32 or lay is None else \
+                lay._replace(vals=v)
             for b in (1, 20):
                 X = torch.randn(nx, b, generator=gen, device=DEV)
                 X = X[:, 0].contiguous() if b == 1 else X
-                e = check_spmv(f"cell {name} b={b} {vdt}", v, cols, X)
+                e = check_spmv(f"cell {name} b={b} {vdt}", v, cols, X, vlay)
+                if b == 1 and vlay is not None:
+                    e = max(e, check_spmv(f"cell {name} b={b} {vdt}", v,
+                                          cols, X))
                 if vdt == torch.float32:
                     err = max(err, e)
+            del vlay
     print(f"phase 6: sparse_matvec matches its plain version on both packs "
-          f"(b = 1 and 20, f32 and bf16 values), bitwise stable; max abs "
-          f"err (f32) {err:.3e}", flush=True)
+          f"(b = 1 and 20, f32 and bf16 values; the transposed b = 1 with "
+          f"and without the window layout), bitwise stable; max abs err "
+          f"(f32) {err:.3e}", flush=True)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1821,7 +1940,7 @@ def phase_sparse(seed, m, n):
 
     rows = []
     vb = S.ell[0].element_size()
-    for name, (vals, cols, nx) in packs.items():
+    for name, (vals, cols, nx, lay) in packs.items():
         csr = csr_of_pack(vals, cols)
         ny = vals.shape[0]
         for b in (1, 20):
@@ -1833,12 +1952,15 @@ def phase_sparse(seed, m, n):
                 x = X
                 lib = (lambda csr=csr, x=x: torch.sparse.mm(csr, x))
             nbytes = nnz * (vb + 4) + 4 * b * (nx + ny)
+            # the main path's call, as the operator makes it
             row = time_row(
                 f"sparse_matvec {name} b={b}",
-                lambda v=vals, c=cols, x=x: spm.sparse_matvec(v, c, x),
-                lambda v=vals, c=cols, x=x: ref.sparse_matvec(v, c, x), lib,
-                nbytes, 2 * nnz * b, f"({ny} rows x L {vals.shape[1]}, "
-                f"x {nx}x{b}, f32)", phase=6)
+                lambda v=vals, c=cols, x=x, w=lay:
+                    spm.sparse_matvec(v, c, x, w),
+                lambda v=vals, c=cols, x=x: ref.sparse_matvec(v, c, x),
+                lib, nbytes, 2 * nnz * b, f"({ny} rows x L "
+                f"{vals.shape[1]}, x {nx}x{b}, f32)", phase=6,
+                graph=(60, 5))
             row["call"] = f"{name} b={b}"
             rows.append(row)
         del csr
@@ -1848,8 +1970,11 @@ def phase_sparse(seed, m, n):
     out = {key: sum(r[key] for r in half) / len(half)
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     out["bound_by"] = "bytes"
+    out["host_loop_ms"] = sum(r["host_loop_ms"] for r in half) / len(half)
     out["calls"] = [{k: r[k] for k in ("call", "ms", "plain_ms",
-                                       "library_ms", "bound_ms")}
+                                       "library_ms", "host_loop_ms",
+                                       "host_loop_library_ms",
+                                       "bound_ms", "share_of_bound")}
                     for r in rows]
     return launches, err, out, phase_reorth(S, seed)
 
@@ -1884,9 +2009,8 @@ def main(argv=None) -> int:
         print(f"phase 1: built {sorted(logs)} for sm_90a in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         for name, log in logs.items():
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}")
+            for line in ptxas_report(log):
+                print(f"  {name}: {line}")
 
         A, s_true = make_operand(args.seed, args.m, args.n)
         gen = torch.Generator(device=DEV).manual_seed(args.seed + 2)
@@ -1947,6 +2071,8 @@ def main(argv=None) -> int:
                    bound_ms=times[name]["bound_ms"],
                    bound_by=times[name]["bound_by"],
                    library_ms=times[name]["library_ms"])
+        if "host_loop_ms" in times[name]:
+            row["host_loop_ms"] = times[name]["host_loop_ms"]
         if name in MATVECS:
             row["shape"] = f"{args.m64}x{args.n64} f64"
             row["f32_main"] = f32_main[name]
@@ -1962,7 +2088,6 @@ def main(argv=None) -> int:
         if name in ("proj_qtv", "proj_norm"):
             row["shape"] = (f"Q side {args.m}x{MAX_ITERS + 1} f32, "
                             f"device time")
-            row["host_loop_ms"] = times[name]["host_loop_ms"]
             row["device"] = times[name]["device"]
         if name == "scatter_add":
             row["shape"] = "phase 7 folds, mean of Y and Z"

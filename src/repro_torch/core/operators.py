@@ -529,16 +529,26 @@ class SparseOp(Operator):
     once, at construction, on the data's device (unless ``ell`` already
     holds the packs), and runs mv, rmv and the block products through the
     CUDA kernel of ``kernels.sparse_matvec``: a block of b columns is one
-    launch.  ``backend="xla"`` multiplies a torch sparse COO tensor, built
-    on first use.
+    launch.  On a CUDA device it also builds, once, the window layout of
+    each pack whose rows hold ``LONG_ROW`` slots or more (``windows``: one
+    layout or None per pack, in the order of ``ell``), through which mv /
+    rmv gather x from shared memory.  Such a pack is then held in the
+    layout's window order (the same slots of each row, in another order),
+    in place of the reference's order, so ``ell`` keeps one copy.
+    ``backend="xla"`` multiplies a torch sparse COO tensor, built on first
+    use.
     """
 
     data: Tensor                  # (nnz,)
     indices: Tensor               # (nnz, 2) int — [row, col]
     spshape: Tuple[int, int] = (0, 0)
     ell: Any = None               # ((m,L) vals, (m,L) cols, (n,L') vals,
-                                  #  (n,L') rows) — the pallas pack, or None
+                                  #  (n,L') rows) — the pallas pack (in
+                                  #  window order where it has a layout),
+                                  #  or None
     backend: str = "xla"
+    windows: Any = None           # (layout of A's pack or None, of Aᵀ's),
+                                  # or None where none was built
 
     def __post_init__(self):
         if self.backend not in _BACKENDS:
@@ -552,6 +562,20 @@ class SparseOp(Operator):
             object.__setattr__(self, "ell", (
                 ell_pack(self.data, self.indices, (m, n))
                 + ell_pack(self.data, self.indices.flip(1), (n, m))))
+        if self.backend == "pallas" and self.windows is None \
+                and self.data.device.type == "cuda":
+            from repro_torch.kernels import sparse_matvec as spm
+            m, n = self.spshape
+            windows = tuple(
+                spm.window_layout(v, c, nx)
+                if c.shape[1] >= spm.LONG_ROW else None
+                for v, c, nx in ((self.ell[0], self.ell[1], n),
+                                 (self.ell[2], self.ell[3], m)))
+            object.__setattr__(self, "ell", tuple(
+                t for side, w in enumerate(windows)
+                for t in (self.ell[2 * side:2 * side + 2] if w is None
+                          else w[:2])))
+            object.__setattr__(self, "windows", windows)
 
     # --- constructors -------------------------------------------------
     @classmethod
@@ -619,14 +643,19 @@ class SparseOp(Operator):
     def _forward(self, X):
         if self.backend == "pallas":
             from repro_torch.kernels import ops as kops
-            return kops.sparse_matvec(self.ell[0], self.ell[1], X)
+            return kops.sparse_matvec(self.ell[0], self.ell[1], X,
+                                      self._window(0))
         return _spmm(self._coo, X)
 
     def _backward(self, X):
         if self.backend == "pallas":
             from repro_torch.kernels import ops as kops
-            return kops.sparse_matvec(self.ell[2], self.ell[3], X)
+            return kops.sparse_matvec(self.ell[2], self.ell[3], X,
+                                      self._window(1))
         return _spmm(self._coo_t, X)
+
+    def _window(self, side: int):
+        return None if self.windows is None else self.windows[side]
 
     mv = matmat = _forward
     rmv = rmatmat = _backward
@@ -638,8 +667,9 @@ class SparseOp(Operator):
     def T(self):
         ell = None if self.ell is None else \
             (self.ell[2], self.ell[3], self.ell[0], self.ell[1])
+        windows = None if self.windows is None else self.windows[::-1]
         return SparseOp(self.data, self.indices.flip(1), self.spshape[::-1],
-                        ell=ell, backend=self.backend)
+                        ell=ell, backend=self.backend, windows=windows)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

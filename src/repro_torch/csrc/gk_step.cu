@@ -12,9 +12,10 @@
 //
 // One GK half-step is stage 1 (mv or rmv), then (passes-1) x proj_qtv, then
 // proj_norm; the composition lives in repro_torch/kernels/ops.py.  The two
-// fused matvecs are stage 1 with an empty basis (k = 0: no c = Q^T u
-// epilogue and no finishing launch); the operator calls them for the
-// half-steps of a float64 DenseOp(backend="pallas").
+// fused matvecs compute stage 1's vector with no basis; the operator calls
+// them for the half-steps of a float64 DenseOp(backend="pallas").
+// rmatvec_fused is stage 1 of rmv with k = 0 (no c = P^T v epilogue and no
+// finishing launch); matvec_fused has a row kernel of its own.
 //
 // What bounds them.  Every kernel does about one multiply-add per element it
 // reads, far below the card's ~20 flop/byte f32 ridge, so each is bound by
@@ -33,6 +34,12 @@
 //    aligned), then the block folds the eight scalars of the group into
 //    its share of c = Q^T u while the Q rows are still in L1.  The scalar
 //    never makes a round trip through device memory before c sees it.
+//  * The fused matvec u = A p - alpha y (matvec_kernel) needs no block
+//    fold, so it runs no barrier: a persistent grid of 132 x 4 blocks,
+//    each warp on its own rows with stage 1's row_dot.  rows_kernel's two
+//    __syncthreads() a group of 8 rows made the warps of a block wait for
+//    each other (draining their loads), and its rows_plan grid left a thin
+//    second wave (194 of 1,250 blocks at m = 20,000).
 //  * The projection pair (proj_kernel) streams only the basis, 80 MB at
 //    the main Q (1e5 x 201 f32), so what holds it back is bytes in flight
 //    and arithmetic that does not overlap them.  Its rows of odd width are
@@ -204,6 +211,52 @@ cudaError_t mv_qtv_vec(const void* A, const float* p, const float* y,
                              grid, u, part, c, stream);
   return mv_qtv<TA, 1, TQ>(A, p, y, alpha, Q, m, n, k, rows_per_block, grid,
                            u, part, c, stream);
+}
+
+// --- the fused matvec: a persistent row kernel with no barrier -----------
+//
+// u = A p - alpha y alone (stage 1 with no basis).  The grid is sized to
+// the card, kSms SMs times the blocks an SM holds at ptxas's registers:
+// warp w of the grid's W warps takes rows w, w + W, ..., each with
+// MvRow's row_dot (the order of mv_qtv's stage 1, so u has its bits), and
+// lane 0 writes u_i.  No __syncthreads(): no warp waits for another, so
+// each keeps its row's loads in flight, and the last rows leave no thin
+// second wave of blocks behind.
+
+constexpr int kSms = 132;            // H100 SXM
+constexpr int kMvBlocksPerSm = 4;    // 4 x 256 threads: <= 64 registers
+constexpr int kMvMaxBlocks = kSms * kMvBlocksPerSm;
+
+template <typename TA, int V>
+__global__ void __launch_bounds__(kThreads, kMvBlocksPerSm)
+    matvec_kernel(MvRow<TA, V> row, long long m, float* __restrict__ u) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * kWarps;
+  for (long long i = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       i < m; i += warps) {
+    const float val = row(i, lane);   // uniform per warp
+    if (lane == 0) u[i] = val;
+  }
+}
+
+// The grid comes from the wrapper's matvec_plan; a grid past kMvMaxBlocks,
+// or with a block that owns no row, is refused before a launch.
+template <typename TA>
+cudaError_t matvec(const void* A, const float* p, const float* y,
+                   const float* alpha, long long m, long long n, int grid,
+                   float* u, cudaStream_t stream) {
+  if (m < 1 || n < 1 || grid < 1 || grid > kMvMaxBlocks ||
+      (long long)(grid - 1) * kWarps >= m)
+    return cudaErrorInvalidValue;
+  constexpr int V = 16 / sizeof(TA);  // elements of A in 16 bytes
+  const TA* a = static_cast<const TA*>(A);
+  if (n % V == 0 && aligned16(A) && aligned16(p))
+    matvec_kernel<TA, V><<<grid, kThreads, 0, stream>>>(
+        MvRow<TA, V>{a, p, y, alpha, n}, m, u);
+  else
+    matvec_kernel<TA, 1><<<grid, kThreads, 0, stream>>>(
+        MvRow<TA, 1>{a, p, y, alpha, n}, m, u);
+  return cudaGetLastError();
 }
 
 template <typename TA, typename TP>
@@ -639,23 +692,16 @@ int gk_proj_norm(const float* u, const void* Q, int q_bf16,
 }
 
 int gk_matvec_fused(const void* A, int a_kind, const float* p, const float* y,
-                    const float* alpha, long long m, long long n,
-                    long long rows_per_block, int grid, float* u,
-                    void* stream) {
+                    const float* alpha, long long m, long long n, int grid,
+                    float* u, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (a_kind == 1)
-    e = mv_qtv_vec<__nv_bfloat16, float>(A, p, y, alpha, nullptr, m, n, 0,
-                                         rows_per_block, grid, u, nullptr,
-                                         nullptr, s);
+    e = matvec<__nv_bfloat16>(A, p, y, alpha, m, n, grid, u, s);
   else if (a_kind == 2)
-    e = mv_qtv_vec<double, float>(A, p, y, alpha, nullptr, m, n, 0,
-                                  rows_per_block, grid, u, nullptr, nullptr,
-                                  s);
+    e = matvec<double>(A, p, y, alpha, m, n, grid, u, s);
   else
-    e = mv_qtv_vec<float, float>(A, p, y, alpha, nullptr, m, n, 0,
-                                 rows_per_block, grid, u, nullptr, nullptr,
-                                 s);
+    e = matvec<float>(A, p, y, alpha, m, n, grid, u, s);
   return (int)e;
 }
 

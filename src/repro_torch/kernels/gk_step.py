@@ -17,6 +17,10 @@ as in the reference kernel (so an f64 operand is multiplied in f32).
 ``alpha`` / ``beta`` are a Python number or a one-element f32 tensor on
 the device (a device scalar never forces a host sync).
 
+``matvec_fused`` has a row kernel of its own: a persistent grid sized to
+the card (``matvec_plan``), each warp on its own rows with stage 1's row
+loop, and no barrier, so u has the bits of ``mv_qtv``'s u.
+
 The projection pair is bound by the bytes of the basis, which it reads
 from device memory once a call: each block copies tiles of whole rows,
 one contiguous run of the array whatever k's parity, into shared memory
@@ -49,6 +53,8 @@ A_KINDS = {torch.float64: 2, F32: 0, BF16: 1}
 THREADS = 256          # threads per block, as in the CUDA source
 GROUP = THREADS // 32  # rows a block of the row kernel handles at once
 MAX_BLOCKS = 2048      # grid cap of the row kernel
+SMS = 132              # streaming multiprocessors of an H100 SXM
+MV_BLOCKS_PER_SM = 4   # resident blocks of matvec_fused's kernel on an SM
 RMV_TARGET_BLOCKS = 4096   # (column tile, row chunk) blocks rmv aims for
 MAX_CHUNKS = 65535     # gridDim.y limit
 MAX_K = 49152          # basis columns: k f32 of shared memory per block
@@ -76,7 +82,7 @@ _SIGNATURES = {
                     _P],
     "gk_proj_norm": [_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P,
                      _P],
-    "gk_matvec_fused": [_P, _I, _P, _P, _P, _L, _L, _L, _I, _P, _P],
+    "gk_matvec_fused": [_P, _I, _P, _P, _P, _L, _L, _I, _P, _P],
     "gk_rmatvec_fused": [_P, _I, _P, _P, _P, _L, _L, _L, _I, _P, _L, _I,
                          _P, _P],
     "gk_error_string": [_I],
@@ -102,6 +108,15 @@ def rows_plan(L: int) -> tuple[int, int]:
     per = -(-L // MAX_BLOCKS)
     per = max(GROUP, -(-per // GROUP) * GROUP)
     return per, -(-L // per)
+
+
+def matvec_plan(m: int) -> int:
+    """Blocks of ``matvec_fused``'s persistent kernel for m rows: as many as
+    the card holds at once (``SMS`` × ``MV_BLOCKS_PER_SM``), fewer where
+    that would leave a block without a row.  Warp w of the grid's
+    ``GROUP`` × blocks warps takes rows w, w + warps, ...  The grid does
+    not change a bit of u: each row is one warp's dot product."""
+    return max(1, min(SMS * MV_BLOCKS_PER_SM, -(-m // GROUP)))
 
 
 def chunk_plan(m: int, n: int) -> tuple[int, int]:
@@ -338,12 +353,11 @@ def matvec_fused(A: Tensor, p: Tensor, y: Tensor, alpha) -> Tensor:
         return ref.matvec_fused(A, p, y, alpha)
     if m == 0 or n == 0:
         raise ValueError(f"empty operand {tuple(A.shape)}")
-    per, grid = rows_plan(m)
     a = _scalar(alpha, A.device)
     u = torch.empty(m, dtype=F32, device=A.device)
     rc = _lib().gk_matvec_fused(
         A.data_ptr(), A_KINDS[A.dtype], p.data_ptr(), y.data_ptr(),
-        a.data_ptr(), m, n, per, grid, u.data_ptr(), _stream())
+        a.data_ptr(), m, n, matvec_plan(m), u.data_ptr(), _stream())
     _check(rc, "matvec_fused")
     LAUNCHES["matvec_fused"] += 1
     return u

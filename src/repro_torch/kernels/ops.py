@@ -12,7 +12,8 @@ Counterpart of ``repro.kernels.ops``:
     f32 as the reference wrapper does;
   * ``sketch_matmat`` (``SparseSignSketch.tapply``);
   * ``sparse_matvec`` (``SparseOp(backend="pallas")`` mv/rmv/matmat/
-    rmatmat): x or a block X of any float dtype, cast to f32;
+    rmatmat): x or a block X of any float dtype, cast to f32, and the
+    operator's window layout of a pack of long rows;
   * ``lowrank_matmul`` (``core.update``: the update's core outer product
     and ``materialize_lowrank``);
   * ``reorth`` (CGS^passes against a basis: ``passes`` × (``qtv``,
@@ -57,10 +58,14 @@ def rmatvec_fused(A: Tensor, q: Tensor, y: Tensor, beta) -> Tensor:
     return gs.rmatvec_fused(A, _f32(q), _f32(y), _f32_scalar(beta))
 
 
-def sparse_matvec(vals: Tensor, cols: Tensor, x: Tensor) -> Tensor:
+def sparse_matvec(vals: Tensor, cols: Tensor, x: Tensor,
+                  layout=None) -> Tensor:
     """y = A x for A in padded-ELL rows (``sparse_matvec.ell_pack``):
-    x (n,) → (m,) f32, or a block X (n, b) → (m, b) f32 in one launch."""
-    return spm.sparse_matvec(vals, cols, _f32(x))
+    x (n,) → (m,) f32, or a block X (n, b) → (m, b) f32 in one launch.
+    ``layout``, a ``window_layout`` whose own vals / cols these are
+    (only ``SparseOp`` holds one), takes one vector through the window
+    kernel."""
+    return spm.sparse_matvec(vals, cols, _f32(x), layout)
 
 
 def reorth(v: Tensor, Q: Tensor, passes: int = 2) -> Tensor:

@@ -72,6 +72,22 @@ def sparse_matvec(vals: Tensor, cols: Tensor, X: Tensor) -> Tensor:
     return (v * g if X.dim() == 1 else v[..., None] * g).sum(1)
 
 
+def sparse_matvec_windows(vals: Tensor, cols: Tensor, offsets: Tensor,
+                          x: Tensor) -> Tensor:
+    """y = A x through a window layout (``sparse_matvec.window_layout``):
+    row i's partial over window w sums its slots offsets[i, w] to
+    offsets[i, w + 1] (the columns of window w of x), and y adds each
+    row's partials in window order."""
+    m, L = cols.shape
+    g = vals.to(F32) * x.to(F32)[cols.long()]          # (m, L)
+    slot = torch.arange(L, device=cols.device)
+    y = torch.zeros(m, dtype=F32, device=cols.device)
+    for w in range(offsets.shape[1] - 1):
+        lo, hi = offsets[:, w:w + 1], offsets[:, w + 1:w + 2]
+        y = y + torch.where((slot >= lo) & (slot < hi), g, 0.0).sum(1)
+    return y
+
+
 def lowrank_matmul(U: Tensor, s: Tensor, Vt: Tensor) -> Tensor:
     """W = U diag(s) Vᵀ (the low-rank materialization), f32."""
     return (U.to(F32) * s.to(F32)[None, :]) @ Vt.to(F32)

@@ -244,6 +244,42 @@ def test_fused_matvecs_match_plain_versions(cuda, m, n, adt):
                                rmatvec_fused=before["rmatvec_fused"] + 2)
 
 
+@pytest.mark.parametrize("m", [1, 7, 20_000])
+@pytest.mark.parametrize("n", [1024, 1003])          # 1003: a ragged tail
+@pytest.mark.parametrize("adt", [torch.float64, torch.float32,
+                                 torch.bfloat16])
+def test_matvec_fused_persistent_kernel(cuda, m, n, adt):
+    """matvec_fused's own kernel against its plain version, twice bitwise,
+    one launch a call; for f32 and bf16 A its u has the bits of mv_qtv's
+    u (the same row loop)."""
+    A, p, _, ym, _, Q, _ = _inputs(m, n, 1, adt, torch.float32, m + n)
+    alpha = torch.tensor([0.37], device=cuda)
+    before = gs.LAUNCHES["matvec_fused"]
+    got = gs.matvec_fused(A, p, ym, alpha)
+    _assert_close([got], [ref.matvec_fused(A, p, ym, alpha)], 1e-5)
+    assert torch.equal(got, gs.matvec_fused(A, p, ym, alpha))
+    torch.cuda.synchronize()
+    assert gs.LAUNCHES["matvec_fused"] == before + 2
+    if adt != torch.float64:
+        u, _ = gs.mv_qtv(A, p, ym, alpha, Q)
+        assert torch.equal(got, u)
+
+
+@pytest.mark.parametrize("grid", ["past_the_cap", "idle_block", "zero"])
+def test_matvec_fused_refuses_plans_past_its_limits(cuda, monkeypatch,
+                                                    grid):
+    """gk_step.cu refuses a grid past SMS x MV_BLOCKS_PER_SM blocks, one
+    with a block that owns no row, and an empty one: the wrapper
+    raises."""
+    A, p, _, ym, _, _, _ = _inputs(100, 64, 1, torch.float32,
+                                   torch.float32, 5)
+    bad = {"past_the_cap": gs.SMS * gs.MV_BLOCKS_PER_SM + 1,
+           "idle_block": gs.matvec_plan(100) + 1, "zero": 0}[grid]
+    monkeypatch.setattr(gs, "matvec_plan", lambda *args: bad)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        gs.matvec_fused(A, p, ym, 0.5)
+
+
 @pytest.mark.parametrize("n,d,b", [(300, 64, 24), (128, 130, 16),
                                    (70, 16, 48), (48, 48, 48),
                                    (200, 96, 32), (5000, 300, 4000)])
@@ -419,6 +455,109 @@ def test_sparse_matvec_matches_plain_version(cuda, m, n, density, b, vdt):
         assert torch.equal(got, spm.sparse_matvec(vals, cols, X))
         torch.cuda.synchronize()
         assert spm.LAUNCHES["sparse_matvec"] == before + 2
+
+
+LONG_N = 98_305          # three windows of x, the last of one element
+
+
+@pytest.mark.parametrize("L", [1023, 1024, 4802, 20_000])
+@pytest.mark.parametrize("b", [1, 20])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16,
+                                 torch.float64])
+@pytest.mark.parametrize("windows", [False, True])
+def test_sparse_matvec_long_rows(cuda, L, b, vdt, windows):
+    """Rows of L slots (1,023 and 4,802: every other row starts off a
+    16-byte boundary) over an x of three windows, with and without the
+    window layout (which a block of columns ignores): against the plain
+    version, twice bitwise, one launch a call."""
+    rng = np.random.default_rng(L + b)
+    m = 37
+    cols = torch.from_numpy(rng.integers(0, LONG_N, (m, L), dtype=np.int32))
+    vals = torch.from_numpy(rng.standard_normal((m, L)).astype(np.float32))
+    vals, cols = vals.to(vdt).to(cuda), cols.to(cuda)
+    X = torch.randn(LONG_N, b, device=cuda)
+    if b == 1:
+        X = X[:, 0].contiguous()
+    layout = spm.window_layout(vals, cols, LONG_N) if windows else None
+    v, c = (vals, cols) if layout is None else layout[:2]
+    before = spm.LAUNCHES["sparse_matvec"]
+    got = spm.sparse_matvec(v, c, X, layout)
+    _assert_close([got], [ref.sparse_matvec(vals, cols, X)], 1e-5)
+    if layout is not None and b == 1:
+        _assert_close([got], [ref.sparse_matvec_windows(*layout, X)], 1e-5)
+    assert torch.equal(got, spm.sparse_matvec(v, c, X, layout))
+    torch.cuda.synchronize()
+    assert spm.LAUNCHES["sparse_matvec"] == before + 2
+
+
+@pytest.mark.parametrize("windows", [False, True])
+def test_sparse_matvec_reads_unaligned_runs(cuda, windows):
+    """A pack that starts off a 16-byte boundary (rows [1:] of a pack of
+    1,023 slots, or of its window layout) takes the slot-by-slot loads,
+    against the plain version; an x off a 16-byte boundary gives the bits
+    of its aligned copy."""
+    rng = np.random.default_rng(11)
+    cols = torch.from_numpy(rng.integers(0, LONG_N, (9, 1023),
+                                         dtype=np.int32)).to(cuda)
+    vals = torch.randn(9, 1023, device=cuda)
+    full = spm.window_layout(vals, cols, LONG_N) if windows else None
+    if windows:
+        vals, cols = full.vals, full.cols
+    xs = torch.randn(LONG_N + 1, device=cuda)
+    x = xs[1:]                                   # 4 bytes off the boundary
+    for r in (1, 0):
+        v, c = vals[r:], cols[r:]
+        layout = spm.WindowLayout(v, c, full.offsets[r:]) if windows \
+            else None
+        got = spm.sparse_matvec(v, c, x, layout)
+        _assert_close([got], [ref.sparse_matvec(v, c, x)], 1e-5)
+        assert torch.equal(got, spm.sparse_matvec(v, c, x.clone(), layout))
+
+
+def test_sparse_op_transpose_carries_the_window_layout(cuda):
+    """A SparseOp on the card builds the layout of its pack of long rows
+    once; .T carries it across (no second build), and mv / rmv through it
+    match the plain products."""
+    from repro_torch.core.operators import SparseOp
+    data, idx, dense = _sparse(2600, 300, 0.5, torch.float32, 7, cuda)
+    op = SparseOp(data, idx, (2600, 300), backend="pallas")
+    assert op.windows[0] is None and op.windows[1] is not None
+    # the pack of long rows is held once, in the layout's window order
+    assert op.ell[2] is op.windows[1].vals and op.ell[3] is op.windows[1].cols
+    want = spm.window_layout(*spm.ell_pack(data, idx.flip(1), (300, 2600)),
+                             2600)
+    assert all(torch.equal(a, b) for a, b in zip(op.windows[1], want))
+    t = op.T
+    assert t.windows[0] is op.windows[1] and t.windows[1] is None
+    D = torch.from_numpy(dense).float().to(cuda)
+    q = torch.randn(2600, device=cuda)
+    spm.reset_launches()
+    got = [op.rmv(q), t.mv(q)]
+    torch.cuda.synchronize()
+    assert spm.LAUNCHES["sparse_matvec"] == 2
+    assert torch.equal(got[0], got[1])
+    _assert_close(got[:1], [D.T @ q], 1e-5)
+    Q = torch.randn(2600, 20, device=cuda)       # a block, through that pack
+    _assert_close([op.rmatmat(Q)], [D.T @ Q], 1e-5)
+
+
+def test_sparse_matvec_windows_refuse_plans_past_their_limits(cuda,
+                                                             monkeypatch):
+    """sparse_matvec.cu checks the window plan it is handed (windows that
+    do not cover x, row groups that do not cover the rows) and refuses it
+    before a launch: the wrapper raises."""
+    vals = torch.randn(5, 1100, device=cuda)
+    cols = torch.randint(0, LONG_N, (5, 1100), device=cuda,
+                         dtype=torch.int32)
+    x = torch.randn(LONG_N, device=cuda)
+    layout = spm.window_layout(vals, cols, LONG_N)
+    plan = spm.window_plan(5, LONG_N)
+    for bad in (plan._replace(groups=plan.groups + 1),
+                plan._replace(rows_per_group=1, groups=1),
+                plan._replace(windows=plan.windows - 1)):
+        monkeypatch.setattr(spm, "window_plan", lambda *args: bad)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            spm.sparse_matvec(layout.vals, layout.cols, x, layout)
 
 
 def test_ell_pack_on_the_card_is_the_cpu_pack(cuda):

@@ -225,6 +225,23 @@ def test_rows_plan_covers_every_row_once(L):
     assert (grid - 1) * per < L <= grid * per
 
 
+@pytest.mark.parametrize("m", [1, 7, 8, 2047, 20_000, 100_000])
+def test_matvec_plan_covers_every_row_once(m):
+    """matvec_fused's persistent grid: warp w of W takes rows w, w + W, ...
+    so every row is one warp's; no block is without a row, and the grid
+    is the card's resident blocks when the rows fill them.  The plan is a
+    function of m alone (n and A's dtype do not move it)."""
+    grid = gs.matvec_plan(m)
+    assert 1 <= grid <= gs.SMS * gs.MV_BLOCKS_PER_SM
+    assert (grid - 1) * gs.GROUP < m
+    warps = grid * gs.GROUP
+    rows = np.concatenate([np.arange(w, m, warps) for w in range(warps)])
+    np.testing.assert_array_equal(np.sort(rows), np.arange(m))
+    if m >= gs.SMS * gs.MV_BLOCKS_PER_SM * gs.GROUP:
+        assert grid == gs.SMS * gs.MV_BLOCKS_PER_SM
+    assert list(inspect.signature(gs.matvec_plan).parameters) == ["m"]
+
+
 PLAN_LS = [1, 7, 8, 2047, 80_000, 100_000, 480_189]
 PLAN_KS = [1, 4, 200, 201, gs.MAX_K]
 PLAN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -584,6 +601,141 @@ def test_sparse_matvec_matches_reference(m, n, density):
                      for j in range(5)], 1)        # the reference's vmap
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
     assert spm.LAUNCHES["sparse_matvec"] == 0
+
+
+WINDOW_NS = [spm.WINDOW - 1, spm.WINDOW + 1]      # one window, and two
+
+
+def _long_pack(L, n, seed):
+    """An ELL pack with rows of up to L slots over columns [0, n): ragged
+    rows, an empty row, duplicate coordinates, columns on both sides of
+    each window edge."""
+    rng = np.random.default_rng(seed)
+    m = 5
+    counts = [L, 0, max(L // 2, 1), L, max(L - 3, 1)]
+    rows = np.repeat(np.arange(m), counts)
+    cols = rng.integers(0, n, rows.shape[0])
+    edge = np.array([0, n - 1, min(spm.WINDOW - 1, n - 1),
+                     min(spm.WINDOW, n - 1)])
+    cols[:min(4, cols.shape[0])] = edge[:min(4, cols.shape[0])]
+    cols[-1] = cols[0]                                  # a duplicate
+    data = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    idx = np.stack([rows, cols], 1).astype(np.int32)
+    return data, idx, m
+
+
+@pytest.mark.parametrize("n", WINDOW_NS)
+@pytest.mark.parametrize("L", [1, 1023, 1024, 4802, 20_000])
+def test_window_layout_is_a_stable_permutation(L, n):
+    """Each row of the layout is its pack row's slots in a stable order by
+    window (column // WINDOW), and the offsets tile the row: window w's
+    segment holds exactly the slots of columns in window w."""
+    data, idx, m = _long_pack(L, n, L + n)
+    vals, cols = spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx),
+                              (m, n))
+    lay = spm.window_layout(vals, cols, n)
+    windows = -(-n // spm.WINDOW)
+    Lp = cols.shape[1]
+    assert lay.vals.shape == lay.cols.shape == (m, Lp)
+    assert lay.offsets.shape == (m, windows + 1)
+    assert lay.offsets.dtype == lay.cols.dtype == torch.int32
+    c, v = cols.numpy(), vals.numpy()
+    off = lay.offsets.numpy()
+    for i in range(m):
+        order = np.argsort(c[i] // spm.WINDOW, kind="stable")
+        np.testing.assert_array_equal(lay.cols[i].numpy(), c[i][order])
+        np.testing.assert_array_equal(lay.vals[i].numpy(), v[i][order])
+        assert off[i, 0] == 0 and off[i, -1] == Lp
+        assert np.all(np.diff(off[i]) >= 0)
+        for w in range(windows):
+            seg = lay.cols[i, off[i, w]:off[i, w + 1]].numpy()
+            assert np.all(seg // spm.WINDOW == w)
+
+
+@pytest.mark.parametrize("n", WINDOW_NS)
+@pytest.mark.parametrize("L", [1, 1023, 1024, 4802, 20_000])
+def test_window_layout_evaluation_matches_reference(L, n):
+    """The plain evaluation through the layout (per-window partials, then
+    their sum in window order: the wrapper's CPU path) against the plain
+    version, the reference's Pallas kernel in interpret mode and the dense
+    product, at test_sparse_matvec_matches_reference's tolerance."""
+    data, idx, m = _long_pack(L, n, 2 * L + n)
+    vals, cols = spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx),
+                              (m, n))
+    lay = spm.window_layout(vals, cols, n)
+    x = np.random.default_rng(L).standard_normal(n).astype(np.float32)
+    spm.reset_launches()
+    got = ops.sparse_matvec(lay.vals, lay.cols, torch.from_numpy(x), lay)
+    assert got.dtype == torch.float32 and got.shape == (m,)
+    jv, jc = jspm.ell_pack(data, idx, (m, n))
+    A = np.zeros((m, n), np.float64)
+    np.add.at(A, (idx[:, 0], idx[:, 1]), data)
+    for want in (ref.sparse_matvec(vals, cols, torch.from_numpy(x)),
+                 jops.sparse_matvec(jv, jc, x), A @ x):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-4, atol=2e-4)
+    assert spm.LAUNCHES["sparse_matvec"] == 0
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (5, spm.WINDOW + 1), (17_770,
+                                                                 480_189),
+                                 (480_189, 17_770), (3, 10 ** 7)])
+def test_window_plan_covers_rows_and_x(m, n):
+    """The window kernel's blocks: windows cover x once, row groups cover
+    the rows once, about one block an SM (WINDOW_BLOCKS) where the rows
+    allow."""
+    plan = spm.window_plan(m, n)
+    assert (plan.windows - 1) * spm.WINDOW < n <= plan.windows * spm.WINDOW
+    assert (plan.groups - 1) * plan.rows_per_group < m \
+        <= plan.groups * plan.rows_per_group
+    assert plan.groups * plan.windows <= max(spm.WINDOW_BLOCKS, plan.windows)
+    if m >= spm.WINDOW_BLOCKS:
+        assert plan.groups == max(spm.WINDOW_BLOCKS // plan.windows, 1)
+
+
+def test_sparse_op_builds_no_window_layout_on_the_cpu():
+    """The layout serves the card's kernel; on the CPU a SparseOp holds
+    none, and .T keeps it so."""
+    data, idx, m = _long_pack(1500, 2000, 3)
+    op = SparseOp.from_coo(torch.from_numpy(data), torch.from_numpy(idx),
+                           (m, 2000), backend="pallas")
+    assert op.windows is None and op.T.windows is None
+
+
+def test_sparse_matvec_rejects_a_layout_that_does_not_fit():
+    data, idx, m = _long_pack(1500, 2000, 4)
+    vals, cols = spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx),
+                              (m, 2000))
+    lay = spm.window_layout(vals, cols, 2000)
+    x = torch.zeros(spm.WINDOW + 5)             # two windows, not one
+    with pytest.raises(ValueError, match="window layout"):
+        spm.sparse_matvec(lay.vals, lay.cols, x, lay)
+    with pytest.raises(ValueError, match="window layout"):    # int64
+        spm.sparse_matvec(lay.vals, lay.cols, torch.zeros(2000),
+                          lay._replace(offsets=lay.offsets.long()))
+
+
+def test_sparse_matvec_refuses_the_layout_of_another_pack():
+    """The layout serves its own vals / cols alone: the pack it was built
+    from, a copy of its own pack, a pack of other values and a block of
+    columns through another pack are all refused, so the two can never
+    disagree."""
+    data, idx, m = _long_pack(1500, 2000, 5)
+    vals, cols = spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx),
+                              (m, 2000))
+    lay = spm.window_layout(vals, cols, 2000)
+    x = torch.zeros(2000)
+    for v, c, X in ((vals, cols, x), (lay.vals.clone(), lay.cols, x),
+                    (2 * lay.vals, lay.cols, x),
+                    (lay.vals, lay.cols.clone(), x),
+                    (vals, cols, torch.zeros(2000, 5))):
+        with pytest.raises(ValueError, match="not of this pack"):
+            spm.sparse_matvec(v, c, X, lay)
+    got = spm.sparse_matvec(lay.vals, lay.cols, torch.ones(2000, 5), lay)
+    np.testing.assert_allclose(
+        got.numpy(),
+        ref.sparse_matvec(vals, cols, torch.ones(2000, 5)).numpy(),
+        rtol=2e-4, atol=2e-4)
 
 
 def test_sparse_matvec_empty_rows_and_duplicates():

@@ -295,9 +295,9 @@ def test_directly_built_pallas_sparse_op_carries_the_pack(monkeypatch):
     calls = []
     real = spm.sparse_matvec
 
-    def spy(vals, cols, X):
+    def spy(vals, cols, X, layout=None):
         calls.append(tuple(X.shape))
-        return real(vals, cols, X)
+        return real(vals, cols, X, layout)
 
     monkeypatch.setattr(spm, "sparse_matvec", spy)
     monkeypatch.setattr(tops, "_spmm", None)     # no library fallback
@@ -337,9 +337,9 @@ def test_sparse_block_is_one_kernel_call(monkeypatch):
     calls = []
     real = spm.sparse_matvec
 
-    def spy(vals, cols, X):
+    def spy(vals, cols, X, layout=None):
         calls.append((vals.shape, tuple(X.shape)))
-        return real(vals, cols, X)
+        return real(vals, cols, X, layout)
 
     monkeypatch.setattr(spm, "sparse_matvec", spy)
     V = torch.from_numpy(_block(30, 20, 1))
