@@ -35,7 +35,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      beside the previous design's sorted path);
      its binning against the plain model, bins of 1 to 128 tiles;
      every kernel twice, bitwise equal; matvec_fused's u bit for bit
-     mv_qtv's u (f32 and bf16 A);
+     mv_qtv's u and rmatvec_fused's v rmv_qtv's v (f32 and bf16 A); the
+     build's ptxas report shows no spills in the A^T q kernels and the
+     reorthogonalization pair's staged-tile epilogues;
   3. main path — A = M N with Gaussian M (m x 100) and N (100 x n) made on
      the card from --seed (the paper's numerical-rank-100 input, §6.1);
      factorize(A, SVDSpec(method="fsvd", rank=20, max_iters=200,
@@ -61,9 +63,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      their yardsticks by device time (60 calls in one CUDA graph, over
      basis copies that together exceed the L2) at the Q (m x 201) and P
      (n x 200) bases, f32 and bf16, beside the host loop's figure;
-     after A is freed, materialize_lowrank of a rank-20 LowRankOp at the
-     main shape through lowrank_matmul (32 GB written once), held against
-     its plain version by row blocks and timed;
+     sketch_matmat at gnystrom's three calls by device time (60 calls in
+     one CUDA graph); after A is freed, materialize_lowrank of a rank-20
+     LowRankOp at the main shape through lowrank_matmul (32 GB written
+     once), held against its plain version by row blocks and timed by
+     device time (6 calls a graph);
   5. the float64 leg — an f64 operand of numerical rank 100 (--m64 x
      --n64): matvec_fused / rmatvec_fused held against their plain
      versions on it (twice, bitwise), then factorize(method="fsvd",
@@ -87,7 +91,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      the Lanczos basis of gk_bidiag at k = 200 (480,189 x 201 f32):
      ops.reorth(A p, Q, 2) against its plain version and orthogonal to Q
      (max|Q^T w| < 1e-4 ||v||, tests/test_kernels.py:59-60), and qtv /
-     subtract_qc timed on it in f32 and on a bf16 copy;
+     subtract_qc timed on it in f32 and on a bf16 copy by device time
+     (60 calls in one CUDA graph), beside the host loop;
   7. the sketch-resident state on phase 3's operand (it edits A in place,
      so it runs after every other use of A): sketch_operand with
      SVDSpec(method="gnystrom", rank=20, sketch_dim=128,
@@ -101,7 +106,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      the same after apply_lowrank_delta of phase 3b's rank-10 drift; the
      odometer trips on a fold of budget * base_norm and not before; peak
      memory below phase 3's + 2 GiB; scatter_add timed at both fold
-     shapes, stage by stage, beside the previous design's sorted path, and
+     shapes by device time (the fold and index_add_ in CUDA graphs) and,
+     stage by stage, beside the previous design's sorted path, and
      so on two wider panels (480,189 x 128 and 4,194,304 x 128: bins of 8
      and of 64 tiles) with as many spread entries as the Y fold.
 
@@ -202,6 +208,10 @@ SOURCES = {"mv_qtv": "gk_step.cu", "rmv_qtv": "gk_step.cu",
            "sparse_matvec": "sparse_matvec.cu",
            "scatter_add": "count_sketch.cu"}
 GK_STEP = ("mv_qtv", "rmv_qtv", "proj_qtv", "proj_norm")
+# the A^T q pass and the reorthogonalization pair's staged-tile epilogues
+# (proj_kernel's modes 2 and 3, as in proj_tiles.cuh; rmv_qtv's P^T v is
+# mode 3): the build must show no spills
+STREAM_KERNELS = r"rmv_partial_kernel|rmv_finish_kernel|proj_kernelI\w*Li[23]E"
 MATVECS = ("matvec_fused", "rmatvec_fused")
 
 
@@ -342,10 +352,13 @@ def check_matvecs(gen, m, n, adt, A=None):
     for name, (kern, plain) in cases.items():
         got = bitwise_twice(f"{name} {tag}", kern)
         errs[name] = compare(f"{name} {tag}", got, plain(), (torch.float32,))
-    if adt != torch.float64:   # mv_qtv takes f32 / bf16 A
+    if adt != torch.float64:   # mv_qtv / rmv_qtv take f32 / bf16 A
         u, _ = gs.mv_qtv(A, p, ym, alpha, torch.zeros(m, 1, device=DEV))
         check(torch.equal(gs.matvec_fused(A, p, ym, alpha), u),
               f"matvec_fused {tag}: u differs bitwise from mv_qtv's u")
+        v, _ = gs.rmv_qtv(A, q, yn, 1.7, torch.zeros(n, 1, device=DEV))
+        check(torch.equal(gs.rmatvec_fused(A, q, yn, 1.7), v),
+              f"rmatvec_fused {tag}: v differs bitwise from rmv_qtv's v")
     torch.cuda.synchronize()
     return errs
 
@@ -669,6 +682,7 @@ def graph_ms(calls, reps=60, replays=5):
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / (replays * reps)
     del graph
+    torch.cuda.empty_cache()   # the graph's pool: a 32 GB output a call
     return ms
 
 
@@ -901,16 +915,20 @@ def phase_times_new(A, seed):
             lambda sk=sk, X=X: skm.sketch_matmat(sk.signs, sk.idx, X),
             lambda sk=sk, X=X: ref.sketch_matmat(sk.signs, sk.idx, X),
             lambda Tt=Tt, X=X: torch.sparse.mm(Tt, X),
-            nbytes, 2 * d * zeta * b, f"(X {N}x{b}, d={d}, f32)"))
+            nbytes, 2 * d * zeta * b, f"(X {N}x{b}, d={d}, f32)",
+            graph=(60, 5)))
     mean = {key: sum(r[key] for r in rows) / len(rows)
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "host_loop_ms")}
     mean["bound_by"] = "bytes" if all(r["bound_by"] == "bytes"
                                       for r in rows) else "operations"
     out["sketch_matmat"] = mean
     print(f"phase 3: sketch_matmat per launch over one gnystrom solve "
-          f"(mean of the three calls): kernel {mean['ms']:.4f} ms, bound "
-          f"{mean['bound_ms']:.4f} ms, plain {mean['plain_ms']:.4f} ms, "
-          f"library {mean['library_ms']:.4f} ms", flush=True)
+          f"(mean of the three calls), device time: kernel "
+          f"{mean['ms']:.4f} ms, bound {mean['bound_ms']:.4f} ms, library "
+          f"{mean['library_ms']:.4f} ms; host loop: kernel "
+          f"{mean['host_loop_ms']:.4f} ms, plain {mean['plain_ms']:.4f} ms",
+          flush=True)
     return out
 
 
@@ -1398,7 +1416,7 @@ def phase_materialize(seed, m, n):
                    lambda: ref.lowrank_matmul(U, sv, Vt),
                    lambda: torch.matmul(U * sv, Vt),
                    4 * (m * r + r + r * n + m * n), 2 * m * n * r,
-                   f"({m}x{n}, r={r}, f32)", phase="3c")
+                   f"({m}x{n}, r={r}, f32)", phase="3c", graph=MAIN_GRAPH)
     torch.cuda.empty_cache()
     return launches, err, row
 
@@ -1443,9 +1461,12 @@ def rel_fro(got, want):
 def time_scatter(label, r, c, v, shape):
     """scatter_add on one stream: bit for bit against the CPU plain
     version, then timed against the sorted path of the previous design (in
-    turns: sorted, binned, binned, sorted), the plain version on the card
-    and index_add_, with each stage of its plan timed alone.  Returns the
-    timing row, with the largest difference from the CPU under "err"."""
+    turns: sorted, binned, binned, sorted; host loops), the plain version
+    on the card and index_add_, with each stage of its plan timed alone.
+    The binned fold and index_add_ are also timed by device time (each in
+    a CUDA graph: the fold's scans and allocations capture too).  Returns
+    the timing row, with the largest difference from the CPU under
+    "err"."""
     import torch
     from repro_torch.kernels import count_sketch as kcs
     from repro_torch.kernels import ref
@@ -1472,8 +1493,8 @@ def time_scatter(label, r, c, v, shape):
         lambda: ref.scatter_add(r, c, v, shape),
         lambda: panel.zero_().index_add_(0, flat, v),
         nbytes, r.shape[0], f"({r.shape[0]} entries -> {shape[0]}x"
-        f"{shape[1]}, f32)", phase=7)
-    row["ms"] = (row["ms"] + event_ms(binned)) / 2
+        f"{shape[1]}, f32)", phase=7, graph=(60, 5))
+    row["host_loop_ms"] = (row["host_loop_ms"] + event_ms(binned)) / 2
     row["sorted_ms"] = (before + event_ms(sorted_path)) / 2
     del flat, panel
     plan = kcs.bin_plan(r.shape[0], shape)
@@ -1500,9 +1521,10 @@ def time_scatter(label, r, c, v, shape):
         pairs, incl = parts()
     stages["sum_ms"] = event_ms(lambda: kcs.sum_tiles(pairs, incl, plan))
     row["stages"] = stages
-    print(f"phase 7: scatter_add {label}: binned {row['ms']:.4f} ms (mean "
+    print(f"phase 7: scatter_add {label}: binned, device time "
+          f"{row['ms']:.4f} ms, host loop {row['host_loop_ms']:.4f} ms (mean "
           f"of two) against the sorted path's {row['sorted_ms']:.4f} ms "
-          f"(torch.sort + segment sum, mean of two); stages "
+          f"(torch.sort + segment sum, host loop, mean of two); stages "
           + ", ".join(f"{k} {t:.4f}" for k, t in stages.items())
           + f"; plan {plan.bins} bins of 2^{plan.bin_bits} cells, "
           f"{plan.slices} slices of {plan.slice_len}, "
@@ -1655,11 +1677,11 @@ def phase_sketchres(A, seed, peak3, drift):
         del r, c, v
         torch.cuda.empty_cache()
     out = {key: sum(r[key] for r in rows_t) / len(rows_t)
-           for key in ("ms", "sorted_ms", "plain_ms", "library_ms",
-                       "bound_ms")}
+           for key in ("ms", "host_loop_ms", "sorted_ms", "plain_ms",
+                       "library_ms", "bound_ms")}
     out["bound_by"] = "bytes"
-    keys = ("call", "ms", "sorted_ms", "stages", "plain_ms", "library_ms",
-            "bound_ms")
+    keys = ("call", "ms", "host_loop_ms", "sorted_ms", "stages", "plain_ms",
+            "library_ms", "host_loop_library_ms", "bound_ms")
     out["calls"] = [{k: r[k] for k in keys} for r in rows_t]
     out["wide"] = [{k: r[k] for k in keys} for r in wide]
     del seen
@@ -1774,23 +1796,27 @@ def phase_reorth(S, seed):
         row = time_row(f"qtv {label}", lambda B=B: kro.qtv(B, v),
                        lambda B=B: ref.qtv(B, v),
                        lambda B=B, vb=vb: torch.mv(B.T, vb),
-                       eb * mk + 4 * (m + k), 2 * mk, shape, phase=6)
+                       eb * mk + 4 * (m + k), 2 * mk, shape, phase=6,
+                       graph=(60, 5))
         rows["qtv"].append(dict(row, call=label))
         row = time_row(f"subtract_qc {label}",
                        lambda B=B, c=c: kro.subtract_qc(v, B, c),
                        lambda B=B, c=c: ref.subtract_qc(v, B, c),
                        lambda B=B, vb=vb, cb=cb: torch.addmv(vb, B, cb,
                                                              alpha=-1),
-                       eb * mk + 4 * (2 * m + k), 2 * mk, shape, phase=6)
+                       eb * mk + 4 * (2 * m + k), 2 * mk, shape, phase=6,
+                       graph=(60, 5))
         rows["subtract_qc"].append(dict(row, call=label))
     times = {}
     for name, calls in rows.items():
         times[name] = {key: calls[0][key] for key in
                        ("ms", "plain_ms", "library_ms", "bound_ms",
-                        "bound_by")}
+                        "bound_by", "host_loop_ms")}
         times[name]["calls"] = [{key: r[key] for key in
                                  ("call", "ms", "plain_ms", "library_ms",
-                                  "bound_ms")} for r in calls]
+                                  "host_loop_ms", "host_loop_library_ms",
+                                  "bound_ms", "share_of_bound")}
+                                for r in calls]
     return launches, errs, times
 
 
@@ -2011,6 +2037,10 @@ def main(argv=None) -> int:
         for name, log in logs.items():
             for line in ptxas_report(log):
                 print(f"  {name}: {line}")
+        spills = [line for log in logs.values() for line in ptxas_report(log)
+                  if re.search(STREAM_KERNELS, line)
+                  and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        check(not spills, f"kernels spill registers: {spills}")
 
         A, s_true = make_operand(args.seed, args.m, args.n)
         gen = torch.Generator(device=DEV).manual_seed(args.seed + 2)

@@ -1,14 +1,10 @@
 // Loops of the GEMV-shaped kernels of gk_step.cu (sketch_matvec.cu,
 // sparse_matvec.cu and lowrank_update.cu use only the element loads ld()
-// and the block shape).
+// and the block shape; proj_tiles.cuh ld() and warp_sum).
 //
 //  * row_dot: one warp computes the dot product of a row of A with a
 //    vector, lanes on adjacent addresses, 16-byte vector loads where the
 //    row is aligned (V elements of A per lane per step).
-//  * rmv_partial_kernel: A^T q from row-major A.  Threads own adjacent
-//    columns, so each warp's load of a row segment is coalesced; the rows
-//    are cut into chunks and each (column tile, row chunk) block writes a
-//    partial column sum, which a finishing launch sums in a fixed order.
 //
 // Elements of A may be float, bfloat16 or double; each is converted to
 // float before it is multiplied (the reference kernels cast every A tile
@@ -24,7 +20,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRmvUnroll = 8;
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
@@ -118,50 +113,6 @@ __device__ __forceinline__ float row_dot(const T* __restrict__ a,
   }
   for (; j + V <= n; j += S) acc0 = Step<T, V>::apply(a + j, x + j, acc0);
   return warp_sum((acc0 + acc1) + (acc2 + acc3));
-}
-
-// vpart[s, j] = sum over rows i of chunk s of A[i, j] q_i.  Threads own
-// adjacent columns (coalesced row segments); blockIdx.y is the row chunk.
-template <typename TA>
-__global__ void __launch_bounds__(kThreads)
-    rmv_partial_kernel(const TA* __restrict__ A, const float* __restrict__ q,
-                       long long m, long long n, long long rows_per_chunk,
-                       float* __restrict__ vpart) {
-  const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (j >= n) return;
-  const long long i0 = (long long)blockIdx.y * rows_per_chunk;
-  const long long i1 = min(i0 + rows_per_chunk, m);
-  const TA* a = A + i0 * n + j;
-  float acc[kRmvUnroll];
-#pragma unroll
-  for (int t = 0; t < kRmvUnroll; ++t) acc[t] = 0.f;
-  long long i = i0;
-  for (; i + kRmvUnroll <= i1; i += kRmvUnroll) {
-#pragma unroll
-    for (int t = 0; t < kRmvUnroll; ++t)
-      acc[t] = fmaf(ld(a + t * n), q[i + t], acc[t]);
-    a += kRmvUnroll * n;
-  }
-  for (; i < i1; ++i) {
-    acc[0] = fmaf(ld(a), q[i], acc[0]);
-    a += n;
-  }
-  vpart[(long long)blockIdx.y * n + j] =
-      ((acc[0] + acc[1]) + (acc[2] + acc[3])) +
-      ((acc[4] + acc[5]) + (acc[6] + acc[7]));
-}
-
-template <typename TA>
-cudaError_t launch_rmv_partial(const TA* A, const float* q, long long m,
-                               long long n, long long rows_per_chunk,
-                               int chunks, float* vpart,
-                               cudaStream_t stream) {
-  const dim3 tiles((unsigned)((n + kThreads - 1) / kThreads),
-                   (unsigned)chunks);
-  rmv_partial_kernel<TA><<<tiles, kThreads, 0, stream>>>(A, q, m, n,
-                                                          rows_per_chunk,
-                                                          vpart);
-  return cudaGetLastError();
 }
 
 inline bool aligned16(const void* p) {

@@ -14,8 +14,9 @@
 // proj_norm; the composition lives in repro_torch/kernels/ops.py.  The two
 // fused matvecs compute stage 1's vector with no basis; the operator calls
 // them for the half-steps of a float64 DenseOp(backend="pallas").
-// rmatvec_fused is stage 1 of rmv with k = 0 (no c = P^T v epilogue and no
-// finishing launch); matvec_fused has a row kernel of its own.
+// rmatvec_fused is rmv's A^T q pass alone; rmv_qtv is that pass, then
+// c = P^T v over staged tiles of P (proj_tiles.cuh, as reorth_qtv), so
+// its v has rmatvec_fused's bits and its c reorth_qtv's.
 //
 // What bounds them.  Every kernel does about one multiply-add per element it
 // reads, far below the card's ~20 flop/byte f32 ridge, so each is bound by
@@ -40,31 +41,32 @@
 //    __syncthreads() a group of 8 rows made the warps of a block wait for
 //    each other (draining their loads), and its rows_plan grid left a thin
 //    second wave (194 of 1,250 blocks at m = 20,000).
-//  * The projection pair (proj_kernel) streams only the basis, 80 MB at
-//    the main Q (1e5 x 201 f32), so what holds it back is bytes in flight
-//    and arithmetic that does not overlap them.  Its rows of odd width are
-//    never 16-byte aligned, so it does not load row by row: a tile of
-//    rows is one contiguous run of the array, copied into shared memory in
-//    aligned 16-byte cp.async chunks (the ends of the array element by
-//    element), two stages deep, so the next tile's copy is in flight while
-//    this one is projected.  Each staged element is read once from shared
-//    memory: up to 256 columns a warp takes a row with lanes along it, c
-//    in registers, and the same loaded values give the row's dot product,
-//    w_r, and (with w_r) the warp's running column sums of c' = Q^T w.
-//    Wider bases keep c in shared memory where it fits beside the stages,
-//    else read it through the read-only cache, and add each tile's share
-//    of c' in place in the block's partials in device memory.  Block b walks tiles b, b+G, ... of a
-//    fixed grid G (264), so the finishing launch sums G partials, not one
-//    per row block.
-//  * A^T q from row-major A (rmv): threads own adjacent columns, so each
-//    warp's load of a row segment is coalesced.  Column tiles alone give
-//    only n/256 blocks (8 at n = 2000), so the rows are cut into chunks as
-//    well; each (tile, chunk) block writes a partial column sum.
+//  * A^T q from row-major A (rmv_partial_kernel), with no stored
+//    transpose: threads own columns, so a warp's load of a row segment is
+//    coalesced, and each thread keeps its columns' sums in registers down
+//    a chunk of rows.  A column tile is 256 threads x the V elements of A
+//    in 16 bytes (1,024 f32 columns: a 4 KB segment of each row), each
+//    thread with 16-byte loads of 8 rows in flight; where n is narrower,
+//    the block splits into row groups as wide as n needs, each on its own
+//    rows, so no thread idles.  The grid is one wave: tiles x chunks
+//    blocks, as many chunks as fit beside the tiles in the 132 x 4 blocks
+//    the card holds at once (a grid of ~4,096 blocks runs 4.15 waves at
+//    the main shape, the last one thin), and every tile is cut at the
+//    same rows, so the blocks of a chunk stream the same rows of A
+//    together.  Each block writes its partial column sums to its
+//    own slot; rmv_finish_kernel adds a column's chunks in a fixed order,
+//    split over as many threads as there are chunks, lanes on adjacent
+//    columns (coalesced), and subtracts beta y.  Where n % V or A's
+//    alignment rules 16-byte loads out, each thread takes V columns a
+//    group's width apart with element loads: the same sums in the same
+//    order, so the same bits.
+//  * The projection pair and rmv_qtv's P^T v: flat tiles of whole rows
+//    staged in shared memory (proj_tiles.cuh).
 //  * Cross-block sums are deterministic.  The TPU grid runs in sequence and
 //    accumulates c and ||v||^2 in place; Hopper runs blocks at once, so
 //    every block writes its own partial and a finishing launch sums the
-//    partials in a fixed order (a fixed-shape tree in shared memory).  No
-//    float atomics: the same inputs give the same bits on every run.
+//    partials in a fixed order.  No float atomics: the same inputs give
+//    the same bits on every run.
 //  * Offsets are 64-bit: m*n is 8e9 at the main shape, above 2^31.
 //  * Nothing is padded or copied: the kernels mask ragged edges themselves.
 //  * A and the basis are each f32 or bf16; bf16 is widened with
@@ -79,7 +81,7 @@
 // cudaGetLastError() as an int.  The fused matvecs' a_kind: 0 f32, 1 bf16,
 // 2 f64.
 
-#include "gk_rows.cuh"  // row_dot, rmv_partial_kernel, ld
+#include "proj_tiles.cuh"  // row_dot, ld, finish, proj (with gk_rows.cuh)
 
 namespace {
 
@@ -93,19 +95,6 @@ struct MvRow {  // u_i = A[i, :] . p - alpha y_i
   long long n;
   __device__ float operator()(long long i, int lane) const {
     return row_dot<TA, V>(A + i * n, p, n, lane) - alpha[0] * y[i];
-  }
-};
-
-struct RmvRow {  // v_j = sum over row chunks of the partial column sums - beta y_j
-  const float* vpart;
-  int chunks;
-  long long n;
-  const float* y;
-  const float* beta;
-  __device__ float operator()(long long j, int lane) const {
-    float s = 0.f;
-    for (int t = lane; t < chunks; t += 32) s += vpart[(long long)t * n + j];
-    return warp_sum(s) - beta[0] * y[j];
   }
 };
 
@@ -147,23 +136,6 @@ __global__ void __launch_bounds__(kThreads)
     part[(long long)j * gridDim.x + blockIdx.x] = sc[j];
 }
 
-// out[b] = sum of part[b*G : (b+1)*G], summed in a fixed order.
-__global__ void __launch_bounds__(kThreads)
-    finish_kernel(const float* __restrict__ part, int G,
-                  float* __restrict__ out) {
-  __shared__ float s[kThreads];
-  const float* row = part + (long long)blockIdx.x * G;
-  float acc = 0.f;
-  for (int b = threadIdx.x; b < G; b += kThreads) acc += row[b];
-  s[threadIdx.x] = acc;
-  __syncthreads();
-  for (int w = kThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[blockIdx.x] = s[0];
-}
-
 template <class Row, typename TQ>
 cudaError_t launch_rows(const Row& row, const TQ* Q, int k, long long L,
                         long long rows_per_block, int grid, float* out,
@@ -177,13 +149,6 @@ cudaError_t launch_rows(const Row& row, const TQ* Q, int k, long long L,
   }
   rows_kernel<Row, TQ><<<grid, kThreads, smem, stream>>>(
       row, Q, k, L, rows_per_block, out, part);
-  return cudaGetLastError();
-}
-
-cudaError_t finish(const float* part, int G, int count, float* out,
-                   cudaStream_t stream) {
-  if (count == 0) return cudaSuccess;
-  finish_kernel<<<count, kThreads, 0, stream>>>(part, G, out);
   return cudaGetLastError();
 }
 
@@ -258,360 +223,266 @@ cudaError_t matvec(const void* A, const float* p, const float* y,
         MvRow<TA, 1>{a, p, y, alpha, n}, m, u);
   return cudaGetLastError();
 }
-
-template <typename TA, typename TP>
-cudaError_t rmv_qtv(const void* A, const float* q, const float* y,
-                    const float* beta, const void* P, long long m,
-                    long long n, int k, long long rows_per_chunk, int chunks,
-                    float* vpart, long long rows_per_block, int grid,
-                    float* v, float* part, float* c, cudaStream_t stream) {
-  cudaError_t e = launch_rmv_partial(static_cast<const TA*>(A), q, m, n,
-                                     rows_per_chunk, chunks, vpart, stream);
-  if (e != cudaSuccess) return e;
-  const RmvRow row{vpart, chunks, n, y, beta};
-  e = launch_rows<RmvRow, TP>(row, static_cast<const TP*>(P), k, n,
-                              rows_per_block, grid, v, part, stream);
-  if (e != cudaSuccess) return e;
-  return finish(part, grid, k, c, stream);
-}
-
-// --- the projection pair: flat tiles staged in shared memory --------------
+// --- A^T q: column tiles x row chunks, one wave of blocks ----------------
 //
-// A tile is `rows` consecutive rows of the basis, one contiguous run of
-// rows*k elements of the row-major array whatever k's parity.  A stage of
-// shared memory holds the tile's slice of u (4-byte cp.async copies), then
-// the run, copied in 16-byte cp.async chunks.  The chunks are aligned in
-// device memory, so the run starts (g0 & 15) bytes into its buffer; a
-// chunk at a tile's edge also carries bytes of the neighbouring tile,
-// which this tile ignores.  Only at the two ends of the array does an
-// aligned chunk reach outside it: there the elements are copied one by one.
+// The plan (cols, rows, chunks) comes from the wrapper's rmv_plan.  A
+// block's kThreads threads form G = kThreads / cols row groups of `cols`
+// threads, and a column tile is cols x V columns (the V elements of A in
+// 16 bytes): 256 threads, one group, wherever n fills them; narrower
+// groups, each on its own rows, where n does not.  Block b takes tile
+// b % tiles over the rows [c*rows, (c+1)*rows) of chunk c = b / tiles:
+// every tile is cut at the same rows, so the blocks of a chunk read the
+// same rows of A together.  In its rows, group g takes i0 + g, i0 + g + G,
+// ..., and the block adds its groups' sums by a fixed tree into slot b of
+// the wrapper's vpart (tiles x chunks slots of a tile's columns).
 
-constexpr int kProjBlocks = 264;     // grid cap: two blocks on each of 132 SMs
-constexpr int kMaxTileRows = 512;
-constexpr int kMaxK = 49152;         // the wrappers' MAX_K
-constexpr long long kSmemLimit = 232448 - 256;  // 227 KB a block can have,
-                                                // less room for red[]
-constexpr int kMaxStages = 2;
-constexpr int kCShared = 1;          // plan flag: c in shared memory
+constexpr int kRmvBlocksPerSm = 4;   // 4 x 256 threads: <= 64 registers
+constexpr int kRmvMaxBlocks = kSms * kRmvBlocksPerSm;
+constexpr int kRmvRows = 8;          // rows of 16-byte loads in flight
 
-__host__ __device__ inline long long round16(long long x) {
-  return (x + 15) & ~15LL;
-}
-
-// Bytes of one stage: the u slice, the run and room for a 16-byte
-// misalignment at either end of it.
-__host__ __device__ inline long long stage_bytes(int rows, int k, int esize) {
-  return round16(4LL * rows) + round16((long long)rows * k * esize) + 32;
-}
-
-inline long long proj_smem(int rows, int k, int esize, int stages,
-                           int flags) {
-  long long s = stage_bytes(rows, k, esize) * stages;
-  if (flags & kCShared) s += round16(4LL * k);
-  return s;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Where tile t lies: rows [r0, r0 + rows), bytes [g0, g1) of the array.
-template <typename TQ>
-struct ProjTile {
-  long long r0;
-  int rows;
-  unsigned long long g0, g1;
-  __device__ ProjTile(const TQ* Q, long long L, int k, int tile_rows,
-                      long long t) {
-    r0 = t * tile_rows;
-    rows = (int)min((long long)tile_rows, L - r0);
-    const unsigned long long row = (unsigned long long)k * sizeof(TQ);
-    g0 = reinterpret_cast<unsigned long long>(Q) + r0 * row;
-    g1 = g0 + rows * row;
+// 16 bytes of A as its V elements, widened to float as ld() widens each.
+template <typename TA>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using Raw = float4;
+  static constexpr int V = 4;
+  static __device__ __forceinline__ void widen(const Raw& r, float (&f)[V]) {
+    f[0] = r.x; f[1] = r.y; f[2] = r.z; f[3] = r.w;
   }
-  // the first element of the run in its stage buffer
-  __device__ const TQ* run(const char* stage) const {
-    return reinterpret_cast<const TQ*>(stage + round16(4LL * rows) +
-                                       (g0 & 15));
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  using Raw = uint4;
+  static constexpr int V = 8;
+  static __device__ __forceinline__ void widen(const Raw& r, float (&f)[V]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 t = __bfloat1622float2(h[e]);
+      f[2 * e] = t.x;
+      f[2 * e + 1] = t.y;
+    }
+  }
+};
+template <>
+struct Vec16<double> {
+  using Raw = double2;
+  static constexpr int V = 2;
+  static __device__ __forceinline__ void widen(const Raw& r, float (&f)[V]) {
+    f[0] = __double2float_rn(r.x);
+    f[1] = __double2float_rn(r.y);
   }
 };
 
-// Start the copies of tile t into `stage` (the peeled ends are plain loads
-// and stores, visible after the next __syncthreads).
-template <typename TQ>
-__device__ void stage_tile(char* stage, const float* __restrict__ u,
-                           const TQ* Q, long long L, int k, int tile_rows,
-                           long long t) {
-  const ProjTile<TQ> tile(Q, L, k, tile_rows, t);
-  float* su = reinterpret_cast<float*>(stage);
-  for (int r = threadIdx.x; r < tile.rows; r += kThreads)
-    cp_async4(su + r, u + tile.r0 + r);
-  char* run = stage + round16(4LL * tile.rows);  // 16-byte aligned
-  const unsigned long long d0 = tile.g0 & ~15ULL;  // run[0] <-> d0
-  const unsigned long long base = reinterpret_cast<unsigned long long>(Q);
-  const unsigned long long end = base + L * (unsigned long long)k * sizeof(TQ);
-  const unsigned long long body0 = round16(base), body1 = end & ~15ULL;
-  const unsigned long long head1 = min(body0, end);
-  const unsigned long long tail0 = max(body1, head1);
-  const unsigned long long c0 = max(d0, body0);
-  const unsigned long long c1 =
-      min((unsigned long long)round16(tile.g1), body1);
-  for (unsigned long long a = c0 + 16ULL * threadIdx.x; a < c1;
-       a += 16ULL * kThreads)
-    cp_async16(run + (a - d0), reinterpret_cast<const void*>(a));
-  const unsigned long long ends[2][2] = {{tile.g0, min(tile.g1, head1)},
-                                         {max(tile.g0, tail0), tile.g1}};
-  for (int e = 0; e < 2; ++e)
-    for (unsigned long long a = ends[e][0] + sizeof(TQ) * threadIdx.x;
-         a < ends[e][1]; a += sizeof(TQ) * kThreads)
-      *reinterpret_cast<TQ*>(run + (a - d0)) = *reinterpret_cast<const TQ*>(a);
+// acc[e] += A[i, j0 + e] q_i for rows i = i0, i0 + G, ... < i1, in row
+// order: V adjacent columns, 16-byte loads (n % V == 0, A 16-byte
+// aligned), kRmvRows rows in flight.
+template <typename TA>
+__device__ __forceinline__ void rows_vec(const TA* __restrict__ A,
+                                         const float* __restrict__ q,
+                                         long long n, long long j0,
+                                         long long i0, long long i1, int G,
+                                         float (&acc)[Vec16<TA>::V]) {
+  using W = Vec16<TA>;
+  using Raw = typename W::Raw;
+  if (j0 >= n) return;
+  const long long step = n / W::V * G;  // Raw elements from row to row
+  const Raw* a = reinterpret_cast<const Raw*>(A + i0 * n + j0);
+  long long i = i0;
+  for (; i + (kRmvRows - 1) * G < i1; i += kRmvRows * G) {
+    Raw r[kRmvRows];
+    float qq[kRmvRows];
+#pragma unroll
+    for (int u = 0; u < kRmvRows; ++u) {
+      r[u] = a[u * step];
+      qq[u] = q[i + u * G];
+    }
+#pragma unroll
+    for (int u = 0; u < kRmvRows; ++u) {
+      float f[W::V];
+      W::widen(r[u], f);
+#pragma unroll
+      for (int e = 0; e < W::V; ++e) acc[e] = fmaf(f[e], qq[u], acc[e]);
+    }
+    a += kRmvRows * step;
+  }
+  for (; i < i1; i += G, a += step) {
+    float f[W::V];
+    W::widen(*a, f);
+    const float qi = q[i];
+#pragma unroll
+    for (int e = 0; e < W::V; ++e) acc[e] = fmaf(f[e], qi, acc[e]);
+  }
 }
 
-// w = u - Q c over the staged tile (a warp per row, lanes along it), then
-// the tile's share of c' = Q^T w into acc[j * gridDim.x] (threads own
-// columns and walk the tile's rows) or of ||w||^2 into nrm (lane 0 of
-// each warp).  Reads the tile from shared memory only.
-template <typename TQ, bool NORM>
-__device__ void project_tile(char* stage, const ProjTile<TQ>& tile, int k,
-                             const float* cc, float* acc,
-                             float* __restrict__ w, float& nrm) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* su = reinterpret_cast<float*>(stage);  // u in, w out
-  const TQ* q = tile.run(stage);
-  for (int r = warp; r < tile.rows; r += kWarps) {
-    const TQ* qr = q + (long long)r * k;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    int j = lane;
-    for (; j + 96 < k; j += 128) {
-      a0 = fmaf(ld(qr + j), cc[j], a0);
-      a1 = fmaf(ld(qr + j + 32), cc[j + 32], a1);
-      a2 = fmaf(ld(qr + j + 64), cc[j + 64], a2);
-      a3 = fmaf(ld(qr + j + 96), cc[j + 96], a3);
+// The same with element loads: columns j0 + e * cols (coalesced across the
+// group), 16 values of A in flight (32 spill at 64 registers).
+template <typename TA>
+__device__ __forceinline__ void rows_scalar(const TA* __restrict__ A,
+                                            const float* __restrict__ q,
+                                            long long n, long long j0,
+                                            int cols, long long i0,
+                                            long long i1, int G,
+                                            float (&acc)[Vec16<TA>::V]) {
+  constexpr int V = Vec16<TA>::V;
+  constexpr int R = 16 / (V * (sizeof(TA) == 8 ? 2 : 1));  // rows in flight
+  bool ok[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) ok[e] = j0 + (long long)e * cols < n;
+  if (!ok[0]) return;
+  const long long step = n * G;
+  const TA* a = A + i0 * n + j0;
+  long long i = i0;
+  for (; i + (R - 1) * G < i1; i += R * G) {
+    float f[R][V], qq[R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      qq[u] = q[i + u * G];
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        f[u][e] = ok[e] ? ld(a + u * step + e * cols) : 0.f;
     }
-    for (; j < k; j += 32) a0 = fmaf(ld(qr + j), cc[j], a0);
-    const float dot = warp_sum((a0 + a1) + (a2 + a3));
-    if (lane == 0) {
-      const float wr = su[r] - dot;
-      su[r] = wr;
-      w[tile.r0 + r] = wr;
-      if (NORM) nrm = fmaf(wr, wr, nrm);
-    }
+#pragma unroll
+    for (int u = 0; u < R; ++u)
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (ok[e]) acc[e] = fmaf(f[u][e], qq[u], acc[e]);
+    a += R * step;
   }
-  __syncthreads();
-  if (!NORM) {
-    for (int j = threadIdx.x; j < k; j += kThreads) {
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      int r = 0;
-      for (; r + 3 < tile.rows; r += 4) {
-        a0 = fmaf(ld(q + (long long)r * k + j), su[r], a0);
-        a1 = fmaf(ld(q + (long long)(r + 1) * k + j), su[r + 1], a1);
-        a2 = fmaf(ld(q + (long long)(r + 2) * k + j), su[r + 2], a2);
-        a3 = fmaf(ld(q + (long long)(r + 3) * k + j), su[r + 3], a3);
+  for (; i < i1; i += G, a += step) {
+    const float qi = q[i];
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      if (ok[e]) acc[e] = fmaf(ld(a + e * cols), qi, acc[e]);
+  }
+}
+
+// vpart[b * TC + col] = sum of A[i, col of tile t] q_i over the rows of
+// chunk c, for block b = c * tiles + t (TC = cols * V columns a tile).
+template <typename TA, bool VEC>
+__global__ void __launch_bounds__(kThreads, kRmvBlocksPerSm)
+    rmv_partial_kernel(const TA* __restrict__ A, const float* __restrict__ q,
+                       long long m, long long n, int cols, long long rows,
+                       float* __restrict__ vpart) {
+  constexpr int V = Vec16<TA>::V;
+  __shared__ float red[kThreads * V];  // the groups' sums, group by group
+  const int G = kThreads / cols;
+  const int g = threadIdx.x / cols, l = threadIdx.x - g * cols;
+  const long long TC = (long long)cols * V;
+  const long long tiles = (n + TC - 1) / TC;
+  const long long t = blockIdx.x % tiles, c = blockIdx.x / tiles;
+  const long long i0 = c * rows + g, i1 = min((c + 1) * rows, m);
+  float acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] = 0.f;
+  if (VEC)
+    rows_vec<TA>(A, q, n, t * TC + l * V, i0, i1, G, acc);
+  else
+    rows_scalar<TA>(A, q, n, t * TC + l, cols, i0, i1, G, acc);
+  // column e of this thread in the tile
+  const int c0 = VEC ? l * V : l, dc = VEC ? 1 : cols;
+  if (G > 1) {  // group g's sums to red[g], then a fixed tree into red[0]
+    float* mine = red + g * TC;
+#pragma unroll
+    for (int e = 0; e < V; ++e) mine[c0 + e * dc] = acc[e];
+    for (int s = G / 2; s > 0; s >>= 1) {
+      __syncthreads();
+      if (g < s) {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          mine[c0 + e * dc] += mine[s * TC + c0 + e * dc];
       }
-      for (; r < tile.rows; ++r)
-        a0 = fmaf(ld(q + (long long)r * k + j), su[r], a0);
-      acc[(long long)j * gridDim.x] += (a0 + a1) + (a2 + a3);
     }
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = mine[c0 + e * dc];
+  }
+  if (g == 0) {
+    float* out = vpart + blockIdx.x * TC;
+#pragma unroll
+    for (int e = 0; e < V; ++e) out[c0 + e * dc] = acc[e];
   }
 }
 
-// The same for k <= 32 * kRegCols, with one read of each staged element:
-// lane l holds c[l + 32 t] in cr[t]; a warp loads row r's elements
-// (lanes along the row), folds them with cr into the row's dot product,
-// and with w_r into its own column sums ar[t] (c' = Q^T w, the warp's
-// rows only: the block adds its warps' sums at the end, in warp order).
-constexpr int kRegCols = 8;  // k up to 256
-
-template <typename TQ, bool NORM>
-__device__ void project_tile_regs(const char* stage, const ProjTile<TQ>& tile,
-                                  int k, const float (&cr)[kRegCols],
-                                  float (&ar)[kRegCols],
-                                  float* __restrict__ w, float& nrm) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const float* su = reinterpret_cast<const float*>(stage);
-  const TQ* q = tile.run(stage);
-  for (int r = warp; r < tile.rows; r += kWarps) {
-    const TQ* qr = q + (long long)r * k;
-    float qv[kRegCols];
-    float dot = 0.f;
-#pragma unroll
-    for (int t = 0; t < kRegCols; ++t) {
-      const int j = lane + 32 * t;
-      qv[t] = j < k ? ld(qr + j) : 0.f;
-      dot = fmaf(qv[t], cr[t], dot);
-    }
-    const float wr = su[r] - warp_sum(dot);
-    if (!NORM) {
-#pragma unroll
-      for (int t = 0; t < kRegCols; ++t) ar[t] = fmaf(qv[t], wr, ar[t]);
-    }
-    if (lane == 0) {
-      w[tile.r0 + r] = wr;
-      if (NORM) nrm = fmaf(wr, wr, nrm);
-    }
-  }
-}
-
-// Block b walks tiles b, b + G, b + 2G, ... (G = gridDim.x) through a ring
-// of `stages` buffers (2, or 1 where two do not fit): the next tile's copy
-// is in flight while this one is projected.  Its partial goes to
-// part[j * G + b] (c', k of them) or part[b] (||w||^2); finish_kernel sums
-// the G partials in a fixed order.  REGS (k <= 256): c and the column sums
-// in registers.  Otherwise c sits in shared memory where the plan's flag
-// puts it, and the column sums accumulate in place in part.
-template <typename TQ, bool NORM, bool REGS>
+// v_j = (sum over the chunks of their slot's column j) - beta y_j, where
+// chunk k's column j sits at vpart[k * width + j] (width = tiles x the
+// tile's columns).  A block's threads split into `ways` residues (a power
+// of two, as many as there are chunks, at most kThreads) of C = kThreads /
+// ways adjacent columns: residue r adds chunks r, r + ways, ... of its
+// column (lanes on adjacent columns: coalesced where C >= 32), then a
+// fixed tree adds the residues, so every column is summed in the same
+// order on every run.
 __global__ void __launch_bounds__(kThreads)
-    proj_kernel(const float* __restrict__ u, const TQ* __restrict__ Q,
-                const float* __restrict__ c_in, long long L, int k,
-                int tile_rows, long long tiles, int stages, int flags,
-                float* __restrict__ w, float* __restrict__ part) {
-  extern __shared__ __align__(16) char smem[];
-  __shared__ float red[kWarps];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long sbytes = stage_bytes(tile_rows, k, sizeof(TQ));
-  const float* cc = c_in;
-  float* acc = part + blockIdx.x;
-  float cr[kRegCols], ar[kRegCols];
-  if (REGS) {
-#pragma unroll
-    for (int t = 0; t < kRegCols; ++t) {
-      const int j = lane + 32 * t;
-      cr[t] = j < k ? c_in[j] : 0.f;
-      ar[t] = 0.f;
-    }
-  } else {
-    if (flags & kCShared) {
-      float* sc = reinterpret_cast<float*>(smem + sbytes * stages);
-      for (int j = threadIdx.x; j < k; j += kThreads) sc[j] = c_in[j];
-      cc = sc;
-    }
-    if (!NORM)  // each thread zeroes, and later adds to, its own columns
-      for (int j = threadIdx.x; j < k; j += kThreads)
-        acc[(long long)j * gridDim.x] = 0.f;
+    rmv_finish_kernel(const float* __restrict__ vpart, long long n,
+                      long long width, long long chunks, int ways,
+                      const float* __restrict__ y,
+                      const float* __restrict__ beta, float* __restrict__ v) {
+  __shared__ float part[kThreads];
+  const int C = kThreads / ways;
+  const int r = threadIdx.x / C, c = threadIdx.x - r * C;
+  const long long j = (long long)blockIdx.x * C + c;
+  float s = 0.f;
+  if (j < n) {
+#pragma unroll 4
+    for (long long k = r; k < chunks; k += ways) s += vpart[k * width + j];
   }
-  float nrm = 0.f;
-
-  const long long G = gridDim.x;
-  for (int s = 0; s + 1 < stages; ++s) {  // one copy group per stage
-    if (blockIdx.x + s * G < tiles)
-      stage_tile(smem + s * sbytes, u, Q, L, k, tile_rows, blockIdx.x + s * G);
-    cp_async_commit();
-  }
-  int it = 0;
-  for (long long t = blockIdx.x; t < tiles; t += G, ++it) {
-    const long long ahead = t + (stages - 1) * G;
-    if (ahead < tiles)
-      stage_tile(smem + ((it + stages - 1) % stages) * sbytes, u, Q, L, k,
-                 tile_rows, ahead);
-    cp_async_commit();
-    if (stages == 2)  // tile t has landed; tile t + G may be in flight
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
+  part[threadIdx.x] = s;
+  for (int h = ways / 2; h > 0; h >>= 1) {
     __syncthreads();
-    char* stage = smem + (it % stages) * sbytes;
-    const ProjTile<TQ> tile(Q, L, k, tile_rows, t);
-    if (REGS)
-      project_tile_regs<TQ, NORM>(stage, tile, k, cr, ar, w, nrm);
-    else
-      project_tile<TQ, NORM>(stage, tile, k, cc, acc, w, nrm);
-    __syncthreads();  // the stage is refilled next
+    if (r < h) part[threadIdx.x] += part[threadIdx.x + h * C];
   }
-  if (NORM) {
-    if (lane == 0) red[warp] = nrm;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float s = 0.f;
-      for (int i = 0; i < kWarps; ++i) s += red[i];
-      part[blockIdx.x] = s;
-    }
-  } else if (REGS) {  // the warps' column sums, through the idle stages
-    float* sums = reinterpret_cast<float*>(smem);  // kWarps x k
-#pragma unroll
-    for (int t = 0; t < kRegCols; ++t)
-      if (lane + 32 * t < k) sums[warp * k + lane + 32 * t] = ar[t];
-    __syncthreads();
-    for (int j = threadIdx.x; j < k; j += kThreads) {
-      float s = 0.f;
-      for (int i = 0; i < kWarps; ++i) s += sums[i * k + j];
-      part[(long long)j * gridDim.x + blockIdx.x] = s;
-    }
-  }
+  if (r == 0 && j < n) v[j] = part[c] - beta[0] * y[j];
 }
 
-template <typename TQ, bool NORM, bool REGS>
-cudaError_t launch_proj(const float* u, const void* Q, const float* c_in,
-                        long long L, int k, int tile_rows, long long tiles,
-                        int grid, int stages, int flags, long long smem,
-                        float* w, float* part, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        proj_kernel<TQ, NORM, REGS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  proj_kernel<TQ, NORM, REGS><<<grid, kThreads, smem, stream>>>(
-      u, static_cast<const TQ*>(Q), c_in, L, k, tile_rows, tiles, stages,
-      flags, w, part);
+// v = A^T q - beta y.  A plan with row groups of a width other than a
+// power of two up to kThreads, with a chunk that owns no row or chunks
+// that do not cover the rows, or with more than one chunk and more blocks
+// than kRmvMaxBlocks, is refused before a launch.
+template <typename TA>
+cudaError_t rmatvec(const void* A, const float* q, const float* y,
+                    const float* beta, long long m, long long n, int cols,
+                    long long rows, long long chunks, float* vpart, float* v,
+                    cudaStream_t stream) {
+  constexpr int V = Vec16<TA>::V;
+  if (m < 1 || n < 1 || rows < 1 || chunks < 1 || cols < 1 ||
+      cols > kThreads || (cols & (cols - 1)) != 0 ||
+      (chunks - 1) * rows >= m || chunks * rows < m)
+    return cudaErrorInvalidValue;
+  const long long TC = (long long)cols * V;
+  const long long tiles = (n + TC - 1) / TC, grid = tiles * chunks;
+  if ((chunks > 1 && grid > kRmvMaxBlocks) || grid > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const TA* a = static_cast<const TA*>(A);
+  if (n % V == 0 && aligned16(A))
+    rmv_partial_kernel<TA, true><<<(unsigned)grid, kThreads, 0, stream>>>(
+        a, q, m, n, cols, rows, vpart);
+  else
+    rmv_partial_kernel<TA, false><<<(unsigned)grid, kThreads, 0, stream>>>(
+        a, q, m, n, cols, rows, vpart);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  int ways = 1;
+  while (ways < kThreads && ways < chunks) ways *= 2;
+  const long long C = kThreads / ways;
+  rmv_finish_kernel<<<(unsigned)((n + C - 1) / C), kThreads, 0, stream>>>(
+      vpart, n, tiles * TC, chunks, ways, y, beta, v);
   return cudaGetLastError();
 }
 
-// The plan (tile rows, grid, stages, flags) comes from the wrapper's
-// proj_plan; anything outside this file's limits is refused before a
-// launch.
-template <typename TQ, bool NORM>
-cudaError_t proj(const float* u, const void* Q, const float* c_in,
-                 long long L, int k, int tile_rows, int grid, int stages,
-                 int flags, float* w, float* part, float* out,
-                 cudaStream_t stream) {
-  if (L < 1 || k < 0 || k > kMaxK || tile_rows < 1 ||
-      tile_rows > kMaxTileRows || grid < 1 || grid > kProjBlocks ||
-      stages < 1 || stages > kMaxStages || (flags & ~kCShared) != 0)
-    return cudaErrorInvalidValue;
-  const long long tiles = (L + tile_rows - 1) / tile_rows;
-  const long long smem =
-      proj_smem(tile_rows, k, sizeof(TQ), stages, flags);
-  const bool regs = k <= 32 * kRegCols;
-  // the register path sums its warps' columns in the stages at the end
-  const long long sums = regs && !NORM ? 4LL * kWarps * k : 0;
-  if (grid > tiles || smem > kSmemLimit ||
-      stage_bytes(tile_rows, k, sizeof(TQ)) * stages < sums)
-    return cudaErrorInvalidValue;
-  const cudaError_t e =
-      regs ? launch_proj<TQ, NORM, true>(u, Q, c_in, L, k, tile_rows, tiles,
-                                         grid, stages, flags, smem, w, part,
-                                         stream)
-           : launch_proj<TQ, NORM, false>(u, Q, c_in, L, k, tile_rows, tiles,
-                                          grid, stages, flags, smem, w, part,
-                                          stream);
-  if (e != cudaSuccess) return e;
-  return finish(part, grid, NORM ? 1 : k, out, stream);
+// (v, c) = (A^T q - beta y, P^T v): rmatvec, then the staged-tile c' = P^T v
+// with proj_plan's (tile_rows, pgrid, stages, flags) for P.
+template <typename TA, typename TP>
+cudaError_t rmv_qtv(const void* A, const float* q, const float* y,
+                    const float* beta, const void* P, long long m,
+                    long long n, int k, int cols, long long rows,
+                    long long chunks, float* vpart, int tile_rows, int pgrid,
+                    int stages, int flags, float* v, float* part, float* c,
+                    cudaStream_t stream) {
+  const cudaError_t e = rmatvec<TA>(A, q, y, beta, m, n, cols, rows,
+                                    chunks, vpart, v, stream);
+  if (e != cudaSuccess || k == 0) return e;
+  return proj<TP, kQtv>(v, P, nullptr, n, k, tile_rows, pgrid, stages, flags,
+                        nullptr, part, c, stream);
 }
 
 }  // namespace
@@ -645,26 +516,26 @@ int gk_mv_qtv(const void* A, int a_bf16, const float* p, const float* y,
 
 int gk_rmv_qtv(const void* A, int a_bf16, const float* q, const float* y,
                const float* beta, const void* P, int p_bf16, long long m,
-               long long n, int k, long long rows_per_chunk, int chunks,
-               float* vpart, long long rows_per_block, int grid, float* v,
-               float* part, float* c, void* stream) {
+               long long n, int k, int cols, long long rows, long long chunks,
+               float* vpart, int tile_rows, int pgrid, int stages, int flags,
+               float* v, float* part, float* c, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   typedef __nv_bfloat16 bf;
   cudaError_t e;
   if (a_bf16)
-    e = p_bf16 ? rmv_qtv<bf, bf>(A, q, y, beta, P, m, n, k, rows_per_chunk,
-                                 chunks, vpart, rows_per_block, grid, v, part,
-                                 c, s)
-               : rmv_qtv<bf, float>(A, q, y, beta, P, m, n, k,
-                                    rows_per_chunk, chunks, vpart,
-                                    rows_per_block, grid, v, part, c, s);
+    e = p_bf16 ? rmv_qtv<bf, bf>(A, q, y, beta, P, m, n, k, cols, rows,
+                                 chunks, vpart, tile_rows, pgrid, stages,
+                                 flags, v, part, c, s)
+               : rmv_qtv<bf, float>(A, q, y, beta, P, m, n, k, cols, rows,
+                                    chunks, vpart, tile_rows, pgrid, stages,
+                                    flags, v, part, c, s);
   else
-    e = p_bf16 ? rmv_qtv<float, bf>(A, q, y, beta, P, m, n, k,
-                                    rows_per_chunk, chunks, vpart,
-                                    rows_per_block, grid, v, part, c, s)
-               : rmv_qtv<float, float>(A, q, y, beta, P, m, n, k,
-                                       rows_per_chunk, chunks, vpart,
-                                       rows_per_block, grid, v, part, c, s);
+    e = p_bf16 ? rmv_qtv<float, bf>(A, q, y, beta, P, m, n, k, cols, rows,
+                                    chunks, vpart, tile_rows, pgrid, stages,
+                                    flags, v, part, c, s)
+               : rmv_qtv<float, float>(A, q, y, beta, P, m, n, k, cols, rows,
+                                       chunks, vpart, tile_rows, pgrid,
+                                       stages, flags, v, part, c, s);
   return (int)e;
 }
 
@@ -672,11 +543,12 @@ int gk_proj_qtv(const float* u, const void* Q, int q_bf16, const float* c_in,
                 long long L, int k, int tile_rows, int grid, int stages,
                 int flags, float* w, float* part, float* c_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(q_bf16 ? proj<__nv_bfloat16, false>(u, Q, c_in, L, k,
-                                                   tile_rows, grid, stages,
-                                                   flags, w, part, c_out, s)
-                      : proj<float, false>(u, Q, c_in, L, k, tile_rows, grid,
-                                           stages, flags, w, part, c_out, s));
+  return (int)(q_bf16 ? proj<__nv_bfloat16, kProjQtv>(
+                            u, Q, c_in, L, k, tile_rows, grid, stages, flags,
+                            w, part, c_out, s)
+                      : proj<float, kProjQtv>(u, Q, c_in, L, k, tile_rows,
+                                              grid, stages, flags, w, part,
+                                              c_out, s));
 }
 
 int gk_proj_norm(const float* u, const void* Q, int q_bf16,
@@ -684,11 +556,12 @@ int gk_proj_norm(const float* u, const void* Q, int q_bf16,
                  int grid, int stages, int flags, float* v, float* part,
                  float* nrm2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(q_bf16 ? proj<__nv_bfloat16, true>(u, Q, c_in, L, k,
-                                                  tile_rows, grid, stages,
-                                                  flags, v, part, nrm2, s)
-                      : proj<float, true>(u, Q, c_in, L, k, tile_rows, grid,
-                                          stages, flags, v, part, nrm2, s));
+  return (int)(q_bf16 ? proj<__nv_bfloat16, kProjNorm>(
+                            u, Q, c_in, L, k, tile_rows, grid, stages, flags,
+                            v, part, nrm2, s)
+                      : proj<float, kProjNorm>(u, Q, c_in, L, k, tile_rows,
+                                               grid, stages, flags, v, part,
+                                               nrm2, s));
 }
 
 int gk_matvec_fused(const void* A, int a_kind, const float* p, const float* y,
@@ -707,24 +580,19 @@ int gk_matvec_fused(const void* A, int a_kind, const float* p, const float* y,
 
 int gk_rmatvec_fused(const void* A, int a_kind, const float* q,
                      const float* y, const float* beta, long long m,
-                     long long n, long long rows_per_chunk, int chunks,
-                     float* vpart, long long rows_per_block, int grid,
-                     float* v, void* stream) {
+                     long long n, int cols, long long rows, long long chunks,
+                     float* vpart, float* v, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (a_kind == 1)
-    e = rmv_qtv<__nv_bfloat16, float>(A, q, y, beta, nullptr, m, n, 0,
-                                      rows_per_chunk, chunks, vpart,
-                                      rows_per_block, grid, v, nullptr,
-                                      nullptr, s);
+    e = rmatvec<__nv_bfloat16>(A, q, y, beta, m, n, cols, rows, chunks,
+                               vpart, v, s);
   else if (a_kind == 2)
-    e = rmv_qtv<double, float>(A, q, y, beta, nullptr, m, n, 0,
-                               rows_per_chunk, chunks, vpart, rows_per_block,
-                               grid, v, nullptr, nullptr, s);
+    e = rmatvec<double>(A, q, y, beta, m, n, cols, rows, chunks, vpart, v,
+                        s);
   else
-    e = rmv_qtv<float, float>(A, q, y, beta, nullptr, m, n, 0,
-                              rows_per_chunk, chunks, vpart, rows_per_block,
-                              grid, v, nullptr, nullptr, s);
+    e = rmatvec<float>(A, q, y, beta, m, n, cols, rows, chunks, vpart, v,
+                       s);
   return (int)e;
 }
 

@@ -1,0 +1,423 @@
+// Products with a tall basis Q (L, k) over flat tiles of whole rows staged
+// in shared memory (gk_step.cu and reorth.cu).  One template serves four
+// functions, each an epilogue of the same staged tile:
+//
+//   kProjQtv   w = u - Q c ; c' = Q^T w   gk_proj_qtv
+//   kProjNorm  w = u - Q c ; ||w||^2      gk_proj_norm
+//   kSubtract  w = u - Q c                reorth_subtract_qc
+//   kQtv       c' = Q^T u                 reorth_qtv, and gk_rmv_qtv's
+//                                         c = P^T v
+//
+// What bounds them.  Each does one or two multiply-adds per element of Q
+// and reads Q once from device memory, so each is bound by the bytes of Q
+// (80 MB at the dense cell's 1e5 x 201 f32 Q, 386 MB at the sparse cell's
+// 480,189 x 201 Lanczos basis).  What holds such a stream back is bytes in
+// flight and arithmetic that does not overlap them.  Rows of odd width
+// are never 16-byte aligned, so the kernel does not load row by row: a
+// tile of rows is one contiguous run of the array, copied into shared
+// memory in aligned 16-byte cp.async chunks (the ends of the array element
+// by element), two stages deep, so the next tile's copy is in flight
+// while this one is used.  Each staged element is read once from shared
+// memory: up to 256 columns a warp takes a row with lanes along it, c in
+// registers, and the same loaded values give the row's dot product, w_r,
+// and (with w_r) the warp's running column sums of c'.  Wider bases keep
+// c in shared memory where it fits beside the stages, else read it
+// through the read-only cache, and add each tile's share of c' in place
+// in the block's partials in device memory.  Block b walks tiles b, b+G,
+// ... of a fixed grid G (<= 264), so the finishing launch sums G
+// partials, not one per row block; the order of every sum is fixed by
+// the plan, so the same inputs give the same bits on every run.
+//
+// The plan (tile rows, grid, stages, flags) comes from the wrappers'
+// proj_plan (repro_torch/kernels/gk_step.py); proj() refuses a plan past
+// this file's limits before a launch.
+
+#pragma once
+
+#include "gk_rows.cuh"  // ld, warp_sum, kThreads, kWarps
+
+namespace {
+
+// out[b] = sum of part[b*G : (b+1)*G], summed in a fixed order.
+__global__ void __launch_bounds__(kThreads)
+    finish_kernel(const float* __restrict__ part, int G,
+                  float* __restrict__ out) {
+  __shared__ float s[kThreads];
+  const float* row = part + (long long)blockIdx.x * G;
+  float acc = 0.f;
+  for (int b = threadIdx.x; b < G; b += kThreads) acc += row[b];
+  s[threadIdx.x] = acc;
+  __syncthreads();
+  for (int w = kThreads / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = s[0];
+}
+
+cudaError_t finish(const float* part, int G, int count, float* out,
+                   cudaStream_t stream) {
+  if (count == 0) return cudaSuccess;
+  finish_kernel<<<count, kThreads, 0, stream>>>(part, G, out);
+  return cudaGetLastError();
+}
+
+// What a staged tile gives (see the top of this file).
+enum ProjMode { kProjQtv, kProjNorm, kSubtract, kQtv };
+
+template <int MODE>
+struct Epilogue {
+  static constexpr bool kDot = MODE != kQtv;  // w = u - Q c
+  static constexpr bool kCols = MODE == kProjQtv || MODE == kQtv;  // Q^T w
+  static constexpr bool kNorm = MODE == kProjNorm;
+};
+
+// --- flat tiles staged in shared memory ------------------------------------
+//
+// A tile is `rows` consecutive rows of the basis, one contiguous run of
+// rows*k elements of the row-major array whatever k's parity.  A stage of
+// shared memory holds the tile's slice of u (4-byte cp.async copies), then
+// the run, copied in 16-byte cp.async chunks.  The chunks are aligned in
+// device memory, so the run starts (g0 & 15) bytes into its buffer; a
+// chunk at a tile's edge also carries bytes of the neighbouring tile,
+// which this tile ignores.  Only at the two ends of the array does an
+// aligned chunk reach outside it: there the elements are copied one by one.
+
+constexpr int kProjBlocks = 264;     // grid cap: two blocks on each of 132 SMs
+constexpr int kMaxTileRows = 512;
+constexpr int kMaxK = 49152;         // the wrappers' MAX_K
+constexpr long long kSmemLimit = 232448 - 256;  // 227 KB a block can have,
+                                                // less room for red[]
+constexpr int kMaxStages = 2;
+constexpr int kCShared = 1;          // plan flag: c in shared memory
+
+__host__ __device__ inline long long round16(long long x) {
+  return (x + 15) & ~15LL;
+}
+
+// Bytes of one stage: the u slice, the run and room for a 16-byte
+// misalignment at either end of it.
+__host__ __device__ inline long long stage_bytes(int rows, int k, int esize) {
+  return round16(4LL * rows) + round16((long long)rows * k * esize) + 32;
+}
+
+inline long long proj_smem(int rows, int k, int esize, int stages,
+                           int flags) {
+  long long s = stage_bytes(rows, k, esize) * stages;
+  if (flags & kCShared) s += round16(4LL * k);
+  return s;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Where tile t lies: rows [r0, r0 + rows), bytes [g0, g1) of the array.
+template <typename TQ>
+struct ProjTile {
+  long long r0;
+  int rows;
+  unsigned long long g0, g1;
+  __device__ ProjTile(const TQ* Q, long long L, int k, int tile_rows,
+                      long long t) {
+    r0 = t * tile_rows;
+    rows = (int)min((long long)tile_rows, L - r0);
+    const unsigned long long row = (unsigned long long)k * sizeof(TQ);
+    g0 = reinterpret_cast<unsigned long long>(Q) + r0 * row;
+    g1 = g0 + rows * row;
+  }
+  // the first element of the run in its stage buffer
+  __device__ const TQ* run(const char* stage) const {
+    return reinterpret_cast<const TQ*>(stage + round16(4LL * rows) +
+                                       (g0 & 15));
+  }
+};
+
+// Start the copies of tile t into `stage` (the peeled ends are plain loads
+// and stores, visible after the next __syncthreads).
+template <typename TQ>
+__device__ void stage_tile(char* stage, const float* __restrict__ u,
+                           const TQ* Q, long long L, int k, int tile_rows,
+                           long long t) {
+  const ProjTile<TQ> tile(Q, L, k, tile_rows, t);
+  float* su = reinterpret_cast<float*>(stage);
+  for (int r = threadIdx.x; r < tile.rows; r += kThreads)
+    cp_async4(su + r, u + tile.r0 + r);
+  char* run = stage + round16(4LL * tile.rows);  // 16-byte aligned
+  const unsigned long long d0 = tile.g0 & ~15ULL;  // run[0] <-> d0
+  const unsigned long long base = reinterpret_cast<unsigned long long>(Q);
+  const unsigned long long end = base + L * (unsigned long long)k * sizeof(TQ);
+  const unsigned long long body0 = round16(base), body1 = end & ~15ULL;
+  const unsigned long long head1 = min(body0, end);
+  const unsigned long long tail0 = max(body1, head1);
+  const unsigned long long c0 = max(d0, body0);
+  const unsigned long long c1 =
+      min((unsigned long long)round16(tile.g1), body1);
+  for (unsigned long long a = c0 + 16ULL * threadIdx.x; a < c1;
+       a += 16ULL * kThreads)
+    cp_async16(run + (a - d0), reinterpret_cast<const void*>(a));
+  const unsigned long long ends[2][2] = {{tile.g0, min(tile.g1, head1)},
+                                         {max(tile.g0, tail0), tile.g1}};
+  for (int e = 0; e < 2; ++e)
+    for (unsigned long long a = ends[e][0] + sizeof(TQ) * threadIdx.x;
+         a < ends[e][1]; a += sizeof(TQ) * kThreads)
+      *reinterpret_cast<TQ*>(run + (a - d0)) = *reinterpret_cast<const TQ*>(a);
+}
+
+// The epilogue over a staged tile, k > 32 * kRegCols: w = u - Q c (a warp
+// per row, lanes along it), then the tile's share of c' = Q^T w into
+// acc[j * gridDim.x] (threads own columns and walk the tile's rows) or of
+// ||w||^2 into nrm (lane 0 of each warp).  Reads the tile from shared
+// memory only.
+template <typename TQ, int MODE>
+__device__ void project_tile(char* stage, const ProjTile<TQ>& tile, int k,
+                             const float* cc, float* acc,
+                             float* __restrict__ w, float& nrm) {
+  using E = Epilogue<MODE>;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* su = reinterpret_cast<float*>(stage);  // u in, w out
+  const TQ* q = tile.run(stage);
+  if (E::kDot) {
+    for (int r = warp; r < tile.rows; r += kWarps) {
+      const TQ* qr = q + (long long)r * k;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+      int j = lane;
+      for (; j + 96 < k; j += 128) {
+        a0 = fmaf(ld(qr + j), cc[j], a0);
+        a1 = fmaf(ld(qr + j + 32), cc[j + 32], a1);
+        a2 = fmaf(ld(qr + j + 64), cc[j + 64], a2);
+        a3 = fmaf(ld(qr + j + 96), cc[j + 96], a3);
+      }
+      for (; j < k; j += 32) a0 = fmaf(ld(qr + j), cc[j], a0);
+      const float dot = warp_sum((a0 + a1) + (a2 + a3));
+      if (lane == 0) {
+        const float wr = su[r] - dot;
+        su[r] = wr;
+        w[tile.r0 + r] = wr;
+        if (E::kNorm) nrm = fmaf(wr, wr, nrm);
+      }
+    }
+  }
+  if (E::kCols) {
+    if (E::kDot) __syncthreads();  // every w_r of the tile is in su
+    for (int j = threadIdx.x; j < k; j += kThreads) {
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+      int r = 0;
+      for (; r + 3 < tile.rows; r += 4) {
+        a0 = fmaf(ld(q + (long long)r * k + j), su[r], a0);
+        a1 = fmaf(ld(q + (long long)(r + 1) * k + j), su[r + 1], a1);
+        a2 = fmaf(ld(q + (long long)(r + 2) * k + j), su[r + 2], a2);
+        a3 = fmaf(ld(q + (long long)(r + 3) * k + j), su[r + 3], a3);
+      }
+      for (; r < tile.rows; ++r)
+        a0 = fmaf(ld(q + (long long)r * k + j), su[r], a0);
+      acc[(long long)j * gridDim.x] += (a0 + a1) + (a2 + a3);
+    }
+  }
+}
+
+// The same for k <= 32 * kRegCols, with one read of each staged element:
+// lane l holds c[l + 32 t] in cr[t]; a warp loads row r's elements
+// (lanes along the row), folds them with cr into the row's dot product,
+// and with w_r into its own column sums ar[t] (c' = Q^T w, the warp's
+// rows only: the block adds its warps' sums at the end, in warp order).
+constexpr int kRegCols = 8;  // k up to 256
+
+template <typename TQ, int MODE>
+__device__ void project_tile_regs(const char* stage, const ProjTile<TQ>& tile,
+                                  int k, const float (&cr)[kRegCols],
+                                  float (&ar)[kRegCols],
+                                  float* __restrict__ w, float& nrm) {
+  using E = Epilogue<MODE>;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float* su = reinterpret_cast<const float*>(stage);
+  const TQ* q = tile.run(stage);
+  for (int r = warp; r < tile.rows; r += kWarps) {
+    const TQ* qr = q + (long long)r * k;
+    float qv[kRegCols];
+    float dot = 0.f;
+#pragma unroll
+    for (int t = 0; t < kRegCols; ++t) {
+      const int j = lane + 32 * t;
+      qv[t] = j < k ? ld(qr + j) : 0.f;
+      if (E::kDot) dot = fmaf(qv[t], cr[t], dot);
+    }
+    const float wr = E::kDot ? su[r] - warp_sum(dot) : su[r];
+    if (E::kCols) {
+#pragma unroll
+      for (int t = 0; t < kRegCols; ++t) ar[t] = fmaf(qv[t], wr, ar[t]);
+    }
+    if (E::kDot && lane == 0) {
+      w[tile.r0 + r] = wr;
+      if (E::kNorm) nrm = fmaf(wr, wr, nrm);
+    }
+  }
+}
+
+// Block b walks tiles b, b + G, b + 2G, ... (G = gridDim.x) through a ring
+// of `stages` buffers (2, or 1 where two do not fit): the next tile's copy
+// is in flight while this one is used.  Its partial goes to part[j * G +
+// b] (c', k of them) or part[b] (||w||^2); finish_kernel sums the G
+// partials in a fixed order.  REGS (k <= 256): c and the column sums in
+// registers.  Otherwise c sits in shared memory where the plan's flag puts
+// it, and the column sums accumulate in place in part.
+template <typename TQ, int MODE, bool REGS>
+__global__ void __launch_bounds__(kThreads)
+    proj_kernel(const float* __restrict__ u, const TQ* __restrict__ Q,
+                const float* __restrict__ c_in, long long L, int k,
+                int tile_rows, long long tiles, int stages, int flags,
+                float* __restrict__ w, float* __restrict__ part) {
+  using E = Epilogue<MODE>;
+  extern __shared__ __align__(16) char smem[];
+  __shared__ float red[kWarps];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long sbytes = stage_bytes(tile_rows, k, sizeof(TQ));
+  const float* cc = c_in;
+  float* acc = part + blockIdx.x;
+  float cr[kRegCols], ar[kRegCols];
+  if (REGS) {
+#pragma unroll
+    for (int t = 0; t < kRegCols; ++t) {
+      const int j = lane + 32 * t;
+      cr[t] = E::kDot && j < k ? c_in[j] : 0.f;
+      ar[t] = 0.f;
+    }
+  } else {
+    if (E::kDot && (flags & kCShared)) {
+      float* sc = reinterpret_cast<float*>(smem + sbytes * stages);
+      for (int j = threadIdx.x; j < k; j += kThreads) sc[j] = c_in[j];
+      cc = sc;
+    }
+    if (E::kCols)  // each thread zeroes, and later adds to, its own columns
+      for (int j = threadIdx.x; j < k; j += kThreads)
+        acc[(long long)j * gridDim.x] = 0.f;
+  }
+  float nrm = 0.f;
+
+  const long long G = gridDim.x;
+  for (int s = 0; s + 1 < stages; ++s) {  // one copy group per stage
+    if (blockIdx.x + s * G < tiles)
+      stage_tile(smem + s * sbytes, u, Q, L, k, tile_rows, blockIdx.x + s * G);
+    cp_async_commit();
+  }
+  int it = 0;
+  for (long long t = blockIdx.x; t < tiles; t += G, ++it) {
+    const long long ahead = t + (stages - 1) * G;
+    if (ahead < tiles)
+      stage_tile(smem + ((it + stages - 1) % stages) * sbytes, u, Q, L, k,
+                 tile_rows, ahead);
+    cp_async_commit();
+    if (stages == 2)  // tile t has landed; tile t + G may be in flight
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    char* stage = smem + (it % stages) * sbytes;
+    const ProjTile<TQ> tile(Q, L, k, tile_rows, t);
+    if (REGS)
+      project_tile_regs<TQ, MODE>(stage, tile, k, cr, ar, w, nrm);
+    else
+      project_tile<TQ, MODE>(stage, tile, k, cc, acc, w, nrm);
+    __syncthreads();  // the stage is refilled next
+  }
+  if (E::kNorm) {
+    if (lane == 0) red[warp] = nrm;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float s = 0.f;
+      for (int i = 0; i < kWarps; ++i) s += red[i];
+      part[blockIdx.x] = s;
+    }
+  } else if (E::kCols && REGS) {  // the warps' column sums, through the
+    float* sums = reinterpret_cast<float*>(smem);  // idle stages: kWarps x k
+#pragma unroll
+    for (int t = 0; t < kRegCols; ++t)
+      if (lane + 32 * t < k) sums[warp * k + lane + 32 * t] = ar[t];
+    __syncthreads();
+    for (int j = threadIdx.x; j < k; j += kThreads) {
+      float s = 0.f;
+      for (int i = 0; i < kWarps; ++i) s += sums[i * k + j];
+      part[(long long)j * gridDim.x + blockIdx.x] = s;
+    }
+  }
+}
+
+template <typename TQ, int MODE, bool REGS>
+cudaError_t launch_proj(const float* u, const void* Q, const float* c_in,
+                        long long L, int k, int tile_rows, long long tiles,
+                        int grid, int stages, int flags, long long smem,
+                        float* w, float* part, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        proj_kernel<TQ, MODE, REGS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  proj_kernel<TQ, MODE, REGS><<<grid, kThreads, smem, stream>>>(
+      u, static_cast<const TQ*>(Q), c_in, L, k, tile_rows, tiles, stages,
+      flags, w, part);
+  return cudaGetLastError();
+}
+
+// One call of a mode: the staged-tile kernel, then (c' or ||w||^2) the
+// finishing launch into out.  The plan comes from the wrapper's
+// proj_plan; anything outside this file's limits is refused before a
+// launch.  part holds grid (||w||^2) or k * grid (c') floats; w and part
+// go unused where the mode has no such output.
+template <typename TQ, int MODE>
+cudaError_t proj(const float* u, const void* Q, const float* c_in,
+                 long long L, int k, int tile_rows, int grid, int stages,
+                 int flags, float* w, float* part, float* out,
+                 cudaStream_t stream) {
+  using E = Epilogue<MODE>;
+  if (L < 1 || k < 0 || k > kMaxK || tile_rows < 1 ||
+      tile_rows > kMaxTileRows || grid < 1 || grid > kProjBlocks ||
+      stages < 1 || stages > kMaxStages || (flags & ~kCShared) != 0)
+    return cudaErrorInvalidValue;
+  const long long tiles = (L + tile_rows - 1) / tile_rows;
+  const long long smem =
+      proj_smem(tile_rows, k, sizeof(TQ), stages, flags);
+  const bool regs = k <= 32 * kRegCols;
+  // the register path sums its warps' columns in the stages at the end
+  const long long sums = regs && E::kCols ? 4LL * kWarps * k : 0;
+  if (grid > tiles || smem > kSmemLimit ||
+      stage_bytes(tile_rows, k, sizeof(TQ)) * stages < sums)
+    return cudaErrorInvalidValue;
+  const cudaError_t e =
+      regs ? launch_proj<TQ, MODE, true>(u, Q, c_in, L, k, tile_rows, tiles,
+                                         grid, stages, flags, smem, w, part,
+                                         stream)
+           : launch_proj<TQ, MODE, false>(u, Q, c_in, L, k, tile_rows, tiles,
+                                          grid, stages, flags, smem, w, part,
+                                          stream);
+  if (e != cudaSuccess || MODE == kSubtract) return e;
+  return finish(part, grid, E::kNorm ? 1 : k, out, stream);
+}
+
+}  // namespace

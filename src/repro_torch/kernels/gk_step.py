@@ -21,11 +21,18 @@ the device (a device scalar never forces a host sync).
 the card (``matvec_plan``), each warp on its own rows with stage 1's row
 loop, and no barrier, so u has the bits of ``mv_qtv``'s u.
 
+``rmatvec_fused`` and ``rmv_qtv``'s v come from one Aᵀq pass: threads own
+columns of A (16-byte loads where A allows; row groups where A is
+narrow), one block per (column tile, row chunk) in a grid of one wave
+(``rmv_plan``), whose partial column sums a finishing pass adds in a
+fixed order.  ``rmv_qtv`` then forms c = Pᵀv as ``reorth.qtv`` does, so
+its v has ``rmatvec_fused``'s bits and its c ``reorth.qtv(P, v)``'s.
+
 The projection pair is bound by the bytes of the basis, which it reads
 from device memory once a call: each block copies tiles of whole rows,
 one contiguous run of the array whatever k's parity, into shared memory
 in 16-byte chunks, two stages deep, and takes both products from there
-(``proj_plan`` cuts the basis; ``csrc/gk_step.cu`` says more).
+(``proj_plan`` cuts the basis; ``csrc/proj_tiles.cuh`` says more).
 
 Each wrapper checks its inputs and raises on what the kernel does not
 take, allocates outputs and scratch with ``torch.empty``, launches on the
@@ -55,8 +62,7 @@ GROUP = THREADS // 32  # rows a block of the row kernel handles at once
 MAX_BLOCKS = 2048      # grid cap of the row kernel
 SMS = 132              # streaming multiprocessors of an H100 SXM
 MV_BLOCKS_PER_SM = 4   # resident blocks of matvec_fused's kernel on an SM
-RMV_TARGET_BLOCKS = 4096   # (column tile, row chunk) blocks rmv aims for
-MAX_CHUNKS = 65535     # gridDim.y limit
+RMV_BLOCKS_PER_SM = 4  # resident blocks of the Aᵀq partial kernel on an SM
 MAX_K = 49152          # basis columns: k f32 of shared memory per block
 # the projection pair's plan, as in the CUDA source (kProjBlocks, ...)
 PROJ_BLOCKS = 264      # grid cap: two blocks on each of 132 SMs
@@ -76,15 +82,15 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "gk_mv_qtv": [_P, _I, _P, _P, _P, _P, _I, _L, _L, _I, _L, _I,
                   _P, _P, _P, _P],
-    "gk_rmv_qtv": [_P, _I, _P, _P, _P, _P, _I, _L, _L, _I, _L, _I, _P,
-                   _L, _I, _P, _P, _P, _P],
+    "gk_rmv_qtv": [_P, _I, _P, _P, _P, _P, _I, _L, _L, _I, _I, _L, _L,
+                   _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "gk_proj_qtv": [_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P,
                     _P],
     "gk_proj_norm": [_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P,
                      _P],
     "gk_matvec_fused": [_P, _I, _P, _P, _P, _L, _L, _I, _P, _P],
-    "gk_rmatvec_fused": [_P, _I, _P, _P, _P, _L, _L, _L, _I, _P, _L, _I,
-                         _P, _P],
+    "gk_rmatvec_fused": [_P, _I, _P, _P, _P, _L, _L, _I, _L, _L, _P, _P,
+                         _P],
     "gk_error_string": [_I],
 }
 
@@ -119,15 +125,40 @@ def matvec_plan(m: int) -> int:
     return max(1, min(SMS * MV_BLOCKS_PER_SM, -(-m // GROUP)))
 
 
-def chunk_plan(m: int, n: int) -> tuple[int, int]:
-    """(rows per chunk, chunks) of the ``Aᵀq`` partial-sum kernel: enough
-    row chunks that (column tiles × chunks) reaches about
-    ``RMV_TARGET_BLOCKS`` blocks, without chunks shorter than 64 rows."""
-    tiles = -(-n // THREADS)
-    chunks = max(1, min(-(-RMV_TARGET_BLOCKS // tiles), -(-m // 64),
-                        MAX_CHUNKS))
-    per = -(-m // chunks)
-    return per, -(-m // per)
+class RmvPlan(NamedTuple):
+    """How the Aᵀq partial kernel cuts an (m, n) A: a block's ``THREADS``
+    threads form ``THREADS // cols`` row groups of ``cols`` threads, and
+    a column tile is ``tile_cols`` = ``cols`` × the elements of A in 16
+    bytes; every tile is cut into ``chunks`` chunks of ``rows`` rows (the
+    last may be shorter).  Block b takes tile b % ``tiles`` over chunk
+    b // ``tiles`` and writes its partial column sums to slot b; the
+    finishing pass adds a column's chunks in a fixed order."""
+    cols: int
+    tile_cols: int
+    tiles: int
+    rows: int
+    chunks: int
+
+
+def rmv_plan(m: int, n: int, dtype: torch.dtype) -> RmvPlan:
+    """The Aᵀq plan for an (m, n) A of ``dtype``: one group of ``THREADS``
+    threads a block wherever n fills it, else groups as narrow as n
+    allows (a power of two); as many row chunks as fit beside the tiles
+    in the blocks the card holds at once (``SMS`` × ``RMV_BLOCKS_PER_SM``),
+    each chunk with a row (one chunk, and a block per tile, where the
+    tiles alone pass that).
+
+    A function of (m, n, dtype) alone, so the order of every cross-block
+    sum, and with it σ's bits, is the same on every run and every card.
+    ``gk_step.cu`` refuses a plan past its own limits."""
+    V = 16 // dtype.itemsize
+    cols = 1
+    while cols < THREADS and cols * V < n:
+        cols *= 2
+    tiles = -(-n // (cols * V))
+    chunks = max(1, min(m, SMS * RMV_BLOCKS_PER_SM // tiles))
+    rows = -(-m // chunks)
+    return RmvPlan(cols, cols * V, tiles, rows, -(-m // rows))
 
 
 class ProjPlan(NamedTuple):
@@ -286,17 +317,18 @@ def rmv_qtv(A: Tensor, q: Tensor, y: Tensor, beta,
     if m == 0 or n == 0:
         raise ValueError(f"empty operand {tuple(A.shape)}")
     k = _basis_width(P)
-    per_chunk, chunks = chunk_plan(m, n)
-    per, grid = rows_plan(n)
+    plan, pp = rmv_plan(m, n, A.dtype), proj_plan(n, k, P.dtype)
     b = _scalar(beta, A.device)
-    vpart = torch.empty(chunks * n, dtype=F32, device=A.device)
+    vpart = torch.empty(plan.tiles * plan.chunks * plan.tile_cols,
+                        dtype=F32, device=A.device)
     v = torch.empty(n, dtype=F32, device=A.device)
     c = torch.empty(k, dtype=F32, device=A.device)
-    part = torch.empty(k * grid, dtype=F32, device=A.device)
+    part = torch.empty(k * pp.grid, dtype=F32, device=A.device)
     rc = _lib().gk_rmv_qtv(
         A.data_ptr(), int(A.dtype == BF16), q.data_ptr(), y.data_ptr(),
-        b.data_ptr(), P.data_ptr(), int(P.dtype == BF16), m, n, k, per_chunk,
-        chunks, vpart.data_ptr(), per, grid, v.data_ptr(), part.data_ptr(),
+        b.data_ptr(), P.data_ptr(), int(P.dtype == BF16), m, n, k,
+        plan.cols, plan.rows, plan.chunks, vpart.data_ptr(), pp.tile_rows,
+        pp.grid, pp.stages, pp.flags, v.data_ptr(), part.data_ptr(),
         c.data_ptr(), _stream())
     _check(rc, "rmv_qtv")
     LAUNCHES["rmv_qtv"] += 1
@@ -374,15 +406,15 @@ def rmatvec_fused(A: Tensor, q: Tensor, y: Tensor, beta) -> Tensor:
         return ref.rmatvec_fused(A, q, y, beta)
     if m == 0 or n == 0:
         raise ValueError(f"empty operand {tuple(A.shape)}")
-    per_chunk, chunks = chunk_plan(m, n)
-    per, grid = rows_plan(n)
+    plan = rmv_plan(m, n, A.dtype)
     b = _scalar(beta, A.device)
-    vpart = torch.empty(chunks * n, dtype=F32, device=A.device)
+    vpart = torch.empty(plan.tiles * plan.chunks * plan.tile_cols,
+                        dtype=F32, device=A.device)
     v = torch.empty(n, dtype=F32, device=A.device)
     rc = _lib().gk_rmatvec_fused(
         A.data_ptr(), A_KINDS[A.dtype], q.data_ptr(), y.data_ptr(),
-        b.data_ptr(), m, n, per_chunk, chunks, vpart.data_ptr(), per, grid,
-        v.data_ptr(), _stream())
+        b.data_ptr(), m, n, plan.cols, plan.rows, plan.chunks,
+        vpart.data_ptr(), v.data_ptr(), _stream())
     _check(rc, "rmatvec_fused")
     LAUNCHES["rmatvec_fused"] += 1
     return v

@@ -8,11 +8,14 @@ Counterpart of ``repro.kernels.reorth`` (two Pallas kernels):
 One classical Gram-Schmidt pass is the pair (``ops.reorth`` repeats it).
 Q (m, k) is f32 or bf16 and contiguous, read in place (the reference pads
 its rows to a block multiple; the kernels mask the ragged edge); v, c and
-w are 1-D f32.  The contract is that of ``kernels.gk_step``: each wrapper
-checks its inputs, allocates outputs and scratch with ``torch.empty``,
-launches on the current stream and adds one to ``LAUNCHES[name]``; for CPU
-tensors, and only for them, it returns the plain version from
-``kernels.ref``.
+w are 1-D f32.  Both kernels are epilogues of the projection pair's flat
+staged tiles, cut by ``gk_step.proj_plan``: ``qtv`` is ``proj_qtv``'s
+c' = Qᵀw fold with w = v, ``subtract_qc`` its w = v − Q c half alone, so
+``subtract_qc(v, Q, c)`` has the bits of ``proj_norm(v, Q, c)``'s w.  The
+contract is that of ``kernels.gk_step``: each wrapper checks its inputs,
+allocates outputs and scratch with ``torch.empty``, launches on the
+current stream and adds one to ``LAUNCHES[name]``; for CPU tensors, and
+only for them, it returns the plain version from ``kernels.ref``.
 """
 from __future__ import annotations
 
@@ -27,17 +30,12 @@ from repro_torch.kernels import ref
 Tensor = torch.Tensor
 F32, BF16 = torch.float32, torch.bfloat16
 
-QTV_TARGET_BLOCKS = 1024   # (column tile, row chunk) blocks qtv aims for
-MIN_CHUNK_ROWS = 256       # rows of the shortest chunk
-MAX_GRID = 2048            # blocks of subtract_qc (warps stride over rows)
-MAX_K = 12288              # basis columns: c fills 48 KB of shared memory
-
 LAUNCHES = {"qtv": 0, "subtract_qc": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "reorth_qtv": [_P, _I, _P, _L, _I, _L, _I, _P, _P, _P],
-    "reorth_subtract_qc": [_P, _P, _I, _P, _L, _I, _I, _P, _P],
+    "reorth_qtv": [_P, _I, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P],
+    "reorth_subtract_qc": [_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _P, _P],
     "reorth_error_string": [_I],
 }
 
@@ -59,18 +57,6 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
-def qtv_plan(m: int, k: int) -> tuple[int, int]:
-    """(rows per chunk, chunks) of ``qtv``'s partial sums: about
-    ``QTV_TARGET_BLOCKS`` blocks, no chunk shorter than ``MIN_CHUNK_ROWS``
-    rows.  A function of (m, k) alone, so the order of every sum is the
-    same on every run and every card."""
-    tiles = -(-k // gs.THREADS)
-    chunks = max(1, min(-(-QTV_TARGET_BLOCKS // tiles),
-                        m // MIN_CHUNK_ROWS, gs.MAX_CHUNKS))
-    per = -(-m // chunks)
-    return per, -(-m // per)
-
-
 def _basis(Q: Tensor, v: Tensor) -> tuple[int, int]:
     gs._matrix("Q", Q)
     m, k = Q.shape
@@ -78,9 +64,13 @@ def _basis(Q: Tensor, v: Tensor) -> tuple[int, int]:
     return m, k
 
 
-def _nonempty(m: int, k: int) -> None:
+def _plan(Q: Tensor) -> gs.ProjPlan:
+    """The staged-tile plan of a non-empty basis the kernels take."""
+    m, k = Q.shape
     if m == 0 or k == 0:
         raise ValueError(f"empty basis ({m} x {k})")
+    gs._basis_width(Q)
+    return gs.proj_plan(m, k, Q.dtype)
 
 
 def qtv(Q: Tensor, v: Tensor) -> Tensor:
@@ -88,12 +78,12 @@ def qtv(Q: Tensor, v: Tensor) -> Tensor:
     m, k = _basis(Q, v)
     if not gs._on_cuda(Q, v):
         return ref.qtv(Q, v)
-    _nonempty(m, k)
-    per, chunks = qtv_plan(m, k)
-    vpart = torch.empty(chunks * k, dtype=F32, device=Q.device)
+    plan = _plan(Q)
+    part = torch.empty(k * plan.grid, dtype=F32, device=Q.device)
     c = torch.empty(k, dtype=F32, device=Q.device)
     rc = _lib().reorth_qtv(Q.data_ptr(), int(Q.dtype == BF16), v.data_ptr(),
-                           m, k, per, chunks, vpart.data_ptr(), c.data_ptr(),
+                           m, k, plan.tile_rows, plan.grid, plan.stages,
+                           plan.flags, part.data_ptr(), c.data_ptr(),
                            gs._stream())
     _check(rc, "qtv")
     LAUNCHES["qtv"] += 1
@@ -107,15 +97,12 @@ def subtract_qc(v: Tensor, Q: Tensor, c: Tensor) -> Tensor:
     gs._vector("c", c, k)
     if not gs._on_cuda(v, Q, c):
         return ref.subtract_qc(v, Q, c)
-    _nonempty(m, k)
-    if k > MAX_K:
-        raise ValueError(f"basis has {k} columns; subtract_qc takes at most "
-                         f"{MAX_K}")
-    grid = min(-(-m // gs.GROUP), MAX_GRID)
+    plan = _plan(Q)
     w = torch.empty(m, dtype=F32, device=v.device)
     rc = _lib().reorth_subtract_qc(v.data_ptr(), Q.data_ptr(),
                                    int(Q.dtype == BF16), c.data_ptr(), m, k,
-                                   grid, w.data_ptr(), gs._stream())
+                                   plan.tile_rows, plan.grid, plan.stages,
+                                   plan.flags, w.data_ptr(), gs._stream())
     _check(rc, "subtract_qc")
     LAUNCHES["subtract_qc"] += 1
     return w

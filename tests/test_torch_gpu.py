@@ -280,6 +280,83 @@ def test_matvec_fused_refuses_plans_past_its_limits(cuda, monkeypatch,
         gs.matvec_fused(A, p, ym, 0.5)
 
 
+# (m, n) of the Aᵀq kernel's own cases: n not a multiple of 4 (4-byte
+# loads), one row, a tall narrow operand, several column tiles with a
+# ragged last one (1,024 f32 / 2,048 bf16 / 512 f64 columns a tile of 256
+# threads), spans that cross tiles, and row groups of 1 to 128 threads.
+RMV_CASES = [(300, 1003), (1, 5000), (10**6, 3), (4099, 2050), (257, 4100),
+             (3000, 2048), (5000, 201), (20_000, 100), (7, 4), (999, 40)]
+A_TYPES = [torch.float64, torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("adt", A_TYPES)
+@pytest.mark.parametrize("m,n", RMV_CASES)
+def test_rmv_kernel_matches_plain_versions(cuda, m, n, adt):
+    """rmatvec_fused, and for f32 / bf16 A rmv_qtv, against the plain
+    versions, bitwise on a rerun; rmv_qtv's v has rmatvec_fused's bits
+    and its c those of reorth.qtv(P, v)."""
+    A, _, q, _, yn, _, P = _inputs(m, n, 17, adt, torch.float32, m + n)
+    got = gs.rmatvec_fused(A, q, yn, 1.7)
+    _assert_close([got], [ref.rmatvec_fused(A, q, yn, 1.7)], 1e-5)
+    assert torch.equal(got, gs.rmatvec_fused(A, q, yn, 1.7))
+    if adt == torch.float64:
+        return
+    v, c = gs.rmv_qtv(A, q, yn, 1.7, P)
+    _assert_close([v, c], ref.rmv_qtv(A, q, yn, 1.7, P), 1e-5)
+    again = gs.rmv_qtv(A, q, yn, 1.7, P)
+    assert torch.equal(v, again[0]) and torch.equal(c, again[1])
+    assert torch.equal(v, got)
+    assert torch.equal(c, rk.qtv(P, v))
+
+
+@pytest.mark.parametrize("adt", A_TYPES)
+@pytest.mark.parametrize("m,n", [(300, 2048), (50, 1024), (1, 512)])
+def test_rmv_kernel_reads_an_unaligned_operand(cuda, m, n, adt):
+    """A contiguous A that starts one element into its buffer (4 bytes
+    off a 16-byte boundary in f32) takes 4-byte loads; the sums run in
+    the same order as over the aligned copy, so the bits are the same."""
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    buf = torch.randn(m * n + 1, generator=g, device=cuda).to(adt)
+    A = buf[1:].view(m, n)
+    assert A.is_contiguous() and A.data_ptr() % 16 != 0
+    aligned = A.clone()
+    assert aligned.data_ptr() % 16 == 0
+    q = torch.randn(m, generator=g, device=cuda)
+    y = torch.randn(n, generator=g, device=cuda)
+    got = gs.rmatvec_fused(A, q, y, 0.5)
+    _assert_close([got], [ref.rmatvec_fused(A, q, y, 0.5)], 1e-5)
+    assert torch.equal(got, gs.rmatvec_fused(aligned, q, y, 0.5))
+    if adt != torch.float64:
+        P = torch.randn(n, 5, generator=g, device=cuda)
+        for a, b in zip(gs.rmv_qtv(A, q, y, 0.5, P),
+                        gs.rmv_qtv(aligned, q, y, 0.5, P)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["past_the_cap", "idle_chunk", "short",
+                                 "zero", "cols"])
+def test_rmv_kernel_refuses_plans_past_its_limits(cuda, monkeypatch, bad):
+    """gk_step.cu refuses more than SMS x RMV_BLOCKS_PER_SM blocks of
+    several chunks, a chunk that owns no row, chunks that do not cover
+    the rows, no chunk and row groups of a width it does not take: both
+    wrappers raise."""
+    A, _, q, _, yn, _, P = _inputs(3000, 2048, 4, torch.float32,
+                                   torch.float32, 9)
+    plan = gs.rmv_plan(3000, 2048, torch.float32)
+    cap = gs.SMS * gs.RMV_BLOCKS_PER_SM
+    assert plan.tiles * plan.chunks <= cap < plan.tiles * 600
+    plan = {"past_the_cap": plan._replace(rows=5, chunks=600),
+            "idle_chunk": plan._replace(chunks=plan.chunks + 1),
+            "short": plan._replace(rows=plan.rows - 1),
+            "zero": plan._replace(chunks=0),
+            "cols": plan._replace(cols=96)}[bad]
+    monkeypatch.setattr(gs, "rmv_plan", lambda *args: plan)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        gs.rmatvec_fused(A, q, yn, 0.5)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        gs.rmv_qtv(A, q, yn, 0.5, P)
+
+
 @pytest.mark.parametrize("n,d,b", [(300, 64, 24), (128, 130, 16),
                                    (70, 16, 48), (48, 48, 48),
                                    (200, 96, 32), (5000, 300, 4000)])
@@ -713,6 +790,38 @@ def test_reorth_pair_matches_plain_version(cuda, m, k, qdt):
         _assert_close([w], [ref.reorth(v, Q, passes)], rtol)
     if qdt == torch.float32:
         assert float((Q.T @ w).abs().max()) < 1e-4 * float(v.norm())
+
+
+# (m, k) of the reorthogonalization pair's own cases: odd widths, k = 1,
+# the projection pair's widest basis, and several tiles a block
+REORTH_CASES = [(7, 1), (5000, 1), (4099, 201), (2050, 17), (40, gs.MAX_K),
+                (300, 3000), (100_000, 201)]
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k", REORTH_CASES)
+def test_reorth_pair_takes_the_staged_tiles(cuda, m, k, qdt):
+    """qtv and subtract_qc against their plain versions (which widen the
+    same basis: f32 bounds), bitwise on a rerun; a basis that starts one
+    row into its buffer (never 16-byte aligned at odd k) gives the aligned
+    copy's bits; subtract_qc(v, Q, c) is proj_norm's w and qtv(Q, v)
+    proj_qtv(v, Q, 0)'s c', bit for bit (the same staged tiles)."""
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    B = (torch.randn(m + 1, k, generator=g, device=cuda)
+         / float(np.sqrt(m))).to(qdt)
+    v = torch.randn(m, generator=g, device=cuda)
+    c = torch.randn(k, generator=g, device=cuda)
+    aligned = B[1:].clone()
+    rk.reset_launches()
+    for Q in (aligned, B[1:]):
+        got_c, got_w = rk.qtv(Q, v), rk.subtract_qc(v, Q, c)
+        _assert_close([got_c, got_w], [ref.qtv(Q, v),
+                                       ref.subtract_qc(v, Q, c)], 1e-5)
+        assert torch.equal(got_c, rk.qtv(aligned, v))
+        assert torch.equal(got_w, rk.subtract_qc(v, aligned, c))
+    assert rk.LAUNCHES == {"qtv": 4, "subtract_qc": 4}
+    assert torch.equal(got_w, gs.proj_norm(v, aligned, c)[0])
+    assert torch.equal(got_c, gs.proj_qtv(v, aligned, torch.zeros_like(c))[1])
 
 
 def _cpu_plain(rows, cols, vals, shape):

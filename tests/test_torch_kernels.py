@@ -319,16 +319,90 @@ def test_proj_plan_depends_only_on_its_arguments():
     assert params == ["L", "k", "dtype"]
 
 
-@pytest.mark.parametrize("m,n", [(1, 1), (64, 48), (2000, 100_000),
-                                 (100_000, 2000), (100_000, 80_000),
-                                 (10**7, 3)])
-def test_chunk_plan_covers_every_row_once(m, n):
-    per, chunks = gs.chunk_plan(m, n)
-    assert 1 <= chunks <= gs.MAX_CHUNKS
-    assert (chunks - 1) * per < m <= chunks * per
-    tiles = -(-n // gs.THREADS)
-    if m >= 64 * gs.RMV_TARGET_BLOCKS:
-        assert tiles * chunks >= gs.RMV_TARGET_BLOCKS
+# (m, n) of the Aᵀq plan: the shapes the previous chunk plan was held at,
+# those of qtv's previous plan, the main and f64 operands, the sparse
+# cell's Lanczos basis, a wide single row and a tall narrow operand
+RMV_PLAN_SHAPES = [(1, 1), (64, 48), (2000, 100_000), (100_000, 2000),
+                   (100_000, 80_000), (10**7, 3), (300, 17), (480_189, 201),
+                   (100, 5000), (20_000, 16_000), (1, 10**7), (10**6, 3)]
+RMV_DTYPES = {"f64": torch.float64, "f32": torch.float32,
+              "bf16": torch.bfloat16}
+
+
+def _rmv_blocks(m, plan):
+    """(block, tile, first row, end row) of each block of
+    rmv_partial_kernel: block b takes tile b % tiles over chunk
+    b // tiles."""
+    return [(b, b % plan.tiles, (b // plan.tiles) * plan.rows,
+             min((b // plan.tiles + 1) * plan.rows, m))
+            for b in range(plan.tiles * plan.chunks)]
+
+
+@pytest.mark.parametrize("dt", sorted(RMV_DTYPES))
+@pytest.mark.parametrize("m,n", RMV_PLAN_SHAPES)
+def test_chunk_plan_covers_every_row_once(m, n, dt):
+    """The Aᵀq plan (rmv_plan): row groups as narrow as n allows, the
+    tiles cover the n columns once, the chunks cover the m rows once with
+    no empty chunk, and the grid is one wave within the cap gk_step.cu
+    refuses past (a block per tile where the tiles alone pass it), filled
+    as far as the chunks allow."""
+    plan = gs.rmv_plan(m, n, RMV_DTYPES[dt])
+    V = 16 // RMV_DTYPES[dt].itemsize
+    # row groups as narrow as n allows (a power of two): a tile holds n,
+    # or the block is one group of THREADS threads
+    assert plan.cols in [1 << i for i in range(9)] and gs.THREADS == 256
+    assert plan.cols == gs.THREADS or plan.cols * V >= n
+    assert plan.cols == 1 or plan.cols * V < 2 * n
+    tc = plan.tile_cols
+    assert tc == plan.cols * V
+    assert (plan.tiles - 1) * tc < n <= plan.tiles * tc
+    assert 1 <= plan.chunks <= m
+    assert (plan.chunks - 1) * plan.rows < m <= plan.chunks * plan.rows
+    cap = gs.SMS * gs.RMV_BLOCKS_PER_SM
+    assert plan.tiles * plan.chunks <= cap or plan.chunks == 1
+    assert 2 * plan.chunks >= min(m, max(1, cap // plan.tiles))
+    blocks = _rmv_blocks(m, plan)
+    assert all(i0 < i1 for _, _, i0, i1 in blocks)       # no idle block
+    for t in range(plan.tiles):
+        spans = sorted((i0, i1) for _, tt, i0, i1 in blocks if tt == t)
+        assert [i0 for i0, _ in spans] == [0] + [i1 for _, i1 in spans[:-1]]
+        assert spans[-1][1] == m
+
+
+@pytest.mark.parametrize("m,n", [(50, 3000), (7, 5000), (3000, 3),
+                                 (1, 2049), (700, 1025)])
+def test_rmv_plan_partials_sum_to_the_product(m, n):
+    """A numpy model of the card's Aᵀq: each block's partial into slot b,
+    then each column's chunks added from vpart[k · width + j] (width =
+    tiles × tile_cols), gives Aᵀq."""
+    rng = np.random.default_rng(m * n)
+    A, q = rng.standard_normal((m, n)), rng.standard_normal(m)
+    plan = gs.rmv_plan(m, n, torch.float32)
+    tc, width = plan.tile_cols, plan.tiles * plan.tile_cols
+    vpart = np.full(plan.chunks * width, np.nan)
+    for b, t, i0, i1 in _rmv_blocks(m, plan):
+        cols = A[i0:i1, t * tc:(t + 1) * tc]
+        vpart[b * tc:b * tc + cols.shape[1]] = cols.T @ q[i0:i1]
+    v = np.array([sum(vpart[k * width + j] for k in range(plan.chunks))
+                  for j in range(n)])
+    np.testing.assert_allclose(v, A.T @ q, rtol=1e-12, atol=1e-12)
+
+
+def test_rmv_plan_depends_only_on_its_arguments():
+    """Same (m, n, dtype), same plan, whatever else the process does: the
+    order of every sum of Aᵀq, and σ's bits, follow from the plan."""
+    cases = [(m, n, d) for m, n in RMV_PLAN_SHAPES
+             for d in RMV_DTYPES.values()]
+    first = [gs.rmv_plan(*case) for case in cases]
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        again = [gs.rmv_plan(*case) for case in reversed(cases)]
+    finally:
+        torch.set_num_threads(threads)
+    assert first == again[::-1]
+    params = list(inspect.signature(gs.rmv_plan).parameters)
+    assert params == ["m", "n", "dtype"]
 
 
 def test_build_targets_sm90a_with_a_plain_c_interface():
@@ -916,13 +990,20 @@ def test_reorth_wrappers_reject_what_the_kernel_does_not_take():
         rk.qtv(Q, torch.zeros(8, device="meta"))
 
 
+@pytest.mark.parametrize("dt", sorted(PLAN_DTYPES))
 @pytest.mark.parametrize("m,k", [(1, 1), (300, 17), (480_189, 201),
                                  (10**7, 3), (100, 5000)])
-def test_qtv_plan_covers_every_row_once(m, k):
-    per, chunks = rk.qtv_plan(m, k)
-    assert 1 <= chunks <= gs.MAX_CHUNKS
-    assert (chunks - 1) * per < m <= chunks * per
-    assert per >= min(m, rk.MIN_CHUNK_ROWS)
+def test_qtv_plan_covers_every_row_once(m, k, dt):
+    """qtv and subtract_qc take the projection pair's staged tiles: its
+    plan's tiles cover the basis's rows once, every block walks a tile,
+    and the blocks' strided walks take every tile once."""
+    plan = gs.proj_plan(m, k, PLAN_DTYPES[dt])
+    T = plan.tile_rows
+    assert (plan.tiles - 1) * T < m <= plan.tiles * T
+    assert 1 <= plan.grid <= min(plan.tiles, gs.PROJ_BLOCKS)
+    walks = np.concatenate([np.arange(b, plan.tiles, plan.grid)
+                            for b in range(plan.grid)])
+    np.testing.assert_array_equal(np.sort(walks), np.arange(plan.tiles))
 
 
 # --------------------------------------------------------------------------
