@@ -16,13 +16,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      main shape, f32 and bf16 storage; matvec_fused / rmatvec_fused with
      f64, f32 and bf16 A on the shapes of tests/test_kernels.py:22-110 and
      at the main shape; sketch_matmat on the shapes of
-     tests/test_kernels.py:271-300 and at gnystrom's three main-path
-     shapes, on row-major X and on a transposed view of X; sparse_matvec
+     tests/test_kernels.py:271-300, on ragged d, zeta, N and b
+     (SKETCH_RAGGED: f32, bf16 and f64 X and signs; row-major X, a row
+     pitch one past b, transposed views through the range kernel with
+     the sketch's kept order and, past a chunk, the element path) and at
+     gnystrom's three main-path shapes; sparse_matvec
      on the shapes of tests/test_kernels.py:210-245 (empty rows,
      duplicates, both packs, one vector and 20-column blocks, f32 and
-     bf16 values; long rows of 1,023 to 20,000 slots, f32, bf16 and f64
-     values, in COO order and in the window layout's order, one vector
-     and 20-column blocks); lowrank_matmul on
+     bf16 values, in COO order and through each pack's window layout at
+     b = 1, 2, 3, 8, 20 and 32; long rows of 1,023 to 20,000 slots, f32,
+     bf16 and f64 values, in COO order and in the layout's order, one
+     vector and blocks of 2 to 32 columns); lowrank_matmul on
      tests/test_kernels.py's SHAPES and RAGGED and at the update's
      30 x 30 core (r = 10, a transposed view);
      qtv, subtract_qc and ops.reorth (passes 1 and 2) on the shapes of
@@ -36,8 +40,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      its binning against the plain model, bins of 1 to 128 tiles;
      every kernel twice, bitwise equal; matvec_fused's u bit for bit
      mv_qtv's u and rmatvec_fused's v rmv_qtv's v (f32 and bf16 A); the
-     build's ptxas report shows no spills in the A^T q kernels and the
-     reorthogonalization pair's staged-tile epilogues;
+     build's ptxas report shows no spills in the A^T q kernels, the
+     reorthogonalization pair's staged-tile epilogues, the block and
+     window-sum kernels of sparse_matvec and both sketch kernels;
   3. main path — A = M N with Gaussian M (m x 100) and N (100 x n) made on
      the card from --seed (the paper's numerical-rank-100 input, §6.1);
      factorize(A, SVDSpec(method="fsvd", rank=20, max_iters=200,
@@ -64,7 +69,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      basis copies that together exceed the L2) at the Q (m x 201) and P
      (n x 200) bases, f32 and bf16, beside the host loop's figure;
      sketch_matmat at gnystrom's three calls by device time (60 calls in
-     one CUDA graph); after A is freed, materialize_lowrank of a rank-20
+     one CUDA graph), each beside its sector floor (one 32-byte sector
+     per gathered element or group of them) and the range call beside
+     A.index_select of the same elements; after A is freed,
+     materialize_lowrank of a rank-20
      LowRankOp at the main shape through lowrank_matmul (32 GB written
      once), held against its plain version by row blocks and timed by
      device time (6 calls a graph);
@@ -78,21 +86,31 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      users x --sn movies), built on the card from --seed as COO: a row-
      and column-permuted block diagonal of 100 rank-1 blocks, so its
      rank is 100 and its exact sigma is known.  SparseOp(backend=
-     "pallas") packs both directions and holds the transposed pack in
-     its window layout's order, with no second copy (the layout rebuilt
-     from a fresh pack, timed, the same bits; the 20-column block product
-     timed by device time over the pack in both orders); sparse_matvec is
-     held against its plain version on both packs, the transposed one
-     vector with and without the layout; fsvd (exact launch counts,
-     bitwise rerun), "auto" (must pick fsvd_blocked) and estimate_rank
-     (must give 100) run on it, with a peak device memory far below one
-     dense copy; sparse_matvec is timed by device time both ways at b = 1
-     and b = 20, as the operator calls it, beside cuSPARSE.  Then
+     "pallas") packs both directions and holds each pack in its window
+     layout's order, with no second copy (each layout rebuilt from a
+     fresh pack, timed, the same bits; the 20-column block product timed
+     by device time through the layout and over the fresh pack with the
+     warp-per-row kernel, the previous design; the forward one vector over
+     both orders in turns); sparse_matvec is held
+     against its plain version on both packs at b = 1, 20 and 32, the
+     transposed one vector also without the layout; fsvd (exact launch
+     counts, bitwise rerun), "auto" (must pick fsvd_blocked) and
+     estimate_rank (must give 100) run on it, with a peak device memory
+     far below one dense copy; sparse_matvec is timed by device time both
+     ways at b = 1 and b = 20, as the operator calls it, beside cuSPARSE,
+     the block products beside this design's floor (the bound's bytes and
+     its partials written and read once) and the previous design's L2
+     volume and sector time, the forward one vector beside it over both
+     orders of the pack in turns again.  Then
      the Lanczos basis of gk_bidiag at k = 200 (480,189 x 201 f32):
      ops.reorth(A p, Q, 2) against its plain version and orthogonal to Q
      (max|Q^T w| < 1e-4 ||v||, tests/test_kernels.py:59-60), and qtv /
      subtract_qc timed on it in f32 and on a bf16 copy by device time
-     (60 calls in one CUDA graph), beside the host loop;
+     (60 calls in one CUDA graph), beside the host loop; then (6b) a
+     transposed pack of the same shape and nnz whose row lengths follow
+     a Zipf profile (at most ZIPF_CAP times the mean), from --seed: one
+     vector and a 20-column block through its layout, against the plain
+     version on its longest rows, timed by device time beside cuSPARSE;
   7. the sketch-resident state on phase 3's operand (it edits A in place,
      so it runs after every other use of A): sketch_operand with
      SVDSpec(method="gnystrom", rank=20, sketch_dim=128,
@@ -143,11 +161,18 @@ MATVEC_SHAPES = [(64, 48), (300, 200), (1024, 512), (100, 700), (512, 128),
                  (300, 517), (257, 129), (127, 383)]  # tests/test_kernels.py
 SKETCH_SHAPES = [(300, 64, 24), (128, 130, 16), (70, 16, 48), (48, 48, 48),
                  (200, 96, 32)]                 # tests/test_kernels.py:271
+# ragged sketches (N, d, zeta, b): chunks of the range kernel that end
+# mid-row, one sketch row a chunk, a zeta past a chunk (the element path),
+# b of one row-block and of many, N of one sector
+SKETCH_RAGGED = [(1025, 37, 24, 5), (70_001, 130, 8, 1000),
+                 (3000, 200, 7, 3), (2000, 3, 1100, 37), (48, 48, 1, 17),
+                 (5, 300, 5, 100_003)]
 SPARSE_SHAPES = [(300, 517, 0.02), (257, 129, 0.1), (64, 48, 0.3),
                  (128, 1000, 0.005)]               # tests/test_kernels.py:214
 # long rows: L slots each (odd row starts at 1,023 and 4,802), over an x of
 # 98,305 elements (three windows of 49,152, the last of one element)
 LONG_ROWS, LONG_SLOTS, LONG_N = 40, (1023, 1024, 4802, 20_000), 98_305
+BLOCK_WIDTHS = (2, 3, 8, 20, 32)   # block products through the layout
 LOWRANK_SHAPES = [(64, 48, 4), (300, 200, 17), (1024, 512, 64),
                   (100, 700, 5), (512, 128, 128),  # tests/test_kernels.py:10
                   (300, 517, 7), (257, 129, 7), (127, 383, 7),
@@ -175,6 +200,9 @@ DELTA_RANK = 10               # the update phase's drift
 UPDATE_GATE = 1e-5            # GATE, tests/test_update.py:26
 SPARSE_STOL = 5e-4            # SOLVERS["fsvd"] / ["fsvd_blocked"] stol
 SPARSE_PEAK = 8               # GiB; one dense f32 copy of the cell is 34 GB
+ZIPF_CAP = 10                 # phase 6b: the skewed pack's longest row, as
+                              # a multiple of the mean (the ELL pack pads
+                              # every row to it)
 GIB = 2 ** 30
 # phase 4: (method, spec fields, sigma bound as a fraction of sigma_max)
 SKETCH_SOLVES = [
@@ -211,7 +239,8 @@ GK_STEP = ("mv_qtv", "rmv_qtv", "proj_qtv", "proj_norm")
 # the A^T q pass and the reorthogonalization pair's staged-tile epilogues
 # (proj_kernel's modes 2 and 3, as in proj_tiles.cuh; rmv_qtv's P^T v is
 # mode 3): the build must show no spills
-STREAM_KERNELS = r"rmv_partial_kernel|rmv_finish_kernel|proj_kernelI\w*Li[23]E"
+STREAM_KERNELS = (r"rmv_partial_kernel|rmv_finish_kernel|proj_kernelI\w*Li[23]E"
+                  r"|block_kernel|sum_windows_kernel|range_kernel|rows_kernel")
 MATVECS = ("matvec_fused", "rmatvec_fused")
 
 
@@ -369,18 +398,49 @@ def sketch_pack(gen, N, d):
 
 
 def check_sketch(tag, sk, X):
-    """sketch_matmat(X) against the plain version (bf16 X is widened
-    exactly, so f32 bounds hold); returns (max abs error, Y)."""
+    """sketch_matmat(X), with the sketch's own order as the main path
+    passes it, against the plain version (bf16 and f64 X are widened as
+    the plain version widens them, so f32 bounds hold); returns (max abs
+    error, Y)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import sketch_matvec as skm
     name = f"sketch_matmat {tag}"
     got = bitwise_twice(name, lambda: (skm.sketch_matmat(sk.signs, sk.idx,
-                                                         X),))
+                                                         X, sk.order),))
     err = compare(name, got, (ref.sketch_matmat(sk.signs, sk.idx, X),),
                   (torch.float32,))
     torch.cuda.synchronize()
     return err, got[0]
+
+
+def check_sketch_ragged(gen):
+    """Both sketch kernels on SKETCH_RAGGED: row-major X (16-byte loads,
+    and element loads on a row pitch one off a multiple), transposed views
+    (the range kernel, and the element path past a chunk), f32, bf16 and
+    f64 X and signs, each twice bitwise and one launch a call; returns the
+    number of cases."""
+    import torch
+    from repro_torch.core.sketch import make_sketch
+    from repro_torch.kernels import sketch_matvec as skm
+    cases = 0
+    for N, d, zeta, b in SKETCH_RAGGED:
+        for dt in (torch.float32, torch.bfloat16, torch.float64):
+            sk = make_sketch(gen, N, d, zeta=zeta, dtype=dt,
+                             backend="pallas", device=DEV)
+            X = torch.randn(N, b + 1, generator=gen, device=DEV).to(dt)
+            Xt = torch.randn(b, N, generator=gen, device=DEV).to(dt).T
+            views = (("row-major", X[:, :b].contiguous()),
+                     ("row pitch b+1", X[:, :b]), ("transposed view", Xt))
+            for label, V in views:
+                before = skm.LAUNCHES["sketch_matmat"]
+                check_sketch(f"({N}x{b} {label}, d={d}, zeta={zeta}, {dt})",
+                             sk, V)
+                check(skm.LAUNCHES["sketch_matmat"] == before + 2,
+                      f"sketch_matmat ({N}x{b} {label}): not one launch a "
+                      f"call")
+                cases += 1
+    return cases
 
 
 def phase_new_kernels(gen, A_main):
@@ -402,6 +462,7 @@ def phase_new_kernels(gen, A_main):
             check_sketch(f"({N}x{b} row-major, d={d}, {xdt})", sk, X)
             check_sketch(f"({N}x{b} transposed view, d={d}, {xdt})", sk, Xt)
             n_cases += 2
+    n_cases += check_sketch_ragged(gen)
     # gnystrom's three calls: Omega^T A^T (A^T a view), Psi^T A, Psi^T Y
     k = SKETCH_SOLVES[0][1]["sketch_dim"]
     l = 2 * k                                   # gnystrom's co-range width
@@ -412,9 +473,10 @@ def phase_new_kernels(gen, A_main):
     e3, _ = check_sketch(f"core ({m}x{k} view of Y, d={l})", psi, Yt.T)
     errs["sketch_matmat"] = max(e1, e2, e3)
     print(f"phase 2: {n_cases} more shape/type cases of matvec_fused/"
-          f"rmatvec_fused (f64/f32/bf16 A) and sketch_matmat (row-major "
-          f"and transposed-view X, f32/bf16) match the plain versions, "
-          f"bitwise stable; max abs err at the main shapes: "
+          f"rmatvec_fused (f64/f32/bf16 A) and sketch_matmat (row-major, "
+          f"row-pitched and transposed-view X, f32/bf16/f64, ragged d, "
+          f"zeta, N and b) match the plain versions, bitwise stable; max "
+          f"abs err at the main shapes: "
           + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
     return errs
 
@@ -899,7 +961,8 @@ def phase_times_new(A, seed):
     }
     k = SKETCH_SOLVES[0][1]["sketch_dim"]
     omega, psi = sketch_pack(g, n, k), sketch_pack(g, m, 2 * k)
-    Y = skm.sketch_matmat(omega.signs, omega.idx, A.T).T     # (m, k) view
+    Y = skm.sketch_matmat(omega.signs, omega.idx, A.T,
+                          omega.order).T                     # (m, k) view
     calls = [("range: Omega^T A^T, A^T a view", omega, A.T),
              ("co-range: Psi^T A, row-major", psi, A),
              ("core: Psi^T Y, Y a view", psi, Y)]
@@ -910,18 +973,50 @@ def phase_times_new(A, seed):
         rows_read = int(torch.unique(sk.idx).numel())  # this draw's rows
         nbytes = d * zeta * 8 + rows_read * b * f + d * b * f
         Tt = csr_transpose(sk)
-        rows.append(time_row(
+        row = time_row(
             f"sketch_matmat {label}",
-            lambda sk=sk, X=X: skm.sketch_matmat(sk.signs, sk.idx, X),
+            lambda sk=sk, X=X: skm.sketch_matmat(sk.signs, sk.idx, X,
+                                                 sk.order),
             lambda sk=sk, X=X: ref.sketch_matmat(sk.signs, sk.idx, X),
             lambda Tt=Tt, X=X: torch.sparse.mm(Tt, X),
             nbytes, 2 * d * zeta * b, f"(X {N}x{b}, d={d}, f32)",
-            graph=(60, 5)))
+            graph=(60, 5))
+        # the sector floor: one 32-byte sector per gathered element, or
+        # per 8-element group of them where this draw's elements share one
+        # (a transposed view gathers X[idx, c] along row c of the matrix
+        # below; a row-major X streams whole rows)
+        if X.stride(0) == 1:
+            sectors = b * int(torch.unique(sk.idx // 8).numel())
+        else:
+            sectors = rows_read * -(-b * f // 32)
+        floor_bytes = sectors * 32 + d * zeta * 8 + d * b * f
+        row["sector_floor_ms"] = floor_bytes / HBM_BYTES_PER_S * 1e3
+        extra = ""
+        if X.stride(0) == 1 and X.shape[1] == m:
+            # the same elements gathered by one PyTorch call (their
+            # columns of A, in order): what this access pattern costs
+            cols = torch.unique(sk.idx).long()
+            row["gather_yardstick_ms"] = graph_ms(
+                [lambda c=cols: A.index_select(1, c)], 60, 5)
+            extra = (f"; A.index_select(1, this draw's {cols.numel()} "
+                     f"columns), the same elements gathered, "
+                     f"{row['gather_yardstick_ms']:.4f} ms")
+        print(f"phase 3: sketch_matmat {label}: sector floor "
+              f"{row['sector_floor_ms']:.4f} ms ({sectors} sectors), "
+              f"kernel {row['ms'] / row['sector_floor_ms']:.2f}x it{extra}",
+              flush=True)
+        rows.append(row)
     mean = {key: sum(r[key] for r in rows) / len(rows)
             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                        "host_loop_ms")}
+                        "host_loop_ms", "sector_floor_ms")}
     mean["bound_by"] = "bytes" if all(r["bound_by"] == "bytes"
                                       for r in rows) else "operations"
+    mean["calls"] = [dict({key: r[key] for key in
+                           ("ms", "library_ms", "bound_ms", "sector_floor_ms",
+                            "host_loop_ms")}, call=label,
+                          **({"gather_yardstick_ms": r["gather_yardstick_ms"]}
+                             if "gather_yardstick_ms" in r else {}))
+                     for (label, _, _), r in zip(calls, rows)]
     out["sketch_matmat"] = mean
     print(f"phase 3: sketch_matmat per launch over one gnystrom solve "
           f"(mean of the three calls), device time: kernel "
@@ -1049,24 +1144,37 @@ def phase_slice3_kernels(gen):
                     check_spmv(f"({shape[0]}x{shape[1]}, b={b}, {vdt})",
                                vals, cols, X)
                     n_cases += 1
+                # the pack in the operator's order, through its layout
+                lay = spm.window_layout(vals, cols, shape[1], torch.bincount(
+                    ix[:, 0].long(), minlength=shape[0]))
+                for b in (1,) + BLOCK_WIDTHS:
+                    X = torch.randn(shape[1], b, generator=gen, device=DEV)
+                    X = X[:, 0].contiguous() if b == 1 else X
+                    check_spmv(f"({shape[0]}x{shape[1]}, b={b}, {vdt}, "
+                               f"layout order)", lay.vals, lay.cols, X, lay)
+                    n_cases += 1
     # long rows, each path: one vector and a 20-column block, over the
     # pack and over its window layout's pack
     for L in LONG_SLOTS:
         cols = torch.randint(0, LONG_N, (LONG_ROWS, L), generator=gen,
                              device=DEV, dtype=torch.int32)
         vals = torch.randn(LONG_ROWS, L, generator=gen, device=DEV)
-        X = torch.randn(LONG_N, 20, generator=gen, device=DEV)
+        X = torch.randn(LONG_N, max(BLOCK_WIDTHS), generator=gen,
+                        device=DEV)
         x = X[:, 0].contiguous()
         for vdt in (torch.float32, torch.bfloat16, torch.float64):
             v = vals.to(vdt)
             tag = f"({LONG_ROWS}x{LONG_N}, L={L}, {vdt})"
-            lay = spm.window_layout(v, cols, LONG_N)
+            lay = spm.window_layout(v, cols, LONG_N, torch.full(
+                (LONG_ROWS,), L, device=DEV))
             check_spmv(tag + " b=1", v, cols, x)
             check_spmv(tag + " b=1", lay.vals, lay.cols, x, lay)
-            check_spmv(tag + " b=20", v, cols, X)
-            check_spmv(tag + " b=20 window order", lay.vals, lay.cols, X,
-                       lay)
-            n_cases += 4
+            check_spmv(tag + " b=20", v, cols, X[:, :20].contiguous())
+            n_cases += 3
+            for b in BLOCK_WIDTHS:
+                check_spmv(tag + f" b={b} window order", lay.vals, lay.cols,
+                           X[:, :b].contiguous(), lay)
+                n_cases += 1
     # tests/test_kernels.py:232-242: empty rows and duplicates, exactly
     data = torch.tensor([1.0, 2.0, 3.0, 4.0], device=DEV)
     idx = torch.tensor([[0, 1], [0, 1], [3, 0], [3, 2]], dtype=torch.int32,
@@ -1087,8 +1195,9 @@ def phase_slice3_kernels(gen):
             n_cases += 2
     print(f"phase 2: {n_cases + 1} shape/type cases of sparse_matvec (both "
           f"packs, b = 1 and 20, f32/bf16 values, empty rows and "
-          f"duplicates; long rows of {LONG_SLOTS} slots in f32/bf16/f64 "
-          f"in COO and in window order) and lowrank_matmul "
+          f"duplicates, in COO order and through the layout at b = 1 and "
+          f"{BLOCK_WIDTHS}; long rows of {LONG_SLOTS} slots in "
+          f"f32/bf16/f64 in COO and in window order) and lowrank_matmul "
           f"(f32/bf16, row-major and transposed-view Vt) match the plain "
           f"versions, bitwise stable",
           flush=True)
@@ -1723,6 +1832,13 @@ def netflix_operand(seed, m, n):
     return data, idx, s_true
 
 
+def sectors_spanned(gathered, b):
+    """32-byte sectors the gathers X[j, 0:b] of a row-major (n, b) f32 X
+    span, summed over the gathered rows j (one a stored entry)."""
+    start = (gathered.long() * (4 * b)) % 32
+    return int(((start + 4 * b + 31) // 32).sum())
+
+
 def csr_of_pack(vals, cols):
     """The (rows, L) ELL pack as a CSR tensor (columns sorted in each row;
     the padding slots stay as explicit zeros) for the library yardstick."""
@@ -1838,43 +1954,67 @@ def phase_sparse(seed, m, n):
     peak_build = torch.cuda.max_memory_allocated()
     packs = {"forward": (S.ell[0], S.ell[1], n, S.windows[0]),
              "transposed": (S.ell[2], S.ell[3], m, S.windows[1])}
-    # the Netflix shape: short forward rows, long transposed rows (--sm of
-    # RANK * 1,024 users or more), and only the long ones get a layout
-    check(S.windows[0] is None and S.windows[1] is not None,
-          f"window layouts {[w is not None for w in S.windows]} for rows of "
-          f"{S.ell[1].shape[1]} and {S.ell[3].shape[1]} slots")
+    # each pack is held once, in its layout's order
+    check(all(w is not None for w in S.windows),
+          f"window layouts {[w is not None for w in S.windows]}")
+    check(all(S.ell[2 * k] is S.windows[k].vals
+              and S.ell[2 * k + 1] is S.windows[k].cols for k in (0, 1)),
+          "the operator holds a second pack beside a layout")
     desc = ", ".join(f"{k} {v.shape[0]} rows x L {v.shape[1]} (fill "
                      f"{nnz / v.numel():.4f})" for k, (v, *_)
                      in packs.items())
-    # the operator holds its transposed pack in window order alone: rebuild
-    # it from a fresh pack in COO order, and time the block product (which
-    # reads the pack without the layout) over both orders
-    tv, tc = spm.ell_pack(data, idx.flip(1), (n, m))
-    lay, t_win = timed(lambda: spm.window_layout(tv, tc, m))
-    check(all(torch.equal(a, b) for a, b in zip(lay, S.windows[1])),
-          "the window layout differs on a rebuild")
-    check(S.ell[2] is S.windows[1].vals and S.ell[3] is S.windows[1].cols,
-          "the operator holds a second transposed pack beside its layout")
-    off_mb = lay.offsets.numel() * 4 / 1e6
-    del lay
-    Xb = torch.randn(m, 20, generator=torch.Generator(device=DEV)
-                     .manual_seed(seed + 10), device=DEV)
-    coo_ms = graph_ms([lambda: spm.sparse_matvec(tv, tc, Xb)], 60, 5)
-    win_ms = graph_ms([lambda: spm.sparse_matvec(
-        S.ell[2], S.ell[3], Xb, S.windows[1])], 60, 5)
-    del tv, tc, Xb
+    # rebuild each layout from a fresh pack in COO order (the same bits),
+    # and time the 20-column block product over the fresh pack without a
+    # layout (the warp-per-row kernel: the previous design) beside the
+    # operator's call
+    rebuild, off_mb, b20, b1 = {}, 0.0, {}, {}
+    gen_x = torch.Generator(device=DEV).manual_seed(seed + 10)
+    for side, (name, (vals, cols, nx, lay)) in enumerate(packs.items()):
+        ix = idx if side == 0 else idx.flip(1)
+        fv, fc = spm.ell_pack(data, ix, (vals.shape[0], nx))
+        counts = torch.bincount(ix[:, 0].long(), minlength=vals.shape[0])
+        fresh, rebuild[name] = timed(
+            lambda: spm.pack_layout(fv, fc, nx, counts))
+        check(lay.offsets is not None
+              and all(torch.equal(a, b) for a, b in zip(fresh, lay)),
+              f"the {name} window layout differs on a rebuild")
+        # the main path's 20-column blocks take the block kernel here
+        check(spm.block_scratch_fits(vals.shape[1], nx, 20, vals.dtype),
+              f"the {name} pack's 20-column blocks skip the block kernel")
+        off_mb += (lay.offsets.numel() + lay.window_offsets.numel()) * 4e-6
+        del fresh
+        Xb = torch.randn(nx, 20, generator=gen_x, device=DEV)
+        b20[name] = (graph_ms([lambda: spm.sparse_matvec(fv, fc, Xb)], 60, 5),
+                     graph_ms([lambda: spm.sparse_matvec(vals, cols, Xb,
+                                                         lay)], 60, 5))
+        if vals.shape[1] < spm.LONG_ROW:
+            # one vector through short rows takes the warp-per-row kernel
+            # over either order of the pack: the two orders in turns
+            xb = Xb[:, 0].contiguous()
+            coo = lambda: spm.sparse_matvec(fv, fc, xb)          # noqa: E731
+            own = lambda: spm.sparse_matvec(vals, cols, xb,      # noqa: E731
+                                            lay)
+            b1[name] = [graph_ms([f], 60, 5) for f in (coo, own, own, coo)]
+            del xb
+        del fv, fc, Xb, counts
     print(f"phase 6: sparse operand {m}x{n}, {RANK} rank-1 blocks, nnz "
           f"{nnz} (density {nnz / (m * n):.3e}), COO on the card in "
-          f"{t_coo:.3f} s, both ELL packs and the transposed pack's window "
-          f"layout in {t_pack:.3f} s: {desc}; the layout alone "
-          f"({spm.window_plan(S.ell[3].shape[0], m).windows} windows of "
-          f"{spm.WINDOW} f32; the pack in window order replaces the "
-          f"transposed pack, the offsets add {off_mb:.1f} MB) rebuilt from "
-          f"a fresh pack in {t_win:.3f} s, the same bits; transposed b=20 "
-          f"by device time: pack in window order {win_ms:.4f} ms, in COO "
-          f"order {coo_ms:.4f} ms; peak {peak_build / GIB:.2f} GiB while "
-          f"building (one dense f32 copy: {m * n * 4 / GIB:.1f} GiB)",
-          flush=True)
+          f"{t_coo:.3f} s, both ELL packs and their window layouts in "
+          f"{t_pack:.3f} s: {desc}; the layouts (sub-windows of {spm.SUB} "
+          f"rows, windows of {spm.WINDOW}, each pack held once in its "
+          f"layout's order, the offsets add {off_mb:.1f} MB) rebuilt from "
+          f"fresh packs in "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in rebuild.items())
+          + ", the same bits; b=20 by device time, warp-per-row kernel over "
+          f"the COO-order pack (the previous design) -> block kernel over "
+          f"the layout: "
+          + ", ".join(f"{k} {a:.4f} -> {b:.4f} ms" for k, (a, b)
+                      in b20.items())
+          + "; b=1 in turns, the COO-order pack vs the layout's: "
+          + ", ".join(f"{k} {t[0]:.4f} / {t[3]:.4f} vs {t[1]:.4f} / "
+                      f"{t[2]:.4f} ms" for k, t in b1.items())
+          + f"; peak {peak_build / GIB:.2f} GiB while building (one dense "
+          f"f32 copy: {m * n * 4 / GIB:.1f} GiB)", flush=True)
     err = 0.0
     gen = torch.Generator(device=DEV).manual_seed(seed + 11)
     for name, (vals, cols, nx, lay) in packs.items():
@@ -1883,20 +2023,20 @@ def phase_sparse(seed, m, n):
             # the same slot order in bf16: the layout's offsets still hold
             vlay = lay if vdt == torch.float32 or lay is None else \
                 lay._replace(vals=v)
-            for b in (1, 20):
+            for b in (1, 20, 32):
                 X = torch.randn(nx, b, generator=gen, device=DEV)
                 X = X[:, 0].contiguous() if b == 1 else X
                 e = check_spmv(f"cell {name} b={b} {vdt}", v, cols, X, vlay)
-                if b == 1 and vlay is not None:
+                if b == 1 and cols.shape[1] >= spm.LONG_ROW:
                     e = max(e, check_spmv(f"cell {name} b={b} {vdt}", v,
                                           cols, X))
                 if vdt == torch.float32:
                     err = max(err, e)
             del vlay
     print(f"phase 6: sparse_matvec matches its plain version on both packs "
-          f"(b = 1 and 20, f32 and bf16 values; the transposed b = 1 with "
-          f"and without the window layout), bitwise stable; max abs err "
-          f"(f32) {err:.3e}", flush=True)
+          f"(b = 1, 20 and 32, f32 and bf16 values, through the layouts; "
+          f"the transposed b = 1 also without), bitwise stable; max abs "
+          f"err (f32) {err:.3e}", flush=True)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1988,6 +2128,57 @@ def phase_sparse(seed, m, n):
                 f"{vals.shape[1]}, x {nx}x{b}, f32)", phase=6,
                 graph=(60, 5))
             row["call"] = f"{name} b={b}"
+            if b > 1:
+                # what bounds this design: the pack, X and the output once,
+                # and its partials (windows x rows x b f32) written and
+                # read once, from device memory
+                windows = spm.block_windows(nx, b)
+                part = 2 * windows * ny * b * 4
+                row["design_floor_ms"] = ((nbytes + part) / HBM_BYTES_PER_S
+                                          * 1e3)
+                # the previous design gathered each slot's X row (b f32)
+                # from L2 as the 32-byte sectors it spans: its L2 volume
+                # (with the pack), and the time those sectors would take
+                # from device memory (a gather's sector floor; this design
+                # gathers from shared memory instead)
+                spans = sectors_spanned(idx[:, 1 if name == "forward"
+                                            else 0], b)
+                gathered = spans * 32
+                row["previous_design_l2_gb"] = (nnz * (vb + 4) + gathered) / 1e9
+                row["previous_design_sector_ms"] = (
+                    (nnz * (vb + 4) + gathered + 4 * b * ny)
+                    / HBM_BYTES_PER_S * 1e3)
+                row["previous_design_ms"] = b20[name][0]
+                print(f"phase 6: sparse_matvec {name} b={b}: this design's "
+                      f"floor {row['design_floor_ms']:.4f} ms (the bound's "
+                      f"bytes and {windows} windows of partials, "
+                      f"{part / 1e9:.3f} GB written and read; kernel "
+                      f"{100 * row['design_floor_ms'] / row['ms']:.0f} % of "
+                      f"it); the previous design's gather from L2: "
+                      f"{row['previous_design_l2_gb']:.2f} GB ({spans} "
+                      f"sectors), {row['previous_design_sector_ms']:.4f} ms "
+                      f"as sectors of device memory", flush=True)
+            elif vals.shape[1] < spm.LONG_ROW:
+                # one vector through short rows: the warp-per-row kernel
+                # over the layout's order (the main path) and over a fresh
+                # pack in COO order (the previous design's), in turns, here
+                # beside the row
+                fv, fc = spm.ell_pack(data, idx if name == "forward"
+                                      else idx.flip(1), (ny, nx))
+                coo = lambda: spm.sparse_matvec(fv, fc, x)       # noqa: E731
+                own = lambda: spm.sparse_matvec(vals, cols, x,   # noqa: E731
+                                                lay)
+                turns = [graph_ms([f], 60, 5)
+                         for f in (own, coo, coo, own, own, coo)]
+                row["turns_layout_ms"] = turns[0::3] + turns[4:5]
+                row["turns_coo_ms"] = turns[1:3] + turns[5:6]
+                del fv, fc
+                print(f"phase 6: sparse_matvec {name} b=1 in turns beside "
+                      f"the row, device time: the layout's order "
+                      + " / ".join(f"{t:.4f}" for t in row["turns_layout_ms"])
+                      + " ms, COO order (the previous design's) "
+                      + " / ".join(f"{t:.4f}" for t in row["turns_coo_ms"])
+                      + " ms", flush=True)
             rows.append(row)
         del csr
     # the row of the kernels line: the GK half-steps (b = 1, both packs),
@@ -2000,9 +2191,109 @@ def phase_sparse(seed, m, n):
     out["calls"] = [{k: r[k] for k in ("call", "ms", "plain_ms",
                                        "library_ms", "host_loop_ms",
                                        "host_loop_library_ms",
-                                       "bound_ms", "share_of_bound")}
+                                       "bound_ms", "share_of_bound",
+                                       "design_floor_ms",
+                                       "previous_design_l2_gb",
+                                       "previous_design_sector_ms",
+                                       "previous_design_ms",
+                                       "turns_layout_ms", "turns_coo_ms")
+                     if k in r}
                     for r in rows]
+    out["nnz"] = nnz
     return launches, err, out, phase_reorth(S, seed)
+
+
+def zipf_counts(total, rows, cap):
+    """Row lengths of a Zipf profile (the k-th longest ~ C / k) summing to
+    ``total``, none above ``cap``: C found by bisection, the remainder of
+    the rounding given one each to the longest rows below the cap."""
+    import numpy as np
+    k = np.arange(1, rows + 1, dtype=np.float64)
+    lo, hi = 0.0, float(total) * rows
+    for _ in range(200):
+        c = (lo + hi) / 2
+        if np.minimum(cap, c / k).sum() < total:
+            lo = c
+        else:
+            hi = c
+    counts = np.minimum(cap, np.floor(lo / k)).astype(np.int64)
+    short = total - int(counts.sum())
+    free = np.nonzero(counts < cap)[0][:short]
+    counts[free] += 1
+    return counts
+
+
+def phase_skew(seed, m, n, nnz):
+    """Phase 6b: a transposed pack of the phase-6 shape whose row lengths
+    follow a Zipf profile (ROADMAP Queue 3): n rows (movies) of the sparse
+    cell's nnz entries in total, the k-th longest ~1/k of a constant, at
+    most ZIPF_CAP times the mean, in a random order; columns (users)
+    uniform over m, Gaussian values, all from the seed.  One vector and a
+    20-column block through its window layout, by device time, beside
+    cuSPARSE on the entries' CSR (without the pack's padding), and held
+    against the plain version on the longest rows and a run of others.
+    Returns the timing rows."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_matvec as spm
+    g = torch.Generator(device=DEV).manual_seed(seed + 15)
+    cap = ZIPF_CAP * nnz // n
+    counts = torch.from_numpy(zipf_counts(nnz, n, cap)).to(DEV)
+    counts = counts[torch.randperm(n, generator=g, device=DEV)]
+    rows = torch.repeat_interleave(torch.arange(n, device=DEV), counts)
+    cols = torch.randint(0, m, (nnz,), generator=g, device=DEV)
+    data = torch.randn(nnz, generator=g, device=DEV)
+    idx = torch.stack([rows, cols], 1).to(torch.int32)
+    del rows, cols
+    (vals, pcols), t_pack = timed(lambda: spm.ell_pack(data, idx, (n, m)))
+    lay, t_lay = timed(lambda: spm.pack_layout(vals, pcols, m, counts))
+    check(lay is not None and lay.offsets is not None,
+          "the skewed pack's layout lacks its sub-window table")
+    del vals, pcols
+    L = lay.vals.shape[1]
+    order = torch.argsort(idx[:, 0].long(), stable=True)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=DEV)
+    torch.cumsum(counts, 0, out=crow[1:])
+    with warnings.catch_warnings():       # "CSR support is in beta state"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(crow, idx[order, 1].long(),
+                                      data[order], size=(n, m),
+                                      check_invariants=False)
+    del order, data, idx
+    longest = torch.topk(counts, 8).indices
+    others = torch.arange(n // 2, min(n, n // 2 + 512), device=DEV)
+    print(f"phase 6b: skewed transposed pack {n} rows x L {L} over x of "
+          f"{m} (Zipf row lengths, longest {int(counts.max())} = "
+          f"{ZIPF_CAP}x the mean {nnz // n}, shortest {int(counts.min())}; "
+          f"fill {nnz / (n * L):.4f}), pack in {t_pack:.3f} s, layout in "
+          f"{t_lay:.3f} s", flush=True)
+    out = []
+    for b in (1, 20):
+        X = torch.randn(m, b, generator=g, device=DEV)
+        X = X[:, 0].contiguous() if b == 1 else X
+        got = bitwise_twice(f"skewed b={b}", lambda: (spm.sparse_matvec(
+            lay.vals, lay.cols, X, lay),))[0]
+        for r in (longest, others):
+            compare(f"sparse_matvec skewed b={b}", (got[r],),
+                    (ref.sparse_matvec(lay.vals[r], lay.cols[r], X),),
+                    (torch.float32,))
+        lib = (lambda x=X: csr @ x) if b == 1 else \
+            (lambda x=X: torch.sparse.mm(csr, x))
+        row = dict(call=f"skewed transposed b={b}",
+                   ms=graph_ms([lambda x=X: spm.sparse_matvec(
+                       lay.vals, lay.cols, x, lay)], 60, 5),
+                   library_ms=graph_ms([lib], 60, 5),
+                   bound_ms=(nnz * 8 + 4 * b * (m + n)) / HBM_BYTES_PER_S
+                   * 1e3)
+        print(f"phase 6b: sparse_matvec skewed transposed b={b}, device "
+              f"time: kernel {row['ms']:.4f} ms "
+              f"({100 * row['bound_ms'] / row['ms']:.0f} % of the bound "
+              f"{row['bound_ms']:.4f} ms), cuSPARSE (CSR of the entries) "
+              f"{row['library_ms']:.4f} ms; matches the plain version on "
+              f"the 8 longest rows and 512 others, bitwise stable",
+              flush=True)
+        out.append(row)
+    return out
 
 
 def main(argv=None) -> int:
@@ -2087,6 +2378,10 @@ def main(argv=None) -> int:
         launches.update(reorth_launches)
         errs.update(reorth_errs)
         times.update(reorth_times)
+        gc.collect()
+        torch.cuda.empty_cache()
+        skewed = phase_skew(args.seed, args.sm, args.sn,
+                            times["sparse_matvec"]["nnz"])
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2111,6 +2406,10 @@ def main(argv=None) -> int:
             row["launches_update"] = update_launches
         if name == "sparse_matvec":
             row["shape"] = f"{args.sm}x{args.sn}, {RANK} blocks"
+            row["calls"] = times[name]["calls"]
+            row["skewed"] = skewed
+        if name == "sketch_matmat":
+            row["sector_floor_ms"] = times[name]["sector_floor_ms"]
             row["calls"] = times[name]["calls"]
         if name in ("qtv", "subtract_qc"):
             row["shape"] = f"Lanczos basis {args.sm}x{LANCZOS_K + 1} f32"

@@ -530,11 +530,13 @@ class SparseOp(Operator):
     holds the packs), and runs mv, rmv and the block products through the
     CUDA kernel of ``kernels.sparse_matvec``: a block of b columns is one
     launch.  On a CUDA device it also builds, once, the window layout of
-    each pack whose rows hold ``LONG_ROW`` slots or more (``windows``: one
-    layout or None per pack, in the order of ``ell``), through which mv /
-    rmv gather x from shared memory.  Such a pack is then held in the
-    layout's window order (the same slots of each row, in another order),
-    in place of the reference's order, so ``ell`` keeps one copy.
+    each pack that a windowed path serves (``windows``: one layout or None
+    per pack, in the order of ``ell``; ``sparse_matvec.pack_layout``),
+    through which mv / rmv on long rows gather x, and block products of 2
+    to ``MAX_BLOCK_COLS`` columns gather X, from shared memory.  Such a
+    pack is then held in its layout's order (the same slots of each row,
+    in another order), in place of the reference's order, so ``ell`` keeps
+    one copy.
     ``backend="xla"`` multiplies a torch sparse COO tensor, built on first
     use.
     """
@@ -544,7 +546,7 @@ class SparseOp(Operator):
     spshape: Tuple[int, int] = (0, 0)
     ell: Any = None               # ((m,L) vals, (m,L) cols, (n,L') vals,
                                   #  (n,L') rows) — the pallas pack (in
-                                  #  window order where it has a layout),
+                                  #  its layout's order where it has one),
                                   #  or None
     backend: str = "xla"
     windows: Any = None           # (layout of A's pack or None, of Aᵀ's),
@@ -566,16 +568,20 @@ class SparseOp(Operator):
                 and self.data.device.type == "cuda":
             from repro_torch.kernels import sparse_matvec as spm
             m, n = self.spshape
-            windows = tuple(
-                spm.window_layout(v, c, nx)
-                if c.shape[1] >= spm.LONG_ROW else None
-                for v, c, nx in ((self.ell[0], self.ell[1], n),
-                                 (self.ell[2], self.ell[3], m)))
-            object.__setattr__(self, "ell", tuple(
-                t for side, w in enumerate(windows)
-                for t in (self.ell[2 * side:2 * side + 2] if w is None
-                          else w[:2])))
-            object.__setattr__(self, "windows", windows)
+            ell, windows = list(self.ell), []
+            for side, (nr, nx) in enumerate(((m, n), (n, m))):
+                # row populations mark each pack's padding
+                counts = torch.bincount(self.indices[:, side].long(),
+                                        minlength=nr)
+                lay = spm.pack_layout(ell[2 * side], ell[2 * side + 1], nx,
+                                      counts)
+                if lay is not None:
+                    ell[2 * side:2 * side + 2] = lay[:2]
+                    # the old pack goes before the next layout is built
+                    object.__setattr__(self, "ell", tuple(ell))
+                windows.append(lay)
+                del lay, counts
+            object.__setattr__(self, "windows", tuple(windows))
 
     # --- constructors -------------------------------------------------
     @classmethod

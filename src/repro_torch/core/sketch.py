@@ -21,6 +21,7 @@ f32, as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -53,7 +54,8 @@ class SparseSignSketch:
     the ELL pack of ``kernels.sketch_matvec``: row i of ``idx`` / ``signs``
     lists sketch coordinate i's ζ source rows and signed weights.  Rows are
     drawn with replacement; colliding slots sum, in :meth:`dense` as in
-    :meth:`tapply`."""
+    :meth:`tapply`.  :attr:`order`, the sketch kernel's walk of the slots
+    in source order, is made on first use and kept."""
 
     idx: Tensor         # (d, ζ) int32 — source rows of the operand block
     signs: Tensor       # (d, ζ) — ±1/√ζ in the storage dtype
@@ -78,12 +80,19 @@ class SparseSignSketch:
             T[rows[:, s], cols] += self.signs[:, s]
         return T
 
+    @functools.cached_property
+    def order(self) -> Tensor:
+        """``kernels.sketch_matvec.gather_order(idx)``: (2, d·ζ) int32,
+        made once per sketch."""
+        from repro_torch.kernels.sketch_matvec import gather_order
+        return gather_order(self.idx)
+
     def tapply(self, X: Tensor) -> Tensor:
         """``Tᵀ X`` (d, b) f32 — the matrix-free apply; ``backend="pallas"``
         routes through the sketch kernel."""
         if self.backend == "pallas":
             from repro_torch.kernels import ops as kops
-            return kops.sketch_matmat(self.signs, self.idx, X)
+            return kops.sketch_matmat(self.signs, self.idx, X, self.order)
         from repro_torch.kernels import ref
         return ref.sketch_matmat(self.signs, self.idx, X)
 

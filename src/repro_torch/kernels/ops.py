@@ -13,7 +13,7 @@ Counterpart of ``repro.kernels.ops``:
   * ``sketch_matmat`` (``SparseSignSketch.tapply``);
   * ``sparse_matvec`` (``SparseOp(backend="pallas")`` mv/rmv/matmat/
     rmatmat): x or a block X of any float dtype, cast to f32, and the
-    operator's window layout of a pack of long rows;
+    operator's window layout of each pack;
   * ``lowrank_matmul`` (``core.update``: the update's core outer product
     and ``materialize_lowrank``);
   * ``reorth`` (CGS^passes against a basis: ``passes`` × (``qtv``,
@@ -63,8 +63,8 @@ def sparse_matvec(vals: Tensor, cols: Tensor, x: Tensor,
     """y = A x for A in padded-ELL rows (``sparse_matvec.ell_pack``):
     x (n,) → (m,) f32, or a block X (n, b) → (m, b) f32 in one launch.
     ``layout``, a ``window_layout`` whose own vals / cols these are
-    (only ``SparseOp`` holds one), takes one vector through the window
-    kernel."""
+    (only ``SparseOp`` holds one), takes one vector through long rows
+    and a block of 2 to 32 columns through the window kernels."""
     return spm.sparse_matvec(vals, cols, _f32(x), layout)
 
 

@@ -73,19 +73,28 @@ def sparse_matvec(vals: Tensor, cols: Tensor, X: Tensor) -> Tensor:
 
 
 def sparse_matvec_windows(vals: Tensor, cols: Tensor, offsets: Tensor,
-                          x: Tensor) -> Tensor:
-    """y = A x through a window layout (``sparse_matvec.window_layout``):
-    row i's partial over window w sums its slots offsets[i, w] to
-    offsets[i, w + 1] (the columns of window w of x), and y adds each
-    row's partials in window order."""
+                          X: Tensor, ratio: int) -> Tensor:
+    """Y = A X through a window layout (``sparse_matvec.window_layout``)
+    in windows of ``ratio`` columns of its table ``offsets`` (m, subs + 1)
+    (the sub-window table; the window table with ratio 1): row i's
+    partial over window w sums its slots offsets[i, w·ratio] to
+    offsets[i, min((w + 1)·ratio, subs)], and Y adds each row's partials
+    in window order.  X (n,) or (n, b); slots past offsets[i, subs] (the
+    padding) lie in no window."""
     m, L = cols.shape
-    g = vals.to(F32) * x.to(F32)[cols.long()]          # (m, L)
+    subs = offsets.shape[1] - 1
+    g = X.to(F32)[cols.long()]                          # (m, L) or (m, L, b)
+    g = vals.to(F32) * g if X.dim() == 1 else vals.to(F32)[..., None] * g
     slot = torch.arange(L, device=cols.device)
-    y = torch.zeros(m, dtype=F32, device=cols.device)
-    for w in range(offsets.shape[1] - 1):
-        lo, hi = offsets[:, w:w + 1], offsets[:, w + 1:w + 2]
-        y = y + torch.where((slot >= lo) & (slot < hi), g, 0.0).sum(1)
-    return y
+    Y = torch.zeros((m,) + tuple(X.shape[1:]), dtype=F32, device=cols.device)
+    for w in range(-(-subs // ratio)):
+        lo = offsets[:, w * ratio:w * ratio + 1]
+        hi = offsets[:, min((w + 1) * ratio, subs)][:, None]
+        inside = (slot >= lo) & (slot < hi)
+        if X.dim() == 2:
+            inside = inside[..., None]
+        Y = Y + torch.where(inside, g, 0.0).sum(1)
+    return Y
 
 
 def lowrank_matmul(U: Tensor, s: Tensor, Vt: Tensor) -> Tensor:

@@ -545,8 +545,8 @@ LONG_N = 98_305          # three windows of x, the last of one element
 def test_sparse_matvec_long_rows(cuda, L, b, vdt, windows):
     """Rows of L slots (1,023 and 4,802: every other row starts off a
     16-byte boundary) over an x of three windows, with and without the
-    window layout (which a block of columns ignores): against the plain
-    version, twice bitwise, one launch a call."""
+    window layout (through which a block takes the block kernel): against
+    the plain version, twice bitwise, one launch a call."""
     rng = np.random.default_rng(L + b)
     m = 37
     cols = torch.from_numpy(rng.integers(0, LONG_N, (m, L), dtype=np.int32))
@@ -555,13 +555,16 @@ def test_sparse_matvec_long_rows(cuda, L, b, vdt, windows):
     X = torch.randn(LONG_N, b, device=cuda)
     if b == 1:
         X = X[:, 0].contiguous()
-    layout = spm.window_layout(vals, cols, LONG_N) if windows else None
+    layout = spm.window_layout(vals, cols, LONG_N, torch.full(
+        (m,), L, device=cuda)) if windows else None
     v, c = (vals, cols) if layout is None else layout[:2]
     before = spm.LAUNCHES["sparse_matvec"]
     got = spm.sparse_matvec(v, c, X, layout)
     _assert_close([got], [ref.sparse_matvec(vals, cols, X)], 1e-5)
-    if layout is not None and b == 1:
-        _assert_close([got], [ref.sparse_matvec_windows(*layout, X)], 1e-5)
+    if layout is not None:
+        ratio = spm.WINDOW_SUBS if b == 1 else spm.block_ratio(b)
+        _assert_close([got], [ref.sparse_matvec_windows(
+            *layout[:3], X, ratio)], 1e-5)
     assert torch.equal(got, spm.sparse_matvec(v, c, X, layout))
     torch.cuda.synchronize()
     assert spm.LAUNCHES["sparse_matvec"] == before + 2
@@ -577,14 +580,16 @@ def test_sparse_matvec_reads_unaligned_runs(cuda, windows):
     cols = torch.from_numpy(rng.integers(0, LONG_N, (9, 1023),
                                          dtype=np.int32)).to(cuda)
     vals = torch.randn(9, 1023, device=cuda)
-    full = spm.window_layout(vals, cols, LONG_N) if windows else None
+    full = spm.window_layout(vals, cols, LONG_N, torch.full(
+        (9,), 1023, device=cuda)) if windows else None
     if windows:
         vals, cols = full.vals, full.cols
     xs = torch.randn(LONG_N + 1, device=cuda)
     x = xs[1:]                                   # 4 bytes off the boundary
     for r in (1, 0):
         v, c = vals[r:], cols[r:]
-        layout = spm.WindowLayout(v, c, full.offsets[r:]) if windows \
+        layout = spm.WindowLayout(v, c, full.offsets[r:],
+                                  full.window_offsets[r:]) if windows \
             else None
         got = spm.sparse_matvec(v, c, x, layout)
         _assert_close([got], [ref.sparse_matvec(v, c, x)], 1e-5)
@@ -592,20 +597,25 @@ def test_sparse_matvec_reads_unaligned_runs(cuda, windows):
 
 
 def test_sparse_op_transpose_carries_the_window_layout(cuda):
-    """A SparseOp on the card builds the layout of its pack of long rows
-    once; .T carries it across (no second build), and mv / rmv through it
-    match the plain products."""
+    """A SparseOp on the card builds the layout of each pack once (its
+    padding marked by the row populations); .T carries them across (no
+    second build), and mv / rmv through them match the plain products."""
     from repro_torch.core.operators import SparseOp
     data, idx, dense = _sparse(2600, 300, 0.5, torch.float32, 7, cuda)
     op = SparseOp(data, idx, (2600, 300), backend="pallas")
-    assert op.windows[0] is None and op.windows[1] is not None
-    # the pack of long rows is held once, in the layout's window order
-    assert op.ell[2] is op.windows[1].vals and op.ell[3] is op.windows[1].cols
-    want = spm.window_layout(*spm.ell_pack(data, idx.flip(1), (300, 2600)),
-                             2600)
-    assert all(torch.equal(a, b) for a, b in zip(op.windows[1], want))
+    # each pack is held once, in its layout's order
+    for k in (0, 1):
+        assert op.ell[2 * k] is op.windows[k].vals
+        assert op.ell[2 * k + 1] is op.windows[k].cols
+    for k, (shape, ix) in enumerate((((2600, 300), idx),
+                                     ((300, 2600), idx.flip(1)))):
+        want = spm.pack_layout(
+            *spm.ell_pack(data, ix, shape), shape[1],
+            torch.bincount(ix[:, 0].long(), minlength=shape[0]))
+        assert want.offsets is not None
+        assert all(torch.equal(a, b) for a, b in zip(op.windows[k], want))
     t = op.T
-    assert t.windows[0] is op.windows[1] and t.windows[1] is None
+    assert t.windows[0] is op.windows[1] and t.windows[1] is op.windows[0]
     D = torch.from_numpy(dense).float().to(cuda)
     q = torch.randn(2600, device=cuda)
     spm.reset_launches()
@@ -627,7 +637,8 @@ def test_sparse_matvec_windows_refuse_plans_past_their_limits(cuda,
     cols = torch.randint(0, LONG_N, (5, 1100), device=cuda,
                          dtype=torch.int32)
     x = torch.randn(LONG_N, device=cuda)
-    layout = spm.window_layout(vals, cols, LONG_N)
+    layout = spm.window_layout(vals, cols, LONG_N, torch.full(
+        (5,), 1100, device=cuda))
     plan = spm.window_plan(5, LONG_N)
     for bad in (plan._replace(groups=plan.groups + 1),
                 plan._replace(rows_per_group=1, groups=1),
@@ -635,6 +646,182 @@ def test_sparse_matvec_windows_refuse_plans_past_their_limits(cuda,
         monkeypatch.setattr(spm, "window_plan", lambda *args: bad)
         with pytest.raises(RuntimeError, match="invalid argument"):
             spm.sparse_matvec(layout.vals, layout.cols, x, layout)
+
+
+@pytest.mark.parametrize("b", [2, 3, 5, 8, 13, 20, 31, 32])
+@pytest.mark.parametrize("m,n,density", [(300, 517, 0.02), (257, 129, 0.1),
+                                         (40, 5000, 0.5), (3000, 60, 0.4),
+                                         (5, 30_000, 0.3)])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16,
+                                 torch.float64])
+def test_block_kernel_matches_plain_version(cuda, m, n, density, b, vdt):
+    """Blocks of 2 to 32 columns through the layout of both packs of a
+    ragged matrix (empty rows, a duplicate; short rows, rows of 2,500 and
+    9,000 slots, one block window and several): against the plain
+    version on the same pack and against the layout's own plain model,
+    twice bitwise, one launch a call."""
+    data, idx, _ = _sparse(m, n, density, vdt, m + n + b, cuda)
+    for shape, ix in (((m, n), idx), ((n, m), idx.flip(1))):
+        vals, cols = spm.ell_pack(data, ix, shape)
+        lay = spm.window_layout(vals, cols, shape[1], torch.bincount(
+            ix[:, 0].long(), minlength=shape[0]))
+        X = torch.randn(shape[1], b, device=cuda)
+        before = spm.LAUNCHES["sparse_matvec"]
+        got = spm.sparse_matvec(lay.vals, lay.cols, X, lay)
+        assert got.shape == (shape[0], b)
+        _assert_close([got], [ref.sparse_matvec(vals, cols, X)], 1e-5)
+        _assert_close([got], [ref.sparse_matvec_windows(
+            *lay[:3], X, spm.block_ratio(b))], 1e-5)
+        assert torch.equal(got, spm.sparse_matvec(lay.vals, lay.cols, X,
+                                                  lay))
+        torch.cuda.synchronize()
+        assert spm.LAUNCHES["sparse_matvec"] == before + 2
+
+
+@pytest.mark.parametrize("b", [2, 7, 20, 32])
+def test_block_kernel_on_skewed_rows(cuda, b):
+    """Rows from empty to 30,000 slots (segments longer than a staged
+    chunk, a window's worth of padding) and a pack whose entries all fall
+    in one column: against the plain version, twice bitwise."""
+    rng = np.random.default_rng(b)
+    n = 60_000
+    counts = np.array([0, 30_000, 1, 7, 0, 4_000, 41, 40, 39, 2] * 3)
+    rows = np.repeat(np.arange(len(counts)), counts)
+    for cols in (rng.integers(0, n, rows.shape[0]),
+                 np.full(rows.shape[0], n - 1)):
+        idx = torch.from_numpy(np.stack([rows, cols], 1).astype(
+            np.int32)).to(cuda)
+        data = torch.randn(rows.shape[0], device=cuda)
+        vals, pc = spm.ell_pack(data, idx, (len(counts), n))
+        lay = spm.window_layout(vals, pc, n, torch.from_numpy(
+            counts).to(cuda))
+        X = torch.randn(n, b, device=cuda)
+        got = spm.sparse_matvec(lay.vals, lay.cols, X, lay)
+        _assert_close([got], [ref.sparse_matvec(vals, pc, X)], 1e-5)
+        assert torch.equal(got, spm.sparse_matvec(lay.vals, lay.cols, X,
+                                                  lay))
+
+
+def test_sparse_op_block_products_take_the_block_kernel(cuda, monkeypatch):
+    """SparseOp's matmat / rmatmat with 20 columns run the block kernel
+    (one launch each, no warp-per-row launch), and a block of 40 columns
+    the warp-per-row kernel; both match the dense products."""
+    from repro_torch.core.operators import SparseOp
+    data, idx, dense = _sparse(3000, 400, 0.05, torch.float32, 11, cuda)
+    op = SparseOp(data, idx, (3000, 400), backend="pallas")
+    D = torch.from_numpy(dense).float().to(cuda)
+    calls = []
+    lib = spm._lib()
+
+    class Spy:
+        def __getattr__(self, name):
+            calls.append(name)
+            return getattr(lib, name)
+
+    monkeypatch.setattr(spm, "_lib", lambda: Spy())
+    V, Q = torch.randn(400, 20, device=cuda), torch.randn(3000, 20,
+                                                          device=cuda)
+    _assert_close([op.matmat(V), op.rmatmat(Q)], [D @ V, D.T @ Q], 1e-5)
+    assert calls == ["sparse_matvec_block"] * 2
+    calls.clear()
+    W = torch.randn(400, 40, device=cuda)
+    _assert_close([op.matmat(W)], [D @ W], 1e-5)
+    assert calls == ["sparse_matvec"]
+
+
+def test_sparse_op_on_a_wide_sparse_matrix_holds_no_layout(cuda,
+                                                          monkeypatch):
+    """A wide, sparse operand (rows of a few slots over an x of 200,000):
+    neither pack keeps a layout (its sub-window table would outweigh the
+    pack) and its block products take the warp-per-row kernel, with no
+    partials scratch; mv, rmv and both block products match the dense
+    products."""
+    from repro_torch.core.operators import SparseOp
+    data, idx, dense = _sparse(200, 200_000, 2e-5, torch.float32, 13, cuda)
+    op = SparseOp(data, idx, (200, 200_000), backend="pallas")
+    assert op.windows == (None, None)
+    D = torch.from_numpy(dense).float().to(cuda)
+    calls = []
+    lib = spm._lib()
+
+    class Spy:
+        def __getattr__(self, name):
+            calls.append(name)
+            return getattr(lib, name)
+
+    monkeypatch.setattr(spm, "_lib", lambda: Spy())
+    V, Q = torch.randn(200_000, 20, device=cuda), torch.randn(200, 20,
+                                                              device=cuda)
+    _assert_close([op.matmat(V), op.rmatmat(Q), op.mv(V[:, 0].contiguous()),
+                   op.rmv(Q[:, 0].contiguous())],
+                  [D @ V, D.T @ Q, D @ V[:, 0], D.T @ Q[:, 0]], 1e-5)
+    assert calls == ["sparse_matvec"] * 4
+
+
+def test_sparse_matvec_block_refuses_plans_past_its_limits(cuda,
+                                                           monkeypatch):
+    """sparse_matvec.cu checks the block plan it is handed (windows that
+    do not cover X, a window past the shared memory, row groups that do
+    not cover the rows) and refuses it before a launch."""
+    data, idx, _ = _sparse(300, 5000, 0.1, torch.float32, 3, cuda)
+    vals, cols = spm.ell_pack(data, idx, (300, 5000))
+    lay = spm.window_layout(vals, cols, 5000, torch.bincount(
+        idx[:, 0].long(), minlength=300))
+    X = torch.randn(5000, 20, device=cuda)
+    plan = spm.block_plan(300, 5000, 20)
+    for bad in (plan._replace(windows=plan.windows + 1),
+                plan._replace(ratio=plan.ratio + 1),
+                plan._replace(groups=plan.groups + 1),
+                plan._replace(rows_per_group=1, groups=1)):
+        monkeypatch.setattr(spm, "block_plan", lambda *args: bad)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            spm.sparse_matvec(lay.vals, lay.cols, X, lay)
+
+
+SKETCH_RAGGED = [(1025, 37, 24, 5), (70_001, 130, 8, 1000),
+                 (3000, 200, 7, 3), (2000, 3, 1100, 37), (48, 48, 1, 17),
+                 (5, 300, 5, 4099)]
+
+
+@pytest.mark.parametrize("N,d,zeta,b", SKETCH_RAGGED)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float64])
+@pytest.mark.parametrize("layout", ["row_major", "row_pitch",
+                                    "transposed_view"])
+def test_sketch_kernels_on_ragged_shapes(cuda, N, d, zeta, b, dt, layout):
+    """Both sketch kernels on ragged d, ζ, N and b, with f32, bf16 and
+    f64 X and signs: a row-major X (16-byte loads), a row pitch one past b
+    (element loads), a transposed view (the range kernel, with the
+    sketch's kept order; past a chunk's ζ the element path): against the
+    plain version, twice bitwise, one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(N + d + zeta + b)
+    sk = tsketch.make_sketch(g, N, d, zeta=zeta, dtype=dt, backend="pallas")
+    if layout == "transposed_view":
+        X = torch.randn(b, N, generator=g, device=cuda).to(dt).T
+    else:
+        X = torch.randn(N, b + 1, generator=g, device=cuda).to(dt)[:, :b]
+        X = X.contiguous() if layout == "row_major" else X
+    before = skm.LAUNCHES["sketch_matmat"]
+    got = skm.sketch_matmat(sk.signs, sk.idx, X, sk.order)
+    _assert_close([got], [ref.sketch_matmat(sk.signs, sk.idx, X)], 2e-5)
+    assert torch.equal(got, skm.sketch_matmat(sk.signs, sk.idx, X,
+                                              sk.order))
+    torch.cuda.synchronize()
+    assert skm.LAUNCHES["sketch_matmat"] == before + 2
+
+
+def test_sketch_range_and_rows_kernels_agree_bit_for_bit(cuda):
+    """Y[i, c] is the same fmaf chain in slot order on both paths: a
+    transposed view through the range kernel and its row-major copy
+    through the row kernel give the same bits, and so does the range
+    kernel without the kept order (made for the call)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    sk = tsketch.make_sketch(g, 9000, 128, backend="pallas")
+    A = torch.randn(3000, 9000, generator=g, device=cuda)
+    via_range = skm.sketch_matmat(sk.signs, sk.idx, A.T, sk.order)
+    assert torch.equal(via_range, skm.sketch_matmat(
+        sk.signs, sk.idx, A.T.contiguous(), sk.order))
+    assert torch.equal(via_range, skm.sketch_matmat(sk.signs, sk.idx, A.T))
 
 
 def test_ell_pack_on_the_card_is_the_cpu_pack(cuda):

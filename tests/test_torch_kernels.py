@@ -578,6 +578,77 @@ def test_sketch_matmat_wrapper_rejects_what_the_kernel_does_not_take():
                                                         device="meta"))
 
 
+def _order_model(idx, chunk_rows):
+    """A numpy model of gather_order: each chunk of chunk_rows sketch rows'
+    flat slots stably sorted by source row."""
+    flat = idx.reshape(-1)
+    per = chunk_rows * idx.shape[1]
+    slots = np.concatenate([
+        q + np.argsort(flat[q:q + per], kind="stable")
+        for q in range(0, flat.shape[0], per)])
+    return np.stack([flat[slots], slots])
+
+
+@pytest.mark.parametrize("n,d,zeta", [(300, 64, 8), (128, 130, 8),
+                                      (70, 16, 5), (80_000, 128, 8),
+                                      (100_000, 256, 8), (7, 3, 7),
+                                      (5000, 300, 1000), (40, 200, 1)])
+def test_gather_order_is_a_permutation_in_chunks(n, d, zeta):
+    """The range kernel's walk of a sketch pack: row 1 is a permutation of
+    the flat slots that keeps each chunk of chunk_rows(ζ) sketch rows in
+    place, row 0 the source rows of those slots, ascending in each chunk
+    and stable; bit for bit a numpy model of it."""
+    rng = np.random.default_rng(n + d + zeta)
+    idx = rng.integers(0, n, (d, zeta)).astype(np.int32)
+    order = skm.gather_order(torch.from_numpy(idx))
+    assert order.dtype == torch.int32 and order.shape == (2, d * zeta)
+    got = order.numpy()
+    assert np.array_equal(np.sort(got[1]), np.arange(d * zeta))
+    np.testing.assert_array_equal(got[0], idx.reshape(-1)[got[1]])
+    rows = max(skm.chunk_rows(zeta), 1)
+    per = rows * zeta
+    for q in range(0, d * zeta, per):
+        sl = got[:, q:q + per]
+        assert np.all((sl[1] >= q) & (sl[1] < q + per))
+        assert np.all(np.diff(sl[0]) >= 0)
+    np.testing.assert_array_equal(got, _order_model(idx, rows))
+
+
+def test_sparse_sign_sketch_keeps_its_order():
+    """SparseSignSketch makes the range kernel's order once: the same
+    tensor on every use, that of gather_order(idx)."""
+    _, sk = _sketch(300, 64)
+    first = sk.order
+    assert sk.order is first
+    assert torch.equal(first, skm.gather_order(sk.idx))
+
+
+@pytest.mark.parametrize("d,zeta,b,want", [
+    (128, 8, 100_000, 16),        # the range sketch: 16 rows a block
+    (256, 8, 128, 1),             # gnystrom's core: 2 chunks x 128 rows
+    (256, 8, 80_000, 16), (1000, 8, 300, 8), (5, 3, 7, 1)])
+def test_range_rows_fill_the_card(d, zeta, b, want):
+    """A range-kernel block owns RANGE_ROWS rows below X, fewer (a power
+    of two) where the grid would not hold two blocks an SM."""
+    rows = skm.range_rows(d, zeta, b)
+    assert rows == want
+    assert rows & (rows - 1) == 0 and 1 <= rows <= skm.RANGE_ROWS
+    chunks = -(-d // skm.chunk_rows(zeta))
+    if rows < skm.RANGE_ROWS:
+        assert chunks * -(-b // (2 * rows)) < 2 * gs.SMS
+
+
+def test_sketch_matmat_rejects_an_order_that_does_not_fit():
+    _, sk = _sketch(48, 16)
+    X = torch.zeros(5, 48).T
+    for bad in (sk.order[:, 1:], sk.order.long(), sk.order.T.contiguous().T,
+                sk.order[:1]):
+        with pytest.raises(ValueError, match="gather_order"):
+            skm.sketch_matmat(sk.signs, sk.idx, X, bad)
+    got = skm.sketch_matmat(sk.signs, sk.idx, X, sk.order)
+    assert got.shape == (16, 5)
+
+
 # --------------------------------------------------------------------------
 # ELL pack and sparse matvec (sparse_matvec): the SparseOp(backend="pallas")
 # products
@@ -701,29 +772,103 @@ def _long_pack(L, n, seed):
 @pytest.mark.parametrize("n", WINDOW_NS)
 @pytest.mark.parametrize("L", [1, 1023, 1024, 4802, 20_000])
 def test_window_layout_is_a_stable_permutation(L, n):
-    """Each row of the layout is its pack row's slots in a stable order by
-    window (column // WINDOW), and the offsets tile the row: window w's
-    segment holds exactly the slots of columns in window w."""
+    """Each row of the layout is its pack row's entries in a stable order
+    by sub-window (column // SUB), its padding after them, and the offsets
+    tile the row: sub-window s's segment holds exactly the slots of
+    columns in sub-window s, so each WINDOW of one vector is one segment
+    too, whose edges are the window table."""
     data, idx, m = _long_pack(L, n, L + n)
     vals, cols = spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx),
                               (m, n))
-    lay = spm.window_layout(vals, cols, n)
+    counts = np.bincount(idx[:, 0], minlength=m)
+    lay = spm.window_layout(vals, cols, n, torch.from_numpy(counts))
     windows = -(-n // spm.WINDOW)
+    subs = -(-n // spm.SUB)
     Lp = cols.shape[1]
     assert lay.vals.shape == lay.cols.shape == (m, Lp)
-    assert lay.offsets.shape == (m, windows + 1)
+    assert lay.offsets.shape == (m, subs + 1)
+    assert lay.window_offsets.shape == (m, windows + 1)
     assert lay.offsets.dtype == lay.cols.dtype == torch.int32
+    assert lay.window_offsets.dtype == torch.int32
     c, v = cols.numpy(), vals.numpy()
     off = lay.offsets.numpy()
     for i in range(m):
-        order = np.argsort(c[i] // spm.WINDOW, kind="stable")
+        key = np.where(np.arange(Lp) < counts[i], c[i] // spm.SUB, subs)
+        order = np.argsort(key, kind="stable")
         np.testing.assert_array_equal(lay.cols[i].numpy(), c[i][order])
         np.testing.assert_array_equal(lay.vals[i].numpy(), v[i][order])
-        assert off[i, 0] == 0 and off[i, -1] == Lp
+        assert off[i, 0] == 0 and off[i, -1] == counts[i]
         assert np.all(np.diff(off[i]) >= 0)
+        for s_ in range(subs):
+            seg = lay.cols[i, off[i, s_]:off[i, s_ + 1]].numpy()
+            assert np.all(seg // spm.SUB == s_)
         for w in range(windows):
-            seg = lay.cols[i, off[i, w]:off[i, w + 1]].numpy()
+            lo, hi = lay.window_offsets[i, w:w + 2].tolist()
+            assert lo == off[i, w * spm.WINDOW_SUBS]
+            seg = lay.cols[i, lo:hi].numpy()
             assert np.all(seg // spm.WINDOW == w)
+        assert lay.window_offsets[i, -1] == counts[i]
+
+
+def _layout_model(vals, cols, counts, n):
+    """A numpy model of window_layout with row populations: each row's
+    entries (slots before its count) stably sorted by column // SUB, its
+    padding after them; offsets[i, s] the first slot of sub-window s (of
+    the padding at s = subs)."""
+    m, L = cols.shape
+    subs = -(-n // spm.SUB)
+    key = np.where(np.arange(L)[None, :] < counts[:, None], cols // spm.SUB,
+                   subs)
+    order = np.argsort(key, axis=1, kind="stable")
+    skey = np.take_along_axis(key, order, 1)
+    off = np.stack([np.searchsorted(skey[i], np.arange(subs + 1))
+                    for i in range(m)])
+    return (np.take_along_axis(vals, order, 1),
+            np.take_along_axis(cols, order, 1), off)
+
+
+LAYOUT_PACKS = {"short": (300, 517, 0.02), "dense": (64, 48, 0.3),
+                "wide": (128, 1000, 0.005), "tall": (2000, 60, 0.4)}
+
+
+@pytest.mark.parametrize("pack", ["short", "dense", "wide", "tall"])
+@pytest.mark.parametrize("side", ["forward", "transposed"])
+def test_window_layout_with_counts_matches_a_numpy_model(pack, side):
+    """The layout the operator builds (row populations given) against a
+    numpy model of it, on both packs of ragged matrices with empty rows
+    and a duplicate: entries sorted by sub-window, the padding last and in
+    no window, the offsets bit for bit; and every block window (of
+    block_ratio(b) sub-windows, b from 2 to 32) and every WINDOW of one
+    vector is one contiguous segment of each row holding exactly its
+    columns."""
+    m, n, density = LAYOUT_PACKS[pack]
+    data, idx = _coo(m, n, density, m * 7 + n)
+    if side == "transposed":
+        idx, (m, n) = idx[:, ::-1].copy(), (n, m)
+    vals, cols = spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx),
+                              (m, n))
+    counts = np.bincount(idx[:, 0], minlength=m)
+    lay = spm.window_layout(vals, cols, n, torch.from_numpy(counts))
+    want_v, want_c, want_off = _layout_model(vals.numpy(), cols.numpy(),
+                                             counts, n)
+    np.testing.assert_array_equal(lay.vals.numpy(), want_v)
+    np.testing.assert_array_equal(lay.cols.numpy(), want_c)
+    np.testing.assert_array_equal(lay.offsets.numpy(), want_off)
+    off = lay.offsets.numpy()
+    assert np.array_equal(off[:, -1], counts)          # padding after
+    subs = off.shape[1] - 1
+    for ratio in sorted({spm.block_ratio(b) for b in range(2, 33)}
+                        | {spm.WINDOW_SUBS}):
+        span = ratio * spm.SUB
+        for w in range(-(-subs // ratio)):
+            lo = off[:, w * ratio]
+            hi = off[:, min((w + 1) * ratio, subs)]
+            for i in range(m):
+                seg = want_c[i, lo[i]:hi[i]]
+                assert np.all(seg // span == w)
+            assert np.array_equal(
+                hi - lo, [np.sum((idx[:, 0] == i) & (idx[:, 1] // span == w))
+                          for i in range(m)])
 
 
 @pytest.mark.parametrize("n", WINDOW_NS)
@@ -736,7 +881,8 @@ def test_window_layout_evaluation_matches_reference(L, n):
     data, idx, m = _long_pack(L, n, 2 * L + n)
     vals, cols = spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx),
                               (m, n))
-    lay = spm.window_layout(vals, cols, n)
+    lay = spm.window_layout(vals, cols, n, torch.bincount(
+        torch.from_numpy(idx[:, 0]).long(), minlength=m))
     x = np.random.default_rng(L).standard_normal(n).astype(np.float32)
     spm.reset_launches()
     got = ops.sparse_matvec(lay.vals, lay.cols, torch.from_numpy(x), lay)
@@ -749,6 +895,89 @@ def test_window_layout_evaluation_matches_reference(L, n):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=2e-4, atol=2e-4)
     assert spm.LAUNCHES["sparse_matvec"] == 0
+
+
+BLOCK_WIDTHS = [2, 3, 7, 20, 32]
+
+
+@pytest.mark.parametrize("b", BLOCK_WIDTHS)
+@pytest.mark.parametrize("pack", ["short", "dense", "wide", "tall"])
+@pytest.mark.parametrize("side", ["forward", "transposed"])
+def test_block_windows_match_reference(pack, side, b):
+    """A block of b columns through the operator's layout (per-window
+    partials of block_ratio(b) sub-windows, added in window order: the
+    wrapper's CPU path, and the card's sums) against the reference's
+    plain version on its own pack, its Pallas kernel in interpret mode
+    (vmapped over the columns, as the reference does) and the dense
+    product, on both packs of ragged matrices with empty rows and a
+    duplicate, at test_sparse_matvec_matches_reference's tolerance."""
+    m, n, density = LAYOUT_PACKS[pack]
+    data, idx = _coo(m, n, density, m + n + b)
+    if side == "transposed":
+        idx, (m, n) = idx[:, ::-1].copy(), (n, m)
+    vals, cols = spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx),
+                              (m, n))
+    lay = spm.window_layout(vals, cols, n, torch.bincount(
+        torch.from_numpy(idx[:, 0]).long(), minlength=m))
+    X = np.random.default_rng(b).standard_normal((n, b)).astype(np.float32)
+    spm.reset_launches()
+    got = ops.sparse_matvec(lay.vals, lay.cols, torch.from_numpy(X), lay)
+    assert got.dtype == torch.float32 and got.shape == (m, b)
+    assert spm.LAUNCHES["sparse_matvec"] == 0
+    jv, jc = jspm.ell_pack(data, idx, (m, n))
+    A = np.zeros((m, n), np.float64)
+    np.add.at(A, (idx[:, 0], idx[:, 1]), data)
+    plain = np.stack([np.asarray(jref.sparse_matvec(jv, jc, X[:, j]))
+                      for j in range(b)], 1)
+    kernel = jax.vmap(lambda x: jops.sparse_matvec(jv, jc, x), in_axes=1,
+                      out_axes=1)(jnp.asarray(X))   # the reference's vmap
+    for w in (plain, kernel, A @ X):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=2e-4,
+                                   atol=2e-4)
+    # the windows' sum, by hand, in window order
+    ratio = spm.block_ratio(b)
+    off = lay.offsets.numpy()
+    subs = off.shape[1] - 1
+    g = lay.vals.numpy()[..., None] * X[lay.cols.numpy()]
+    hand = np.zeros((m, b), np.float32)
+    for w in range(-(-subs // ratio)):
+        lo, hi = off[:, w * ratio], off[:, min((w + 1) * ratio, subs)]
+        part = np.stack([g[i, lo[i]:hi[i]].sum(0) for i in range(m)])
+        hand = hand + part.astype(np.float32)
+    np.testing.assert_allclose(got.numpy(), hand, rtol=1e-5,
+                               atol=1e-5 * np.abs(hand).max())
+
+
+@pytest.mark.parametrize("b", list(range(2, 33)))
+def test_block_plan_covers_rows_and_x(b):
+    """The block kernel's plan at the Netflix shape's two packs and a small
+    one: windows of block_ratio(b) sub-windows cover X once and fit
+    BLOCK_FLOATS at b's pitch (b rounded up to 4), row groups cover the
+    rows once, and the blocks keep BLOCK_WAVE_SHARE of the SMs of their
+    last wave busy with the fewest groups that do, else the best share of
+    any count of groups up to 8·SMS / windows."""
+    for m, n in ((480_189, 17_770), (17_770, 480_189), (300, 517), (5, 1)):
+        plan = spm.block_plan(m, n, b)
+        span = plan.ratio * spm.SUB
+        assert plan.ratio == spm.block_ratio(b) >= 1
+        assert span * (-(-b // 4) * 4) <= spm.BLOCK_FLOATS
+        assert (plan.windows - 1) * span < n <= plan.windows * span
+        assert (plan.groups - 1) * plan.rows_per_group < m \
+            <= plan.groups * plan.rows_per_group
+        def share(g):
+            blocks = plan.windows * g
+            return blocks / (-(-blocks // gs.SMS) * gs.SMS)
+
+        tried = range(1, min(m, max(8 * gs.SMS // plan.windows, 1)) + 1)
+        first = [g for g in tried if share(g) >= spm.BLOCK_WAVE_SHARE]
+        per = -(-m // (first[0] if first else
+                       max(tried, key=lambda g: (share(g), -g))))
+        assert plan.rows_per_group == per
+
+
+def test_block_plan_refuses_a_window_of_no_sub_window():
+    with pytest.raises(ValueError, match="block window"):
+        spm.block_plan(10, 10, spm.BLOCK_FLOATS // spm.SUB + 1)
 
 
 @pytest.mark.parametrize("m,n", [(1, 1), (5, spm.WINDOW + 1), (17_770,
@@ -780,7 +1009,8 @@ def test_sparse_matvec_rejects_a_layout_that_does_not_fit():
     data, idx, m = _long_pack(1500, 2000, 4)
     vals, cols = spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx),
                               (m, 2000))
-    lay = spm.window_layout(vals, cols, 2000)
+    lay = spm.window_layout(vals, cols, 2000, torch.bincount(
+        torch.from_numpy(idx[:, 0]).long(), minlength=m))
     x = torch.zeros(spm.WINDOW + 5)             # two windows, not one
     with pytest.raises(ValueError, match="window layout"):
         spm.sparse_matvec(lay.vals, lay.cols, x, lay)
@@ -797,7 +1027,8 @@ def test_sparse_matvec_refuses_the_layout_of_another_pack():
     data, idx, m = _long_pack(1500, 2000, 5)
     vals, cols = spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx),
                               (m, 2000))
-    lay = spm.window_layout(vals, cols, 2000)
+    lay = spm.window_layout(vals, cols, 2000, torch.bincount(
+        torch.from_numpy(idx[:, 0]).long(), minlength=m))
     x = torch.zeros(2000)
     for v, c, X in ((vals, cols, x), (lay.vals.clone(), lay.cols, x),
                     (2 * lay.vals, lay.cols, x),
@@ -810,6 +1041,112 @@ def test_sparse_matvec_refuses_the_layout_of_another_pack():
         got.numpy(),
         ref.sparse_matvec(vals, cols, torch.ones(2000, 5)).numpy(),
         rtol=2e-4, atol=2e-4)
+
+
+# (m, n, L): the Netflix shape's two packs, a wide sparse shape (1e6 x
+# 1e6 with 1e8 entries: rows of ~100 slots, the longest ~150), ragged
+# small ones, long rows over a wide x, and ten times the Netflix rows
+MEMORY_SHAPES = [(480_189, 17_770, 178), (17_770, 480_189, 4_802),
+                 (10 ** 6, 10 ** 6, 150), (300, 517, 20), (5, 30_000, 9_000),
+                 (30_000, 5, 5), (2, 10 ** 6, 1_100), (4_801_890, 17_770, 178)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("m,n,L", MEMORY_SHAPES)
+def test_layout_and_block_scratch_stay_within_the_pack(m, n, L, dtype):
+    """What a layout and a block product add to device memory, by shape
+    alone (nothing is allocated): a layout keeps its sub-window table only
+    where that is at most 1 / TABLE_SHARE of the pack's bytes, and the
+    block kernel's partials take at most the pack's bytes, or one window's
+    (the output's own size), for every b from 2 to 32.  At 1e6 x 1e6 with
+    1e8 entries no table fits and the rows are short, so the operator
+    holds no layout and allocates no scratch; at the Netflix shape both packs keep theirs and a 20-column block takes the
+    block kernel."""
+    pack = m * L * spm.slot_bytes(dtype)
+    table = 4 * m * (spm.sub_count(n) + 1)
+    assert spm.sub_table_fits(L, n, dtype) == \
+        (table * spm.TABLE_SHARE <= pack)
+    for b in range(2, 33):
+        windows = spm.block_windows(n, b)
+        part = windows * m * b * 4
+        if spm.block_scratch_fits(L, n, b, dtype):
+            assert part <= max(pack, m * b * 4)
+        else:
+            assert windows > 1 and part > pack
+    if (m, n) == (10 ** 6, 10 ** 6):
+        assert not spm.sub_table_fits(L, n, dtype) and L < spm.LONG_ROW
+    if (m, n, L) in MEMORY_SHAPES[:2]:
+        assert spm.sub_table_fits(L, n, dtype)
+        assert spm.block_scratch_fits(L, n, 20, dtype)
+
+
+def _rows_pack(m, n, L, seed):
+    """An ELL pack of m rows of L entries over columns [0, n) (the last
+    row one short: a padded slot), its populations and the COO indices."""
+    rng = np.random.default_rng(seed)
+    counts = np.full(m, L)
+    counts[-1] = L - 1
+    rows = np.repeat(np.arange(m), counts)
+    idx = np.stack([rows, rng.integers(0, n, rows.shape[0])],
+                   1).astype(np.int32)
+    data = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    vals, cols = spm.ell_pack(torch.from_numpy(data), torch.from_numpy(idx),
+                              (m, n))
+    return vals, cols, torch.from_numpy(counts), idx
+
+
+@pytest.mark.parametrize("m,n,L,tables", [
+    (3, 10 ** 6, 5, None),            # short rows over a wide x: none
+    (2, 10 ** 6, 1_100, "window"),    # long rows over a wide x
+    (300, 517, 20, "both"),           # short rows over a narrow x
+    (40, 5_000, 2_500, "both")])
+def test_pack_layout_builds_what_its_paths_use(m, n, L, tables):
+    """The operator's layout of a pack: none where no windowed path serves
+    it, the window table alone for long rows whose sub-window table would
+    not fit, both tables otherwise; the wrapper's CPU path then takes the
+    path the card would (the window or block model, or the plain
+    warp-per-row sum), bit for bit, and matches the plain product."""
+    vals, cols, counts, _ = _rows_pack(m, n, L, m + L)
+    lay = spm.pack_layout(vals, cols, n, counts)
+    if tables is None:
+        assert lay is None
+        return
+    assert (lay.offsets is not None) == (tables == "both")
+    full = spm.window_layout(vals, cols, n, counts)
+    assert torch.equal(lay.vals, full.vals)
+    assert torch.equal(lay.window_offsets, full.window_offsets)
+    rng = np.random.default_rng(n)
+    for b in (1, 3, 20):
+        X = torch.from_numpy(rng.standard_normal((n, b)).astype(np.float32))
+        X = X[:, 0].contiguous() if b == 1 else X
+        got = spm.sparse_matvec(lay.vals, lay.cols, X, lay)
+        if b == 1 and L >= spm.LONG_ROW:
+            want = ref.sparse_matvec_windows(lay.vals, lay.cols,
+                                             lay.window_offsets, X, 1)
+        elif b > 1 and tables == "both" and spm.block_scratch_fits(
+                L, n, b, vals.dtype):
+            want = ref.sparse_matvec_windows(lay.vals, lay.cols, lay.offsets,
+                                             X, spm.block_ratio(b))
+        else:
+            want = ref.sparse_matvec(lay.vals, lay.cols, X)
+        assert torch.equal(got, want)
+        np.testing.assert_allclose(
+            got.numpy(), ref.sparse_matvec(vals, cols, X).numpy(),
+            rtol=2e-4, atol=2e-4)
+
+
+def test_window_layout_takes_the_row_populations():
+    """A layout is built only with each row's population, so the padding
+    never lands in a window."""
+    vals, cols, counts, _ = _rows_pack(4, 600, 7, 1)
+    with pytest.raises(TypeError):
+        spm.window_layout(vals, cols, 600)             # no populations
+    with pytest.raises(ValueError, match="populations"):
+        spm.window_layout(vals, cols, 600, counts[:3])
+    lay = spm.window_layout(vals, cols, 600, counts)
+    assert lay.offsets[:, -1].tolist() == counts.tolist()
+    assert lay.cols[-1, -1] == 0 and lay.vals[-1, -1] == 0    # padding last
 
 
 def test_sparse_matvec_empty_rows_and_duplicates():
