@@ -35,27 +35,53 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      (it sums in entry order): the shapes of tests/test_kernels.py:304-363,
      the forced-duplicates dyadic case, the empty stream (no launch), an
      all-at-(0, 0) stream, coordinates outside the panel and a 1e6-entry
-     Gaussian stream, spread, in one tile and in one cell (each timed,
-     beside the previous design's sorted path);
+     Gaussian stream, spread, in one tile and in one cell (each timed);
      its binning against the plain model, bins of 1 to 128 tiles;
      every kernel twice, bitwise equal; matvec_fused's u bit for bit
      mv_qtv's u and rmatvec_fused's v rmv_qtv's v (f32 and bf16 A); the
+     stacked launches of the four GK-step kernels (solve_batched's) on
+     ragged shapes, f32 and bf16 A and basis, at B = 1, 3 and 8: one
+     launch a call for the stack, every example bit for bit a single
+     launch on it, within tolerance of the stacked plain versions; the
      build's ptxas report shows no spills in the A^T q kernels, the
      reorthogonalization pair's staged-tile epilogues, the block and
-     window-sum kernels of sparse_matvec and both sketch kernels;
+     window-sum kernels of sparse_matvec, both sketch kernels and the
+     kernels of the stacked launches;
   3. main path — A = M N with Gaussian M (m x 100) and N (100 x n) made on
      the card from --seed (the paper's numerical-rank-100 input, §6.1);
      factorize(A, SVDSpec(method="fsvd", rank=20, max_iters=200,
-     backend="pallas")) against sigma(A) = sigma(R_M R_N^T) from thin QRs,
+     backend="pallas")), which runs through the plan layer, against
+     sigma(A) = sigma(R_M R_N^T) from thin QRs,
      with exact launch counts, a bitwise rerun, a bf16-basis run, and
      estimate_rank(A) == 100 through the host loop; then the rank-k
      update: update_factorization of that r = 20 factorization by a
      seeded rank-10 LowRankOp (s ~ 1e-2 sigma_max, beta 0.9,
      backend="pallas"): zero iterations, one lowrank_matmul launch, held
-     against its plain version on the update's own core, and sigma within
-     1e-5 sigma_max of the same update in f64 on the same bases; with the
-     bases orthonormalized in f64, within 1e-5 sigma_max of the exact
-     sigma of the factored operator;
+     against its plain version on the update's own core, and sigma on the
+     raw bases within 1e-5 sigma_max of the exact sigma of the factored
+     operator (the update thin-QRs the bases first) and of the same update
+     in f64 on the same bases; with the bases orthonormalized in f64
+     beforehand, within 1e-5 sigma_max of exact sigma too;
+  8. the plan (after 3b, before phase 7 edits A): two solves through one
+     plan(spec, like=A) after clear_plan_cache: one trace, a miss and a
+     hit, phase 3's launch counts each, sigma bit for bit the registered
+     solver called directly, wall within 2 % of phase 3's; plan.update of
+     3b's drift at beta 0.9 and 0.5 (one trace, one lowrank_matmul launch
+     and 0 iterations each, sigma on the raw bases within 1e-5 sigma_max
+     of exact); plan.estimate with host_loop=False twice (rank 100, one
+     trace); the plan.solve failpoint (FaultInjected, no launch);
+     solve_batched of 8 operands of serve_bench's "medium" mix (192 x
+     128, low rank plus noise, rank 8, max_iters 24) and of 8 x 8192 x
+     4096 f32 operands of rank 100 (rank 20, max_iters 100): a single
+     solve's launch counts for the batch, sigma per example within 1e-5
+     sigma_max of its own plan.solve from the same q1, host walls beside
+     a loop of single solves and the GK loops' device time; the four
+     stacked launches on the big batch's own operands with bases of
+     101 (Q side) and 100 (P side) columns: one launch a call, every
+     example bit for bit a single launch on it, within phase 2's
+     tolerance of the stacked plain versions, bitwise stable; each stacked
+     stage at the big batch by device time beside B single launches and
+     its bound;
   4. the sketch and blocked solvers on the same operand, backend="pallas":
      gnystrom (one sketch_pass, three sketch_matmat launches, bitwise
      rerun), rbk (5 sweeps, bitwise rerun), rsvd and fsvd_blocked, each
@@ -124,10 +150,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      the same after apply_lowrank_delta of phase 3b's rank-10 drift; the
      odometer trips on a fold of budget * base_norm and not before; peak
      memory below phase 3's + 2 GiB; scatter_add timed at both fold
-     shapes by device time (the fold and index_add_ in CUDA graphs) and,
-     stage by stage, beside the previous design's sorted path, and
-     so on two wider panels (480,189 x 128 and 4,194,304 x 128: bins of 8
-     and of 64 tiles) with as many spread entries as the Y fold.
+     shapes by device time (the fold and index_add_ in CUDA graphs) and
+     stage by stage, and so on two wider panels (480,189 x 128 and
+     4,194,304 x 128: bins of 8 and of 64 tiles) with as many spread
+     entries as the Y fold.
 
 The line before the last is the card as nvidia-smi reports it; the last is
 {"ok": true, "device": {...}}.  A kernels JSON line precedes them.
@@ -197,6 +223,7 @@ DRIFT_MASS = 0.05             # ||D||_F / ||A||_F
 PANEL_BOUND = 1e-5            # fold vs fresh sketch, tests/test_sketchres.py:70-84
 SKETCHRES_STOL = 1e-3         # SOLVERS["gnystrom"]["stol"]
 DELTA_RANK = 10               # the update phase's drift
+DRIFT_BETA = 0.9              # its decay factor (phase 8 adds a second)
 UPDATE_GATE = 1e-5            # GATE, tests/test_update.py:26
 SPARSE_STOL = 5e-4            # SOLVERS["fsvd"] / ["fsvd_blocked"] stol
 SPARSE_PEAK = 8               # GiB; one dense f32 copy of the cell is 34 GB
@@ -242,6 +269,23 @@ GK_STEP = ("mv_qtv", "rmv_qtv", "proj_qtv", "proj_norm")
 STREAM_KERNELS = (r"rmv_partial_kernel|rmv_finish_kernel|proj_kernelI\w*Li[23]E"
                   r"|block_kernel|sum_windows_kernel|range_kernel|rows_kernel")
 MATVECS = ("matvec_fused", "rmatvec_fused")
+# the kernels of the batched launches on the main path's widths (k <= 256:
+# the projection modes' register path): the build must show no spills
+BATCHED_KERNELS = (r"rows_kernelINS_5MvRow|rmv_partial_kernel|rmv_finish_kernel"
+                   r"|proj_(?:stacked_)?kernelI\w*Li[013]ELb1E|finish_kernel")
+# phase 2's stacked cases (m, n, k), each at B = 1, 3 and 8: ragged m, n
+# and k, the serving shape and a basis past a tile of rows
+BATCH_SHAPES = [(64, 48, 4), (300, 517, 17), (127, 383, 9), (192, 128, 25),
+                (1025, 333, 201)]
+BATCHES = (1, 3, 8)
+# phase 8: serve_bench's "medium" mix (benchmarks/serve_bench.py:46-49,
+# twice the stock (96, 64)), low rank plus noise as serve/traffic.py makes
+# it, the server's max batch; then a batch where the kernels do real work
+SERVE_SHAPE, SERVE_B, SERVE_RANK, SERVE_ITERS = (192, 128), 8, 8, 24
+SERVE_NOISE = 1e-3
+BIG_BATCH, BIG_ITERS = (8, 8192, 4096), 100     # f32: 1.07 GB
+BATCH_SIGMA = 1e-5            # batched vs single sigma, a fraction of sigma_max
+PLAN_WALL_SLACK = 0.02        # plan.solve's wall against phase 3's
 
 
 class SmokeFailure(Exception):
@@ -607,7 +651,7 @@ def phase_main(A, s_true, seed):
           f"estimate_rank skipped a kernel: {rank_launches}")
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 3: peak device memory {peak / GIB:.2f} GiB", flush=True)
-    return launches, peak, fact
+    return launches, peak, fact, (wall, wall2)
 
 
 def counting_op(inner):
@@ -1328,12 +1372,9 @@ def phase_slice4_kernels(gen):
         n_cases += 1
     check(widths == {1, 8, 128}, f"the binning cases took bins of {widths} "
                                  f"tiles")
-    # skew: the Gaussian stream's values all into one tile, then one cell;
-    # each timed beside the sorted path of the previous design
+    # skew: the Gaussian stream's values all into one tile, then one cell
     def times(r, c):
-        return (event_ms(lambda: kcs.scatter_add(r, c, vals, (m, d)), reps=3),
-                event_ms(lambda: kcs.segment_sum(
-                    *kcs.sort_keys(r, c, (m, d)), vals, (m, d)), reps=3))
+        return event_ms(lambda: kcs.scatter_add(r, c, vals, (m, d)), reps=3)
 
     t_spread = times(rows, cols)
     corner = torch.randint(0, 3, (E,), generator=gen, device=DEV, dtype=i32)
@@ -1352,10 +1393,8 @@ def phase_slice4_kernels(gen):
           f"match the "
           f"plain versions, scatter_add bit for bit against the CPU, "
           f"bitwise stable; scatter_add of the {E}-entry stream spread over "
-          f"{m}x{d} {t_spread[0]:.4f} ms, in a 3x3 corner (one tile) "
-          f"{t_corner[0]:.4f} ms, in one cell {t_cell[0]:.4f} ms; the "
-          f"sorted path of the previous design {t_spread[1]:.4f}, "
-          f"{t_corner[1]:.4f} and {t_cell[1]:.4f} ms", flush=True)
+          f"{m}x{d} {t_spread:.4f} ms, in a 3x3 corner (one tile) "
+          f"{t_corner:.4f} ms, in one cell {t_cell:.4f} ms", flush=True)
 
 
 def exact_update_sigma(fact, C, sd, Dt, beta):
@@ -1431,13 +1470,12 @@ def update_in_f64(f, C, sd, Dt, beta):
 def phase_update(fact, seed):
     """update_factorization of phase 3's r = 20 factorization by a seeded
     rank-10 drift.  The core product's kernel is held against its plain
-    version on the arguments the update gave it.  The update assumes
-    orthonormal bases, and the f32 fsvd's bases are not orthonormal to
-    f32 rounding, so two runs are gated: on the raw bases against the same
-    update in f64 on those bases (the port's own error), and on the bases
-    orthonormalized in f64 against the exact sigma of beta U S V^T +
-    C diag(s) Dt.  The raw run's distance from its exact sigma is printed
-    beside the f64 run's (the precondition's share).  Returns (launches,
+    version on the arguments the update gave it.  The f32 fsvd's bases
+    are not orthonormal to f32 rounding; the port's update thin-QRs them
+    first, so the raw run is gated against the exact sigma of
+    beta U S V^T + C diag(s) Dt, and also against the same update in f64
+    on those bases (the port's own rounding); the bases orthonormalized in
+    f64 beforehand are gated against exact sigma too.  Returns (launches,
     wall seconds, sigma error of the raw run against f64, the drift)."""
     import torch
     from repro_torch.api import LowRankOp
@@ -1447,7 +1485,7 @@ def phase_update(fact, seed):
     C = torch.randn(m, DELTA_RANK, generator=g, device=DEV) / m ** 0.5
     Dt = torch.randn(DELTA_RANK, n, generator=g, device=DEV) / n ** 0.5
     sd = 1e-2 * smax * torch.linspace(1.0, 0.5, DELTA_RANK, device=DEV)
-    delta, beta = LowRankOp(C, sd, Dt), 0.9
+    delta, beta = LowRankOp(C, sd, Dt), DRIFT_BETA
     r = fact.rank
     errs = {}
     for name, f in (("raw", fact), ("orthonormal", orthonormal_bases(fact))):
@@ -1479,8 +1517,12 @@ def phase_update(fact, seed):
               f"the same bases {e['f64']:.3e}, vs exact {e['exact']:.3e} "
               f"(f64 update vs exact {e['f64_exact']:.3e})", flush=True)
     raw, orth = errs["raw"]["f64"], errs["orthonormal"]["exact"]
-    print(f"phase 3b: gate {UPDATE_GATE}: raw bases vs the f64 update "
-          f"{raw:.3e}, orthonormal bases vs exact {orth:.3e}", flush=True)
+    exact = errs["raw"]["exact"]
+    print(f"phase 3b: gate {UPDATE_GATE}: raw bases vs exact {exact:.3e}, "
+          f"raw bases vs the f64 update {raw:.3e}, orthonormal bases vs "
+          f"exact {orth:.3e}", flush=True)
+    check(exact < UPDATE_GATE, f"update sigma error (raw bases) vs exact "
+                               f"{exact:.3e}")
     check(raw < UPDATE_GATE, f"update sigma error vs f64 {raw:.3e}")
     check(orth < UPDATE_GATE, f"update sigma error vs exact {orth:.3e}")
     return launches, wall, raw, delta
@@ -1530,6 +1572,395 @@ def phase_materialize(seed, m, n):
     return launches, err, row
 
 
+# --- phase 2 (stacked) and phase 8: the plan --------------------------------
+
+def check_batched(gen, m, n, k, adt, qdt, B, A=None, kp=None):
+    """The four GK-step stages on a stack of B examples: one launch a call
+    for the whole stack, each example bit for bit a single launch on it,
+    the stack within phase 2's tolerance of its stacked plain version and
+    bitwise stable; returns {kernel: max abs error}.  ``A`` (B, m, n)
+    defaults to a random stack; the Q side's basis has k columns, the P
+    side's ``kp`` (default k)."""
+    import torch
+    from repro_torch.kernels import gk_step as gs
+    from repro_torch.kernels import ref
+
+    def t(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=gen, device=DEV).to(dt)
+
+    kp = k if kp is None else kp
+    A = t(B, m, n, dt=adt) if A is None else A
+    p, q, ym, yn = t(B, n), t(B, m), t(B, m), t(B, n)
+    al, c = t(B), t(B, k)
+    Q, P = t(B, m, k, dt=qdt), t(B, n, kp, dt=qdt)
+    tag = f"(B={B}, {m}x{n}, k={k}/{kp}, A {adt}, basis {qdt})"
+    cases = {
+        "mv_qtv": (lambda: gs.mv_qtv(A, p, ym, al, Q),
+                   lambda b: gs.mv_qtv(A[b], p[b], ym[b], al[b], Q[b]),
+                   lambda: ref.mv_qtv(A, p, ym, al, Q), (adt, qdt)),
+        "rmv_qtv": (lambda: gs.rmv_qtv(A, q, yn, al, P),
+                    lambda b: gs.rmv_qtv(A[b], q[b], yn[b], al[b], P[b]),
+                    lambda: ref.rmv_qtv(A, q, yn, al, P), (adt, qdt)),
+        "proj_qtv": (lambda: gs.proj_qtv(ym, Q, c),
+                     lambda b: gs.proj_qtv(ym[b], Q[b], c[b]),
+                     lambda: ref.proj_qtv(ym, Q, c), (qdt,)),
+        "proj_norm": (lambda: gs.proj_norm(ym, Q, c),
+                      lambda b: gs.proj_norm(ym[b], Q[b], c[b]),
+                      lambda: ref.proj_norm(ym, Q, c), (qdt,)),
+    }
+    errs = {}
+    for name, (stacked, single, plain, dts) in cases.items():
+        before = gs.LAUNCHES[name]
+        got = bitwise_twice(f"stacked {name} {tag}", stacked)
+        check(gs.LAUNCHES[name] == before + 2,
+              f"stacked {name} {tag}: not one launch a call")
+        for b in range(B):
+            for x, y in zip(got, single(b)):
+                check(torch.equal(x[b], y), f"stacked {name} {tag}: example "
+                                            f"{b} differs bitwise from a "
+                                            f"single launch on it")
+        errs[name] = compare(f"stacked {name} {tag}", got, plain(), dts)
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_batched_kernels(gen, logs):
+    """Phase 2 rows of the stacked launches: BATCH_SHAPES x (f32, bf16) A
+    x (f32, bf16) basis x BATCHES; the ptxas report of their kernels shows
+    no spills.  Returns ({kernel: max abs error}, cases)."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    spills = [line for log in logs.values() for line in ptxas_report(log)
+              if re.search(BATCHED_KERNELS, line)
+              and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    check(not spills, f"the batched launches' kernels spill: {spills}")
+    errs, n_cases = {name: 0.0 for name in GK_STEP}, 0
+    for m, n, k in BATCH_SHAPES:
+        for adt in (f32, bf16):
+            for qdt in (f32, bf16):
+                for B in BATCHES:
+                    for name, e in check_batched(gen, m, n, k, adt, qdt,
+                                                 B).items():
+                        errs[name] = max(errs[name], e)
+                    n_cases += 1
+    print(f"phase 2: {n_cases} stacked shape/type cases (B = "
+          f"{', '.join(map(str, BATCHES))}; f32 / bf16 A and basis) x 4 "
+          f"kernels: one launch a call for the stack, every example bit for "
+          f"bit a single launch on it, within tolerance of the stacked "
+          f"plain versions, bitwise stable, no spills; max abs err "
+          + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()), flush=True)
+    return errs, n_cases
+
+
+def gk_step_want(k, passes):
+    """Launch counts of a k-step in-graph GK loop (batched or not)."""
+    return {"mv_qtv": k, "rmv_qtv": k - 1,
+            "proj_qtv": (2 * k - 1) * (passes - 1), "proj_norm": 2 * k - 1}
+
+
+def plan_solves(A, seed, walls3):
+    """Two solves through one plan (one trace, a miss then a hit, phase
+    3's launch counts each), the first bit for bit a direct call of the
+    registered solver, its wall within PLAN_WALL_SLACK of phase 3's."""
+    import torch
+    from repro_torch.api import (SVDSpec, clear_plan_cache, get_solver, plan,
+                                 plan_cache_stats, trace_count)
+    from repro_torch.core.operators import DenseOp
+    from repro_torch.kernels import gk_step as gs
+    spec = SVDSpec(method="fsvd", rank=R_WANT, max_iters=MAX_ITERS,
+                   backend="pallas")
+    want = dict(gk_step_want(MAX_ITERS, spec.reorth_passes),
+                matvec_fused=0, rmatvec_fused=0)
+    clear_plan_cache(reset_stats=True)
+    p = plan(spec, like=A)
+    facts, walls = [], []
+    for s in (seed, seed + 20):
+        gs.reset_launches()
+        f, w = timed(lambda: p.solve(
+            A, generator=torch.Generator(device=DEV).manual_seed(s)))
+        check(dict(gs.LAUNCHES) == want,
+              f"plan.solve launch counts {dict(gs.LAUNCHES)} != {want}")
+        facts.append(f)
+        walls.append(w)
+    stats = plan_cache_stats()
+    check(trace_count() == 1 and stats["misses"] == 1
+          and stats["hits"] == 1, f"two plan solves: {stats}")
+    direct, wall_d = timed(lambda: get_solver("fsvd")(
+        DenseOp(A, backend="pallas"), spec,
+        generator=torch.Generator(device=DEV).manual_seed(seed)))
+    check(torch.equal(direct.s, facts[0].s),
+          "plan.solve's sigma differs bitwise from the direct solver call")
+    ratio = min(walls) / min(walls3)
+    print(f"phase 8: plan.solve x 2 (fsvd, {A.shape[0]}x{A.shape[1]}): "
+          f"walls {walls[0]:.3f} / {walls[1]:.3f} s (phase 3 "
+          f"{walls3[0]:.3f} / {walls3[1]:.3f} s, best over best "
+          f"{ratio:.4f}; the direct solver call {wall_d:.3f} s), traces 1, "
+          f"cache {stats['misses']} miss / {stats['hits']} hit, launches "
+          f"{ {k: want[k] for k in GK_STEP} } each, sigma bit for bit the "
+          f"direct call's", flush=True)
+    check(ratio <= 1 + PLAN_WALL_SLACK,
+          f"plan.solve wall {min(walls):.3f} s vs phase 3's "
+          f"{min(walls3):.3f} s")
+    return p, facts[0], walls
+
+
+def plan_updates(p, fact, drift):
+    """plan.update of phase 3b's drift at two decay factors: one trace, one
+    lowrank_matmul launch and 0 iterations each, sigma on the raw bases
+    within UPDATE_GATE of the exact sigma of the factored operator."""
+    from repro_torch.api import trace_count
+    from repro_torch.kernels import lowrank_update as klu
+    t0, rows = trace_count(), []
+    for beta in (DRIFT_BETA, 0.5):
+        klu.reset_launches()
+        upd, wall = timed(lambda: p.update(fact, drift, beta=beta))
+        check(int(upd.iterations) == 0, "plan.update ran GK iterations")
+        check(klu.LAUNCHES["lowrank_matmul"] == 1,
+              f"plan.update launched lowrank_matmul "
+              f"{klu.LAUNCHES['lowrank_matmul']} times")
+        s_ex = exact_update_sigma(fact, drift.U, drift.s, drift.Vt, beta)
+        err = float((upd.s.double() - s_ex[:fact.rank]).abs().max()
+                    / s_ex[0])
+        rows.append((beta, wall, err))
+        check(err < UPDATE_GATE, f"plan.update (beta {beta}) sigma vs exact "
+                                 f"{err:.3e} >= {UPDATE_GATE}")
+    traces = trace_count() - t0
+    check(traces == 1, f"two plan updates traced {traces} times")
+    print("phase 8: plan.update (raw bases, rank-10 drift): "
+          + "; ".join(f"beta {b}: wall {w * 1e3:.3f} ms, max|sigma - exact|"
+                      f"/sigma_max {e:.3e}" for b, w, e in rows)
+          + f" (gate {UPDATE_GATE}); 1 lowrank_matmul launch and 0 "
+          f"iterations each, 1 trace", flush=True)
+    return max(e for _, _, e in rows)
+
+
+def plan_estimates(A, seed):
+    """plan.estimate in-graph (host_loop=False) twice: rank 100 both
+    times, one trace."""
+    import torch
+    from repro_torch.api import SVDSpec, plan, trace_count
+    p = plan(SVDSpec(max_iters=RANK_ITERS, backend="pallas",
+                     host_loop=False), like=A)
+    t0, rows = trace_count(), []
+    for s in (seed, seed + 21):
+        est, wall = timed(lambda: p.estimate(
+            generator=torch.Generator(device=DEV).manual_seed(s)))
+        check(int(est) == RANK, f"plan.estimate returned {int(est)}")
+        rows.append(wall)
+    check(trace_count() - t0 == 1, "two in-graph estimates traced "
+                                   f"{trace_count() - t0} times")
+    print(f"phase 8: plan.estimate (host_loop=False, max_iters "
+          f"{RANK_ITERS}) x 2: rank {RANK} both, walls "
+          + " / ".join(f"{w:.3f}" for w in rows) + " s, 1 trace", flush=True)
+    return rows
+
+
+def plan_failpoint(p, A, seed):
+    """Under an armed plan.solve failpoint, solve raises FaultInjected and
+    launches nothing; the failpoint is disarmed after."""
+    import torch
+    from repro_torch.kernels import gk_step as gs
+    from repro_torch.runtime import faults
+    gs.reset_launches()
+    raised = False
+    with faults.inject(faults.PLAN_SOLVE, mode="raise"):
+        try:
+            p.solve(A, generator=torch.Generator(device=DEV).manual_seed(seed))
+        except faults.FaultInjected:
+            raised = True
+    check(raised, "plan.solve did not raise under its armed failpoint")
+    check(not any(gs.LAUNCHES.values()),
+          f"a failed plan.solve launched {dict(gs.LAUNCHES)}")
+    check(not faults.armed(faults.PLAN_SOLVE), "the failpoint stayed armed")
+    print("phase 8: failpoint plan.solve (mode raise): FaultInjected, no "
+          "launch, disarmed after", flush=True)
+
+
+def serve_operands(seed, B, shape, rank):
+    """B low-rank-plus-noise operands with a geometric spectrum, as
+    serve/traffic.py's lowrank_operand makes them, and B start vectors."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    m, n = shape
+    U = torch.randn(B, m, rank, generator=g, device=DEV)
+    V = torch.randn(B, n, rank, generator=g, device=DEV)
+    s = torch.logspace(0.0, -2.0, rank, device=DEV)
+    A = (U * s) @ V.transpose(1, 2) \
+        + SERVE_NOISE * torch.randn(B, m, n, generator=g, device=DEV)
+    q1s = 2.0 + torch.randn(B, m, generator=g, device=DEV)
+    return A.contiguous(), q1s
+
+
+def batched_vs_singles(label, As, q1s, spec):
+    """solve_batched over the stack beside a loop of single plan solves
+    from the same start vectors: one batched call a stage (a single
+    solve's launch counts), sigma per example within BATCH_SIGMA of its
+    single solve (and whether bitwise), host walls of both, and the GK
+    loops' device time (each captured in a CUDA graph: every launch but
+    the Ritz step's, no host time)."""
+    import torch
+    from repro_torch.api import plan
+    from repro_torch.core import gk as gk_mod
+    from repro_torch.core.operators import DenseOp
+    from repro_torch.kernels import gk_step as gs
+    B = As.shape[0]
+    p = plan(spec)
+    p.solve_batched(As, q1s=q1s)              # warm: builds the runner
+    for b in range(B):
+        p.solve(As[b], q1=q1s[b])
+    gs.reset_launches()
+    fb, wall_b = timed(lambda: p.solve_batched(As, q1s=q1s))
+    launches = {name: gs.LAUNCHES[name] for name in GK_STEP}
+    want = gk_step_want(spec.max_iters, spec.reorth_passes)
+    check(launches == want, f"{label}: solve_batched launches {launches} != "
+                            f"a single solve's {want}")
+    singles, wall_s = timed(lambda: [p.solve(As[b], q1=q1s[b])
+                                     for b in range(B)])
+    errs = [float((fb.s[b] - f.s).abs().max()) / float(f.s[0])
+            for b, f in enumerate(singles)]
+    bitwise = all(torch.equal(fb.s[b], f.s) for b, f in enumerate(singles))
+    check(max(errs) < BATCH_SIGMA, f"{label}: batched sigma vs single "
+                                   f"{max(errs):.3e} >= {BATCH_SIGMA}")
+    op = DenseOp(As, backend="pallas")
+    ones = [DenseOp(As[b], backend="pallas") for b in range(B)]
+    dev_b = graph_ms([lambda: gk_mod.gk_bidiag_batched(
+        op, spec.max_iters, q1s=q1s)], reps=1, replays=5)
+    dev_s = graph_ms([lambda: [gk_mod.gk_bidiag(o, spec.max_iters,
+                                                q1=q1s[b])
+                               for b, o in enumerate(ones)]],
+                     reps=1, replays=5)
+    row = dict(call=label, B=B, wall_ms=wall_b * 1e3,
+               singles_wall_ms=wall_s * 1e3, device_ms=dev_b,
+               singles_device_ms=dev_s,
+               launch_bound_share=1 - dev_b / (wall_b * 1e3),
+               singles_launch_bound_share=1 - dev_s / (wall_s * 1e3),
+               max_sigma_err=max(errs), bitwise=bitwise, launches=launches)
+    print(f"phase 8: solve_batched {label}: wall {row['wall_ms']:.3f} ms "
+          f"(loop of {B} plan.solve {row['singles_wall_ms']:.3f} ms); GK "
+          f"loop device time {dev_b:.3f} ms (loop of singles {dev_s:.3f} "
+          f"ms), so {100 * row['launch_bound_share']:.1f} % of the batched "
+          f"wall ({100 * row['singles_launch_bound_share']:.1f} % of the "
+          f"loop's) is host time; launches {launches} (a single solve's); "
+          f"max|sigma_b - sigma_single|/sigma_max {max(errs):.3e} (bound "
+          f"{BATCH_SIGMA}), bitwise {bitwise}", flush=True)
+    return fb, row
+
+
+def batched_stage_times(As, seed, k):
+    """Each GK-step stage at the big batch's solve shapes by device time
+    (``graph_ms``): the stacked call, B single launches and one single
+    launch, beside the bound (B x each input byte read and each output
+    byte written once at 3.35 TB/s)."""
+    import torch
+    from repro_torch.kernels import gk_step as gs
+    B, m, n = As.shape
+    g = torch.Generator(device=DEV).manual_seed(seed + 30)
+    kq, kp = k + 1, k
+
+    def t(*shape):
+        return torch.randn(*shape, generator=g, device=DEV)
+
+    p, q, ym, yn, al = t(B, n), t(B, m), t(B, m), t(B, n), t(B)
+    Q, P = t(B, m, kq) / m ** 0.5, t(B, n, kp) / n ** 0.5
+    cq = t(B, kq)
+    f = 4
+    stages = {
+        "mv_qtv": (lambda b=None: gs.mv_qtv(As, p, ym, al, Q) if b is None
+                   else gs.mv_qtv(As[b], p[b], ym[b], al[b], Q[b]),
+                   f * (m * n + n + m + m * kq + 1 + m + kq),
+                   2 * m * n + 2 * m + 2 * m * kq, f"{m}x{n}, k={kq}"),
+        "rmv_qtv": (lambda b=None: gs.rmv_qtv(As, q, yn, al, P) if b is None
+                    else gs.rmv_qtv(As[b], q[b], yn[b], al[b], P[b]),
+                    f * (m * n + m + n + n * kp + n + kp),
+                    2 * m * n + 2 * n + 2 * n * kp, f"{m}x{n}, k={kp}"),
+        "proj_qtv": (lambda b=None: gs.proj_qtv(ym, Q, cq) if b is None
+                     else gs.proj_qtv(ym[b], Q[b], cq[b]),
+                     f * (m * kq + 2 * m + 2 * kq), 4 * m * kq + m,
+                     f"Q {m}x{kq}"),
+        "proj_norm": (lambda b=None: gs.proj_norm(ym, Q, cq) if b is None
+                      else gs.proj_norm(ym[b], Q[b], cq[b]),
+                      f * (m * kq + 2 * m + kq + 1), 2 * m * kq + 3 * m,
+                      f"Q {m}x{kq}"),
+    }
+    rows = {}
+    for name, (call, nbytes, flops, shape) in stages.items():
+        t_bytes = B * nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = B * flops / F32_FLOP_PER_S * 1e3
+        row = dict(call=f"B={B} x {shape} f32",
+                   ms=graph_ms([call], 60, 5),
+                   singles_ms=graph_ms([lambda: [call(b) for b in range(B)]],
+                                       20, 5),
+                   one_ms=graph_ms([lambda: call(0)], 60, 5),
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        print(f"phase 8: {name} stacked {row['call']}, device time: "
+              f"{row['ms']:.4f} ms ({100 * row['share_of_bound']:.0f} % of "
+              f"the bound {row['bound_ms']:.4f} ms), {B} single launches "
+              f"{row['singles_ms']:.4f} ms, one single launch "
+              f"{row['one_ms']:.4f} ms", flush=True)
+        rows[name] = row
+    return rows
+
+
+def phase_plan(A, seed, walls3, drift):
+    """Phase 8, the plan layer on the card: two solves through one plan
+    (phase 3's operand and spec), two updates, two in-graph estimates, the
+    plan.solve failpoint, and solve_batched at the serving shape and at
+    a batch where the kernels do real work.  Returns the rows of the
+    kernels line's ``batched`` entries and the walls."""
+    import torch
+    from repro_torch.api import SVDSpec, plan
+    p, fact, walls = plan_solves(A, seed, walls3)
+    update_err = plan_updates(p, fact, drift)
+    est_walls = plan_estimates(A, seed)
+    plan_failpoint(p, A, seed)
+    del fact
+
+    As, q1s = serve_operands(seed + 22, SERVE_B, SERVE_SHAPE, SERVE_RANK)
+    spec = SVDSpec(method="fsvd", rank=SERVE_RANK, max_iters=SERVE_ITERS,
+                   backend="pallas")
+    _, serve = batched_vs_singles(
+        f"serving shape B={SERVE_B} x {SERVE_SHAPE[0]}x{SERVE_SHAPE[1]}",
+        As, q1s, spec)
+    del As, q1s
+
+    B, m, n = BIG_BATCH
+    g = torch.Generator(device=DEV).manual_seed(seed + 23)
+    M = torch.randn(B, m, RANK, generator=g, device=DEV)
+    N = torch.randn(B, RANK, n, generator=g, device=DEV)
+    As = M @ N
+    q1s = 2.0 + torch.randn(B, m, generator=g, device=DEV)
+    s_big = [factored_sigma(M[b], N[b].T) for b in range(B)]
+    del M, N
+    spec = SVDSpec(method="fsvd", rank=R_WANT, max_iters=BIG_ITERS,
+                   backend="pallas")
+    fb, big = batched_vs_singles(f"B={B} x {m}x{n} f32", As, q1s, spec)
+    err = max(float((fb.s[b].double() - s_big[b][:R_WANT]).abs().max())
+              / float(s_big[b][0]) for b in range(B))
+    print(f"phase 8: solve_batched B={B} x {m}x{n}: max|sigma - "
+          f"sigma_true|/sigma_max {err:.3e} (bound {FSVD_STOL})", flush=True)
+    check(err < FSVD_STOL, f"batched sigma error {err:.3e} >= {FSVD_STOL}")
+    # the stacked launches at this batch's own operands and bases (Q side
+    # k + 1 columns, P side k): the multi-tile, multi-chunk plans that
+    # phase 2's smaller stacks do not reach
+    gen = torch.Generator(device=DEV).manual_seed(seed + 24)
+    big_errs = check_batched(gen, m, n, BIG_ITERS + 1, torch.float32,
+                             torch.float32, B, A=As, kp=BIG_ITERS)
+    print(f"phase 8: stacked launches on the B={B} x {m}x{n} f32 operands "
+          f"(Q {m}x{BIG_ITERS + 1}, P {n}x{BIG_ITERS}): one launch a call, "
+          f"every example bit for bit a single launch on it, bitwise "
+          f"stable; max abs err against the stacked plain versions "
+          + ", ".join(f"{k}={v:.3e}" for k, v in big_errs.items()),
+          flush=True)
+    stages = batched_stage_times(As, seed, BIG_ITERS)
+    del As, q1s, fb
+    torch.cuda.empty_cache()
+    return dict(stages=stages, serve=serve, big=big, big_errs=big_errs,
+                plan_walls=walls, estimate_walls=est_walls,
+                update_err=update_err)
+
+
 # --- phase 7: the sketch-resident state ------------------------------------
 
 def drift_stream(seed, m, n, norm_a):
@@ -1569,9 +2000,8 @@ def rel_fro(got, want):
 
 def time_scatter(label, r, c, v, shape):
     """scatter_add on one stream: bit for bit against the CPU plain
-    version, then timed against the sorted path of the previous design (in
-    turns: sorted, binned, binned, sorted; host loops), the plain version
-    on the card and index_add_, with each stage of its plan timed alone.
+    version, then timed beside the plain version on the card and
+    index_add_, with each stage of its plan timed alone.
     The binned fold and index_add_ are also timed by device time (each in
     a CUDA graph: the fold's scans and allocations capture too).  Returns
     the timing row, with the largest difference from the CPU under
@@ -1593,10 +2023,6 @@ def time_scatter(label, r, c, v, shape):
     def binned():
         return kcs.scatter_add(r, c, v, shape)
 
-    def sorted_path():
-        return kcs.segment_sum(*kcs.sort_keys(r, c, shape), v, shape)
-
-    before = event_ms(sorted_path)
     row = time_row(
         f"scatter_add {label}", binned,
         lambda: ref.scatter_add(r, c, v, shape),
@@ -1604,7 +2030,6 @@ def time_scatter(label, r, c, v, shape):
         nbytes, r.shape[0], f"({r.shape[0]} entries -> {shape[0]}x"
         f"{shape[1]}, f32)", phase=7, graph=(60, 5))
     row["host_loop_ms"] = (row["host_loop_ms"] + event_ms(binned)) / 2
-    row["sorted_ms"] = (before + event_ms(sorted_path)) / 2
     del flat, panel
     plan = kcs.bin_plan(r.shape[0], shape)
     counts = kcs.count_bins(r, c, plan)
@@ -1632,8 +2057,7 @@ def time_scatter(label, r, c, v, shape):
     row["stages"] = stages
     print(f"phase 7: scatter_add {label}: binned, device time "
           f"{row['ms']:.4f} ms, host loop {row['host_loop_ms']:.4f} ms (mean "
-          f"of two) against the sorted path's {row['sorted_ms']:.4f} ms "
-          f"(torch.sort + segment sum, host loop, mean of two); stages "
+          f"of two); stages "
           + ", ".join(f"{k} {t:.4f}" for k, t in stages.items())
           + f"; plan {plan.bins} bins of 2^{plan.bin_bits} cells, "
           f"{plan.slices} slices of {plan.slice_len}, "
@@ -1786,10 +2210,10 @@ def phase_sketchres(A, seed, peak3, drift):
         del r, c, v
         torch.cuda.empty_cache()
     out = {key: sum(r[key] for r in rows_t) / len(rows_t)
-           for key in ("ms", "host_loop_ms", "sorted_ms", "plain_ms",
-                       "library_ms", "bound_ms")}
+           for key in ("ms", "host_loop_ms", "plain_ms", "library_ms",
+                       "bound_ms")}
     out["bound_by"] = "bytes"
-    keys = ("call", "ms", "host_loop_ms", "sorted_ms", "stages", "plain_ms",
+    keys = ("call", "ms", "host_loop_ms", "stages", "plain_ms",
             "library_ms", "host_loop_library_ms", "bound_ms")
     out["calls"] = [{k: r[k] for k in keys} for r in rows_t]
     out["wide"] = [{k: r[k] for k in keys} for r in wide]
@@ -2339,9 +2763,12 @@ def main(argv=None) -> int:
         errs.update(phase_new_kernels(gen, A))
         phase_slice3_kernels(gen)
         phase_slice4_kernels(gen)
-        launches, peak3, fact = phase_main(A, s_true, args.seed)
+        batched_errs, batched_cases = phase_batched_kernels(gen, logs)
+        launches, peak3, fact, walls3 = phase_main(A, s_true, args.seed)
         update_launches, _, _, drift = phase_update(fact, args.seed)
         del fact
+        # phase 8 before phase 7, which edits A in place
+        planned = phase_plan(A, args.seed, walls3, drift)
         launches["sketch_matmat"] = phase_sketch(A, s_true, args.seed, peak3)
         times = phase_times(A, args.seed)
         times.update(phase_times_new(A, args.seed))
@@ -2418,9 +2845,17 @@ def main(argv=None) -> int:
             row["shape"] = (f"Q side {args.m}x{MAX_ITERS + 1} f32, "
                             f"device time")
             row["device"] = times[name]["device"]
+        if name in GK_STEP:
+            # the stacked launches of solve_batched (phases 2 and 8)
+            row["batched"] = dict(
+                planned["stages"][name], B=list(BATCHES),
+                cases=batched_cases, max_abs_err=batched_errs[name],
+                max_abs_err_big=planned["big_errs"][name],
+                bitwise_vs_single=True,
+                launches_serve=planned["serve"]["launches"][name],
+                launches_big=planned["big"]["launches"][name])
         if name == "scatter_add":
             row["shape"] = "phase 7 folds, mean of Y and Z"
-            row["sorted_ms"] = times[name]["sorted_ms"]
             row["calls"] = times[name]["calls"]
             row["wide"] = times[name]["wide"]
         kernels.append(row)

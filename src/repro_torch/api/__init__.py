@@ -13,12 +13,17 @@ its ``ROADMAP.md`` row.  Operands: dense tensors and every operator of
 ``core.operators`` (sparse, Kronecker, low-rank, sums, scalings,
 transposes, Gram).  The rank-k update (``update_factorization``,
 ``downdate_rows``, ``downdate_cols``) revises a factorization with zero
-Krylov iterations.  The plan cache and sessions of ``repro.api`` are
-later slices.
+Krylov iterations.  ``factorize`` and ``estimate_rank`` run through the
+plan layer (``plan``, ``SolverPlan``: a process-wide cache of runners,
+``solve_batched`` over a stacked operand, the update and sketch stages);
+sessions are a later slice.
 """
 from repro_torch.api.callbacks import (CaptureCallback, ConvergenceCallback,
                                        ConvergenceInfo, RecordingCallback)
-from repro_torch.api.facade import estimate_rank, factorize, resolve_method
+from repro_torch.api.facade import (estimate_rank, factorize, factorize_jit,
+                                    resolve_method)
+from repro_torch.api.plan import (SolverPlan, clear_plan_cache, plan,
+                                  plan_cache_stats, trace_count)
 from repro_torch.api.registry import (available_solvers, get_solver,
                                       register_solver)
 from repro_torch.api.results import Factorization, RankEstimate
@@ -33,6 +38,8 @@ from repro_torch.core.update import (downdate_cols, downdate_rows,
 
 __all__ = [
     "SVDSpec", "METHODS", "factorize", "estimate_rank", "resolve_method",
+    "factorize_jit", "plan", "SolverPlan", "clear_plan_cache",
+    "plan_cache_stats", "trace_count",
     "ConvergenceInfo", "ConvergenceCallback", "RecordingCallback",
     "CaptureCallback", "Factorization", "RankEstimate",
     "update_factorization", "downdate_rows", "downdate_cols",

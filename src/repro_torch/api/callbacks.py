@@ -42,6 +42,16 @@ class ConvergenceInfo:
         return self.residuals[idx]
 
 
+def empty_info(method: str, device=None) -> ConvergenceInfo:
+    """A structurally valid info for solvers with no per-iteration signal
+    (on ``device``)."""
+    return ConvergenceInfo(torch.zeros((0,), dtype=torch.float32,
+                                       device=device),
+                           torch.zeros((), dtype=torch.int32, device=device),
+                           torch.zeros((), dtype=torch.bool, device=device),
+                           method=method)
+
+
 class ConvergenceCallback:
     """Base/no-op callback: subclass and override what you observe."""
 

@@ -1,67 +1,30 @@
 """`factorize` / `estimate_rank` — the port's entry points.
 
-Counterpart of ``repro.api.facade``.  The reference runs every call
-through its plan cache (``repro.api.plan``); the port calls the
-registered solver directly (the plan layer is a later slice,
-``ROADMAP.md`` Queue 1 item 7).  ``A`` may be a tensor (kept on its
-device), an operator, or a numpy array (moved to ``device``, by default
-the CUDA card; without a card that raises).
+Counterpart of ``repro.api.facade``: thin wrappers over the plan layer
+(``repro_torch.api.plan``), as in the reference.  Each call builds a
+:class:`~repro_torch.api.plan.SolverPlan` (method resolution is
+operator-aware) and solves through the process-wide runner cache, so
+repeated one-shot calls with the same (spec, operand kind, shape, dtype,
+device) share one runner.  ``A`` may be a tensor (kept on its device),
+an operator, or a numpy array (moved to ``device``, by default the CUDA
+card; without a card that raises).
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
-from repro_torch.api import solvers as _solvers
-from repro_torch.api.registry import get_solver
+# NOTE: the package re-exports the *function* ``plan`` under the same name
+# as the module, so bind the names straight off the submodule.
+from repro_torch.api.plan import HOST_SIDE_METHODS
+from repro_torch.api.plan import plan as _make_plan
+from repro_torch.api.plan import resolve_method  # re-export
 from repro_torch.api.results import Factorization, RankEstimate
 from repro_torch.api.spec import SVDSpec
-from repro_torch.core._keys import resolve_generator
-from repro_torch.core.operators import (GramOp, KroneckerOp, Operator,
-                                        ScaledOp, SparseOp, SumOp,
-                                        TransposedOp, as_operator)
-from repro_torch.core.rank import numerical_rank
+from repro_torch.core.operators import as_operator
 
-__all__ = ["factorize", "estimate_rank", "resolve_method"]
-
-# tolerance at or above which "auto" picks the sketch (repro.api.plan)
-_AUTO_SKETCH_TOL = 1e-4
-
-
-def _is_matrix_free(op) -> bool:
-    """True when materializing ``op`` densely would defeat its structure
-    (sparse, Kronecker and Gram operands, through transposes, scalings
-    and sums): "auto" then picks the streaming blocked solver."""
-    if isinstance(op, (SparseOp, KroneckerOp, GramOp)):
-        return True
-    if isinstance(op, TransposedOp):
-        return _is_matrix_free(op.inner)
-    if isinstance(op, ScaledOp):
-        return _is_matrix_free(op.op)
-    if isinstance(op, SumOp):
-        return any(_is_matrix_free(t) for t in op.terms)
-    return False
-
-
-def resolve_method(spec: SVDSpec, like: Any = None) -> str:
-    """Resolve ``method="auto"`` under the reference's rule
-    (``repro.api.plan.resolve_method``, less its sharded branch): an
-    operand flagged ``single_pass_only`` → gnystrom, matrix-free operands
-    → fsvd_blocked, and other operands → rsvd when
-    ``power_iters > 0`` or ``tol >= 1e-4``, else fsvd."""
-    if spec.method != "auto":
-        return spec.method
-    if like is not None:
-        op = like if isinstance(like, Operator) else as_operator(
-            like, backend=spec.backend)
-        if getattr(op, "single_pass_only", False):
-            return "gnystrom"
-        if _is_matrix_free(op):
-            return "fsvd_blocked"
-    if spec.power_iters > 0 or spec.tol >= _AUTO_SKETCH_TOL:
-        return "rsvd"
-    return "fsvd"
+__all__ = ["factorize", "factorize_jit", "estimate_rank", "resolve_method"]
 
 
 def _spec_of(spec: Optional[SVDSpec], overrides: dict) -> SVDSpec:
@@ -82,14 +45,37 @@ def factorize(A, spec: Optional[SVDSpec] = None, *,
     ``fsvd`` and ``fsvd_blocked`` read it);
     ``callback`` a ``ConvergenceCallback``.  Keyword overrides merge into
     the spec: ``factorize(A, rank=20)`` == ``factorize(A, SVDSpec(rank=20))``.
+
+    Equivalent to ``plan(spec, like=A).solve(generator=..., q1=...)``.
     """
     spec = _spec_of(spec, overrides)
     op = as_operator(A, backend=spec.backend, device=device)
-    method = resolve_method(spec, op)
-    if method in _solvers.NOT_PORTED:
-        raise _solvers.not_ported(method)
-    return get_solver(method)(op, spec, generator=generator, q1=q1,
-                              callback=callback)
+    return _make_plan(spec, like=op, donate_q1=False).solve(
+        generator=generator, q1=q1, callback=callback)
+
+
+def factorize_jit(spec: SVDSpec, *, donate_q1: bool = True):
+    """A solve-many ``fn(A, generator, q1) -> Factorization`` specialized
+    to ``spec``: every call runs through the shared plan cache, so two
+    handles for the same spec share one runner per operand signature.
+    ``q1=None`` uses the generator's start vector.  ``donate_q1`` is kept
+    for the reference's signature and has no effect (the port never
+    writes into ``q1``).
+
+    Host-loop specs (``host_loop=True`` or a host-side method such as
+    ``fsvd_blocked``) have no cached runner and are rejected.
+    """
+    method = resolve_method(spec)
+    if spec.host_loop or method in HOST_SIDE_METHODS:
+        raise ValueError(
+            f"factorize_jit requires an in-graph solver; method={method!r} "
+            f"host_loop={spec.host_loop!r} runs a host-side loop")
+    p = _make_plan(spec, donate_q1=donate_q1)
+
+    def run(A, generator=None, q1=None):
+        return p.solve(A, generator=generator, q1=q1)
+
+    return run
 
 
 def estimate_rank(A, spec: Optional[SVDSpec] = None, *,
@@ -102,20 +88,11 @@ def estimate_rank(A, spec: Optional[SVDSpec] = None, *,
     (default ``min(m, n)``: pass it for a large operand); ``spec.tol`` is
     the breakdown epsilon; ``sigma_tol`` overrides the Alg-3 counting
     threshold.  ``spec.host_loop=None`` means the early-exit host loop.
+
+    Equivalent to ``plan(spec, like=A).estimate(generator=..., ...)``; an
+    in-graph estimate shares the plan cache.
     """
     spec = _spec_of(spec, overrides)
-    if spec.precision is not None:
-        raise ValueError(
-            "estimate_rank requires full-precision bases; got "
-            f"spec.precision={spec.precision!r} (rank detection counts "
-            "directions the stored basis can certify — use precision=None)")
     op = as_operator(A, backend=spec.backend, device=device)
-    generator = resolve_generator(generator, caller="estimate_rank",
-                                  device=op.device)
-    host_loop = True if spec.host_loop is None else spec.host_loop
-    res = numerical_rank(op, max_iters=spec.max_iters, eps=spec.tol,
-                         relative_eps=spec.relative_tol, sigma_tol=sigma_tol,
-                         generator=generator, host_loop=host_loop,
-                         reorth_passes=spec.reorth_passes, dtype=spec.dtype)
-    return RankEstimate(res.rank, res.gk_iterations, res.eigenvalues,
-                        method="gk")
+    return _make_plan(spec, like=op).estimate(generator=generator,
+                                              sigma_tol=sigma_tol)

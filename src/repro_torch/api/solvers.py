@@ -18,13 +18,14 @@ from repro_torch.api.results import Factorization
 from repro_torch.api.spec import SVDSpec
 from repro_torch.core._keys import resolve_generator
 from repro_torch.core.fsvd import fsvd as _fsvd
+from repro_torch.core.fsvd import fsvd_batched as _fsvd_batched
 from repro_torch.core.gk_block import fsvd_blocked as _fsvd_blocked
 from repro_torch.core.rsvd import rsvd as _rsvd
 from repro_torch.core.sketch import gnystrom as _gnystrom
 from repro_torch.core.sketch import rbk as _rbk
 
 NOT_PORTED = {
-    "fsvd_sharded": "ROADMAP.md Queue 1 item 12 (distributed/gk_dist.py)",
+    "fsvd_sharded": "ROADMAP.md Queue 1 item 6 (distributed/gk_dist.py)",
 }
 
 
@@ -55,6 +56,22 @@ def solve_fsvd(A, spec: SVDSpec, *,
                 reorth_passes=spec.reorth_passes,
                 host_loop=bool(spec.host_loop), dtype=spec.dtype,
                 precision=spec.precision, callback=callback)
+    return Factorization(res.U, res.s, res.V, res.kprime, res.breakdown,
+                         method="fsvd")
+
+
+def solve_fsvd_batched(A, spec: SVDSpec, *, generators=None, q1s=None,
+                       callback=None) -> Factorization:
+    """Alg 2 on every example of a stacked ``DenseOp`` (A (B, m, n)) in
+    one masked GK loop, each half-step one kernel call a stage for the
+    batch (``core.fsvd.fsvd_batched``); ``generators`` (one per example)
+    or ``q1s`` (B, m) give the start vectors.  The fields of the result
+    carry the batch dimension."""
+    res = _fsvd_batched(A, spec.rank, spec.max_iters, generators=generators,
+                        q1s=q1s, eps=spec.tol,
+                        relative_eps=spec.relative_tol,
+                        reorth_passes=spec.reorth_passes, dtype=spec.dtype,
+                        precision=spec.precision, callback=callback)
     return Factorization(res.U, res.s, res.V, res.kprime, res.breakdown,
                          method="fsvd")
 

@@ -14,7 +14,8 @@ from typing import Optional
 import torch
 
 import repro_torch.core.gk as gk_mod
-from repro_torch.core.operators import DenseOp, as_operator, mixed_mm
+from repro_torch.core.operators import (DenseOp, as_operator, mixed_mm,
+                                        promote_mm)
 from repro_torch.core.tridiag import btb_eigh
 
 Tensor = torch.Tensor
@@ -83,6 +84,47 @@ def fsvd(A, r: int, k: Optional[int] = None, *,
                  relative_eps=relative_eps, reorth_passes=reorth_passes,
                  dtype=dtype, precision=precision, callback=callback)
     return _assemble(A, res, r)
+
+
+def _assemble_batched(op, res: gk_mod.GKResult, r: int) -> FSVDResult:
+    """:func:`_assemble` for every example of a stacked operand at once: a
+    batched ``eigh`` of the B tridiagonal problems, V = P G and
+    U = A V Σ⁻¹ as batched products."""
+    theta, G = btb_eigh(res.alphas, res.betas, res.kprime)
+    r = min(r, res.alphas.shape[-1])
+    theta_r = theta[..., :r]
+    G_r = G[..., :r]
+    pad = ~torch.isfinite(theta_r)
+    s = torch.sqrt(torch.clamp(torch.where(pad, torch.zeros_like(theta_r),
+                                           theta_r), min=0.0))
+    if res.P.dtype == G_r.dtype:
+        V = res.P @ G_r
+    else:                            # narrow bases: widened by row blocks
+        V = torch.stack([mixed_mm(P, Gb) for P, Gb in zip(res.P, G_r)])
+    AV = promote_mm(op.A, V)
+    U = AV / torch.where(s > 0, s, torch.ones_like(s))[:, None, :]
+    U = torch.where(pad[:, None, :], torch.zeros_like(U), U)
+    V = torch.where(pad[:, None, :], torch.zeros_like(V), V)
+    return FSVDResult(U, s, V, res.kprime, res.breakdown)
+
+
+def fsvd_batched(A, r: int, k: Optional[int] = None, *, generators=None,
+                 q1s=None, eps: float = 1e-8, relative_eps: bool = True,
+                 reorth_passes: int = 2, dtype: Optional[torch.dtype] = None,
+                 precision=None, callback=None) -> FSVDResult:
+    """:func:`fsvd` of each example of a stacked ``DenseOp`` (A (B, m, n))
+    in one masked GK loop (``gk.gk_bidiag_batched``): each half-step is
+    one kernel call a stage for the batch.  Every field of the result
+    carries a leading batch dimension.  ``q1s`` (B, m), or one generator
+    per example, gives the start vectors."""
+    if k is None:
+        k = default_k(r, A.shape)
+    k = max(k, r)
+    res = gk_mod.gk_bidiag_batched(
+        A, k, generators=generators, q1s=q1s, eps=eps,
+        relative_eps=relative_eps, reorth_passes=reorth_passes, dtype=dtype,
+        precision=precision, callback=callback)
+    return _assemble_batched(A, res, r)
 
 
 def fsvd_dense_reconstruct(out) -> Tensor:

@@ -11,7 +11,12 @@ Counterpart of ``repro.core.gk``, in the same two execution styles:
   * ``gk_bidiag_host`` — real early exit: exactly one device→host transfer
                          of (β, α) per iteration.
 
-Both route every half-iteration through the operator's fused
+``gk_bidiag_batched`` is ``gk_bidiag`` over a stack of B operands of one
+shape (``DenseOp`` of a (B, m, n) tensor): every recurrence scalar, mask
+and ``kprime`` is a (B,) tensor, and each half-step is one call of each
+kernel stage for the whole batch.
+
+All route every half-iteration through the operator's fused
 ``lanczos_step`` / ``lanczos_rstep`` (the CUDA kernels for
 ``DenseOp(backend="pallas")``), and both take ``precision="bf16"``: the
 P/Q bases are stored half-width while every reduction stays f32.  The
@@ -271,3 +276,110 @@ def gk_bidiag_host(op, k: int, *,
     bd = torch.tensor(breakdown, device=dev)
     _notify(callback, alphas, betas, kprime, bd)
     return GKResult(alphas, betas, beta1.to(dtype), Pm, Qm, kprime, bd)
+
+
+def _bstep(op, p, y, alpha, basis, passes, right: bool):
+    """One left (``right=False``) or right half-step of every example of a
+    stacked ``DenseOp``: one kernel call a stage for the batch where the
+    operand takes the kernels, else each example's own half-step."""
+    if op._kernels():
+        from repro_torch.kernels import ops as kops
+        fn = kops.gk_rstep_fused if right else kops.gk_step_fused
+        return fn(op.A, p, y, alpha, basis, passes)
+    outs = []
+    for b in range(op.batch):
+        one = type(op)(op.A[b], backend=op.backend)
+        fn = one.lanczos_rstep if right else one.lanczos_step
+        outs.append(fn(p[b], y[b], alpha[b], basis[b], passes=passes))
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def gk_bidiag_batched(op, k: int, *, generators=None, q1s=None,
+                      eps: float = 1e-8, relative_eps: bool = True,
+                      reorth_passes: int = 2,
+                      dtype: Optional[torch.dtype] = None,
+                      precision: Optional[str] = None,
+                      callback=None) -> GKResult:
+    """:func:`gk_bidiag` on each example of a stacked ``DenseOp``
+    (A (B, m, n)), all at once.
+
+    ``q1s`` (B, m) are the start vectors; without them example b draws
+    its own from ``generators[b]``, as a single solve would.  The result's
+    fields carry a leading batch dimension: alphas / betas (B, k), P
+    (B, n, k), Q (B, m, k + 1), beta1 / kprime / breakdown (B,).  Each
+    example follows its own breakdown masks, and the last half-step writes
+    each example's column ``kprime[b]``.
+    """
+    B = op.batch
+    m, n = op.shape
+    k = min(k, min(m, n))
+    if dtype is None:
+        dtype = torch.promote_types(op.dtype, torch.float32)
+    store = _store_dtype(precision, dtype)
+    dev = op.device
+    if q1s is None:
+        if generators is None or len(generators) != B:
+            raise ValueError(f"pass q1s (B, m) or {B} generators, one per "
+                             f"example")
+        q1s = torch.stack([start_vector(g, m, dtype, dev)
+                           for g in generators])
+    q1s = to_tensor(q1s, device=dev, dtype=dtype)
+    if tuple(q1s.shape) != (B, m):
+        raise ValueError(f"q1s must be ({B}, {m}), got {tuple(q1s.shape)}")
+    beta1 = torch.linalg.vector_norm(q1s, dim=1)
+    q = q1s / beta1[:, None]
+    p = torch.matmul(op.A.transpose(1, 2).to(dtype), q[..., None])[..., 0]
+    alpha1 = torch.linalg.vector_norm(p, dim=1)
+    p = p / _nonzero(alpha1)[:, None]
+
+    Q = torch.zeros((B, m, k + 1), dtype=store, device=dev)
+    P = torch.zeros((B, n, k), dtype=store, device=dev)
+    Q[:, :, 0] = q.to(store)
+    P[:, :, 0] = p.to(store)
+    alphas = torch.zeros((B, k), dtype=dtype, device=dev)
+    betas = torch.zeros((B, k), dtype=dtype, device=dev)
+    alphas[:, 0] = alpha1
+
+    eff_eps = _eff_eps(eps, dtype, store)
+    if relative_eps:
+        thresh = eff_eps * torch.clamp(alpha1, min=1.0)
+    else:
+        thresh = torch.full((B,), eps, dtype=dtype, device=dev)
+    kprime = torch.ones(B, dtype=torch.int32, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+
+    for i in range(1, k):
+        u, beta = _bstep(op, p, q, alphas[:, i - 1], Q,
+                         reorth_passes, right=False)
+        u, beta = u.to(dtype), beta.to(dtype)
+        done_l = done | (beta < thresh)
+        qn = u / _nonzero(beta)[:, None]
+        v, alpha = _bstep(op, qn, p, beta, P, reorth_passes, right=True)
+        v, alpha = v.to(dtype), alpha.to(dtype)
+        done_r = done_l | (alpha < thresh)
+        pn = v / _nonzero(alpha)[:, None]
+
+        keep, keep2 = ~done_l, ~done_r
+        Q[:, :, i] = torch.where(keep[:, None], qn.to(store), Q[:, :, i])
+        P[:, :, i] = torch.where(keep2[:, None], pn.to(store), P[:, :, i])
+        alphas[:, i] = torch.where(keep2, alpha, alphas[:, i])
+        betas[:, i - 1] = torch.where(keep, beta, betas[:, i - 1])
+        kprime = torch.where(done_r, kprime, kprime + 1)
+        q = torch.where(keep[:, None], qn, q)
+        p = torch.where(keep2[:, None], pn, p)
+        done = done_r
+
+    # final half-iteration at each example's own column kprime[b]
+    last = kprime.long()[:, None]                                  # (B, 1)
+    u, beta = _bstep(op, p, q, alphas.gather(1, last - 1)[:, 0], Q,
+                     reorth_passes, right=False)
+    u, beta = u.to(dtype), beta.to(dtype)
+    valid = ~done & (beta >= thresh)
+    qn = (u / _nonzero(beta)[:, None]).to(store)
+    col = last[:, None, :].expand(B, m, 1)
+    Q.scatter_(2, col, torch.where(valid[:, None, None], qn[..., None],
+                                   Q.gather(2, col)))
+    betas.scatter_(1, last - 1, torch.where(
+        valid[:, None], beta[:, None], betas.gather(1, last - 1)))
+    _notify(callback, alphas, betas, kprime, done)
+    return GKResult(alphas, betas, beta1, P, Q, kprime, done)

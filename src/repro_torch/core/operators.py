@@ -226,7 +226,12 @@ class DenseOp(Operator):
     once per half-step) and both sketch products through the sketch
     kernel; ``"xla"`` composes plain torch ops.  A numpy ``A`` goes to the
     CUDA card (and raises without one); pass a tensor to choose its
-    device."""
+    device.
+
+    A (B, m, n) ``A`` is a stack of B operands of one shape, the input of
+    ``SolverPlan.solve_batched``: ``batch`` is B (None for one matrix)
+    and ``shape`` each example's (m, n).  Only the batched solve takes a
+    stacked operand; every other path refuses it."""
 
     A: Tensor
     backend: str = "xla"
@@ -237,13 +242,18 @@ class DenseOp(Operator):
                 f"backend must be one of {_BACKENDS}, got {self.backend!r}")
         if not isinstance(self.A, Tensor):
             object.__setattr__(self, "A", to_tensor(self.A))
-        if self.A.dim() != 2:
-            raise ValueError(f"DenseOp needs a 2-D matrix, got "
-                             f"{tuple(self.A.shape)}")
+        if self.A.dim() not in (2, 3):
+            raise ValueError(f"DenseOp needs a 2-D matrix or a (B, m, n) "
+                             f"stack of them, got {tuple(self.A.shape)}")
+
+    @property
+    def batch(self):
+        """B for a stacked (B, m, n) operand, None for one matrix."""
+        return self.A.shape[0] if self.A.dim() == 3 else None
 
     @property
     def shape(self) -> tuple[int, int]:
-        return tuple(self.A.shape)
+        return tuple(self.A.shape[-2:])
 
     @property
     def dtype(self) -> torch.dtype:
@@ -851,6 +861,14 @@ def as_operator(A, *, backend: str = "xla", device=None) -> Operator:
             A = A.to(device)
         return SparseOp.from_coo_tensor(A, backend=backend)
     return DenseOp(to_tensor(A, device=device), backend=backend)
+
+
+def sharding_mesh(op):
+    """The device mesh a (possibly wrapped) operator is sharded over, or
+    None.  Counterpart of ``repro.core.operators.sharding_mesh``: the port
+    has no sharded operator yet (``ROADMAP.md`` Queue 1 item 6), so every
+    operator is on one device and this is None."""
+    return None
 
 
 def to_dense(op) -> Tensor:

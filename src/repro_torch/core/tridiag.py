@@ -21,10 +21,12 @@ Tensor = torch.Tensor
 
 
 def btb_tridiagonal(alphas: Tensor, betas: Tensor) -> Tensor:
-    """Dense (k, k) assembly of the tridiagonal BᵀB from the GK scalars."""
+    """Dense (k, k) assembly of the tridiagonal BᵀB from the GK scalars
+    ((B, k, k) for a stack of B examples' (B, k) scalars)."""
     diag = alphas ** 2 + betas ** 2
-    off = alphas[1:] * betas[:-1]
-    return torch.diag(diag) + torch.diag(off, 1) + torch.diag(off, -1)
+    off = alphas[..., 1:] * betas[..., :-1]
+    return (torch.diag_embed(diag) + torch.diag_embed(off, 1)
+            + torch.diag_embed(off, -1))
 
 
 def btb_eigh(alphas: Tensor, betas: Tensor,
@@ -34,15 +36,17 @@ def btb_eigh(alphas: Tensor, betas: Tensor,
 
     Eigenvalues of columns at or beyond ``kprime`` (the zero-masked part
     of the buffers) are set to -inf, so a top-r selection skips them.
+    Stacked scalars (B, k) with a (B,) ``kprime`` give a batched ``eigh``
+    of the B tridiagonal problems: θ (B, k), G (B, k, k).
     """
     T = btb_tridiagonal(alphas, betas)
     theta, G = torch.linalg.eigh(T)              # ascending
-    theta = torch.flip(theta, (0,))
-    G = torch.flip(G, (1,))
+    theta = torch.flip(theta, (-1,))
+    G = torch.flip(G, (-1,))
     if kprime is not None:
-        k = alphas.shape[0]
+        k = alphas.shape[-1]
         valid = torch.arange(k, device=theta.device) < torch.as_tensor(
-            kprime, device=theta.device)
+            kprime, device=theta.device)[..., None]
         theta = torch.where(valid, theta,
                             torch.full_like(theta, float("-inf")))
     return theta, G

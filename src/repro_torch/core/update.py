@@ -8,11 +8,18 @@ When the drift of an operator is itself low-rank,
 the factorization of A' follows from the previous one with no matvec
 against A' (Brand's SVD update):
 
+  0. thin-QR the bases, ``U = Qu Ru`` and ``V = Qv Rv``, and carry
+     ``S = Ru diag(s) Rvᵀ`` in place of ``diag(s)``: the same operator on
+     orthonormal bases.  Brand's update assumes them, and an f32 F-SVD's
+     V is orthonormal only to ~1e-5 at scale, which alone moves the
+     updated σ past ``tests/test_update.py``'s gate.  The reference skips
+     this step (``repro.core.update``), so on bases off orthogonality the
+     port is the closer of the two to the exact σ;
   1. split each delta factor into its part in the current basis and an
      orthonormal complement: ``UᵀC`` and ``Qc Rc = qr((I − U Uᵀ) C)``
      (CGS-reorthogonalized), and the same for D against V;
   2. assemble the small (r+k, r+k) core
-     ``K = beta · diag(s ⊕ 0) + [UᵀC; Rc] [VᵀD; Rd]ᵀ``;
+     ``K = beta · (S ⊕ 0) + [UᵀC; Rc] [VᵀD; Rd]ᵀ``;
   3. SVD the core, rotate the augmented bases ``[U | Qc] Uk`` and
      ``[V | Qd] Vk``, and truncate back to the rank.
 
@@ -79,11 +86,11 @@ def update_factorization(fact: Factorization, delta: LowRankOp, *,
     """
     from repro_torch.api.results import Factorization
     compute = torch.promote_types(fact.U.dtype, torch.float32)
-    U = fact.U.to(compute)
-    V = fact.V.to(compute)
-    s = fact.s.to(compute)
+    U, Ru = torch.linalg.qr(fact.U.to(compute))
+    V, Rv = torch.linalg.qr(fact.V.to(compute))
+    S = (Ru * fact.s.to(compute)[None, :]) @ Rv.T   # the same operator: U S Vᵀ
     C, D = delta_factors(delta, compute)
-    r = s.shape[0]
+    r = S.shape[0]
     k = C.shape[1]
     rank = r if rank is None else min(int(rank), r + k)
 
@@ -94,8 +101,8 @@ def update_factorization(fact: Factorization, delta: LowRankOp, *,
 
     Chat = torch.cat([UtC, Rc], 0)                      # (r+k, k)
     Dhat = torch.cat([VtD, Rd], 0)                      # (r+k, k)
-    pad = torch.zeros(k, dtype=compute, device=s.device)
-    K = beta * torch.diag(torch.cat([s, pad])) \
+    K = beta * torch.block_diag(S, torch.zeros((k, k), dtype=compute,
+                                               device=S.device)) \
         + _core_outer(Chat, Dhat, backend)
     Uk, sk, Vkt = torch.linalg.svd(K.to(compute), full_matrices=False)
 

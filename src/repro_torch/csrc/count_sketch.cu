@@ -86,10 +86,6 @@
 // entries or more.  Every entry checks bins <= kBatchBins and a whole
 // number of blocks of slices, and returns cudaErrorInvalidValue otherwise.
 //
-// The sort-based path of the previous design stays for comparison:
-// zero_kernel and segment_sum_kernel sum runs of stably sorted int64 keys
-// (count_sketch_scatter_add); nothing on the fold path calls it.
-//
 // vals may be f32, bf16 or f64; each is converted to f32 as it is binned.
 // C interface for ctypes: launches on the given stream, allocates nothing,
 // returns cudaGetLastError() as an int.  v_kind: 0 f32, 1 bf16, 2 f64.
@@ -98,7 +94,6 @@
 
 namespace {
 
-constexpr int kMaxBlocks = 65535 * 32;
 constexpr int kAhead = 8;            // chunks of 32 whose loads are in flight
 constexpr int kChunk = 32 * kAhead;  // entries a warp loads at once
 constexpr unsigned kAll = 0xffffffffu;
@@ -501,66 +496,6 @@ __global__ void __launch_bounds__(kSumWarps * 32)
   for (int i = threadIdx.x; i < n; i += kSumWarps * 32) out[t0 + i] = tile[i];
 }
 
-// --- the sort-based path of the previous design (comparison only) --------
-
-__global__ void __launch_bounds__(kThreads)
-    zero_kernel(float* __restrict__ out, long long total) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-       t < total; t += stride)
-    out[t] = 0.f;
-}
-
-// Each sorted entry has a thread; the head of a run of equal keys sums the
-// run's values (gathered through the sort's permutation) in entry order,
-// kAhead loads in flight, and writes the cell once.
-template <typename TV>
-__global__ void __launch_bounds__(kThreads)
-    segment_sum_kernel(const long long* __restrict__ keys,
-                       const long long* __restrict__ perm,
-                       const TV* __restrict__ vals, long long E,
-                       long long total, float* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < E;
-       e += stride) {
-    const long long key = keys[e];
-    if (key < 0 || key >= total) continue;       // outside the panel
-    if (e > 0 && keys[e - 1] == key) continue;   // not the head of a run
-    float acc = 0.f;
-    for (long long t = e;; t += kAhead) {
-      float v[kAhead];
-      bool in[kAhead];
-#pragma unroll
-      for (int j = 0; j < kAhead; ++j) {
-        in[j] = t + j < E && keys[t + j] == key;
-        v[j] = in[j] ? ld(vals + perm[t + j]) : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < kAhead; ++j)
-        if (in[j]) acc += v[j];
-      if (!in[kAhead - 1]) break;  // keys are sorted: the run has ended
-    }
-    out[key] = acc;
-  }
-}
-
-unsigned blocks_for(long long n) {
-  const long long b = (n + kThreads - 1) / kThreads;
-  return (unsigned)(b < kMaxBlocks ? (b > 0 ? b : 1) : kMaxBlocks);
-}
-
-template <typename TV>
-cudaError_t sorted_sum(const long long* keys, const long long* perm,
-                       const void* vals, long long E, long long total,
-                       float* out, cudaStream_t stream) {
-  zero_kernel<<<blocks_for(total), kThreads, 0, stream>>>(out, total);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || E == 0) return e;
-  segment_sum_kernel<TV><<<blocks_for(E), kThreads, 0, stream>>>(
-      keys, perm, static_cast<const TV*>(vals), E, total, out);
-  return cudaGetLastError();
-}
-
 // --- launchers ------------------------------------------------------------
 
 template <typename K>
@@ -696,22 +631,6 @@ int count_sketch_tile_sum(const void* binned, const int* incl, int S,
                     smem, st>>>(static_cast<const int2*>(binned), incl, S,
                                 tile_bits, sub_bits, total, out);
   return (int)cudaGetLastError();
-}
-
-// The previous design: zero the panel, then sum the runs of the stably
-// sorted int64 keys (perm: the sort's permutation).
-int count_sketch_scatter_add(const long long* keys, const long long* perm,
-                             const void* vals, int v_kind, long long E,
-                             long long total, float* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (v_kind == 1)
-    e = sorted_sum<__nv_bfloat16>(keys, perm, vals, E, total, out, s);
-  else if (v_kind == 2)
-    e = sorted_sum<double>(keys, perm, vals, E, total, out, s);
-  else
-    e = sorted_sum<float>(keys, perm, vals, E, total, out, s);
-  return (int)e;
 }
 
 }  // extern "C"

@@ -68,6 +68,17 @@
 //    partials in a fixed order.  No float atomics: the same inputs give
 //    the same bits on every run.
 //  * Offsets are 64-bit: m*n is 8e9 at the main shape, above 2^31.
+//  * Stacked examples (the batched solve): gk_mv_qtv, gk_rmv_qtv,
+//    gk_proj_qtv and gk_proj_norm take `batch` examples of one shape laid
+//    out one after another (A (B, m, n), vectors (B, len), alpha / beta
+//    (B,), bases (B, L, k)).  The grid's y dimension walks the examples:
+//    each block moves its pointers to its example first (64-bit offsets)
+//    and then runs the single launch's plan, so every example's blocks,
+//    partials and finishing sums, and with them its bits, are those of a
+//    single launch on it.  A batch of 1 is the single launch: rows_kernel
+//    and the projection pair compile it without the stacked step, the
+//    A^T q kernels move by example 0.  One call covers the batch: a
+//    stage is one launch (two with its finish) for all B examples.
 //  * Nothing is padded or copied: the kernels mask ragged edges themselves.
 //  * A and the basis are each f32 or bf16; bf16 is widened with
 //    __bfloat162float and every product accumulates in f32.  Outputs f32.
@@ -96,13 +107,19 @@ struct MvRow {  // u_i = A[i, :] . p - alpha y_i
   __device__ float operator()(long long i, int lane) const {
     return row_dot<TA, V>(A + i * n, p, n, lane) - alpha[0] * y[i];
   }
+  // the same rows of stacked example b (each of m rows)
+  __device__ MvRow at(long long b, long long m) const {
+    return MvRow{A + b * m * n, p + b * n, y + b * m, alpha + b, n};
+  }
 };
 
 // Block b owns rows [b*rows_per_block, (b+1)*rows_per_block) of a length-L
 // vector.  Each warp computes one row scalar and writes it to out, and the
 // block accumulates its share of c = Q^T out (k floats of dynamic shared
-// memory, written to part[j * gridDim.x + b]).
-template <class Row, typename TQ>
+// memory, written to part[j * gridDim.x + b]).  STACKED: blockIdx.y is
+// the example, and Row, Q, out and part are moved to it first; a single
+// launch compiles without that step.
+template <class Row, typename TQ, bool STACKED>
 __global__ void __launch_bounds__(kThreads)
     rows_kernel(Row row, const TQ* __restrict__ Q, int k, long long L,
                 long long rows_per_block, float* __restrict__ out,
@@ -111,6 +128,13 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float sw[kWarps];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  if (STACKED) {
+    const long long ex = blockIdx.y;
+    row = row.at(ex, L);
+    Q += ex * L * k;
+    out += ex * L;
+    part += ex * k * gridDim.x;
+  }
   const long long r0 = (long long)blockIdx.x * rows_per_block;
   const long long r1 = min(r0 + rows_per_block, L);
   for (int j = threadIdx.x; j < k; j += kThreads) sc[j] = 0.f;
@@ -138,16 +162,17 @@ __global__ void __launch_bounds__(kThreads)
 
 template <class Row, typename TQ>
 cudaError_t launch_rows(const Row& row, const TQ* Q, int k, long long L,
-                        long long rows_per_block, int grid, float* out,
-                        float* part, cudaStream_t stream) {
+                        long long rows_per_block, int grid, int batch,
+                        float* out, float* part, cudaStream_t stream) {
+  auto kernel = batch == 1 ? rows_kernel<Row, TQ, false>
+                           : rows_kernel<Row, TQ, true>;
   const size_t smem = (size_t)k * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        rows_kernel<Row, TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  rows_kernel<Row, TQ><<<grid, kThreads, smem, stream>>>(
+  kernel<<<dim3(grid, batch), kThreads, smem, stream>>>(
       row, Q, k, L, rows_per_block, out, part);
   return cudaGetLastError();
 }
@@ -156,26 +181,32 @@ template <typename TA, int V, typename TQ>
 cudaError_t mv_qtv(const void* A, const float* p, const float* y,
                    const float* alpha, const void* Q, long long m,
                    long long n, int k, long long rows_per_block, int grid,
-                   float* u, float* part, float* c, cudaStream_t stream) {
+                   int batch, float* u, float* part, float* c,
+                   cudaStream_t stream) {
+  if (batch < 1 || batch > kMaxBatch) return cudaErrorInvalidValue;
   const MvRow<TA, V> row{static_cast<const TA*>(A), p, y, alpha, n};
   const cudaError_t e = launch_rows<MvRow<TA, V>, TQ>(
-      row, static_cast<const TQ*>(Q), k, m, rows_per_block, grid, u, part,
-      stream);
+      row, static_cast<const TQ*>(Q), k, m, rows_per_block, grid, batch, u,
+      part, stream);
   if (e != cudaSuccess) return e;
-  return finish(part, grid, k, c, stream);
+  return finish(part, grid, k, c, stream, batch);
 }
 
+// 16-byte loads where n % V == 0 and A and p are aligned: then every
+// stacked example's row and p are too (an example is m * n elements of A
+// and n of p past the previous one), so all examples take the same path.
 template <typename TA, typename TQ>
 cudaError_t mv_qtv_vec(const void* A, const float* p, const float* y,
                        const float* alpha, const void* Q, long long m,
                        long long n, int k, long long rows_per_block, int grid,
-                       float* u, float* part, float* c, cudaStream_t stream) {
+                       int batch, float* u, float* part, float* c,
+                       cudaStream_t stream) {
   constexpr int V = 16 / sizeof(TA);  // elements of A in 16 bytes
   if (n % V == 0 && aligned16(A) && aligned16(p))
     return mv_qtv<TA, V, TQ>(A, p, y, alpha, Q, m, n, k, rows_per_block,
-                             grid, u, part, c, stream);
+                             grid, batch, u, part, c, stream);
   return mv_qtv<TA, 1, TQ>(A, p, y, alpha, Q, m, n, k, rows_per_block, grid,
-                           u, part, c, stream);
+                           batch, u, part, c, stream);
 }
 
 // --- the fused matvec: a persistent row kernel with no barrier -----------
@@ -359,7 +390,8 @@ __device__ __forceinline__ void rows_scalar(const TA* __restrict__ A,
 }
 
 // vpart[b * TC + col] = sum of A[i, col of tile t] q_i over the rows of
-// chunk c, for block b = c * tiles + t (TC = cols * V columns a tile).
+// chunk c, for block b = c * tiles + t (TC = cols * V columns a tile), of
+// stacked example blockIdx.y (A, q and vpart moved to it first).
 template <typename TA, bool VEC>
 __global__ void __launch_bounds__(kThreads, kRmvBlocksPerSm)
     rmv_partial_kernel(const TA* __restrict__ A, const float* __restrict__ q,
@@ -370,6 +402,10 @@ __global__ void __launch_bounds__(kThreads, kRmvBlocksPerSm)
   const int G = kThreads / cols;
   const int g = threadIdx.x / cols, l = threadIdx.x - g * cols;
   const long long TC = (long long)cols * V;
+  const long long ex = blockIdx.y;
+  A += ex * m * n;
+  q += ex * m;
+  vpart += ex * gridDim.x * TC;
   const long long tiles = (n + TC - 1) / TC;
   const long long t = blockIdx.x % tiles, c = blockIdx.x / tiles;
   const long long i0 = c * rows + g, i1 = min((c + 1) * rows, m);
@@ -411,13 +447,18 @@ __global__ void __launch_bounds__(kThreads, kRmvBlocksPerSm)
 // ways adjacent columns: residue r adds chunks r, r + ways, ... of its
 // column (lanes on adjacent columns: coalesced where C >= 32), then a
 // fixed tree adds the residues, so every column is summed in the same
-// order on every run.
+// order on every run.  blockIdx.y is the stacked example.
 __global__ void __launch_bounds__(kThreads)
     rmv_finish_kernel(const float* __restrict__ vpart, long long n,
                       long long width, long long chunks, int ways,
                       const float* __restrict__ y,
                       const float* __restrict__ beta, float* __restrict__ v) {
   __shared__ float part[kThreads];
+  const long long ex = blockIdx.y;
+  vpart += ex * chunks * width;
+  y += ex * n;
+  beta += ex;
+  v += ex * n;
   const int C = kThreads / ways;
   const int r = threadIdx.x / C, c = threadIdx.x - r * C;
   const long long j = (long long)blockIdx.x * C + c;
@@ -434,17 +475,20 @@ __global__ void __launch_bounds__(kThreads)
   if (r == 0 && j < n) v[j] = part[c] - beta[0] * y[j];
 }
 
-// v = A^T q - beta y.  A plan with row groups of a width other than a
-// power of two up to kThreads, with a chunk that owns no row or chunks
-// that do not cover the rows, or with more than one chunk and more blocks
-// than kRmvMaxBlocks, is refused before a launch.
+// v = A^T q - beta y, for `batch` stacked examples (vpart holds each
+// example's tiles x chunks slots after the previous one's).  A plan with
+// row groups of a width other than a power of two up to kThreads, with a
+// chunk that owns no row or chunks that do not cover the rows, or with
+// more than one chunk and more blocks than kRmvMaxBlocks, is refused
+// before a launch.
 template <typename TA>
 cudaError_t rmatvec(const void* A, const float* q, const float* y,
                     const float* beta, long long m, long long n, int cols,
                     long long rows, long long chunks, float* vpart, float* v,
-                    cudaStream_t stream) {
+                    cudaStream_t stream, int batch = 1) {
   constexpr int V = Vec16<TA>::V;
-  if (m < 1 || n < 1 || rows < 1 || chunks < 1 || cols < 1 ||
+  if (batch < 1 || batch > kMaxBatch || m < 1 || n < 1 || rows < 1 ||
+      chunks < 1 || cols < 1 ||
       cols > kThreads || (cols & (cols - 1)) != 0 ||
       (chunks - 1) * rows >= m || chunks * rows < m)
     return cudaErrorInvalidValue;
@@ -453,18 +497,20 @@ cudaError_t rmatvec(const void* A, const float* q, const float* y,
   if ((chunks > 1 && grid > kRmvMaxBlocks) || grid > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const TA* a = static_cast<const TA*>(A);
-  if (n % V == 0 && aligned16(A))
-    rmv_partial_kernel<TA, true><<<(unsigned)grid, kThreads, 0, stream>>>(
+  const dim3 blocks((unsigned)grid, batch);
+  if (n % V == 0 && aligned16(A))  // then every stacked example is aligned
+    rmv_partial_kernel<TA, true><<<blocks, kThreads, 0, stream>>>(
         a, q, m, n, cols, rows, vpart);
   else
-    rmv_partial_kernel<TA, false><<<(unsigned)grid, kThreads, 0, stream>>>(
+    rmv_partial_kernel<TA, false><<<blocks, kThreads, 0, stream>>>(
         a, q, m, n, cols, rows, vpart);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   int ways = 1;
   while (ways < kThreads && ways < chunks) ways *= 2;
   const long long C = kThreads / ways;
-  rmv_finish_kernel<<<(unsigned)((n + C - 1) / C), kThreads, 0, stream>>>(
+  rmv_finish_kernel<<<dim3((unsigned)((n + C - 1) / C), batch), kThreads, 0,
+                      stream>>>(
       vpart, n, tiles * TC, chunks, ways, y, beta, v);
   return cudaGetLastError();
 }
@@ -476,13 +522,13 @@ cudaError_t rmv_qtv(const void* A, const float* q, const float* y,
                     const float* beta, const void* P, long long m,
                     long long n, int k, int cols, long long rows,
                     long long chunks, float* vpart, int tile_rows, int pgrid,
-                    int stages, int flags, float* v, float* part, float* c,
-                    cudaStream_t stream) {
+                    int stages, int flags, int batch, float* v, float* part,
+                    float* c, cudaStream_t stream) {
   const cudaError_t e = rmatvec<TA>(A, q, y, beta, m, n, cols, rows,
-                                    chunks, vpart, v, stream);
+                                    chunks, vpart, v, stream, batch);
   if (e != cudaSuccess || k == 0) return e;
   return proj<TP, kQtv>(v, P, nullptr, n, k, tile_rows, pgrid, stages, flags,
-                        nullptr, part, c, stream);
+                        nullptr, part, c, stream, batch);
 }
 
 }  // namespace
@@ -496,21 +542,24 @@ const char* gk_error_string(int e) {
 int gk_mv_qtv(const void* A, int a_bf16, const float* p, const float* y,
               const float* alpha, const void* Q, int q_bf16, long long m,
               long long n, int k, long long rows_per_block, int grid,
-              float* u, float* part, float* c, void* stream) {
+              int batch, float* u, float* part, float* c, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   typedef __nv_bfloat16 bf;
   cudaError_t e;
   if (a_bf16)
     e = q_bf16 ? mv_qtv_vec<bf, bf>(A, p, y, alpha, Q, m, n, k,
-                                    rows_per_block, grid, u, part, c, s)
+                                    rows_per_block, grid, batch, u, part, c,
+                                    s)
                : mv_qtv_vec<bf, float>(A, p, y, alpha, Q, m, n, k,
-                                       rows_per_block, grid, u, part, c, s);
+                                       rows_per_block, grid, batch, u, part,
+                                       c, s);
   else
     e = q_bf16 ? mv_qtv_vec<float, bf>(A, p, y, alpha, Q, m, n, k,
-                                       rows_per_block, grid, u, part, c, s)
+                                       rows_per_block, grid, batch, u, part,
+                                       c, s)
                : mv_qtv_vec<float, float>(A, p, y, alpha, Q, m, n, k,
-                                          rows_per_block, grid, u, part, c,
-                                          s);
+                                          rows_per_block, grid, batch, u,
+                                          part, c, s);
   return (int)e;
 }
 
@@ -518,50 +567,51 @@ int gk_rmv_qtv(const void* A, int a_bf16, const float* q, const float* y,
                const float* beta, const void* P, int p_bf16, long long m,
                long long n, int k, int cols, long long rows, long long chunks,
                float* vpart, int tile_rows, int pgrid, int stages, int flags,
-               float* v, float* part, float* c, void* stream) {
+               int batch, float* v, float* part, float* c, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   typedef __nv_bfloat16 bf;
   cudaError_t e;
   if (a_bf16)
     e = p_bf16 ? rmv_qtv<bf, bf>(A, q, y, beta, P, m, n, k, cols, rows,
                                  chunks, vpart, tile_rows, pgrid, stages,
-                                 flags, v, part, c, s)
+                                 flags, batch, v, part, c, s)
                : rmv_qtv<bf, float>(A, q, y, beta, P, m, n, k, cols, rows,
                                     chunks, vpart, tile_rows, pgrid, stages,
-                                    flags, v, part, c, s);
+                                    flags, batch, v, part, c, s);
   else
     e = p_bf16 ? rmv_qtv<float, bf>(A, q, y, beta, P, m, n, k, cols, rows,
                                     chunks, vpart, tile_rows, pgrid, stages,
-                                    flags, v, part, c, s)
+                                    flags, batch, v, part, c, s)
                : rmv_qtv<float, float>(A, q, y, beta, P, m, n, k, cols, rows,
                                        chunks, vpart, tile_rows, pgrid,
-                                       stages, flags, v, part, c, s);
+                                       stages, flags, batch, v, part, c, s);
   return (int)e;
 }
 
 int gk_proj_qtv(const float* u, const void* Q, int q_bf16, const float* c_in,
                 long long L, int k, int tile_rows, int grid, int stages,
-                int flags, float* w, float* part, float* c_out, void* stream) {
+                int flags, int batch, float* w, float* part, float* c_out,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(q_bf16 ? proj<__nv_bfloat16, kProjQtv>(
                             u, Q, c_in, L, k, tile_rows, grid, stages, flags,
-                            w, part, c_out, s)
+                            w, part, c_out, s, batch)
                       : proj<float, kProjQtv>(u, Q, c_in, L, k, tile_rows,
                                               grid, stages, flags, w, part,
-                                              c_out, s));
+                                              c_out, s, batch));
 }
 
 int gk_proj_norm(const float* u, const void* Q, int q_bf16,
                  const float* c_in, long long L, int k, int tile_rows,
-                 int grid, int stages, int flags, float* v, float* part,
-                 float* nrm2, void* stream) {
+                 int grid, int stages, int flags, int batch, float* v,
+                 float* part, float* nrm2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(q_bf16 ? proj<__nv_bfloat16, kProjNorm>(
                             u, Q, c_in, L, k, tile_rows, grid, stages, flags,
-                            v, part, nrm2, s)
+                            v, part, nrm2, s, batch)
                       : proj<float, kProjNorm>(u, Q, c_in, L, k, tile_rows,
                                                grid, stages, flags, v, part,
-                                               nrm2, s));
+                                               nrm2, s, batch));
 }
 
 int gk_matvec_fused(const void* A, int a_kind, const float* p, const float* y,

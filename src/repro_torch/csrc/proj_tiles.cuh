@@ -31,6 +31,14 @@
 // The plan (tile rows, grid, stages, flags) comes from the wrappers'
 // proj_plan (repro_torch/kernels/gk_step.py); proj() refuses a plan past
 // this file's limits before a launch.
+//
+// Stacked inputs.  proj() also takes `batch` examples of one shape, laid
+// out one after another (u (B, L), Q (B, L, k), c (B, k), ...): one launch
+// of proj_stacked_kernel, whose grid's y dimension walks the examples,
+// and each block moves its pointers to its example (64-bit offsets)
+// before it runs proj_kernel's body.  Every example then runs the single
+// launch's plan on its own rows, partials and finishing sums, so its
+// outputs have that launch's bits; a batch of 1 is proj_kernel itself.
 
 #pragma once
 
@@ -38,12 +46,15 @@
 
 namespace {
 
-// out[b] = sum of part[b*G : (b+1)*G], summed in a fixed order.
+// out[e] = sum of part[e*G : (e+1)*G], summed in a fixed order, for
+// e = (example) * count + (output): each example's count outputs follow
+// the previous example's.
 __global__ void __launch_bounds__(kThreads)
     finish_kernel(const float* __restrict__ part, int G,
                   float* __restrict__ out) {
   __shared__ float s[kThreads];
-  const float* row = part + (long long)blockIdx.x * G;
+  const long long e = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  const float* row = part + e * G;
   float acc = 0.f;
   for (int b = threadIdx.x; b < G; b += kThreads) acc += row[b];
   s[threadIdx.x] = acc;
@@ -52,13 +63,13 @@ __global__ void __launch_bounds__(kThreads)
     if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[blockIdx.x] = s[0];
+  if (threadIdx.x == 0) out[e] = s[0];
 }
 
 cudaError_t finish(const float* part, int G, int count, float* out,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int batch = 1) {
   if (count == 0) return cudaSuccess;
-  finish_kernel<<<count, kThreads, 0, stream>>>(part, G, out);
+  finish_kernel<<<dim3(count, batch), kThreads, 0, stream>>>(part, G, out);
   return cudaGetLastError();
 }
 
@@ -90,6 +101,12 @@ constexpr long long kSmemLimit = 232448 - 256;  // 227 KB a block can have,
                                                 // less room for red[]
 constexpr int kMaxStages = 2;
 constexpr int kCShared = 1;          // plan flag: c in shared memory
+constexpr int kMaxBatch = 65535;     // stacked examples: the grid's y limit
+// proj_stacked_kernel's register bound, <= 64 a thread: 4 blocks of
+// kThreads an SM, as many as the f32 stages' shared memory allows (the
+// grid holds 2).  Under proj_kernel's default bound ptxas stops at 48
+// registers, and the examples' offsets then spill.
+constexpr int kProjBlocksPerSm = 4;
 
 __host__ __device__ inline long long round16(long long x) {
   return (x + 15) & ~15LL;
@@ -287,11 +304,11 @@ __device__ void project_tile_regs(const char* stage, const ProjTile<TQ>& tile,
 // registers.  Otherwise c sits in shared memory where the plan's flag puts
 // it, and the column sums accumulate in place in part.
 template <typename TQ, int MODE, bool REGS>
-__global__ void __launch_bounds__(kThreads)
-    proj_kernel(const float* __restrict__ u, const TQ* __restrict__ Q,
-                const float* __restrict__ c_in, long long L, int k,
-                int tile_rows, long long tiles, int stages, int flags,
-                float* __restrict__ w, float* __restrict__ part) {
+__device__ __forceinline__ void proj_block(
+    const float* __restrict__ u, const TQ* __restrict__ Q,
+    const float* __restrict__ c_in, long long L, int k, int tile_rows,
+    long long tiles, int stages, int flags, float* __restrict__ w,
+    float* __restrict__ part) {
   using E = Epilogue<MODE>;
   extern __shared__ __align__(16) char smem[];
   __shared__ float red[kWarps];
@@ -369,34 +386,66 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename TQ, int MODE, bool REGS>
+__global__ void __launch_bounds__(kThreads)
+    proj_kernel(const float* __restrict__ u, const TQ* __restrict__ Q,
+                const float* __restrict__ c_in, long long L, int k,
+                int tile_rows, long long tiles, int stages, int flags,
+                float* __restrict__ w, float* __restrict__ part) {
+  proj_block<TQ, MODE, REGS>(u, Q, c_in, L, k, tile_rows, tiles, stages,
+                             flags, w, part);
+}
+
+// proj_kernel over stacked examples: blockIdx.y is the example.
+template <typename TQ, int MODE, bool REGS>
+__global__ void __launch_bounds__(kThreads, kProjBlocksPerSm)
+    proj_stacked_kernel(const float* __restrict__ u,
+                        const TQ* __restrict__ Q,
+                        const float* __restrict__ c_in, long long L, int k,
+                        int tile_rows, long long tiles, int stages,
+                        int flags, float* __restrict__ w,
+                        float* __restrict__ part) {
+  using E = Epilogue<MODE>;
+  const long long ex = blockIdx.y;
+  proj_block<TQ, MODE, REGS>(
+      u + ex * L, Q + ex * L * k, E::kDot ? c_in + ex * k : c_in, L, k,
+      tile_rows, tiles, stages, flags, E::kDot ? w + ex * L : w,
+      MODE == kSubtract ? part
+                        : part + ex * (E::kNorm ? 1LL : k) * gridDim.x);
+}
+
+template <typename TQ, int MODE, bool REGS>
 cudaError_t launch_proj(const float* u, const void* Q, const float* c_in,
                         long long L, int k, int tile_rows, long long tiles,
                         int grid, int stages, int flags, long long smem,
-                        float* w, float* part, cudaStream_t stream) {
+                        float* w, float* part, cudaStream_t stream,
+                        int batch) {
+  auto kernel = batch == 1 ? proj_kernel<TQ, MODE, REGS>
+                           : proj_stacked_kernel<TQ, MODE, REGS>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        proj_kernel<TQ, MODE, REGS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  proj_kernel<TQ, MODE, REGS><<<grid, kThreads, smem, stream>>>(
+  kernel<<<dim3(grid, batch), kThreads, smem, stream>>>(
       u, static_cast<const TQ*>(Q), c_in, L, k, tile_rows, tiles, stages,
       flags, w, part);
   return cudaGetLastError();
 }
 
-// One call of a mode: the staged-tile kernel, then (c' or ||w||^2) the
-// finishing launch into out.  The plan comes from the wrapper's
-// proj_plan; anything outside this file's limits is refused before a
-// launch.  part holds grid (||w||^2) or k * grid (c') floats; w and part
-// go unused where the mode has no such output.
+// One call of a mode over `batch` stacked examples: the staged-tile
+// kernel, then (c' or ||w||^2) the finishing launch into out.  The plan
+// comes from the wrapper's proj_plan; anything outside this file's limits
+// is refused before a launch.  part holds grid (||w||^2) or k * grid (c')
+// floats an example; w and part go unused where the mode has no such
+// output.
 template <typename TQ, int MODE>
 cudaError_t proj(const float* u, const void* Q, const float* c_in,
                  long long L, int k, int tile_rows, int grid, int stages,
                  int flags, float* w, float* part, float* out,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, int batch = 1) {
   using E = Epilogue<MODE>;
-  if (L < 1 || k < 0 || k > kMaxK || tile_rows < 1 ||
+  if (batch < 1 || batch > kMaxBatch || L < 1 || k < 0 || k > kMaxK ||
+      tile_rows < 1 ||
       tile_rows > kMaxTileRows || grid < 1 || grid > kProjBlocks ||
       stages < 1 || stages > kMaxStages || (flags & ~kCShared) != 0)
     return cudaErrorInvalidValue;
@@ -412,12 +461,12 @@ cudaError_t proj(const float* u, const void* Q, const float* c_in,
   const cudaError_t e =
       regs ? launch_proj<TQ, MODE, true>(u, Q, c_in, L, k, tile_rows, tiles,
                                          grid, stages, flags, smem, w, part,
-                                         stream)
+                                         stream, batch)
            : launch_proj<TQ, MODE, false>(u, Q, c_in, L, k, tile_rows, tiles,
                                           grid, stages, flags, smem, w, part,
-                                          stream);
+                                          stream, batch);
   if (e != cudaSuccess || MODE == kSubtract) return e;
-  return finish(part, grid, E::kNorm ? 1 : k, out, stream);
+  return finish(part, grid, E::kNorm ? 1 : k, out, stream, batch);
 }
 
 }  // namespace

@@ -49,10 +49,6 @@ from ``kernels.ref``.  An empty stream returns zeros without a launch, as
 the reference's wrapper does.  :func:`bin_entries` returns the bins that
 step 5 reads (it syncs with the host to cut them to length: tests and
 checks only); ``ref.bin_entries`` is their plain model.
-
-The previous design, a stable ``torch.sort`` of int64 keys
-(:func:`sort_keys`) and a segmented sum (:func:`segment_sum`), stays for
-comparison on the card; ``scatter_add`` never calls it.
 """
 from __future__ import annotations
 
@@ -66,7 +62,7 @@ from repro_torch.kernels import gk_step as gs
 from repro_torch.kernels import ref
 
 Tensor = torch.Tensor
-F32, I32, I64 = torch.float32, torch.int32, torch.int64
+F32, I32 = torch.float32, torch.int32
 
 # dtype of vals -> the kernel's kind
 KINDS = {F32: 0, torch.bfloat16: 1, torch.float64: 2}
@@ -94,7 +90,6 @@ _SIGNATURES = {
     "count_sketch_part_scatter": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
                                   _P],
     "count_sketch_tile_sum": [_P, _P, _I, _I, _I, _I, _L, _P, _P],
-    "count_sketch_scatter_add": [_P, _P, _P, _I, _L, _L, _P, _P],
     "count_sketch_error_string": [_I],
 }
 
@@ -325,37 +320,3 @@ def scatter_add(rows: Tensor, cols: Tensor, vals: Tensor, shape) -> Tensor:
     out = fold(rows, cols, vals, bin_plan(E, (m, d)))
     LAUNCHES["scatter_add"] += 1
     return out
-
-
-# --- the previous design, kept for comparison on the card -----------------
-
-def sort_keys(rows: Tensor, cols: Tensor,
-              shape) -> tuple[Tensor, Tensor]:
-    """(sorted keys, permutation), both (E,) int64: the destination key
-    ``row·d + col`` of every entry (``m·d`` where the coordinate lies
-    outside the (m, d) panel), stably sorted, so equal keys keep their
-    entry order."""
-    m, d = _panel(shape)
-    keys = rows.to(I64)
-    outside = (keys < 0) | (keys >= m) | (cols < 0) | (cols >= d)
-    keys.mul_(d).add_(cols).masked_fill_(outside, m * d)
-    return torch.sort(keys, stable=True)
-
-
-def segment_sum(keys: Tensor, perm: Tensor, vals: Tensor,
-                shape) -> Tensor:
-    """The previous design's kernel: the (m, d) f32 panel from
-    :func:`sort_keys`'s output and the entries' values (CUDA tensors,
-    contiguous), each run of equal keys summed in entry order."""
-    m, d = _panel(shape)
-    for name, x in (("keys", keys), ("perm", perm)):
-        if not isinstance(x, Tensor) or x.dtype != I64 or x.dim() != 1:
-            raise TypeError(f"{name} must be a 1-D int64 tensor")
-    if not gs._on_cuda(keys, perm, vals):
-        raise ValueError("segment_sum is the CUDA kernel alone; CPU tensors "
-                         "take scatter_add's plain version")
-    out = torch.empty(m * d, dtype=F32, device=vals.device)
-    _check(_lib().count_sketch_scatter_add(
-        keys.data_ptr(), perm.data_ptr(), vals.data_ptr(), KINDS[vals.dtype],
-        keys.shape[0], m * d, out.data_ptr(), gs._stream()))
-    return out.view(m, d)

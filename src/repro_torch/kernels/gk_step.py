@@ -34,6 +34,14 @@ one contiguous run of the array whatever k's parity, into shared memory
 in 16-byte chunks, two stages deep, and takes both products from there
 (``proj_plan`` cuts the basis; ``csrc/proj_tiles.cuh`` says more).
 
+The four GK-step kernels also take stacked inputs of one shape, the
+half-steps of a batched solve: A (B, m, n), vectors (B, len), α / β a
+(B,) tensor or a Python number, bases (B, L, k).  One call covers the
+batch: each launch has a grid dimension over the examples, and each
+example's blocks run the plan of its own shape (``rows_plan``,
+``rmv_plan``, ``proj_plan``), so its outputs are bit for bit those of a
+single launch on it; B = 1 is that single launch.
+
 Each wrapper checks its inputs and raises on what the kernel does not
 take, allocates outputs and scratch with ``torch.empty``, launches on the
 current stream and adds one to ``LAUNCHES[name]``.  For CPU tensors, and
@@ -44,6 +52,7 @@ the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -64,6 +73,7 @@ SMS = 132              # streaming multiprocessors of an H100 SXM
 MV_BLOCKS_PER_SM = 4   # resident blocks of matvec_fused's kernel on an SM
 RMV_BLOCKS_PER_SM = 4  # resident blocks of the Aᵀq partial kernel on an SM
 MAX_K = 49152          # basis columns: k f32 of shared memory per block
+MAX_BATCH = 65535      # stacked examples: the grid's y limit
 # the projection pair's plan, as in the CUDA source (kProjBlocks, ...)
 PROJ_BLOCKS = 264      # grid cap: two blocks on each of 132 SMs
 STAGE_BYTES = {F32: 24576, BF16: 32768}   # basis bytes a tile aims at
@@ -74,20 +84,23 @@ REG_K = 256            # up to this width c and c' sit in registers
 C_SHARED = 1           # ProjPlan.flags: c in shared memory (k > REG_K)
 
 # Calls of each TPU-kernel-level function that launched on the card (a
-# call may be more than one launch: its finishing pass is part of it).
+# call may be more than one launch: its finishing pass is part of it, and
+# a stacked call covers its whole batch).  Added to under a lock: plans
+# solve on the card from several threads at once.
 LAUNCHES = {"mv_qtv": 0, "rmv_qtv": 0, "proj_qtv": 0, "proj_norm": 0,
             "matvec_fused": 0, "rmatvec_fused": 0}
+_COUNT_LOCK = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "gk_mv_qtv": [_P, _I, _P, _P, _P, _P, _I, _L, _L, _I, _L, _I,
-                  _P, _P, _P, _P],
+                  _I, _P, _P, _P, _P],
     "gk_rmv_qtv": [_P, _I, _P, _P, _P, _P, _I, _L, _L, _I, _I, _L, _L,
-                   _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "gk_proj_qtv": [_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P,
-                    _P],
-    "gk_proj_norm": [_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P,
-                     _P],
+                   _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "gk_proj_qtv": [_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P,
+                    _P, _P],
+    "gk_proj_norm": [_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P,
+                     _P, _P],
     "gk_matvec_fused": [_P, _I, _P, _P, _P, _L, _L, _I, _P, _P],
     "gk_rmatvec_fused": [_P, _I, _P, _P, _P, _L, _L, _I, _L, _L, _P, _P,
                          _P],
@@ -96,8 +109,14 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _lib() -> ctypes.CDLL:
@@ -210,22 +229,38 @@ def proj_plan(L: int, k: int, dtype: torch.dtype) -> ProjPlan:
 # --- input checks ---------------------------------------------------------
 
 def _matrix(name: str, X: Tensor, rows: Optional[int] = None,
-            dtypes=STORAGE_DTYPES) -> None:
-    if not isinstance(X, Tensor) or X.dim() != 2:
-        raise ValueError(f"{name} must be a 2-D tensor")
+            dtypes=STORAGE_DTYPES, lead: tuple = ()) -> None:
+    """X is a 2-D tensor of ``dtypes`` with ``rows`` rows, or a stack of
+    them with leading dimensions ``lead``."""
+    if not isinstance(X, Tensor) or X.dim() != 2 + len(lead) \
+            or tuple(X.shape[:len(lead)]) != lead:
+        raise ValueError(f"{name} must be a 2-D tensor" if not lead else
+                         f"{name} must be a stack of {lead[0]} 2-D tensors")
     if X.dtype not in dtypes:
         names = [str(d).removeprefix("torch.") for d in dtypes]
         raise TypeError(f"{name} must be {', '.join(names[:-1])} or "
                         f"{names[-1]}, got {X.dtype}")
-    if rows is not None and X.shape[0] != rows:
-        raise ValueError(f"{name} has {X.shape[0]} rows, expected {rows}")
+    if rows is not None and X.shape[-2] != rows:
+        raise ValueError(f"{name} has {X.shape[-2]} rows, expected {rows}")
 
 
-def _vector(name: str, x: Tensor, length: int) -> None:
-    if not isinstance(x, Tensor) or x.dim() != 1 or x.shape[0] != length:
-        raise ValueError(f"{name} must be a 1-D tensor of length {length}")
+def _vector(name: str, x: Tensor, length: int, lead: tuple = ()) -> None:
+    if not isinstance(x, Tensor) or tuple(x.shape) != lead + (length,):
+        raise ValueError(f"{name} must be a 1-D tensor of length {length}"
+                         if not lead else f"{name} must be a stack of "
+                         f"{lead[0]} vectors of length {length}")
     if x.dtype != F32:
         raise TypeError(f"{name} must be float32, got {x.dtype}")
+
+
+def _lead(A: Tensor) -> tuple:
+    """() for a 2-D operand, (B,) for a stack of B (B ≤ ``MAX_BATCH``)."""
+    if isinstance(A, Tensor) and A.dim() == 3:
+        if not 1 <= A.shape[0] <= MAX_BATCH:
+            raise ValueError(f"a stack of {A.shape[0]} examples; the "
+                             f"kernels take 1 to {MAX_BATCH}")
+        return (A.shape[0],)
+    return ()
 
 
 def _on_cuda(*tensors: Tensor) -> bool:
@@ -245,18 +280,21 @@ def _on_cuda(*tensors: Tensor) -> bool:
     return True
 
 
-def _scalar(x, device: torch.device) -> Tensor:
-    """A one-element f32 device tensor (a view when ``x`` already is one)."""
+def _scalar(x, device: torch.device, count: int = 1) -> Tensor:
+    """``count`` f32 scalars on the device, one per stacked example: a
+    view of an f32 device tensor of ``count`` elements, or a Python
+    number repeated."""
     if isinstance(x, Tensor):
-        if x.numel() != 1 or x.dtype != F32 or x.device != device:
-            raise ValueError("the scalar must be a one-element float32 "
-                             f"tensor on {device}")
-        return x.reshape(1)
-    return torch.full((1,), float(x), dtype=F32, device=device)
+        if x.numel() != count or x.dtype != F32 or x.device != device:
+            what = "a one-element" if count == 1 else f"a {count}-element"
+            raise ValueError(f"the scalar must be {what} float32 tensor on "
+                             f"{device}")
+        return x.reshape(count).contiguous()
+    return torch.full((count,), float(x), dtype=F32, device=device)
 
 
 def _basis_width(Q: Tensor) -> int:
-    k = Q.shape[1]
+    k = Q.shape[-1]
     if k > MAX_K:
         raise ValueError(f"basis has {k} columns; the kernel takes at most "
                          f"{MAX_K}")
@@ -278,98 +316,109 @@ def _stream() -> int:
 def mv_qtv(A: Tensor, p: Tensor, y: Tensor, alpha,
            Q: Tensor) -> tuple[Tensor, Tensor]:
     """(u, c) = (A p − α y, Qᵀ u) in one pass over A and Q.
-    A (m, n); p (n,); y (m,); Q (m, k) → u (m,), c (k,) f32."""
-    _matrix("A", A)
-    m, n = A.shape
-    _vector("p", p, n)
-    _vector("y", y, m)
-    _matrix("Q", Q, rows=m)
+    A (m, n); p (n,); y (m,); Q (m, k) → u (m,), c (k,) f32.  Stacked:
+    A (B, m, n), p (B, n), y (B, m), α (B,), Q (B, m, k) → u (B, m),
+    c (B, k), one call for the batch."""
+    lead = _lead(A)
+    _matrix("A", A, lead=lead)
+    m, n = A.shape[-2:]
+    _vector("p", p, n, lead)
+    _vector("y", y, m, lead)
+    _matrix("Q", Q, rows=m, lead=lead)
     if not _on_cuda(A, p, y, Q):
         return ref.mv_qtv(A, p, y, alpha, Q)
     if m == 0 or n == 0:
         raise ValueError(f"empty operand {tuple(A.shape)}")
     k = _basis_width(Q)
+    B = lead[0] if lead else 1
     per, grid = rows_plan(m)
-    a = _scalar(alpha, A.device)
-    u = torch.empty(m, dtype=F32, device=A.device)
-    c = torch.empty(k, dtype=F32, device=A.device)
-    part = torch.empty(k * grid, dtype=F32, device=A.device)
+    a = _scalar(alpha, A.device, B)
+    u = torch.empty(lead + (m,), dtype=F32, device=A.device)
+    c = torch.empty(lead + (k,), dtype=F32, device=A.device)
+    part = torch.empty(B * k * grid, dtype=F32, device=A.device)
     rc = _lib().gk_mv_qtv(
         A.data_ptr(), int(A.dtype == BF16), p.data_ptr(), y.data_ptr(),
         a.data_ptr(), Q.data_ptr(), int(Q.dtype == BF16), m, n, k, per, grid,
-        u.data_ptr(), part.data_ptr(), c.data_ptr(), _stream())
+        B, u.data_ptr(), part.data_ptr(), c.data_ptr(), _stream())
     _check(rc, "mv_qtv")
-    LAUNCHES["mv_qtv"] += 1
+    _count("mv_qtv")
     return u, c
 
 
 def rmv_qtv(A: Tensor, q: Tensor, y: Tensor, beta,
             P: Tensor) -> tuple[Tensor, Tensor]:
     """(v, c) = (Aᵀ q − β y, Pᵀ v) from row-major A, no stored transpose.
-    A (m, n); q (m,); y (n,); P (n, k) → v (n,), c (k,) f32."""
-    _matrix("A", A)
-    m, n = A.shape
-    _vector("q", q, m)
-    _vector("y", y, n)
-    _matrix("P", P, rows=n)
+    A (m, n); q (m,); y (n,); P (n, k) → v (n,), c (k,) f32.  Stacked as
+    ``mv_qtv``: A (B, m, n), q (B, m), y (B, n), β (B,), P (B, n, k)."""
+    lead = _lead(A)
+    _matrix("A", A, lead=lead)
+    m, n = A.shape[-2:]
+    _vector("q", q, m, lead)
+    _vector("y", y, n, lead)
+    _matrix("P", P, rows=n, lead=lead)
     if not _on_cuda(A, q, y, P):
         return ref.rmv_qtv(A, q, y, beta, P)
     if m == 0 or n == 0:
         raise ValueError(f"empty operand {tuple(A.shape)}")
     k = _basis_width(P)
+    B = lead[0] if lead else 1
     plan, pp = rmv_plan(m, n, A.dtype), proj_plan(n, k, P.dtype)
-    b = _scalar(beta, A.device)
-    vpart = torch.empty(plan.tiles * plan.chunks * plan.tile_cols,
+    b = _scalar(beta, A.device, B)
+    vpart = torch.empty(B * plan.tiles * plan.chunks * plan.tile_cols,
                         dtype=F32, device=A.device)
-    v = torch.empty(n, dtype=F32, device=A.device)
-    c = torch.empty(k, dtype=F32, device=A.device)
-    part = torch.empty(k * pp.grid, dtype=F32, device=A.device)
+    v = torch.empty(lead + (n,), dtype=F32, device=A.device)
+    c = torch.empty(lead + (k,), dtype=F32, device=A.device)
+    part = torch.empty(B * k * pp.grid, dtype=F32, device=A.device)
     rc = _lib().gk_rmv_qtv(
         A.data_ptr(), int(A.dtype == BF16), q.data_ptr(), y.data_ptr(),
         b.data_ptr(), P.data_ptr(), int(P.dtype == BF16), m, n, k,
         plan.cols, plan.rows, plan.chunks, vpart.data_ptr(), pp.tile_rows,
-        pp.grid, pp.stages, pp.flags, v.data_ptr(), part.data_ptr(),
+        pp.grid, pp.stages, pp.flags, B, v.data_ptr(), part.data_ptr(),
         c.data_ptr(), _stream())
     _check(rc, "rmv_qtv")
-    LAUNCHES["rmv_qtv"] += 1
+    _count("rmv_qtv")
     return v, c
 
 
 def _proj(name: str, plain, u: Tensor, Q: Tensor, c: Tensor):
-    _matrix("Q", Q)
-    L, k = Q.shape
-    _vector("u", u, L)
-    _vector("c", c, k)
+    lead = _lead(Q)
+    _matrix("Q", Q, lead=lead)
+    L, k = Q.shape[-2:]
+    _vector("u", u, L, lead)
+    _vector("c", c, k, lead)
     if not _on_cuda(u, Q, c):
         return plain(u, Q, c)
     if L == 0:
         raise ValueError("empty basis")
     _basis_width(Q)
+    B = lead[0] if lead else 1
     plan = proj_plan(L, k, Q.dtype)
-    w = torch.empty(L, dtype=F32, device=u.device)
+    w = torch.empty(lead + (L,), dtype=F32, device=u.device)
     nout = 1 if name == "proj_norm" else k
-    out = torch.empty(nout, dtype=F32, device=u.device)
-    part = torch.empty(nout * plan.grid, dtype=F32, device=u.device)
+    out = torch.empty(lead + (nout,), dtype=F32, device=u.device)
+    part = torch.empty(B * nout * plan.grid, dtype=F32, device=u.device)
     fn = getattr(_lib(), f"gk_{name}")
     rc = fn(u.data_ptr(), Q.data_ptr(), int(Q.dtype == BF16), c.data_ptr(),
-            L, k, plan.tile_rows, plan.grid, plan.stages, plan.flags,
+            L, k, plan.tile_rows, plan.grid, plan.stages, plan.flags, B,
             w.data_ptr(), part.data_ptr(), out.data_ptr(), _stream())
     _check(rc, name)
-    LAUNCHES[name] += 1
+    _count(name)
     return w, out
 
 
 def proj_qtv(u: Tensor, Q: Tensor, c: Tensor) -> tuple[Tensor, Tensor]:
     """(w, c') = (u − Q c, Qᵀ w) in one pass over Q.
-    u (L,); Q (L, k); c (k,) → w (L,), c' (k,) f32."""
+    u (L,); Q (L, k); c (k,) → w (L,), c' (k,) f32.  Stacked: u (B, L),
+    Q (B, L, k), c (B, k) → w (B, L), c' (B, k)."""
     return _proj("proj_qtv", ref.proj_qtv, u, Q, c)
 
 
 def proj_norm(u: Tensor, Q: Tensor, c: Tensor) -> tuple[Tensor, Tensor]:
     """(v, ‖v‖²) = (u − Q c, Σ v²) in one pass over Q.
-    u (L,); Q (L, k); c (k,) → v (L,), ‖v‖² () f32."""
+    u (L,); Q (L, k); c (k,) → v (L,), ‖v‖² () f32.  Stacked: u (B, L),
+    Q (B, L, k), c (B, k) → v (B, L), ‖v‖² (B,)."""
     v, nrm2 = _proj("proj_norm", ref.proj_norm, u, Q, c)
-    return v, nrm2.reshape(())
+    return v, nrm2.reshape(v.shape[:-1])
 
 
 # --- the fused matvecs: stage 1 with an empty basis ------------------------
@@ -391,7 +440,7 @@ def matvec_fused(A: Tensor, p: Tensor, y: Tensor, alpha) -> Tensor:
         A.data_ptr(), A_KINDS[A.dtype], p.data_ptr(), y.data_ptr(),
         a.data_ptr(), m, n, matvec_plan(m), u.data_ptr(), _stream())
     _check(rc, "matvec_fused")
-    LAUNCHES["matvec_fused"] += 1
+    _count("matvec_fused")
     return u
 
 
@@ -416,5 +465,5 @@ def rmatvec_fused(A: Tensor, q: Tensor, y: Tensor, beta) -> Tensor:
         b.data_ptr(), m, n, plan.cols, plan.rows, plan.chunks,
         vpart.data_ptr(), v.data_ptr(), _stream())
     _check(rc, "rmatvec_fused")
-    LAUNCHES["rmatvec_fused"] += 1
+    _count("rmatvec_fused")
     return v

@@ -6,7 +6,8 @@ Counterpart of ``repro.kernels.ops``:
     half-steps): stage 1 (``mv_qtv`` or ``rmv_qtv``), then ``passes − 1`` ×
     ``proj_qtv``, then ``proj_norm``, so the basis is read ``passes + 1``
     times and the candidate vector meets its first CGS product before it
-    is stored;
+    is stored; stacked inputs (a batched solve) take one call of each
+    stage for the whole batch;
   * ``matvec_fused`` / ``rmatvec_fused`` (``DenseOp.mv_fused`` /
     ``rmv_fused``): vectors and the scalar of any float dtype, cast to
     f32 as the reference wrapper does;
@@ -96,7 +97,8 @@ def gk_step_fused(A: Tensor, p: Tensor, y: Tensor, alpha, Q: Tensor,
                   passes: int = 2) -> tuple[Tensor, Tensor]:
     """Left GK half-step: ``u = A p − α y`` reorthogonalized CGS^passes
     against Q, plus its norm.  A (m, n); p (n,); y (m,); Q (m, k) →
-    (u (m,) f32, ‖u‖ () f32)."""
+    (u (m,) f32, ‖u‖ () f32).  Stacked: A (B, m, n), p (B, n), y (B, m),
+    α (B,), Q (B, m, k) → (u (B, m), ‖u‖ (B,))."""
     u, c = gs.mv_qtv(A, _f32(p), _f32(y), alpha, Q)
     return _project(u, Q, c, passes)
 
@@ -104,7 +106,8 @@ def gk_step_fused(A: Tensor, p: Tensor, y: Tensor, alpha, Q: Tensor,
 def gk_rstep_fused(A: Tensor, q: Tensor, y: Tensor, beta, P: Tensor,
                    passes: int = 2) -> tuple[Tensor, Tensor]:
     """Right GK half-step: ``v = Aᵀ q − β y`` against the P basis.
-    A (m, n); q (m,); y (n,); P (n, k) → (v (n,) f32, ‖v‖ () f32)."""
+    A (m, n); q (m,); y (n,); P (n, k) → (v (n,) f32, ‖v‖ () f32), or
+    stacked as :func:`gk_step_fused`."""
     v, c = gs.rmv_qtv(A, _f32(q), _f32(y), beta, P)
     return _project(v, P, c, passes)
 
@@ -112,7 +115,7 @@ def gk_rstep_fused(A: Tensor, q: Tensor, y: Tensor, beta, P: Tensor,
 def _project(u: Tensor, Q: Tensor, c: Tensor,
              passes: int) -> tuple[Tensor, Tensor]:
     if passes == 0:
-        return u, torch.linalg.vector_norm(u)
+        return u, torch.linalg.vector_norm(u, dim=-1)
     for _ in range(passes - 1):
         u, c = gs.proj_qtv(u, Q, c)
     v, nrm2 = gs.proj_norm(u, Q, c)

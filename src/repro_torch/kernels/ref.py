@@ -143,10 +143,27 @@ def bin_entries(rows: Tensor, cols: Tensor, vals: Tensor,
 
 
 # --- the four stages of the fused pipeline (kernels/gk_step.py) ---------
+#
+# Each also takes stacked inputs (A or the basis with a leading batch
+# dimension, vectors (B, len), the scalar a (B,) tensor or a number): the
+# plain version of each example in turn, stacked, so every example has
+# the bits of the unstacked call on it.
+
+def _stacked(fn, *args):
+    """``fn`` on each example of the stacked tensors in ``args`` (a
+    number or a 0-d tensor goes to every example), stacked."""
+    B = next(a.shape[0] for a in args if isinstance(a, Tensor)
+             and a.dim() == 3)
+    outs = [fn(*(a[b] if isinstance(a, Tensor) and a.dim() else a
+                 for a in args)) for b in range(B)]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
 
 def mv_qtv(A: Tensor, p: Tensor, y: Tensor, alpha,
            Q: Tensor) -> tuple[Tensor, Tensor]:
     """(u, c) = (A p − α y, Qᵀ u)."""
+    if A.dim() == 3:
+        return _stacked(mv_qtv, A, p, y, alpha, Q)
     u = matvec_fused(A, p, y, alpha)
     return u, qtv(Q, u)
 
@@ -154,17 +171,24 @@ def mv_qtv(A: Tensor, p: Tensor, y: Tensor, alpha,
 def rmv_qtv(A: Tensor, q: Tensor, y: Tensor, beta,
             P: Tensor) -> tuple[Tensor, Tensor]:
     """(v, c) = (Aᵀ q − β y, Pᵀ v)."""
+    if A.dim() == 3:
+        return _stacked(rmv_qtv, A, q, y, beta, P)
     v = rmatvec_fused(A, q, y, beta)
     return v, qtv(P, v)
 
 
 def proj_qtv(u: Tensor, Q: Tensor, c: Tensor) -> tuple[Tensor, Tensor]:
     """(w, c') = (u − Q c, Qᵀ w)."""
+    if Q.dim() == 3:
+        return _stacked(proj_qtv, u, Q, c)
     w = subtract_qc(u, Q, c)
     return w, qtv(Q, w)
 
 
 def proj_norm(u: Tensor, Q: Tensor, c: Tensor) -> tuple[Tensor, Tensor]:
-    """(v, ‖v‖²) = (u − Q c, Σ v²); the second output is 0-d."""
+    """(v, ‖v‖²) = (u − Q c, Σ v²); the second output is 0-d ((B,)
+    stacked)."""
+    if Q.dim() == 3:
+        return _stacked(proj_norm, u, Q, c)
     v = subtract_qc(u, Q, c)
     return v, torch.dot(v, v)

@@ -242,7 +242,7 @@ def test_methods_not_ported_name_their_roadmap_row():
                                                  40, 30, 4)))
     assert available_solvers() == ("fsvd", "fsvd_blocked", "gnystrom",
                                    "rbk", "rsvd")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6 "):
         factorize(A, SVDSpec(method="fsvd_sharded", rank=3))
     g = torch.Generator().manual_seed(0)
     for method in ("rsvd", "fsvd_blocked", "rbk", "gnystrom"):

@@ -107,6 +107,80 @@ def test_kernels_match_plain_versions(cuda, m, n, k, adt, qdt):
                                           for name in stages})
 
 
+def _stacked_inputs(m, n, k, adt, qdt, B, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def t(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=g, device="cuda").to(dt)
+
+    return (t(B, m, n, dt=adt), t(B, n), t(B, m), t(B, m), t(B, n), t(B),
+            t(B, m, k, dt=qdt), t(B, n, k, dt=qdt), t(B, k))
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("adt,qdt", [(torch.float32, torch.float32),
+                                     (torch.float32, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("m,n,k", [(64, 48, 4), (300, 517, 17),
+                                   (127, 383, 9), (192, 128, 25),
+                                   (1025, 333, 201)])
+def test_stacked_launches_are_single_launches(cuda, m, n, k, adt, qdt, B):
+    """One launch of each stage covers a stack of B examples: example b
+    is bit for bit a single launch on it (the same plan, partials and
+    finishing order), the stack is within tolerance of its stacked plain
+    version and bitwise stable, and each call counts one launch."""
+    A, p, q, ym, yn, al, Q, P, c = _stacked_inputs(m, n, k, adt, qdt, B,
+                                                   m + n + k + B)
+    rtol = 1e-5 if adt == qdt == torch.float32 else 3e-2
+    cases = {"mv_qtv": (lambda: gs.mv_qtv(A, p, ym, al, Q),
+                        lambda b: gs.mv_qtv(A[b], p[b], ym[b], al[b], Q[b]),
+                        ref.mv_qtv(A, p, ym, al, Q)),
+             "rmv_qtv": (lambda: gs.rmv_qtv(A, q, yn, al, P),
+                         lambda b: gs.rmv_qtv(A[b], q[b], yn[b], al[b],
+                                              P[b]),
+                         ref.rmv_qtv(A, q, yn, al, P)),
+             "proj_qtv": (lambda: gs.proj_qtv(ym, Q, c),
+                          lambda b: gs.proj_qtv(ym[b], Q[b], c[b]),
+                          ref.proj_qtv(ym, Q, c)),
+             "proj_norm": (lambda: gs.proj_norm(ym, Q, c),
+                           lambda b: gs.proj_norm(ym[b], Q[b], c[b]),
+                           ref.proj_norm(ym, Q, c))}
+    for name, (stacked, single, want) in cases.items():
+        before = gs.LAUNCHES[name]
+        got = stacked()
+        assert gs.LAUNCHES[name] == before + 1
+        _assert_close(got, want, rtol if name[0] in "mr" else
+                      (3e-2 if qdt == torch.bfloat16 else 1e-5))
+        for a, b in zip(got, stacked()):
+            assert torch.equal(a, b)
+        for b in range(B):
+            for a, w in zip(got, single(b)):
+                assert torch.equal(a[b], w), (name, b)
+    torch.cuda.synchronize()
+
+
+def test_solve_batched_on_the_card(cuda):
+    """fsvd over B = 3 stacked operands: one call a stage for the batch
+    (a single solve's launch counts), each example's σ within 1e-5·σ_max
+    of its own plan.solve from the same q1."""
+    from repro_torch.api import plan
+    rng = np.random.default_rng(4)
+    As = torch.from_numpy(np.stack([
+        rng.standard_normal((192, 10)) @ rng.standard_normal((10, 128))
+        for _ in range(3)]).astype(np.float32)).to(cuda)
+    q1s = torch.from_numpy(2 + rng.standard_normal((3, 192)).astype(
+        np.float32)).to(cuda)
+    spec = SVDSpec(method="fsvd", rank=8, max_iters=24, backend="pallas")
+    gs.reset_launches()
+    got = plan(spec).solve_batched(As, q1s=q1s)
+    assert gs.LAUNCHES["mv_qtv"] == 24 and gs.LAUNCHES["rmv_qtv"] == 23
+    assert got.s.shape == (3, 8)
+    for b in range(3):
+        one = plan(spec).solve(As[b], q1=q1s[b])
+        assert float((got.s[b] - one.s).abs().max()) <= 1e-5 * float(one.s[0])
+
+
 @pytest.mark.parametrize("passes", [0, 1, 2, 3])
 def test_fused_steps_match_plain_versions(cuda, passes):
     A, p, q, ym, yn, Q, P = _inputs(300, 517, 17, torch.float32,

@@ -216,6 +216,101 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
         gs.mv_qtv(meta, p, y, 0.1, Q)        # mixed devices
 
 
+def _stack(m, n, k, B, seed, qdt=torch.float32):
+    """Stacked inputs of both half-steps: A (B, m, n), the vectors (B, ·),
+    the scalars (B,), bases (B, m, k) / (B, n, k) of ``qdt``."""
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(B, m, n, generator=g)
+    vecs = [torch.randn(B, L, generator=g) for L in (n, m, m, n)]
+    al = torch.randn(B, generator=g)
+    Q = torch.randn(B, m, k, generator=g).to(qdt)
+    P = torch.randn(B, n, k, generator=g).to(qdt)
+    c = torch.randn(B, k, generator=g)
+    return A, vecs, al, Q, P, c
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("m,n,k", [(64, 48, 4), (257, 129, 31)])
+def test_stacked_stages_are_each_examples_single_call(m, n, k, B, qdt):
+    """Each of the four stages takes stacked inputs (the batched solve's
+    half-steps): example b of the stacked call is bit for bit the
+    unstacked call on example b (its plain version here; on the card a
+    single launch, tests/test_torch_gpu.py); the last example, the one at
+    the largest offsets, matches the reference's stage-1 and projection
+    kernels."""
+    A, (p, q, ym, yn), al, Q, P, c = _stack(m, n, k, B, m + n + k + B, qdt)
+    gs.reset_launches()
+    stacked = {"mv_qtv": gs.mv_qtv(A, p, ym, al, Q),
+               "rmv_qtv": gs.rmv_qtv(A, q, yn, al, P),
+               "proj_qtv": gs.proj_qtv(ym, Q, c),
+               "proj_norm": gs.proj_norm(ym, Q, c)}
+    assert stacked["proj_norm"][1].shape == (B,)
+    assert stacked["mv_qtv"][0].shape == (B, m)
+    assert stacked["rmv_qtv"][1].shape == (B, k)
+    for b in range(B):
+        single = {"mv_qtv": gs.mv_qtv(A[b], p[b], ym[b], al[b], Q[b]),
+                  "rmv_qtv": gs.rmv_qtv(A[b], q[b], yn[b], al[b], P[b]),
+                  "proj_qtv": gs.proj_qtv(ym[b], Q[b], c[b]),
+                  "proj_norm": gs.proj_norm(ym[b], Q[b], c[b])}
+        for name, outs in single.items():
+            for got, want in zip(stacked[name], outs):
+                assert torch.equal(got[b], want), name
+    b = B - 1
+    jQ = jnp.asarray(Q[b].float().numpy(), jnp.bfloat16) \
+        if qdt == torch.bfloat16 else Q[b].numpy()
+    rtol = 3e-2 if qdt == torch.bfloat16 else 1e-5
+    u, cu = jops.local_mv_qtv(A[b].numpy(), p[b].numpy()[:, None],
+                              ym[b].numpy()[:, None], float(al[b]), jQ)
+    _close(stacked["mv_qtv"][0][b], u[:, 0], rtol)
+    _close(stacked["mv_qtv"][1][b], cu[:, 0], rtol)
+    w, nrm = jgs.proj_norm(ym[b].numpy()[:, None], jQ,
+                           c[b].numpy()[:, None], bm=m)
+    _close(stacked["proj_norm"][0][b], w[:, 0], rtol)
+    _close(stacked["proj_norm"][1][b], nrm[0, 0], rtol)
+    assert gs.LAUNCHES == dict.fromkeys(gs.LAUNCHES, 0)
+
+
+def test_stacked_half_steps_are_each_examples_half_step():
+    """ops.gk_step_fused / gk_rstep_fused on stacked inputs: (B, ·)
+    vectors and (B,) norms, each example the unstacked half-step's."""
+    A, (p, q, ym, yn), al, Q, P, c = _stack(60, 40, 5, 3, 9)
+    for passes in PASSES:
+        u, nu = ops.gk_step_fused(A, p, ym, al, Q, passes)
+        v, nv = ops.gk_rstep_fused(A, q, yn, al, P, passes)
+        assert u.shape == (3, 60) and nu.shape == nv.shape == (3,)
+        for b in range(3):
+            for got, want in zip((u[b], nu[b], v[b], nv[b]),
+                                 ops.gk_step_fused(A[b], p[b], ym[b], al[b],
+                                                   Q[b], passes)
+                                 + ops.gk_rstep_fused(A[b], q[b], yn[b],
+                                                      al[b], P[b], passes)):
+                assert torch.equal(got, want)
+
+
+def test_stacked_wrappers_reject_what_the_kernel_does_not_take():
+    A, (p, q, ym, yn), al, Q, P, c = _stack(32, 24, 3, 2, 5)
+    with pytest.raises(ValueError, match="stack of 2 vectors"):
+        gs.mv_qtv(A, p[0], ym, al, Q)             # an unstacked vector
+    with pytest.raises(ValueError, match="stack of 2 2-D"):
+        gs.mv_qtv(A, p, ym, al, Q[0])             # an unstacked basis
+    with pytest.raises(ValueError):
+        gs.mv_qtv(A, p[:1], ym, al, Q)            # batch sizes disagree
+    with pytest.raises(ValueError):
+        gs.rmv_qtv(A, q, yn, al, Q)               # P must have n rows
+    with pytest.raises(ValueError):
+        gs.proj_norm(ym, Q, c[:, :2])
+    with pytest.raises(ValueError, match="examples"):
+        gs.mv_qtv(torch.empty(0, 32, 24), p[:0], ym[:0], al[:0], Q[:0])
+    meta = torch.empty(2, 32, 24, device="meta")
+    with pytest.raises(ValueError, match="different devices"):
+        gs.mv_qtv(meta, p, ym, al, Q)
+    # the card's scalar check: one f32 scalar per example on the device
+    with pytest.raises(ValueError, match="2-element float32"):
+        gs._scalar(al[:1], al.device, 2)
+    assert torch.equal(gs._scalar(0.5, al.device, 2), torch.full((2,), 0.5))
+
+
 @pytest.mark.parametrize("L", [1, 7, 8, 9, 2047, 2048 * 8 + 1, 100_000,
                                80_000])
 def test_rows_plan_covers_every_row_once(L):
@@ -1450,15 +1545,6 @@ def test_scatter_add_drops_coordinates_outside_the_panel():
         got, np.asarray(jops.scatter_add(rows, cols, vals, (4, 4))))
 
 
-def test_sort_keys_is_stable_and_masks_the_outside():
-    rows = torch.tensor([2, 0, 2, 9, 0, 2], dtype=torch.int32)
-    cols = torch.tensor([1, 3, 1, 0, 3, 0], dtype=torch.int32)
-    keys, perm = cs.sort_keys(rows, cols, (3, 4))
-    assert keys.tolist() == [3, 3, 8, 9, 9, 12]
-    assert perm.tolist() == [1, 4, 5, 0, 2, 3]   # equal keys in entry order
-    assert keys.dtype == perm.dtype == torch.int64
-
-
 def _np_bins(rows, cols, vals, shape, bits):
     """numpy's stable argsort of each inside entry's tile: the bins of the
     card's scatter-add, built independently of the model."""
@@ -1630,9 +1716,6 @@ def test_scatter_add_wrapper_rejects_what_the_kernel_does_not_take():
         cs.scatter_add(r, c, v, (-1, 2))
     with pytest.raises(ValueError, match="different devices"):
         cs.scatter_add(r, c, torch.zeros(4, device="meta"), (2, 2))
-    keys, perm = cs.sort_keys(r, c, (2, 2))
-    with pytest.raises(ValueError, match="CUDA kernel alone"):
-        cs.segment_sum(keys, perm, v, (2, 2))
 
 
 def test_scatter_add_plain_version_adds_in_entry_order():
