@@ -153,7 +153,27 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      shapes by device time (the fold and index_add_ in CUDA graphs) and
      stage by stage, and so on two wider panels (480,189 x 128 and
      4,194,304 x 128: bins of 8 and of 64 tiles) with as many spread
-     entries as the Y fold.
+     entries as the Y fold;
+  9. the Session at full width (after phase 7 and after A is freed, before
+     3c): an exact rank-20 operand A = M N (--m x --n f32, Gaussian factors
+     from --seed) handed to Session(SVDSpec(method="fsvd", rank=20,
+     max_iters=200, backend="pallas")) with learned gates and no other
+     reference, then solve -> cold; update((M + 1e-3 E) N) -> refine at
+     the learned budget; two rank-2 LowRankOp deltas at 1e-3 ||A||_F ->
+     update (0 iterations; the fold by row blocks through lowrank_matmul);
+     downdate of 8 rows -> downdate; a rank-1 block of 1,024 x 1,024
+     entries, each coordinate twice, shuffled, ||D||_F = 1e-3 ||A||_F ->
+     sketch (0 iterations, 2 scatter_add launches, probe <= gate);
+     save(keep=2) and Session.restore (the factorization bit for bit, the
+     same history); the checkpoint.write failpoint (the previous step
+     stays the newest valid), a corrupt-mode save (restore falls back to
+     the verified step); one more solve on the restored session ->
+     refine.  Each step is checked for its kind, iterations and launches,
+     and its sigma against the exact sigma of the operand's factored form
+     (fsvd's 5e-4 for solves, 1e-5 for updates, 1e-3 for the sketch); the
+     stream runs twice from the seed with the same sigma bits, at a peak
+     of at most two operands + 4 GiB; each step's wall, kernel time and
+     probe walls are printed, and a {"session": [...]} JSON line.
 
 The line before the last is the card as nvidia-smi reports it; the last is
 {"ok": true, "device": {...}}.  A kernels JSON line precedes them.
@@ -231,6 +251,15 @@ ZIPF_CAP = 10                 # phase 6b: the skewed pack's longest row, as
                               # a multiple of the mean (the ELL pack pads
                               # every row to it)
 GIB = 2 ** 30
+# phase 9, the Session: an exact rank-20 operand (tests/test_update.py's
+# _exact at the cell's width) driven through every branch of the policy
+SESSION_RANK = 20
+SESSION_EPS = 1e-3            # the dense drift (M + eps E) N
+SESSION_DELTA = 1e-3          # each rank-2 delta's ||D||_F / ||A||_F
+SESSION_DELTA_RANK = 2
+SESSION_ROWS = 8              # rows the downdate removes
+SESSION_MASS = 1e-3           # ||D||_F / ||A||_F of the entry block
+SESSION_SLACK = 4 * GIB       # peak <= two operands + this
 # phase 4: (method, spec fields, sigma bound as a fraction of sigma_max)
 SKETCH_SOLVES = [
     # sketch_dim >= the rank, so the range is captured; 1e-3 is
@@ -1850,7 +1879,10 @@ def batched_stage_times(As, seed, k):
     """Each GK-step stage at the big batch's solve shapes by device time
     (``graph_ms``): the stacked call, B single launches and one single
     launch, beside the bound (B x each input byte read and each output
-    byte written once at 3.35 TB/s)."""
+    byte written once at 3.35 TB/s) and the yardstick of rows 1-4 applied
+    to the whole stack in batched library calls (``torch.baddbmm`` for
+    the matvec or the projection's update, then ``torch.bmm`` for the
+    basis product or the norm): two calls where the kernel is one."""
     import torch
     from repro_torch.kernels import gk_step as gs
     B, m, n = As.shape
@@ -1864,26 +1896,43 @@ def batched_stage_times(As, seed, k):
     Q, P = t(B, m, kq) / m ** 0.5, t(B, n, kp) / n ** 0.5
     cq = t(B, kq)
     f = 4
+    At, Qt, Pt = As.transpose(1, 2), Q.transpose(1, 2), P.transpose(1, 2)
+
+    def lib_mv():
+        u = torch.baddbmm(ym[:, :, None], As, p[:, :, None], beta=-0.37)
+        return u, torch.bmm(Qt, u)
+
+    def lib_rmv():
+        v = torch.baddbmm(yn[:, :, None], At, q[:, :, None], beta=-1.7)
+        return v, torch.bmm(Pt, v)
+
+    def lib_proj(norm):
+        w = torch.baddbmm(ym[:, :, None], Q, cq[:, :, None], alpha=-1.0)
+        return w, torch.bmm(w.transpose(1, 2), w) if norm \
+            else torch.bmm(Qt, w)
+
     stages = {
         "mv_qtv": (lambda b=None: gs.mv_qtv(As, p, ym, al, Q) if b is None
-                   else gs.mv_qtv(As[b], p[b], ym[b], al[b], Q[b]),
+                   else gs.mv_qtv(As[b], p[b], ym[b], al[b], Q[b]), lib_mv,
                    f * (m * n + n + m + m * kq + 1 + m + kq),
                    2 * m * n + 2 * m + 2 * m * kq, f"{m}x{n}, k={kq}"),
         "rmv_qtv": (lambda b=None: gs.rmv_qtv(As, q, yn, al, P) if b is None
                     else gs.rmv_qtv(As[b], q[b], yn[b], al[b], P[b]),
-                    f * (m * n + m + n + n * kp + n + kp),
+                    lib_rmv, f * (m * n + m + n + n * kp + n + kp),
                     2 * m * n + 2 * n + 2 * n * kp, f"{m}x{n}, k={kp}"),
         "proj_qtv": (lambda b=None: gs.proj_qtv(ym, Q, cq) if b is None
                      else gs.proj_qtv(ym[b], Q[b], cq[b]),
+                     lambda: lib_proj(False),
                      f * (m * kq + 2 * m + 2 * kq), 4 * m * kq + m,
                      f"Q {m}x{kq}"),
         "proj_norm": (lambda b=None: gs.proj_norm(ym, Q, cq) if b is None
                       else gs.proj_norm(ym[b], Q[b], cq[b]),
+                      lambda: lib_proj(True),
                       f * (m * kq + 2 * m + kq + 1), 2 * m * kq + 3 * m,
                       f"Q {m}x{kq}"),
     }
     rows = {}
-    for name, (call, nbytes, flops, shape) in stages.items():
+    for name, (call, lib, nbytes, flops, shape) in stages.items():
         t_bytes = B * nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = B * flops / F32_FLOP_PER_S * 1e3
         row = dict(call=f"B={B} x {shape} f32",
@@ -1891,6 +1940,8 @@ def batched_stage_times(As, seed, k):
                    singles_ms=graph_ms([lambda: [call(b) for b in range(B)]],
                                        20, 5),
                    one_ms=graph_ms([lambda: call(0)], 60, 5),
+                   library_ms=graph_ms([lib], 60, 5),
+                   library="torch.baddbmm + torch.bmm (two calls)",
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
@@ -1898,7 +1949,8 @@ def batched_stage_times(As, seed, k):
               f"{row['ms']:.4f} ms ({100 * row['share_of_bound']:.0f} % of "
               f"the bound {row['bound_ms']:.4f} ms), {B} single launches "
               f"{row['singles_ms']:.4f} ms, one single launch "
-              f"{row['one_ms']:.4f} ms", flush=True)
+              f"{row['one_ms']:.4f} ms, library on the stack "
+              f"({row['library']}) {row['library_ms']:.4f} ms", flush=True)
         rows[name] = row
     return rows
 
@@ -1963,9 +2015,9 @@ def phase_plan(A, seed, walls3, drift):
 
 # --- phase 7: the sketch-resident state ------------------------------------
 
-def drift_stream(seed, m, n, norm_a):
+def drift_stream(seed, m, n, norm_a, mass=DRIFT_MASS):
     """The seeded rank-1 drift D = c u v^T on DRIFT_BLOCK rows x
-    DRIFT_BLOCK columns (drawn without replacement), ||D||_F = DRIFT_MASS
+    DRIFT_BLOCK columns (drawn without replacement), ||D||_F = mass
     ||A||_F, as a COO stream: each coordinate twice, a Gaussian part a and
     D_ij - a, shuffled.  Returns (rows, cols, vals, u_full, v_full) with
     D = u_full v_full^T (c folded into u_full)."""
@@ -1976,7 +2028,7 @@ def drift_stream(seed, m, n, norm_a):
     C = torch.randperm(n, generator=g, device=DEV)[:b]
     u = torch.randn(b, generator=g, device=DEV)
     v = torch.randn(b, generator=g, device=DEV)
-    c = DRIFT_MASS * norm_a / (torch.linalg.vector_norm(u)
+    c = mass * norm_a / (torch.linalg.vector_norm(u)
                                * torch.linalg.vector_norm(v))
     D = (c * u)[:, None] * v[None, :]
     a = torch.randn(b, b, generator=g, device=DEV) * (
@@ -2220,6 +2272,310 @@ def phase_sketchres(A, seed, peak3, drift):
     del seen
     torch.cuda.empty_cache()
     return launches, max(errs), out
+
+
+# --- phase 9: the Session at full width -------------------------------------
+
+def session_launches():
+    """Launches of the six kernels the Session's stream runs, since the
+    last ``reset_session_launches``."""
+    from repro_torch.kernels import count_sketch as kcs
+    from repro_torch.kernels import gk_step as gs
+    from repro_torch.kernels import lowrank_update as klu
+    out = {name: gs.LAUNCHES[name] for name in GK_STEP}
+    out["lowrank_matmul"] = klu.LAUNCHES["lowrank_matmul"]
+    out["scatter_add"] = kcs.LAUNCHES["scatter_add"]
+    return out
+
+
+def reset_session_launches():
+    from repro_torch.kernels import count_sketch as kcs
+    from repro_torch.kernels import gk_step as gs
+    from repro_torch.kernels import lowrank_update as klu
+    gs.reset_launches()
+    klu.reset_launches()
+    kcs.reset_launches()
+
+
+def rank2_delta(g, m, n, norm_a):
+    """test_update's _delta at the cell's width: Gaussian U (m, k) and Vt
+    (k, n), s = SESSION_DELTA ||A||_F / ||U Vt||_F (the Frobenius norm
+    from the k x k Gram matrices)."""
+    import torch
+    from repro_torch.api import LowRankOp
+    k = SESSION_DELTA_RANK
+    U = torch.randn(m, k, generator=g, device=DEV)
+    Vt = torch.randn(k, n, generator=g, device=DEV)
+    fro = torch.sqrt(((U.T @ U) * (Vt @ Vt.T)).sum())
+    s = torch.full((k,), SESSION_DELTA, device=DEV) * (norm_a / fro)
+    return LowRankOp(U, s, Vt)
+
+
+def session_stream(seed, m, n, directory, spies):
+    """One run of phase 9's stream on an exact rank-20 operand A = M N,
+    every step checked (kind, iterations, launches, sigma against the
+    exact sigma of the factored operand).  Returns (records, the sigma of
+    every step on the host, probe walls, peak device memory)."""
+    import torch
+    from repro_torch.api import SVDSpec
+    from repro_torch.api.session import Session
+    from repro_torch.checkpoint import valid_steps
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime import faults
+    from repro_torch.serve import resilience
+    r = SESSION_RANK
+    spec = SVDSpec(method="fsvd", rank=R_WANT, max_iters=MAX_ITERS,
+                   backend="pallas")
+    g = torch.Generator(device=DEV).manual_seed(seed + 40)
+    M = torch.randn(m, r, generator=g, device=DEV)
+    N = torch.randn(r, n, generator=g, device=DEV)
+    left, right = [M], [N.T]                 # A = [left] [right]^T
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def gen(k):
+        return torch.Generator(device=DEV).manual_seed(seed + k)
+
+    cur = {"sess": Session(M @ N, spec, generator=gen(41))}
+    records, bits, probe_walls, peaks = [], [], [], []
+    real = {"probe": resilience.residual_probe,
+            "lowrank_matmul": kops.lowrank_matmul,
+            "scatter_add": kops.scatter_add}
+    calls = {"lowrank_matmul": [], "scatter_add": []}
+
+    def probe(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real["probe"](*a, **kw)
+        probe_walls.append(time.perf_counter() - t0)
+        return out
+
+    def spy(name):
+        def call(*a):
+            if spies:
+                calls[name].append(a)
+            return real[name](*a)
+        return call
+
+    def exact():
+        return factored_sigma(torch.cat(left, 1), torch.cat(right, 1))
+
+    def step(label, kind, bound, fn, zero_iters=False):
+        reset_session_launches()
+        for v in calls.values():
+            v.clear()
+        n_probes = len(probe_walls)
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        fact, wall = timed(fn)
+        step_peak = torch.cuda.max_memory_allocated()
+        launches = session_launches()
+        rec = dict(cur["sess"].history[-1])
+        s_exact = exact()
+        err = float((fact.s.double() - s_exact[:R_WANT]).abs().max()
+                    / s_exact[0])
+        out = dict(step=label, kind=rec["kind"],
+                   iterations=int(rec["iterations"]), wall_s=wall,
+                   launches=launches, sigma_err=err, bound=bound,
+                   peak_gib=step_peak / GIB, probe_s=probe_walls[n_probes:],
+                   shapes={k: sorted({tuple(tuple(x.shape) for x in a[:3])
+                                      for a in v})
+                           for k, v in calls.items() if v})
+        for key in ("budget", "drift", "probe", "gate", "residual_update",
+                    "residual", "staleness"):
+            if key in rec:
+                out[key] = rec[key]
+        if spies:
+            out["calls"] = {k: list(v) for k, v in calls.items()}
+        records.append(out)
+        bits.append(fact.s.cpu())
+        shown = {k: v for k, v in out.items() if k not in ("calls",)}
+        print(f"phase 9: {json.dumps(shown, default=str)}", flush=True)
+        check(rec["kind"] == kind, f"{label}: took {rec['kind']}, not {kind}")
+        check(err < bound, f"{label}: sigma error {err:.3e} >= {bound}")
+        if zero_iters:
+            check(out["iterations"] == 0, f"{label}: ran GK iterations")
+            check(not any(launches[k] for k in GK_STEP),
+                  f"{label}: launched GK stages {launches}")
+        return out
+
+    resilience.residual_probe = probe
+    kops.lowrank_matmul = spy("lowrank_matmul")
+    kops.scatter_add = spy("scatter_add")
+    try:
+        cold = step("solve", "cold", FSVD_STOL, lambda: cur["sess"].solve())
+        want = gk_step_want(MAX_ITERS, spec.reorth_passes)
+        check({k: cold["launches"][k] for k in GK_STEP} == want,
+              f"cold launches {cold['launches']} != {want}")
+
+        E = torch.randn(m, r, generator=g, device=DEV)
+        left[0] = M + SESSION_EPS * E
+        held = [left[0] @ N]           # the session's update takes it over
+        del E
+        ref = step("update (dense drift)", "refine", FSVD_STOL,
+                   lambda: cur["sess"].update(held.pop()))
+        check(ref["iterations"] <= cold["iterations"]
+              and ref["budget"] < MAX_ITERS,
+              f"refine ran {ref['iterations']} iterations (budget "
+              f"{ref.get('budget')}) against cold {cold['iterations']}")
+        check(ref["launches"]["mv_qtv"] == ref["budget"],
+              f"refine launches {ref['launches']}")
+
+        for i in range(2):
+            norm_a = float(torch.linalg.vector_norm(exact()))
+            d = rank2_delta(g, m, n, norm_a)
+            left.append(d.U * d.s)
+            right.append(d.Vt.T)
+            rec = step(f"delta {i + 1}", "update", UPDATE_GATE,
+                       lambda: cur["sess"].delta(d), zero_iters=True)
+            check(rec["launches"]["lowrank_matmul"] >= 2,
+                  f"delta: lowrank_matmul launches {rec['launches']}")
+            del d
+
+        rows = torch.randperm(m, generator=g, device=DEV)[:SESSION_ROWS]
+        left = [L.index_fill(0, rows, 0) for L in left]
+        rec = step("downdate", "downdate", UPDATE_GATE,
+                   lambda: cur["sess"].downdate(rows=rows), zero_iters=True)
+        check(rec["launches"]["lowrank_matmul"] == 1,
+              f"downdate: lowrank_matmul launches {rec['launches']}")
+
+        norm_a = float(torch.linalg.vector_norm(exact()))
+        er, ec, ev, u_full, v_full = drift_stream(seed + 27, m, n, norm_a,
+                                                  mass=SESSION_MASS)
+        left.append(u_full[:, None])
+        right.append(v_full[:, None])
+        rec = step("entries", "sketch", SKETCHRES_STOL,
+                   lambda: cur["sess"].entries(er, ec, ev), zero_iters=True)
+        check(rec["launches"]["scatter_add"] == 2,
+              f"entries: scatter_add launches {rec['launches']}")
+        check(rec["probe"] <= rec["gate"],
+              f"entries: probe {rec['probe']:.3e} > gate {rec['gate']:.3e}")
+        del er, ec, ev, u_full, v_full
+        if spies:
+            # the probe pads its Omega to 8 columns: both forms of A Omega
+            A = cur["sess"].op.A
+            om8 = torch.randn(n, 8, generator=g, device=DEV)
+            om4 = om8[:, :4].contiguous()
+            t4 = event_ms(lambda: A @ om4, reps=3)
+            t8 = event_ms(lambda: A @ om8, reps=3)
+            del A
+            records.append(dict(step="probe product", ms_4_columns=t4,
+                                ms_8_columns=t8))
+            print(f"phase 9: the probe's A Omega ({m}x{n} f32, cuBLAS, "
+                  f"host loop of 3): 4 columns {t4:.2f} ms, padded to 8 "
+                  f"{t8:.2f} ms", flush=True)
+
+        sess = cur["sess"]
+        saved = sess._step
+        _, t_save = timed(lambda: sess.save(directory, keep=2))
+        back, t_restore = timed(lambda: Session.restore(
+            directory, sess.op.A, generator=gen(43)))
+        for f in ("U", "s", "V", "iterations", "breakdown"):
+            check(torch.equal(getattr(back.fact, f), getattr(sess.fact, f)),
+                  f"restore: {f} differs bitwise")
+        check(back.history == sess.history and back.solves == saved
+              and back.counts() == sess.counts(),
+              "restore: history or counts differ")
+        cur["sess"] = back
+        del sess
+        raised = False
+        with faults.inject(faults.CHECKPOINT_WRITE, mode="raise"):
+            try:
+                back.save(directory, saved + 1)
+            except faults.FaultInjected:
+                raised = True
+        check(raised and valid_steps(directory) == [saved]
+              and not os.path.exists(os.path.join(directory,
+                                                  f"step_{saved + 1}")),
+              f"failpoint: raised {raised}, valid {valid_steps(directory)}")
+        with faults.inject(faults.CHECKPOINT_WRITE, mode="corrupt"):
+            back.save(directory, saved + 2)
+        again = Session.restore(directory, back.op.A, generator=gen(43))
+        check(os.path.exists(os.path.join(directory, f"step_{saved + 2}"))
+              and valid_steps(directory) == [saved] and again.solves == saved
+              and torch.equal(again.fact.s, back.fact.s),
+              f"corrupt save: valid {valid_steps(directory)}, restored "
+              f"step {again.solves}")
+        print(f"phase 9: save(keep=2) of step {saved} {t_save * 1e3:.1f} ms, "
+              f"restore {t_restore * 1e3:.1f} ms (fact bit for bit, the same "
+              f"history); the checkpoint.write failpoint left step {saved} "
+              f"the newest valid; a corrupt-mode save of step {saved + 2} "
+              f"was written, rejected, and restore fell back to step "
+              f"{again.solves}", flush=True)
+        cur["sess"] = again
+        del back
+        rec = step("solve (restored)", "refine", FSVD_STOL,
+                   lambda: cur["sess"].solve())
+        check(rec["launches"]["mv_qtv"] == rec["budget"],
+              f"restored refine launches {rec['launches']}")
+        records.append(dict(step="checkpoint", save_s=t_save,
+                            restore_s=t_restore))
+    finally:
+        resilience.residual_probe = real["probe"]
+        kops.lowrank_matmul = real["lowrank_matmul"]
+        kops.scatter_add = real["scatter_add"]
+    peaks.append(torch.cuda.max_memory_allocated())
+    del cur, M, N, left, right, held
+    return records, bits, probe_walls, max(peaks)
+
+
+def kernel_ms(rec, times):
+    """Device time of a step's launches: the GK stages at phase 3's
+    device time per launch (the same operand shape; the projection pair
+    at the cold basis width), the blocked fold's and the entry fold's
+    launches each timed on the inputs the step gave them."""
+    import torch
+    total = sum(rec["launches"][k] * times[k]["ms"] for k in GK_STEP)
+    from repro_torch.kernels import ops as kops
+    for name in ("lowrank_matmul", "scatter_add"):
+        for args in rec.get("calls", {}).get(name, []):
+            fn = getattr(kops, name)
+            total += graph_ms([lambda a=args: fn(*a)], 6, 2)
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_session(seed, m, n, times):
+    """Phase 9: the stream twice from the same seed (sigma bits equal),
+    peak device memory within two operands + SESSION_SLACK, then each
+    step's kernel time.  Returns the records of the first run."""
+    import shutil
+    import tempfile
+    import torch
+    limit = 2 * m * n * 4 + SESSION_SLACK
+    runs = []
+    for run in range(2):
+        directory = tempfile.mkdtemp(prefix="chip_smoke_session.")
+        try:
+            out = session_stream(seed, m, n, directory, spies=run == 0)
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+        records, bits, probes, peak = out
+        print(f"phase 9: run {run + 1}: peak device memory "
+              f"{peak / GIB:.2f} GiB (limit {limit / GIB:.2f}: two "
+              f"operands + {SESSION_SLACK / GIB:.0f} GiB); probe walls "
+              + ", ".join(f"{1e3 * t:.2f} ms" for t in probes), flush=True)
+        check(peak <= limit, f"phase 9 peak {peak / GIB:.2f} GiB")
+        runs.append((records, bits))
+        gc.collect()
+        torch.cuda.empty_cache()
+    (records, bits), (_, bits2) = runs
+    same = len(bits) == len(bits2) and all(
+        torch.equal(a, b) for a, b in zip(bits, bits2))
+    print(f"phase 9: a rerun of the stream from the same seed: sigma of "
+          f"all {len(bits)} steps bit for bit {same}", flush=True)
+    check(same, "phase 9: sigma differs bitwise on a rerun of the stream")
+    for rec in records:
+        if "launches" not in rec:
+            continue
+        rec["kernel_ms"] = kernel_ms(rec, times)
+        rec.pop("calls", None)
+        print(f"phase 9: {rec['step']}: wall {rec['wall_s'] * 1e3:.1f} ms, "
+              f"kernel time {rec['kernel_ms']:.1f} ms (launches "
+              f"{rec['launches']}), the rest "
+              f"{rec['wall_s'] * 1e3 - rec['kernel_ms']:.1f} ms", flush=True)
+    torch.cuda.empty_cache()
+    return records
 
 
 def netflix_operand(seed, m, n):
@@ -2781,6 +3137,9 @@ def main(argv=None) -> int:
         del A, s_true
         gc.collect()
         torch.cuda.empty_cache()
+        # phase 9: no earlier operand is alive; its stream holds two copies
+        session_records = phase_session(args.seed, args.m, args.n, times)
+        print(json.dumps({"session": session_records}, default=str))
         (launches["lowrank_matmul"], errs["lowrank_matmul"],
          times["lowrank_matmul"]) = phase_materialize(args.seed, args.m,
                                                       args.n)

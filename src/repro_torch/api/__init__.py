@@ -15,8 +15,11 @@ transposes, Gram).  The rank-k update (``update_factorization``,
 ``downdate_rows``, ``downdate_cols``) revises a factorization with zero
 Krylov iterations.  ``factorize`` and ``estimate_rank`` run through the
 plan layer (``plan``, ``SolverPlan``: a process-wide cache of runners,
-``solve_batched`` over a stacked operand, the update and sketch stages);
-sessions are a later slice.
+``solve_batched`` over a stacked operand, the update and sketch stages).
+A ``Session`` (``session(A, spec, generator=g)``) tracks a drifting
+operand across solves: cold, refine and restart solves, the rank-k update
+and the sketch-resident entry fold, checkpointed through
+``repro_torch.checkpoint``.
 """
 from repro_torch.api.callbacks import (CaptureCallback, ConvergenceCallback,
                                        ConvergenceInfo, RecordingCallback)
@@ -27,6 +30,7 @@ from repro_torch.api.plan import (SolverPlan, clear_plan_cache, plan,
 from repro_torch.api.registry import (available_solvers, get_solver,
                                       register_solver)
 from repro_torch.api.results import Factorization, RankEstimate
+from repro_torch.api.session import Session, session
 from repro_torch.api.spec import METHODS, SVDSpec
 from repro_torch.core._keys import ImplicitKeyWarning, resolve_generator
 from repro_torch.core.operators import (DenseOp, GramOp, KroneckerOp,
@@ -39,7 +43,7 @@ from repro_torch.core.update import (downdate_cols, downdate_rows,
 __all__ = [
     "SVDSpec", "METHODS", "factorize", "estimate_rank", "resolve_method",
     "factorize_jit", "plan", "SolverPlan", "clear_plan_cache",
-    "plan_cache_stats", "trace_count",
+    "plan_cache_stats", "trace_count", "Session", "session",
     "ConvergenceInfo", "ConvergenceCallback", "RecordingCallback",
     "CaptureCallback", "Factorization", "RankEstimate",
     "update_factorization", "downdate_rows", "downdate_cols",

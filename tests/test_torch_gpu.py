@@ -1242,3 +1242,139 @@ def test_fold_on_the_card_equals_the_fold_on_the_cpu(cuda):
     assert isinstance(tsk.is_stale(folded), torch.Tensor)
     f = tsk.reconstruct(folded, spec)
     assert int(f.iterations) == 0 and f.method == "sketch"
+
+
+# --- the Session's folds, probe and checkpoints on the card -----------------
+
+@pytest.mark.parametrize("beta", [1.0, 0.7])
+def test_blocked_lowrank_fold_is_the_whole_drift_fold(cuda, beta,
+                                                      monkeypatch):
+    """``fold_lowrank`` by ragged row blocks (at most 37 rows) gives the
+    bits of ``beta · A + materialize_lowrank`` over the whole drift: the
+    materialization kernel sums each element's r terms in one order
+    whatever the block."""
+    import importlib
+    ses = importlib.import_module("repro_torch.api.session")
+    rng = np.random.default_rng(21)
+    m, n, r = 1025, 777, 3
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+
+    A = t(m, n)
+    delta = LowRankOp(t(m, r), t(r).abs() + 0.5, t(r, n), scale=0.3)
+    whole = beta * A + materialize_lowrank(delta, backend="pallas")
+    monkeypatch.setattr(ses, "_FOLD_BYTES", 4 * n * 37)
+    klu.reset_launches()
+    got = ses.fold_lowrank(A, delta, beta, backend="pallas")
+    assert klu.LAUNCHES["lowrank_matmul"] == -(-m // 37)
+    assert torch.equal(got, whole)
+    assert torch.equal(ses.fold_lowrank(A, delta, beta, backend="pallas"),
+                       got)
+
+
+def test_entry_fold_on_the_card_is_bitwise_and_the_cpu_fold(cuda):
+    """Every coordinate four times, shuffled, values across ten decades:
+    the fold on the card gives the same bits on a rerun, and the CPU
+    fold's bits (both add in entry order, one level at a time)."""
+    from repro_torch.api.session import fold_entries
+    rng = np.random.default_rng(22)
+    m, n, e = 3000, 2000, 100_000
+    A = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    r0 = rng.integers(0, m, e).astype(np.int32)
+    c0 = rng.integers(0, n, e).astype(np.int32)
+    order = rng.permutation(4 * e)
+    rows = torch.from_numpy(np.tile(r0, 4)[order])
+    cols = torch.from_numpy(np.tile(c0, 4)[order])
+    vals = torch.from_numpy((rng.standard_normal(4 * e) * 10.0 **
+                             rng.integers(-8, 3, 4 * e)).astype(np.float32))
+    Ad = A.cuda()
+    got = fold_entries(Ad, rows.cuda(), cols.cuda(), vals.cuda())
+    again = fold_entries(Ad, rows.cuda(), cols.cuda(), vals.cuda())
+    assert torch.equal(got, again)
+    want = fold_entries(A, rows, cols, vals)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(Ad.cpu(), A)                   # out of place
+
+
+def test_residual_probe_on_the_card_matches_numpy(cuda):
+    """A rank-4 truncation of a full-rank operand (probe ~1): the card's
+    products land within 1e-6 relative of the numpy path on the same
+    inputs and the same Ω."""
+    from repro_torch.api.results import Factorization
+    from repro_torch.serve.resilience import residual_probe
+    rng = np.random.default_rng(23)
+    A = torch.from_numpy(rng.standard_normal((2000, 1500)).astype(
+        np.float32))
+    U, s, Vt = torch.linalg.svd(A.double(), full_matrices=False)
+    f = Factorization(U[:, :4].float(), s[:4].float(), Vt[:4].T.float(),
+                      torch.tensor(4), torch.tensor(False))
+    want = residual_probe(A.numpy(), f, probes=4, seed=5)
+    fd = Factorization(*(x.cuda() for x in (f.U, f.s, f.V, f.iterations,
+                                            f.breakdown)))
+    got = residual_probe(A.cuda(), fd, probes=4, seed=5)
+    assert 0.5 < want < 1.0
+    assert abs(got - want) <= 1e-6 * want
+
+
+def test_session_state_round_trip_of_card_tensors(cuda, tmp_path):
+    """A session solved on the card saves through the store and restores
+    onto the card (the store's default device) bit for bit."""
+    from repro_torch.api.session import Session, session
+    from repro_torch.checkpoint import load_session_state
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    A = torch.randn(600, 8, generator=gen, device="cuda") @ torch.randn(
+        8, 400, generator=gen, device="cuda")
+    sess = session(A, SVDSpec(method="fsvd", rank=8, max_iters=32,
+                              backend="pallas"), generator=gen)
+    sess.solve()
+    sess.save(str(tmp_path))
+    fact, meta = load_session_state(str(tmp_path), 1)
+    assert meta == sess.meta()
+    for name in ("U", "s", "V", "iterations", "breakdown"):
+        got, want = getattr(fact, name), getattr(sess.fact, name)
+        assert got.device.type == "cuda" and torch.equal(got, want)
+    back = Session.restore(str(tmp_path), A, generator=gen)
+    assert back.fact.U.device.type == "cuda"
+    assert torch.equal(back.fact.s, sess.fact.s)
+
+
+def test_session_stream_on_the_card(cuda):
+    """Every branch of the policy on the card, as chip_smoke.py's phase 9
+    drives it at full width: the kinds, zero iterations off the solver
+    branches, the launches of each ported kernel."""
+    from repro_torch.api.session import session
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    m, n, r = 3000, 2000, 8
+    A = torch.randn(m, r, generator=gen, device="cuda") @ torch.randn(
+        r, n, generator=gen, device="cuda")
+    sess = session(A, SVDSpec(method="fsvd", rank=r, max_iters=64,
+                              backend="pallas"), generator=gen)
+    gs.reset_launches()
+    sess.solve()
+    assert gs.LAUNCHES["mv_qtv"] == 64
+    drift = A + 1e-4 * torch.randn(m, n, generator=gen, device="cuda")
+    gs.reset_launches()
+    sess.update(drift)
+    assert sess.history[-1]["kind"] == "refine"
+    assert gs.LAUNCHES["mv_qtv"] == sess.history[-1]["budget"] < 64
+    U = torch.randn(m, 2, generator=gen, device="cuda")
+    Vt = torch.randn(2, n, generator=gen, device="cuda")
+    klu.reset_launches()
+    sess.delta(LowRankOp(U, torch.full((2,), 1e-3, device="cuda"), Vt))
+    assert sess.history[-1]["kind"] == "update"
+    assert klu.LAUNCHES["lowrank_matmul"] >= 2     # the core and the fold
+    sess.downdate(rows=[1, 7, 99])
+    assert sess.history[-1]["kind"] == "downdate"
+    rows = torch.randint(0, m, (5000,), generator=gen, device="cuda")
+    cols = torch.randint(0, n, (5000,), generator=gen, device="cuda")
+    vals = 1e-4 * torch.randn(5000, generator=gen, device="cuda")
+    cs.reset_launches()
+    gs.reset_launches()
+    sess.entries(rows, cols, vals)
+    rec = sess.history[-1]
+    assert rec["kind"] == "sketch" and rec["iterations"] == 0
+    assert rec["probe"] <= rec["gate"]
+    assert cs.LAUNCHES["scatter_add"] == 2 and gs.LAUNCHES["mv_qtv"] == 0
