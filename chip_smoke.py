@@ -173,7 +173,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      (fsvd's 5e-4 for solves, 1e-5 for updates, 1e-3 for the sketch); the
      stream runs twice from the seed with the same sigma bits, at a peak
      of at most two operands + 4 GiB; each step's wall, kernel time and
-     probe walls are printed, and a {"session": [...]} JSON line.
+     probe walls are printed, and a {"session": [...]} JSON line;
+ 10. the paper's RSL application (after phase 9 has freed its operands),
+     through the trainer's entry point repro_torch.launch.train_rsl.main
+     at the example's defaults (W 10000 x 10000 rank 5, never dense;
+     batch 64, lr 3.0, 8,192 pairs, fsvd_iters 20, seed --seed):
+     (a) 300 tracking steps: the mean loss of the last 10 steps below half
+     the first 5's, train accuracy >= 0.85, 5 positive finite sigma, one
+     plan trace over the run, at step 0 and every 50th the step's
+     retract_fsvd point within 1e-4 (relative Frobenius, through the
+     factors in f64) of retract_qr on the same (W, xi, -lr), and the
+     loop's peak device memory within its start + 256 MiB; (b) 20 steps
+     twice from the seed, U, s, V and the losses bit for bit; (c) 20
+     cold steps (--no-track) under the same retract_qr gate, ms a step
+     beside tracking's; (d) --grad-spectrum --session-dir for 100 steps,
+     twice: the second run resumes at the first's solve count, every
+     session's Ritz sigma at most the exact sigma of the gradient's
+     factored form (1 + 1e-5); (e) three tracking steps under
+     torch.profiler: CUDA ops and device time a step, beside the wall of
+     ten steps without it, and one retraction's GK iterations.  The phase launches none of the
+     twelve kernels (checked), and prints a {"rsl": {...}} JSON line.
 
 The line before the last is the card as nvidia-smi reports it; the last is
 {"ok": true, "device": {...}}.  A kernels JSON line precedes them.
@@ -183,6 +202,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -3076,6 +3096,282 @@ def phase_skew(seed, m, n, nnz):
     return out
 
 
+# --- phase 10: the paper's RSL application at full width -------------------
+
+RSL_EVERY = 50                # the trainer's log steps: gated retractions
+RSL_RETRACT_TOL = 1e-4        # retract_fsvd vs retract_qr, relative Frobenius
+RSL_LOOP_SLACK = 256 * 2 ** 20   # the loop's peak <= its start + this
+RSL_ACC = 0.85                # train accuracy over the 8,192 pairs
+RSL_LOSS_RATIO = 0.5          # tests/test_rsgd.py: last 10 vs first 5
+RSL_RERUN_STEPS, RSL_COLD_STEPS, RSL_RESUME_STEPS = 20, 20, 100
+RSL_PROFILE_STEPS = 3          # steps under the profiler
+RSL_WALL_STEPS = 10            # steps timed without it
+RSL_RITZ_SLACK = 1e-5         # Ritz sigma <= exact sigma (1 + this)
+
+
+def kernel_launches():
+    """Every launch counter of the twelve kernels, as one dict."""
+    from repro_torch.kernels import count_sketch as kcs
+    from repro_torch.kernels import gk_step as gs
+    from repro_torch.kernels import lowrank_update as klu
+    from repro_torch.kernels import reorth as kre
+    from repro_torch.kernels import sketch_matvec as ksm
+    from repro_torch.kernels import sparse_matvec as kspm
+    out = {}
+    for mod in (gs, kre, klu, ksm, kspm, kcs):
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def point_distance(Wa, Wb):
+    """||Wa - Wb||_F / ||Wb||_F of two factored points, in f64 and through
+    their factors: thin QRs of [Ua sa, -Ub sb] and [Va, Vb], then the norm
+    of R_l R_r^T (a difference of Gram traces would lose 1e-4 to f32
+    cancellation)."""
+    import torch
+
+    def fro(left, right):
+        return torch.linalg.vector_norm(
+            torch.linalg.qr(left).R @ torch.linalg.qr(right).R.T)
+
+    Ua, sa, Va = (t.double() for t in Wa)
+    Ub, sb, Vb = (t.double() for t in Wb)
+    num = fro(torch.cat([Ua * sa, -(Ub * sb)], 1), torch.cat([Va, Vb], 1))
+    return float(num / fro(Ub * sb, Vb))
+
+
+def retraction_errors(events, opts):
+    """For each kept step, the trainer's retract_fsvd point against
+    retract_qr on the same (W, xi, -lr)."""
+    from repro_torch.core import manifold as mf
+    from repro_torch.core import rsgd
+    errs = []
+    for e in events:
+        W0, b = e["W_prev"], e["batch"]
+        g = rsgd.batch_euclidean_grad(W0, b["x"], b["v"], b["y"], opts.loss,
+                                      opts.weight_decay)
+        Wq = mf.retract_qr(W0, mf.project_tangent(W0, g.op), -opts.lr)
+        errs.append((e["step"], point_distance(e["W"], Wq)))
+    return errs
+
+
+def gradient_sigma(g):
+    """Exact sigma of the batch gradient Xb^T diag(c) Vb from its factors:
+    thin QRs of Xb^T and Vb^T, then the SVD of the b x b core, in f64."""
+    import torch
+    R1 = torch.linalg.qr(g.U.double()).R
+    R2 = torch.linalg.qr(g.Vt.T.double()).R
+    return torch.linalg.svdvals(R1 * g.s.double()[None, :] @ R2.T)
+
+
+def rsl_run(argv, keep):
+    """One train_rsl.main run on the card; ``keep(event)`` chooses the
+    step events to hold."""
+    from repro_torch.launch import train_rsl
+    events = []
+    out = train_rsl.main(["--device", DEV] + argv,
+                         observe=lambda e: keep(e) and events.append(e))
+    return out, events
+
+
+def rsl_profile(seed, opts):
+    """RSL_PROFILE_STEPS tracking steps at full width under torch.profiler:
+    CUDA ops (kernels, copies, sets) and summed device time a step,
+    beside the step's wall over RSL_WALL_STEPS steps without the
+    profiler, and the GK iterations of one retraction."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.api import SVDSpec, factorize
+    from repro_torch.core import manifold as mf
+    from repro_torch.core import rsgd
+    from repro_torch.data.synthetic import rsl_batch
+    from repro_torch.launch import train_rsl
+    n_train, d1, d2, rank, batch = 8192, 10_000, 10_000, 5, 64
+    ds, W = train_rsl.build(seed, n_train, d1, d2, rank, DEV)
+    step = rsgd.make_step(opts)
+    warm = 3
+    batches = [rsl_batch(ds, seed, t, batch) for t in
+               range(warm + RSL_WALL_STEPS + RSL_PROFILE_STEPS)]
+    for b in batches[:warm]:
+        W, _ = step(W, b["x"], b["v"], b["y"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[warm:warm + RSL_WALL_STEPS]:
+        W, _ = step(W, b["x"], b["v"], b["y"])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / RSL_WALL_STEPS
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for b in batches[warm + RSL_WALL_STEPS:]:
+            W, _ = step(W, b["x"], b["v"], b["y"])
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+    launches = len(device) / RSL_PROFILE_STEPS if device else None
+    device_ms = (sum(e.time_range.elapsed_us() for e in device) / 1e3
+                 / RSL_PROFILE_STEPS) if device else None
+    # one retraction's GK iterations: the operand has rank <= 3r
+    b = batches[-1]
+    g = rsgd.batch_euclidean_grad(W, b["x"], b["v"], b["y"])
+    xi = mf.project_tangent(W, g.op)
+    op = mf.as_linop(W, xi, -opts.lr)
+    k = min(max(opts.fsvd_iters, rank + 2), min(op.shape))
+    fact = factorize(op, SVDSpec(method="fsvd", rank=rank, max_iters=k),
+                     q1=W.U @ W.s)
+    return dict(steps=RSL_PROFILE_STEPS, wall_steps=RSL_WALL_STEPS,
+                wall_ms=wall_ms,
+                cuda_ops_per_step=launches, device_ms_per_step=device_ms,
+                host_share=(None if device_ms is None
+                            else 1.0 - device_ms / wall_ms),
+                gk_iterations_run=k, gk_kprime=int(fact.iterations))
+
+
+def phase_rsl(seed):
+    """Phase 10: the paper's RSL application (train_rsl at the example's
+    defaults: W 10000 x 10000 rank 5, batch 64, lr 3.0, 8,192 pairs)
+    through the trainer's entry point; see the module docstring."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.api import trace_count
+    from repro_torch.core import rsgd
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = kernel_launches()
+    seed_args = ["--seed", str(seed)]
+    track = rsgd.RSGDOptions(lr=3.0, fsvd_iters=20)
+    rec = {}
+
+    # (a) tracking, 300 steps
+    traces = trace_count()
+    t0 = time.perf_counter()
+    out, events = rsl_run(seed_args, lambda e: e["step"] % RSL_EVERY == 0)
+    wall = time.perf_counter() - t0
+    traces = trace_count() - traces
+    losses = out["losses"]
+    ratio = sum(losses[-10:]) / 10 / (sum(losses[:5]) / 5)
+    errs = retraction_errors(events, track)
+    spec = out["spectrum"]
+    print(f"phase 10 (a): {out['steps']} tracking steps, "
+          f"{out['ms_per_step']:.3f} ms a step ({wall:.1f} s with the "
+          f"dataset); loss {sum(losses[:5]) / 5:.4f} -> "
+          f"{sum(losses[-10:]) / 10:.4f} (ratio {ratio:.3f}), train acc "
+          f"{out['train_acc']:.4f}; sigma {['%.3f' % x for x in spec]}, "
+          f"planted {['%.3f' % x for x in out['planted']]}; traces "
+          f"{traces}; retract_fsvd vs retract_qr "
+          + ", ".join(f"step {t}: {e:.2e}" for t, e in errs), flush=True)
+    check(ratio < RSL_LOSS_RATIO, f"phase 10: loss ratio {ratio:.3f}")
+    check(out["train_acc"] >= RSL_ACC,
+          f"phase 10: train accuracy {out['train_acc']:.4f}")
+    check(len(spec) == 5 and all(math.isfinite(x) and x > 0 for x in spec),
+          f"phase 10: learned sigma {spec}")
+    check(traces == 1, f"phase 10: {traces} traces over the run")
+    check(len(errs) == (out["steps"] - 1) // RSL_EVERY + 1
+          and all(e <= RSL_RETRACT_TOL for _, e in errs),
+          f"phase 10: retract_fsvd vs retract_qr {errs}")
+    mem = out["memory"]
+    if mem is not None:
+        print(f"phase 10 (a): device memory at the loop's start "
+              f"{mem['start_bytes'] / 2 ** 20:.1f} MiB, peak "
+              f"{mem['peak_bytes'] / 2 ** 20:.1f} MiB (limit start + "
+              f"{RSL_LOOP_SLACK / 2 ** 20:.0f} MiB)", flush=True)
+        check(mem["peak_bytes"] <= mem["start_bytes"] + RSL_LOOP_SLACK,
+              f"phase 10: loop peak {mem}")
+    rec["tracking"] = dict(
+        steps=out["steps"], ms_per_step=out["ms_per_step"],
+        loss_first5=sum(losses[:5]) / 5, loss_last10=sum(losses[-10:]) / 10,
+        train_acc=out["train_acc"], sigma=spec, planted=out["planted"],
+        traces=traces, retract_rel_err=errs, memory=mem)
+    del events
+
+    # (b) the first steps twice from the seed: the same bits
+    runs = [rsl_run(seed_args + ["--steps", str(RSL_RERUN_STEPS)],
+                    lambda e: False)[0] for _ in range(2)]
+    same = runs[0]["losses"] == runs[1]["losses"] and all(
+        torch.equal(a, b) for a, b in zip(runs[0]["W"], runs[1]["W"]))
+    print(f"phase 10 (b): {RSL_RERUN_STEPS} steps twice from the seed: U, "
+          f"s, V and losses bit for bit {same}", flush=True)
+    check(same, "phase 10: a rerun from the seed differs")
+    rec["rerun_bitwise"] = same
+    del runs
+
+    # (c) cold retractions
+    cold_every = RSL_COLD_STEPS - 1
+    out_c, events = rsl_run(
+        seed_args + ["--steps", str(RSL_COLD_STEPS), "--no-track"],
+        lambda e: e["step"] % cold_every == 0)
+    errs_c = retraction_errors(
+        events, rsgd.RSGDOptions(lr=3.0, fsvd_iters=20, track=False))
+    print(f"phase 10 (c): {RSL_COLD_STEPS} cold steps, "
+          f"{out_c['ms_per_step']:.3f} ms a step (tracking "
+          f"{out['ms_per_step']:.3f}); retract_fsvd vs retract_qr "
+          + ", ".join(f"step {t}: {e:.2e}" for t, e in errs_c), flush=True)
+    check(all(e <= RSL_RETRACT_TOL for _, e in errs_c),
+          f"phase 10: cold retract_fsvd vs retract_qr {errs_c}")
+    rec["cold"] = dict(steps=RSL_COLD_STEPS,
+                       ms_per_step=out_c["ms_per_step"],
+                       retract_rel_err=errs_c)
+    del events
+
+    # (d) the gradient-spectrum Session, saved and resumed
+    directory = tempfile.mkdtemp(prefix="chip_smoke_rsl.")
+    try:
+        resume = []
+        for run in range(2):
+            out_d, events = rsl_run(
+                seed_args + ["--steps", str(RSL_RESUME_STEPS),
+                             "--grad-spectrum", "--session-dir", directory],
+                lambda e: "grad" in e)
+            ritz = []
+            for e in events:
+                exact = gradient_sigma(e["grad"])[:5]
+                got = e["grad_fact"].s.double()
+                ritz.append(dict(
+                    step=e["step"],
+                    rel_err=float(torch.max(torch.abs(got - exact))
+                                  / exact[0]),
+                    bound_ok=bool(torch.all(
+                        got <= exact * (1 + RSL_RITZ_SLACK)))))
+            sess = out_d["session"]
+            print(f"phase 10 (d): run {run + 1}: resumed at "
+                  f"{sess['resumed_at']}, {sess['solves']} solves, kinds "
+                  f"{sess['kinds']}; Ritz sigma vs exact (max |err| / "
+                  f"sigma_1) " + ", ".join(
+                      f"step {r['step']}: {r['rel_err']:.2e}"
+                      f"{'' if r['bound_ok'] else ' ABOVE'}" for r in ritz),
+                  flush=True)
+            check(bool(ritz) and all(r["bound_ok"] for r in ritz),
+                  f"phase 10: Ritz sigma above the exact sigma: {ritz}")
+            resume.append(dict(sess, ms_per_step=out_d["ms_per_step"],
+                               ritz=ritz))
+            del events
+        check(resume[0]["resumed_at"] is None
+              and resume[1]["resumed_at"] == resume[0]["solves"],
+              f"phase 10: resume {resume}")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    rec["session"] = resume
+
+    # (e) the step under the profiler
+    prof = rsl_profile(seed, track)
+    print(f"phase 10 (e): a tracking step: wall {prof['wall_ms']:.3f} ms, "
+          f"CUDA ops {prof['cuda_ops_per_step']}, device time "
+          f"{prof['device_ms_per_step']} ms, host share "
+          f"{prof['host_share']}; a retraction runs "
+          f"{prof['gk_iterations_run']} GK iterations, kprime "
+          f"{prof['gk_kprime']}", flush=True)
+    rec["profile"] = prof
+
+    after = kernel_launches()
+    print(f"phase 10: launches of the twelve kernels in this phase: "
+          f"{ {k: after[k] - before[k] for k in after} }", flush=True)
+    check(after == before, "phase 10 launched a hand-written kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3140,6 +3436,8 @@ def main(argv=None) -> int:
         # phase 9: no earlier operand is alive; its stream holds two copies
         session_records = phase_session(args.seed, args.m, args.n, times)
         print(json.dumps({"session": session_records}, default=str))
+        # phase 10: phase 9 has freed its operands
+        print(json.dumps({"rsl": phase_rsl(args.seed)}))
         (launches["lowrank_matmul"], errs["lowrank_matmul"],
          times["lowrank_matmul"]) = phase_materialize(args.seed, args.m,
                                                       args.n)

@@ -74,7 +74,7 @@ from repro_torch._device import resolve_device, to_tensor, torch_dtype
 from repro_torch.api.plan import SolverPlan, method_needs_key, resolve_method
 from repro_torch.api.results import Factorization
 from repro_torch.api.spec import SVDSpec
-from repro_torch.core._keys import resolve_generator
+from repro_torch.core._keys import fold_in, resolve_generator
 from repro_torch.core.operators import (DenseOp, LowRankOp, Operator,
                                         as_operator)
 
@@ -157,10 +157,7 @@ def _derived(generator: torch.Generator, step: int, tag: int,
              device) -> torch.Generator:
     """A fresh generator on ``device`` seeded from (``generator``'s seed,
     ``step``, ``tag``): the same stream on every run."""
-    state = np.random.SeedSequence(
-        [generator.initial_seed(), step, tag]).generate_state(2, np.uint32)
-    seed = (int(state[0]) << 31) ^ int(state[1])
-    return torch.Generator(device=device).manual_seed(seed)
+    return fold_in(generator.initial_seed(), step, tag, device=device)
 
 
 def _operand_device(A, device) -> torch.device:

@@ -4,8 +4,9 @@ The parity tests run ``repro`` (JAX) and ``repro_torch`` on the same
 inputs.  These functions turn what the reference holds — an operand (dense,
 sparse COO triplets, low-rank factors, or any reference operator), a
 matrix-free problem, a start vector, a sketch test matrix, a hashed-sign
-table and a sketch-resident state, a ``Factorization`` and an ``SVDSpec``
-— into the port's objects, given as numpy arrays
+table and a sketch-resident state, a ``Factorization``, an ``SVDSpec``,
+a manifold point, a tangent vector and an RSL dataset — into the port's
+objects, given as numpy arrays
 (``np.asarray`` of a JAX array) or as objects with the reference's field
 names.  Nothing here imports JAX.
 """
@@ -20,10 +21,11 @@ import torch
 from repro_torch._device import to_tensor, torch_dtype
 from repro_torch.api.results import Factorization
 from repro_torch.api.spec import SVDSpec
+from repro_torch.core import manifold as mf
 from repro_torch.core import operators as ops
 from repro_torch.core.operators import DenseOp
 from repro_torch.core.sketch import GaussianSketch, SparseSignSketch
-from repro_torch.data.synthetic import MatrixFreeProblem
+from repro_torch.data.synthetic import MatrixFreeProblem, RSLDataset
 from repro_torch.sketchres.state import SketchState, _HashedSketch
 
 
@@ -168,3 +170,25 @@ def spec(ref: Any) -> SVDSpec:
         dataclasses.asdict(ref)
     fields["dtype"] = torch_dtype(fields.get("dtype"))
     return SVDSpec(**fields)
+
+
+def fixed_rank_point(ref: Any, *, device=None) -> mf.FixedRankPoint:
+    """A reference ``FixedRankPoint`` (``U``, ``s``, ``V``)."""
+    def arr(x):
+        return to_tensor(np.asarray(x), device=device)
+    return mf.FixedRankPoint(arr(ref.U), arr(ref.s), arr(ref.V))
+
+
+def tangent_vector(ref: Any, *, device=None) -> mf.TangentVector:
+    """A reference ``TangentVector`` (``M``, ``Up``, ``Vp``)."""
+    def arr(x):
+        return to_tensor(np.asarray(x), device=device)
+    return mf.TangentVector(arr(ref.M), arr(ref.Up), arr(ref.Vp))
+
+
+def rsl_dataset(ref: Any, *, device=None) -> RSLDataset:
+    """A reference ``RSLDataset`` (``X``, ``V``, ``y``, ``Wu``, ``Wv``)."""
+    def arr(x):
+        return to_tensor(np.asarray(x), device=device)
+    return RSLDataset(arr(ref.X), arr(ref.V), arr(ref.y), arr(ref.Wu),
+                      arr(ref.Wv))

@@ -12,6 +12,7 @@ from __future__ import annotations
 import warnings
 from typing import Optional
 
+import numpy as np
 import torch
 
 IMPLICIT_KEY_MSG = (
@@ -36,6 +37,17 @@ def resolve_generator(generator: Optional[torch.Generator], *,
                           ImplicitKeyWarning, stacklevel=3)
         return torch.Generator(device=device or "cpu").manual_seed(0)
     return generator
+
+
+def fold_in(seed: int, *tags: int, device=None) -> torch.Generator:
+    """A fresh generator on ``device`` (default: the CPU) seeded from
+    (``seed``, ``tags``): the port's ``jax.random.fold_in``.  The same
+    numbers give the same stream on every run; different tags give
+    unrelated streams."""
+    state = np.random.SeedSequence([seed, *tags]).generate_state(
+        2, np.uint32)
+    return torch.Generator(device=device or "cpu").manual_seed(
+        (int(state[0]) << 31) ^ int(state[1]))
 
 
 def normal(generator: torch.Generator, shape, *, device=None,

@@ -1,11 +1,14 @@
-"""Matrix-free problem generators: sparse and Kronecker operands with a
-dense oracle.  Counterpart of the matrix-free part of
-``repro.data.synthetic`` (``MatrixFreeProblem``, ``make_sparse_problem``,
-``make_kron_problem``).
+"""Synthetic data: the paper's RSL similarity pairs, and matrix-free
+problem generators (sparse and Kronecker operands with a dense oracle).
+Counterpart of the RSL and matrix-free parts of ``repro.data.synthetic``
+(``RSLDataset``, ``make_rsl_dataset``, ``rsl_batch``,
+``MatrixFreeProblem``, ``make_sparse_problem``, ``make_kron_problem``).
 
-Each maker takes an explicit ``torch.Generator`` and draws on its device.
-The two packages draw different numbers from one seed: parity tests build
-the problem on the reference side and hand it over (``bridge.problem``).
+Each maker takes an explicit ``torch.Generator`` and draws on its device;
+``rsl_batch`` is a pure function of (seed, step), as the reference
+promises.  The two packages draw different numbers from one seed: parity
+tests build the data on the reference side and hand them over
+(``bridge.rsl_dataset``, ``bridge.problem``).
 """
 from __future__ import annotations
 
@@ -13,9 +16,69 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core._keys import normal
+from repro_torch.core._keys import fold_in, normal
 
 Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# RSL pairs (the paper's application, §6.3)
+# ---------------------------------------------------------------------------
+
+class RSLDataset(NamedTuple):
+    X: Tensor         # (N, d1) domain-1 samples (MNIST-like)
+    V: Tensor         # (N, d2) domain-2 samples (USPS-like)
+    y: Tensor         # (N,) ±1 similarity labels
+    Wu: Tensor        # planted metric factors: W* = Wu @ Wv (never dense)
+    Wv: Tensor
+
+    @property
+    def W_true(self) -> Tensor:
+        """Dense planted metric — small-dim diagnostics only."""
+        return self.Wu @ self.Wv
+
+    def true_spectrum(self) -> Tensor:
+        """Singular values of W* from its factors (no dense SVD)."""
+        Ru = torch.linalg.qr(self.Wu)[1]
+        Rv = torch.linalg.qr(self.Wv.T)[1]
+        return torch.linalg.svdvals(Ru @ Rv.T)
+
+
+def make_rsl_dataset(generator: torch.Generator, n: int, d1: int, d2: int,
+                     rank: int, noise: float = 0.1) -> RSLDataset:
+    """Plant a rank-``rank`` metric W* = Wu Wv; label pairs by
+    sign(xᵀW*v + noise).  Mimics the paper's MNIST-vs-USPS setup (two
+    domains of different dimension, similarity decided by a low-rank
+    bilinear form).  Scores go through the factors, so the 1e8-entry
+    metric of the end-to-end driver is never materialized.  Everything is
+    drawn on the generator's device; X and V are scaled in place, so no
+    second copy of either is made.
+    """
+    g = generator
+    X = normal(g, (n, d1)).div_(d1 ** 0.25)
+    V = normal(g, (n, d2)).div_(d2 ** 0.25)
+    scale = (d1 * d2) ** -0.25
+    Wu = normal(g, (d1, rank)) * scale
+    Wv = normal(g, (rank, d2))
+    score = torch.einsum("nr,nr->n", X @ Wu, V @ Wv.T)
+    # jnp.std is the population std
+    score = score + noise * torch.std(score, correction=0) * normal(g, (n,))
+    return RSLDataset(X, V, torch.sign(score), Wu, Wv)
+
+
+def rsl_batch(ds: RSLDataset, seed: int, step: int, batch: int) -> dict:
+    """One training batch, a pure function of (``seed``, ``step``): the
+    indices are drawn on the dataset's device from a generator derived
+    from both."""
+    g = fold_in(seed, step, device=ds.X.device)
+    idx = torch.randint(0, ds.X.shape[0], (batch,), generator=g,
+                        device=ds.X.device)
+    return {"x": ds.X[idx], "v": ds.V[idx], "y": ds.y[idx]}
+
+
+# ---------------------------------------------------------------------------
+# Matrix-free problem generators
+# ---------------------------------------------------------------------------
 
 
 class MatrixFreeProblem(NamedTuple):

@@ -1378,3 +1378,67 @@ def test_session_stream_on_the_card(cuda):
     assert rec["kind"] == "sketch" and rec["iterations"] == 0
     assert rec["probe"] <= rec["gate"]
     assert cs.LAUNCHES["scatter_add"] == 2 and gs.LAUNCHES["mv_qtv"] == 0
+
+
+# --- slice 12: the RSL application on the card ---------------------------------
+
+def _rsl_point_distance(Wa, Wb):
+    """||Wa - Wb||_F / ||Wb||_F through the factors, in f64."""
+    def fro(left, right):
+        return torch.linalg.vector_norm(
+            torch.linalg.qr(left).R @ torch.linalg.qr(right).R.T)
+    Ua, sa, Va = (t.double() for t in Wa)
+    Ub, sb, Vb = (t.double() for t in Wb)
+    return float(fro(torch.cat([Ua * sa, -(Ub * sb)], 1),
+                     torch.cat([Va, Vb], 1)) / fro(Ub * sb, Vb))
+
+
+def test_rsl_steps_rerun_bit_for_bit_on_the_card(cuda):
+    """Ten tracking steps twice from the seed: the same U, s, V and loss
+    bits; no hand-written kernel runs on this path."""
+    from repro_torch.launch import train_rsl
+    args = ["--device", "cuda", "--d1", "2000", "--d2", "1500", "--n-train",
+            "2048", "--steps", "10", "--seed", "5"]
+    gs.reset_launches()
+    klu.reset_launches()
+    a = train_rsl.main(args)
+    b = train_rsl.main(args)
+    assert a["losses"] == b["losses"]
+    assert all(torch.equal(x, y) for x, y in zip(a["W"], b["W"]))
+    assert a["W"].U.is_cuda and a["memory"] is not None
+    assert sum(gs.LAUNCHES.values()) == 0
+    assert klu.LAUNCHES["lowrank_matmul"] == 0
+
+
+@pytest.mark.parametrize("warm", [True, False])
+def test_rsl_retractions_agree_on_the_card(cuda, warm):
+    """retract_fsvd (tracking and cold) within 1e-4 of retract_qr on the
+    card, as phase 10 gates it at full width."""
+    from repro_torch.core import manifold as mf
+    from repro_torch.core import rsgd
+    from repro_torch.data.synthetic import make_rsl_dataset, rsl_batch
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    ds = make_rsl_dataset(gen, 1024, 3000, 2500, 5, noise=0.05)
+    W = mf.random_point(gen, 3000, 2500, 5)
+    b = rsl_batch(ds, 0, 0, 64)
+    g = rsgd.batch_euclidean_grad(W, b["x"], b["v"], b["y"])
+    xi = mf.project_tangent(W, g.op)
+    Wf = mf.retract_fsvd(W, xi, -3.0, warm_start=warm,
+                         generator=None if warm else gen)
+    Wq = mf.retract_qr(W, xi, -3.0)
+    assert Wf.U.is_cuda
+    assert _rsl_point_distance(Wf, Wq) <= 1e-4
+
+
+def test_grad_spectrum_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.runtime.telemetry import grad_spectrum
+    gen = torch.Generator().manual_seed(7)
+    g = torch.randn(400, 6, generator=gen) @ torch.randn(6, 300,
+                                                         generator=gen)
+    cpu = grad_spectrum(g, k=8)
+    card = grad_spectrum(g.cuda(), k=8)
+    assert card["sigma"].is_cuda
+    assert int(card["rank"]) == int(cpu["rank"]) == 6
+    torch.testing.assert_close(card["sigma"][:6].cpu(), cpu["sigma"][:6],
+                               rtol=1e-4, atol=0)
+    assert abs(float(card["energy_r"]) - float(cpu["energy_r"])) < 1e-4
