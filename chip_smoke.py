@@ -192,7 +192,32 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      factored form (1 + 1e-5); (e) three tracking steps under
      torch.profiler: CUDA ops and device time a step, beside the wall of
      ten steps without it, and one retraction's GK iterations.  The phase launches none of the
-     twelve kernels (checked), and prints a {"rsl": {...}} JSON line.
+     twelve kernels (checked), and prints a {"rsl": {...}} JSON line;
+ 11. the solve server on the card (last): (a) the CLI
+     repro_torch.launch.solve_serve.main at the reference's defaults
+     (backend "xla": 200 requests, 4 clients, fsvd rank 8, Zipf 1.1, 4
+     tenants at 0.25, quantum 32, exact mode, max batch 8, a 4 ms window,
+     warmup): every request ok, no worker restart, bucket hit rate 1.0;
+     (b) SolveServer(SVDSpec(method="fsvd", rank=8, backend="pallas"))
+     with run_traffic over DEFAULT_SHAPES x 64 (17-25 M entries an
+     operand): 48 requests, 4 clients, 4 tenants at 0.25 with rank-2
+     delta drift: every request ok, anonymous sigma within 1e-2 sigma_max
+     of the exact sigma (f64), tenants cold then refine or update, an
+     update 0 iterations and within 1e-5 sigma_max, the stacked GK-step
+     launches on anonymous batches and lowrank_matmul on deltas; each
+     anonymous dispatch's wall against its GK loop's device time (a CUDA
+     graph), the copies in and out, the peak memory; a batch of 8
+     submitted together bit for bit the direct solve_batched on the same
+     stack and generators; an entries replay (16 requests, 2 tenants,
+     4,096 entries a drift at 6144 x 4096): scatter_add launched, every
+     sketch step 0 iterations under its gate; (c) one degraded answer at
+     6144 x 4096 (the plan.solve failpoint: gnystrom, probe under
+     degraded_tol, sigma within 0.05, three sketch_matmat launches) and
+     the chaos battery's replay (benchmarks/chaos_bench.py's settings,
+     mixes "faulty" and "storm"): every request terminated, availability
+     >= 0.99, quarantined == poisoned, degraded sigma within 0.05.  Each
+     replay sets the launch counters to 0 just before it and reads them
+     just after; the phase prints a {"serve": {...}} JSON line.
 
 The line before the last is the card as nvidia-smi reports it; the last is
 {"ok": true, "device": {...}}.  A kernels JSON line precedes them.
@@ -3372,6 +3397,558 @@ def phase_rsl(seed):
     return rec
 
 
+# --- phase 11: the solve server on the card --------------------------------
+
+WIDE = 64                     # DEFAULT_SHAPES x 64: 17-25 M entries each
+WIDE_REQUESTS = 48
+ENTRY_REQUESTS, ENTRY_TENANTS, ENTRY_NNZ = 16, 2, 4096
+ENTRY_SHAPE = (6144, 4096)
+EXACT_BATCH = 8               # the batch held bit for bit to a direct call
+SERVED_BOUND = 1e-2           # tests/test_serve.py:289-293
+UPDATE_BOUND = 1e-5           # GATE, tests/test_update.py:26
+DEGRADED_BOUND = 0.05         # tests/test_resilience.py, chaos SIGMA_GATE
+# benchmarks/chaos_bench.py:45-64 and :100-127
+CHAOS_REQUESTS, CHAOS_SEED, CHAOS_POISONED = 160, 7, 2
+CHAOS_DEADLINE_MS, CHAOS_AVAILABILITY = 15000.0, 0.99
+CHAOS_MIXES = [("faulty", dict(crash=0.03, hang=0.01, transient=0.05)),
+               ("storm", dict(crash=0.10, hang=0.03, transient=0.15))]
+SERVE_KERNELS = GK_STEP + ("lowrank_matmul", "sketch_matmat", "scatter_add")
+
+
+def reset_kernel_launches():
+    """Every launch counter of the twelve kernels to 0."""
+    from repro_torch.kernels import count_sketch as kcs
+    from repro_torch.kernels import gk_step as gs
+    from repro_torch.kernels import lowrank_update as klu
+    from repro_torch.kernels import reorth as kre
+    from repro_torch.kernels import sketch_matvec as ksm
+    from repro_torch.kernels import sparse_matvec as kspm
+    for mod in (gs, kre, klu, ksm, kspm, kcs):
+        mod.reset_launches()
+
+
+def exact_top_sigma(A, r):
+    """The top-r sigma of a host operand in f64: the square roots of the
+    top eigenvalues of its f64 Gram matrix (cuBLAS and cuSOLVER on the
+    card, no kernel of the port).  Exact to ~1e-10 sigma_max at these
+    shapes, as a host SVD would be, at a fraction of its time."""
+    import torch
+    X = torch.from_numpy(A).to(DEV, torch.float64)
+    G = X.T @ X if X.shape[0] >= X.shape[1] else X @ X.T
+    ev = torch.linalg.eigvalsh(G).flip(0)[:r].clamp(min=0.0)
+    return ev.sqrt().cpu()
+
+
+def sigma_error(s, A):
+    """max |s - sigma(A)| / sigma_max(A) over the top len(s)."""
+    import torch
+    s = torch.as_tensor(s).double().cpu()
+    exact = exact_top_sigma(A, s.shape[-1])
+    return float((s - exact).abs().max() / exact[0])
+
+
+class DispatchLog:
+    """Instruments one server for a replay: each dispatch's group, size,
+    host wall (ending in a synchronize), kernel launches, and the time of
+    its copies in (``serve.server.stack``: the host stack and one host ->
+    device copy) and out (``serve.server._to_host``: one device -> host
+    copy a field, after a synchronize).  Dispatches run one at a time on
+    the worker thread, so the deltas belong to the dispatch."""
+
+    def __init__(self, server):
+        import torch
+        from repro_torch.serve import server as srv_mod
+        self.rows, self._cur, self._mod = [], None, srv_mod
+        self._real = (srv_mod.stack, srv_mod._to_host)
+        real_stack, real_host = self._real
+        inner = server.batcher._dispatch
+
+        def stack(arrays, device=None):
+            t0 = time.perf_counter()
+            out = real_stack(arrays, device)
+            torch.cuda.synchronize()
+            self._add("copy_in_ms", t0)
+            return out
+
+        def to_host(obj):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_host(obj)
+            self._add("copy_out_ms", t0)
+            return out
+
+        def dispatch(group, tickets):
+            rec = dict(kind=group[0], group=str(group[1]), n=len(tickets),
+                       copy_in_ms=0.0, copy_out_ms=0.0)
+            before = kernel_launches()
+            self._cur = rec
+            t0 = time.perf_counter()
+            try:
+                inner(group, tickets)
+            finally:
+                torch.cuda.synchronize()
+                rec["wall_ms"] = (time.perf_counter() - t0) * 1e3
+                after = kernel_launches()
+                rec["launches"] = {k: after[k] - before[k] for k in after
+                                   if after[k] != before[k]}
+                if group[0] == "tenant":
+                    rec["steps"] = [t.result(0).meta["kind"]
+                                    for t in tickets if t.done
+                                    and t._error is None]
+                self._cur = None
+                self.rows.append(rec)
+
+        server.batcher._dispatch = dispatch
+        srv_mod.stack, srv_mod._to_host = stack, to_host
+
+    def _add(self, key, t0):
+        if self._cur is not None:
+            self._cur[key] += (time.perf_counter() - t0) * 1e3
+
+    def close(self):
+        self._mod.stack, self._mod._to_host = self._real
+
+    def launches(self, kind):
+        out = {}
+        for rec in self.rows:
+            if rec["kind"] == kind:
+                for k, v in rec["launches"].items():
+                    out[k] = out.get(k, 0) + v
+        return out
+
+
+def gk_device_ms(B, shape, k):
+    """Device time of one in-graph batched GK loop of k steps over a
+    (B, m, n) stack (backend "pallas"), in one CUDA graph as phase 8
+    times it: what a dispatch of B padded requests at ``shape`` needs the
+    card for, before the Ritz step."""
+    import torch
+    from repro_torch.core import gk as gk_mod
+    from repro_torch.core.operators import DenseOp
+    g = torch.Generator(device=DEV).manual_seed(B * 7 + shape[0])
+    As = torch.randn(B, *shape, generator=g, device=DEV)
+    q1s = 2.0 + torch.randn(B, shape[0], generator=g, device=DEV)
+    op = DenseOp(As, backend="pallas")
+    ms = graph_ms([lambda: gk_mod.gk_bidiag_batched(op, k, q1s=q1s)],
+                  reps=1, replays=3)
+    del As, op
+    torch.cuda.empty_cache()
+    return ms
+
+
+def quantiles(xs):
+    xs = sorted(xs)
+    if not xs:
+        return None
+    pick = lambda q: xs[min(len(xs) - 1, int(q * len(xs)))]  # noqa: E731
+    return dict(min=xs[0], p50=pick(0.5), max=xs[-1], n=len(xs))
+
+
+def replay_summary(label, counts, stats, log, wall_s, peak):
+    """One replay's line: requests/s, p50 / p99, batches, copies, peak."""
+    lat = stats["latency_ms"]
+    rec = dict(requests=sum(counts[k] for k in ("ok", "rejected", "failed",
+                                                 "timeouts")),
+               ok=counts["ok"], failed=counts["failed"],
+               errors=counts["errors"], wall_s=wall_s,
+               requests_per_s=counts["ok"] / wall_s,
+               p50_ms=lat["p50_ms"], p99_ms=lat["p99_ms"],
+               batch_histogram=stats["batch_histogram"],
+               bucket_hit_rate=stats["bucket_hit_rate"],
+               worker_restarts=stats["worker_restarts"],
+               peak_gib=peak / GIB)
+    if log is not None:
+        anon = [r for r in log.rows if r["kind"] == "solve"]
+        rec["copy_in_ms"] = quantiles([r["copy_in_ms"] for r in anon])
+        rec["copy_out_ms"] = quantiles([r["copy_out_ms"] for r in anon])
+    print(f"phase 11 {label}: {rec['ok']}/{rec['requests']} ok in "
+          f"{wall_s:.2f} s = {rec['requests_per_s']:.1f} requests/s; p50 "
+          f"{rec['p50_ms']:.1f} ms, p99 {rec['p99_ms']:.1f} ms; batches "
+          f"{rec['batch_histogram']}, bucket hit rate "
+          f"{rec['bucket_hit_rate']:.3f}, worker restarts "
+          f"{rec['worker_restarts']}; peak device memory "
+          f"{rec['peak_gib']:.2f} GiB"
+          + (f"; copy in (ms) {rec['copy_in_ms']}, copy out (ms) "
+             f"{rec['copy_out_ms']}" if log is not None else ""),
+          flush=True)
+    return rec
+
+
+def serve_cli(seed):
+    """(a) the CLI at the reference's defaults (backend "xla"): 200
+    requests, 4 clients, fsvd rank 8, Zipf 1.1, 4 tenants at 0.25,
+    quantum 32, exact mode, max batch 8, a 4 ms window, with warmup."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.launch import solve_serve
+    reset_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sink = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sink):
+        out = solve_serve.main(["--device", DEV, "--seed", str(seed)])
+    wall = time.perf_counter() - t0
+    drv, st = out["traffic"], out["server"]
+    rec = replay_summary("(a) the CLI at its defaults, backend xla", drv, st,
+                         None, drv["wall_s"],
+                         torch.cuda.max_memory_allocated())
+    rec.update(cli_wall_s=wall, tenants=st["tenants"],
+               launches=kernel_launches())
+    check(drv["ok"] == 200 and rec["requests"] == 200,
+          f"phase 11 (a): {drv}")
+    check(st["worker_restarts"] == 0,
+          f"phase 11 (a): {st['worker_restarts']} worker restarts")
+    check(st["bucket_hit_rate"] == 1.0,
+          f"phase 11 (a): bucket hit rate {st['bucket_hit_rate']}")
+    return rec
+
+
+def wide_replay(seed):
+    """(b) DEFAULT_SHAPES x 64 through SolveServer(fsvd rank 8, backend
+    "pallas") on the card: 48 requests, 4 clients, 4 tenants at 0.25,
+    structured (rank-2 delta) tenant drift; then one batch of 8 against
+    the direct call, and the entries replay."""
+    import numpy as np
+    import torch
+    from repro_torch.api import SVDSpec
+    from repro_torch.launch.solve_serve import run_traffic
+    from repro_torch.serve import SolveServer
+    from repro_torch.serve.bucket import stack
+    from repro_torch.serve.traffic import (DEFAULT_SHAPES, lowrank_operand,
+                                           synthetic_stream)
+    shapes = [(m * WIDE, n * WIDE) for m, n in DEFAULT_SHAPES]
+    spec = SVDSpec(method="fsvd", rank=8, backend="pallas")
+    t0 = time.perf_counter()
+    reqs = list(synthetic_stream(WIDE_REQUESTS, shapes=shapes, rank=8,
+                                 tenants=4, tenant_fraction=0.25,
+                                 structured_drift=True, seed=seed))
+    gen_s = time.perf_counter() - t0
+    print(f"phase 11 (b): {WIDE_REQUESTS} requests at DEFAULT_SHAPES x "
+          f"{WIDE} made on the host in {gen_s:.1f} s "
+          f"({sum(r.A.nbytes for r in reqs) / GIB:.2f} GiB)", flush=True)
+    served = {}
+    srv = SolveServer(spec, generator=torch.Generator().manual_seed(seed),
+                      device=DEV)
+    log = DispatchLog(srv)
+    try:
+        t0 = time.perf_counter()
+        srv.warmup(shapes)
+        warm_s = time.perf_counter() - t0
+        reset_kernel_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = run_traffic(srv, reqs, clients=4, on_result=lambda r, o, d:
+                             served.__setitem__(id(r), (o, d)))
+        launches = kernel_launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        log.close()
+        srv.close()
+    stats = srv.stats()
+    rec = replay_summary("(b) the wide replay, backend pallas", counts,
+                         stats, log, counts["wall_s"], peak)
+    rec.update(generate_s=gen_s, warmup_s=warm_s, tenants=stats["tenants"],
+               launches=launches, launches_anonymous=log.launches("solve"),
+               launches_tenant=log.launches("tenant"))
+    check(counts["ok"] == WIDE_REQUESTS, f"phase 11 (b): {counts}")
+    anon_err, update_err, kinds = 0.0, 0.0, {}
+    for r in reqs:
+        _, res = served[id(r)]
+        err = sigma_error(res.value.s, r.A)
+        if r.tenant is None:
+            anon_err = max(anon_err, err)
+            continue
+        kinds.setdefault(r.tenant, []).append(
+            (res.meta["kind"], res.meta["iterations"]))
+        if res.meta["kind"] == "update":
+            update_err = max(update_err, err)
+            check(res.meta["iterations"] == 0,
+                  f"phase 11 (b): an update ran {res.meta['iterations']} "
+                  f"GK iterations")
+        else:
+            check(err < SERVED_BOUND, f"phase 11 (b): tenant sigma {err}")
+    print(f"phase 11 (b): anonymous sigma vs exact (f64) max "
+          f"{anon_err:.3e} (bound {SERVED_BOUND}); updates {update_err:.3e} "
+          f"(bound {UPDATE_BOUND}); tenant steps {kinds}; launches on "
+          f"anonymous batches {rec['launches_anonymous']}, on tenant "
+          f"requests {rec['launches_tenant']}", flush=True)
+    check(anon_err < SERVED_BOUND, f"phase 11 (b): sigma error {anon_err}")
+    check(update_err < UPDATE_BOUND, f"phase 11 (b): update {update_err}")
+    for steps in kinds.values():
+        check(steps[0][0] == "cold"
+              and all(k in ("refine", "update") for k, _ in steps[1:]),
+              f"phase 11 (b): tenant steps {kinds}")
+    check(any(k == "update" for s in kinds.values() for k, _ in s),
+          f"phase 11 (b): no update among {kinds}")
+    check(all(rec["launches_anonymous"].get(k, 0) > 0 for k in GK_STEP),
+          f"phase 11 (b): stacked GK launches {rec['launches_anonymous']}")
+    check(rec["launches_tenant"].get("lowrank_matmul", 0) > 0,
+          f"phase 11 (b): no lowrank_matmul on deltas "
+          f"{rec['launches_tenant']}")
+    rec.update(anonymous_sigma_err=anon_err, update_sigma_err=update_err,
+               tenant_steps=kinds)
+
+    # each anonymous dispatch's wall against its GK loop's device time
+    k = min(4 * spec.rank, min(shapes[0]))
+    dev = {}
+    shares = []
+    for row in log.rows:
+        if row["kind"] != "solve":
+            continue
+        B = 1 << (row["n"] - 1).bit_length()
+        key = (B, row["group"])
+        if key not in dev:
+            shape = next(s for s in shapes if str(s) == row["group"])
+            dev[key] = gk_device_ms(B, shape, min(k, min(shape)))
+        row["gk_device_ms"] = dev[key]
+        row["host_share"] = 1.0 - dev[key] / row["wall_ms"]
+        shares.append(row["host_share"])
+    rec["host_share"] = quantiles(shares)
+    rec["dispatch_wall_ms"] = {
+        kind: quantiles([r["wall_ms"] for r in log.rows
+                         if r["kind"] == kind]) for kind in ("solve",
+                                                             "tenant")}
+    print(f"phase 11 (b): anonymous dispatches' host share (1 - GK device "
+          f"time / wall) {rec['host_share']}; "
+          + "; ".join(f"{r['kind']} {r['group']} n={r['n']}: wall "
+                      f"{r['wall_ms']:.1f} ms"
+                      + (f", GK device {r['gk_device_ms']:.2f} ms, copy in "
+                         f"{r['copy_in_ms']:.1f}, out {r['copy_out_ms']:.2f}"
+                         if r["kind"] == "solve" else f" {r.get('steps')}")
+                      for r in log.rows), flush=True)
+
+    # one batch of 8 submitted together, against the direct call
+    ops = [r.A for r in reqs if r.tenant is None
+           and r.shape == shapes[0]][:EXACT_BATCH]
+    rng = np.random.default_rng(seed + 11)
+    while len(ops) < EXACT_BATCH:
+        ops.append(lowrank_operand(rng, shapes[0], 8))
+    srv = SolveServer(spec, generator=torch.Generator().manual_seed(seed),
+                      device=DEV, max_batch=EXACT_BATCH,
+                      window_ms=60_000.0)
+    try:
+        tickets = [srv.submit(A) for A in ops]
+        got = [t.result(timeout=120.0) for t in tickets]
+        direct = srv.plan.solve_batched(
+            stack(ops, DEV), generators=[srv.request_generator(
+                t.payload["seq"]) for t in tickets])
+    finally:
+        srv.close()
+    same = all(res.batch == EXACT_BATCH and all(
+        torch.equal(getattr(res.value, f), getattr(direct, f)[i].cpu())
+        for f in ("U", "s", "V")) for i, res in enumerate(got))
+    print(f"phase 11 (b): a batch of {EXACT_BATCH} at {ops[0].shape} "
+          f"submitted together: served U, s, V bit for bit the direct "
+          f"solve_batched on the same stack and generators: {same}",
+          flush=True)
+    check(same, "phase 11 (b): a served batch differs from the direct call")
+    rec["batch_bitwise"] = same
+    del ops, got, direct, reqs, served
+    rec["entries"] = entries_replay(seed, spec)
+    return rec
+
+
+def entries_replay(seed, spec):
+    """The entries replay: 16 requests, 2 tenants, 4,096 COO entries a
+    drift, at (6144, 4096); scatter_add folds them into the tenants'
+    resident sketches."""
+    import torch
+    from repro_torch.launch.solve_serve import run_traffic
+    from repro_torch.serve import SolveServer
+    from repro_torch.serve.traffic import synthetic_stream
+    reqs = list(synthetic_stream(ENTRY_REQUESTS, shapes=[ENTRY_SHAPE],
+                                 rank=8, tenants=ENTRY_TENANTS,
+                                 tenant_fraction=1.0,
+                                 entry_drift_nnz=ENTRY_NNZ, seed=seed))
+    served = {}
+    srv = SolveServer(spec, generator=torch.Generator().manual_seed(seed),
+                      device=DEV)
+    log = DispatchLog(srv)
+    try:
+        srv.warmup([ENTRY_SHAPE])
+        reset_kernel_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = run_traffic(srv, reqs, clients=4, on_result=lambda r, o, d:
+                             served.__setitem__(id(r), (o, d)))
+        launches = kernel_launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        log.close()
+        srv.close()
+    stats = srv.stats()
+    rec = replay_summary("(b) the entries replay, backend pallas", counts,
+                         stats, log, counts["wall_s"], peak)
+    check(counts["ok"] == ENTRY_REQUESTS, f"phase 11 entries: {counts}")
+    steps, worst = [], 0.0
+    for r in reqs:
+        res = served[id(r)][1]
+        m = res.meta
+        steps.append((m["kind"], m["iterations"]))
+        worst = max(worst, sigma_error(res.value.s, r.A))
+        if m["kind"] == "sketch":
+            check(m["iterations"] == 0 and m["probe"] <= m["gate"],
+                  f"phase 11 entries: sketch step {m}")
+    sketched = sum(k == "sketch" for k, _ in steps)
+    print(f"phase 11 (b) entries: steps {steps}; {sketched} sketch steps "
+          f"of {ENTRY_REQUESTS - ENTRY_TENANTS} entries requests; sigma vs "
+          f"exact max {worst:.3e}; launches {launches}", flush=True)
+    check(launches["scatter_add"] > 0, "phase 11: no scatter_add launch")
+    check(sketched > 0, f"phase 11 entries: no sketch step in {steps}")
+    check(worst < SERVED_BOUND, f"phase 11 entries: sigma error {worst}")
+    rec.update(steps=steps, sketch_steps=sketched, sigma_err=worst,
+               launches=launches, tenants=stats["tenants"])
+    return rec
+
+
+def degraded_and_chaos(seed):
+    """(c) one deterministic degraded answer at (6144, 4096), then the
+    chaos battery's replay at its own settings, mixes "faulty" and
+    "storm"."""
+    import numpy as np
+    import torch
+    from repro_torch.api import SVDSpec
+    from repro_torch.launch.solve_serve import run_traffic
+    from repro_torch.runtime import faults
+    from repro_torch.serve import SolveServer
+    from repro_torch.serve.traffic import (DEFAULT_SHAPES, lowrank_operand,
+                                           synthetic_stream)
+    spec = SVDSpec(method="fsvd", rank=8, backend="pallas")
+    A = lowrank_operand(np.random.default_rng(seed + 12), ENTRY_SHAPE, 8)
+    srv = SolveServer(spec, generator=torch.Generator().manual_seed(seed),
+                      device=DEV)
+    try:
+        srv.warmup([ENTRY_SHAPE])
+        reset_kernel_launches()
+        faults.arm(faults.PLAN_SOLVE, mode="raise", p=1.0, max_fires=1)
+        try:
+            t0 = time.perf_counter()
+            res = srv.solve(A, timeout=120.0)
+            wall = time.perf_counter() - t0
+        finally:
+            faults.disarm_all()
+        launches = kernel_launches()
+        tol = srv.degraded_tol
+    finally:
+        srv.close()
+    err = sigma_error(res.value.s, A)
+    meta = res.meta
+    print(f"phase 11 (c): degraded answer at {ENTRY_SHAPE}: {meta}; sigma "
+          f"vs exact {err:.3e} (bound {DEGRADED_BOUND}); wall "
+          f"{wall * 1e3:.1f} ms; sketch_matmat launches "
+          f"{launches['sketch_matmat']}", flush=True)
+    check(meta.get("degraded") is True and meta["method"] == "gnystrom"
+          and meta["probe"] <= tol, f"phase 11 (c): {meta}")
+    check(err < DEGRADED_BOUND, f"phase 11 (c): degraded sigma {err}")
+    check(launches["sketch_matmat"] == 3,
+          f"phase 11 (c): sketch_matmat launched "
+          f"{launches['sketch_matmat']} times")
+    rec = dict(degraded=dict(meta, sigma_err=err, wall_ms=wall * 1e3,
+                             launches={k: v for k, v in launches.items()
+                                       if v}))
+
+    chaos = []
+    for label, mix in CHAOS_MIXES:
+        reqs = list(synthetic_stream(
+            CHAOS_REQUESTS, shapes=DEFAULT_SHAPES, zipf_a=1.1, rank=8,
+            tenants=4, tenant_fraction=0.25, seed=CHAOS_SEED))
+        poisoned = 0
+        for r in reqs:
+            if poisoned < CHAOS_POISONED and r.tenant is None \
+                    and r.kind == "factorize":
+                r.A = np.array(r.A, copy=True)
+                r.A[0, 0] = np.nan
+                poisoned += 1
+        srv = SolveServer(spec, device=DEV, max_batch=8, window_ms=2.0,
+                          max_queue=4 * CHAOS_REQUESTS + 16,
+                          generator=torch.Generator().manual_seed(4321),
+                          hang_timeout_s=1.0, breaker_threshold=5,
+                          breaker_reset_s=1.0, max_retries=2,
+                          retry_backoff_ms=5.0)
+        degraded = []
+
+        def collect(req, outcome, detail):
+            if outcome == "ok" and req.tenant is None \
+                    and detail.meta.get("degraded"):
+                s_true = np.linalg.svd(req.A.astype(np.float64),
+                                       compute_uv=False)
+                s = detail.value.s.double().numpy()
+                degraded.append(float(np.max(np.abs(
+                    s - s_true[:s.shape[0]])) / s_true[0]))
+
+        try:
+            srv.warmup(DEFAULT_SHAPES)
+            with faults.chaos(seed, dispatch_crash_p=mix["crash"],
+                              dispatch_hang_p=mix["hang"], hang_s=2.5,
+                              solve_transient_p=mix["transient"]):
+                counts = run_traffic(srv, reqs, clients=4,
+                                     timeout=CHAOS_DEADLINE_MS / 1e3,
+                                     deadline_ms=CHAOS_DEADLINE_MS,
+                                     on_result=collect)
+            faults.disarm_all()
+            stats = srv.stats()
+        finally:
+            faults.disarm_all()
+            srv.close()
+        outcomes = (counts["ok"] + counts["rejected"] + counts["failed"]
+                    + counts["timeouts"])
+        quarantined = counts["errors"].get("PoisonedOperand", 0)
+        eligible = max(CHAOS_REQUESTS - quarantined - counts["rejected"], 1)
+        row = dict(mix=label, **mix, ok=counts["ok"],
+                   degraded=counts["degraded"], failed=counts["failed"],
+                   errors=counts["errors"], timeouts=counts["timeouts"],
+                   rejected=counts["rejected"], quarantined=quarantined,
+                   availability=counts["ok"] / eligible,
+                   all_terminated=outcomes == CHAOS_REQUESTS,
+                   degraded_err_max=max(degraded, default=0.0),
+                   wall_s=counts["wall_s"],
+                   p50_ms=stats["latency_ms"]["p50_ms"],
+                   p99_ms=stats["latency_ms"]["p99_ms"],
+                   worker_restarts=stats["worker_restarts"],
+                   worker_crashes=stats["worker_crashes"],
+                   retries=stats["retries"],
+                   deadline_drops=stats["deadline_drops"],
+                   breaker_open_shed=stats["breaker_open_shed"])
+        print(f"phase 11 (c): chaos {label}: {row}", flush=True)
+        check(row["all_terminated"], f"phase 11 (c) {label}: not drained")
+        check(row["availability"] >= CHAOS_AVAILABILITY,
+              f"phase 11 (c) {label}: availability {row['availability']}")
+        check(quarantined == poisoned,
+              f"phase 11 (c) {label}: quarantined {quarantined} of "
+              f"{poisoned}")
+        check(row["degraded_err_max"] <= DEGRADED_BOUND,
+              f"phase 11 (c) {label}: degraded sigma "
+              f"{row['degraded_err_max']}")
+        chaos.append(row)
+    rec["chaos"] = chaos
+    return rec
+
+
+def phase_serve(seed):
+    """Phase 11: the solve server on the card; see the module docstring.
+    Returns the {"serve": ...} record; each replay resets the launch
+    counters just before it and reads them just after."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = {"cli": serve_cli(seed)}
+    rec["wide"] = wide_replay(seed)
+    rec.update(degraded_and_chaos(seed))
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = {k: rec["wide"]["launches"][k]
+                       + rec["wide"]["entries"]["launches"][k]
+                       + rec["degraded"]["launches"].get(k, 0)
+                       for k in SERVE_KERNELS}
+    print(f"phase 11: {rec['wall_s']:.1f} s; launches of this slice's "
+          f"kernels over replays (b), its entries replay and (c)'s "
+          f"degraded answer {rec['launches']}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3466,6 +4043,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         skewed = phase_skew(args.seed, args.sm, args.sn,
                             times["sparse_matvec"]["nnz"])
+        # phase 11: the server, after every other phase has freed its
+        # operands
+        served = phase_serve(args.seed)
+        print(json.dumps({"serve": served}, default=str))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3511,6 +4092,8 @@ def main(argv=None) -> int:
                 bitwise_vs_single=True,
                 launches_serve=planned["serve"]["launches"][name],
                 launches_big=planned["big"]["launches"][name])
+        if name in SERVE_KERNELS:
+            row["launches_serve"] = served["launches"][name]
         if name == "scatter_add":
             row["shape"] = "phase 7 folds, mean of Y and Z"
             row["calls"] = times[name]["calls"]

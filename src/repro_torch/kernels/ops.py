@@ -32,12 +32,23 @@ import torch
 
 from repro_torch.kernels import count_sketch as cs
 from repro_torch.kernels import gk_step as gs
+from repro_torch.kernels import lowrank_update as lu
 from repro_torch.kernels import reorth as ro
+from repro_torch.kernels import sketch_matvec as sm
 from repro_torch.kernels import sparse_matvec as spm
 from repro_torch.kernels.lowrank_update import lowrank_matmul  # noqa: F401
 from repro_torch.kernels.sketch_matvec import sketch_matmat  # noqa: F401
 
 Tensor = torch.Tensor
+
+
+def load_dense_libraries() -> None:
+    """Load the CUDA library of every kernel a dense operand's solves,
+    rank-k updates, sketches and entry folds reach (``gk_step``,
+    ``lowrank_update``, ``sketch_matvec``, ``count_sketch``), building
+    each on first use, so that no later call waits on ``nvcc``."""
+    for mod in (gs, lu, sm, cs):
+        mod._lib()
 
 
 def _f32(x: Tensor) -> Tensor:

@@ -1442,3 +1442,89 @@ def test_grad_spectrum_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(card["sigma"][:6].cpu(), cpu["sigma"][:6],
                                rtol=1e-4, atol=0)
     assert abs(float(card["energy_r"]) - float(cpu["energy_r"])) < 1e-4
+
+
+# --- slice 13: the solve server on the card ------------------------------------
+
+def _serve_operands(n, shape, seed):
+    from repro_torch.serve.traffic import lowrank_operand
+    rng = np.random.default_rng(seed)
+    return [lowrank_operand(rng, shape, 8) for _ in range(n)]
+
+
+@pytest.mark.parametrize("n", [3, 8])
+def test_served_batch_is_the_direct_call_on_the_card(cuda, n):
+    """A batch the server coalesces (``backend="pallas"``: the stacked
+    GK-step launches) is ``solve_batched`` of its padded stack with each
+    request's generator, U, s and V bit for bit; the answers are on the
+    host."""
+    from repro_torch.serve import SolveServer
+    from repro_torch.serve.bucket import stack
+    ops = _serve_operands(n, (400, 300), 8)
+    spec = SVDSpec(method="fsvd", rank=8, backend="pallas")
+    gs.reset_launches()
+    with SolveServer(spec, max_batch=n, window_ms=10_000.0,
+                     generator=torch.Generator().manual_seed(2)) as srv:
+        assert srv.device.type == "cuda"
+        tickets = [srv.submit(A) for A in ops]
+        served = [t.result(timeout=120.0).value for t in tickets]
+        assert gs.LAUNCHES["mv_qtv"] > 0
+        seqs = [t.payload["seq"] for t in tickets]
+        pad = (1 << (n - 1).bit_length()) - n
+        direct = srv.plan.solve_batched(
+            stack(ops + [ops[-1]] * pad, "cuda"),
+            generators=[srv.request_generator(s)
+                        for s in seqs + [seqs[-1]] * pad])
+    for i, f in enumerate(served):
+        assert f.s.device.type == "cpu"
+        for name in ("U", "s", "V"):
+            assert torch.equal(getattr(f, name),
+                               getattr(direct, name)[i].cpu()), name
+
+
+def test_warmup_loads_every_reachable_library(cuda, monkeypatch):
+    """warmup (on the card, ``backend="pallas"``) loads the library of
+    every kernel a dispatch can reach in the caller's thread; anonymous
+    batches, a degraded answer, tenant deltas and entry folds after it
+    start no build on the dispatch worker."""
+    import threading
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import faults
+    from repro_torch.serve import SolveServer
+    from repro_torch.serve.traffic import entry_drift, lowrank_drift
+    builds = []
+    real_build = _build.build
+
+    def recording_build(names=None):
+        builds.append((threading.current_thread().name, list(names or [])))
+        return real_build(names)
+
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "build", recording_build)
+    spec = SVDSpec(method="fsvd", rank=8, backend="pallas")
+    shape = (400, 300)
+    with SolveServer(spec, generator=torch.Generator().manual_seed(3),
+                     hang_timeout_s=30.0) as srv:
+        srv.warmup([shape])
+        assert {"gk_step", "lowrank_update", "sketch_matvec",
+                "count_sketch"} <= set(_build._LIBS)
+        main = threading.current_thread().name
+        assert all(name == main for name, _ in builds)
+        warm = len(builds)
+        A, B = _serve_operands(2, shape, 9)
+        assert srv.solve(A, timeout=120.0).value.s.shape == (8,)
+        faults.arm(faults.PLAN_SOLVE, mode="raise", p=1.0, max_fires=1)
+        try:
+            res = srv.solve(B, timeout=120.0)
+        finally:
+            faults.disarm_all()
+        assert res.meta["degraded"] and res.meta["method"] == "gnystrom"
+        rng = np.random.default_rng(4)
+        T = _serve_operands(1, shape, 10)[0]
+        srv.solve(T, tenant="t", timeout=120.0)
+        srv.solve(lowrank_drift(rng, T, drift=1e-3, drift_rank=2),
+                  kind="delta", tenant="t", timeout=120.0)
+        srv.solve(entry_drift(rng, T, drift=1e-3, nnz=256),
+                  kind="entries", tenant="t", timeout=120.0)
+        assert srv.stats()["worker_restarts"] == 0
+    assert len(builds) == warm

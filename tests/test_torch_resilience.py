@@ -9,7 +9,7 @@ retry of ``test_transient_fault_retried_with_backoff`` (a ``plan.solve``
 failpoint that fires once, retried with backoff) and the NaN quarantine
 of ``test_nan_operand_quarantined_at_submit``.  Each is driven through
 both packages' primitives with the same inputs; the server-level cases
-wait for the port's server (ROADMAP Queue 1 item 5).
+are in tests/test_torch_serve_resilience.py.
 """
 import time
 
