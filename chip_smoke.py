@@ -219,6 +219,36 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      replay sets the launch counters to 0 just before it and reads them
      just after; the phase prints a {"serve": {...}} JSON line.
 
+ 12. the distributed layer (after phase 11 has freed its memory): two
+     ranks, spawned processes that load the kernels phase 1 built, share
+     cuda:0 over gloo (NCCL refuses two ranks on one card) through
+     repro_torch.launch.mesh.run_world, and drive: (a) the --m x --n f32
+     operand A = M N over mesh (2,) ("data",), backend "pallas", each rank
+     making its own m/2 rows from the seed (no rank holds A):
+     fsvd_sharded (rank 20, max_iters 200) twice (sigma within 5e-4 of
+     exact, bit for bit on the rerun and on both ranks, local_mv_qtv /
+     local_rmv_qtv launched k / k - 1 times a solve on each rank, one
+     collective a half-step: 2k + 1 a solve), the rerun under
+     torch.profiler (gk_step kernels' device time, other device work,
+     host time in collectives), estimate_rank (100), fsvd_blocked and rbk
+     (phase 4's bounds); each rank's stage-1 kernels held against their
+     plain versions on its own block, and rank 0 times them at the shard
+     shape by device time beside the plain version, torch.addmv +
+     torch.mv and the bound; (b) mesh (1, 2) ("data", "model") at --m64 x
+     --n64 f32: fsvd_sharded within 5e-4, two collectives a half-step
+     (plain local products, as the reference's); (c) the sparse cell
+     (--sm x --sn) sharded two ways: fsvd_sharded (k 200) within 5e-4,
+     estimate_rank 100, the local packs through sparse_matvec and held
+     against its plain version; (d) compress_mean over the two ranks'
+     4096 x 14336 gradients (a shared rank-8 part and each worker's own
+     noise, k 12): sigma within 5e-4 of the exact mean's SVD, and the
+     floats a rank sent and received in the collectives, measured,
+     beside the payload k (m + n) + r m and m n.  Each solve sets the
+     stage-1 counts and the collective counts to 0 just before it and
+     reads them just after; the kernels line gains local_mv_qtv and
+     local_rmv_qtv, and a {"distributed": ...} line holds every rank's
+     record.
+
 The line before the last is the card as nvidia-smi reports it; the last is
 {"ok": true, "device": {...}}.  A kernels JSON line precedes them.
 """
@@ -652,12 +682,17 @@ def make_operand(seed, m, n, dtype=None):
     return A, s_true
 
 
-def timed(fn):
+def _sync():
     import torch
-    torch.cuda.synchronize()
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed(fn):
+    _sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    _sync()
     return out, time.perf_counter() - t0
 
 
@@ -3949,6 +3984,473 @@ def phase_serve(seed):
     return rec
 
 
+# --- phase 12: the distributed layer, two ranks on one card ---------------
+
+DIST_WORLD = 2                # ranks; one card, so both share cuda:0
+DIST_TIMEOUT_S = 900.0        # a collective waits at most this for a rank
+COMPRESS_SHAPE = (4096, 14336)     # one MLP block's gradient
+COMPRESS_RANK, COMPRESS_K = 8, 12
+COMPRESS_NOISE = 1e-3         # each worker's own part of its gradient
+LOCAL_KERNELS = ("local_mv_qtv", "local_rmv_qtv")
+LOCAL_REPLACES = {"local_mv_qtv": "src/repro/kernels/ops.py:131",
+                  "local_rmv_qtv": "src/repro/kernels/ops.py:154"}
+# kernels of gk_step.cu in a profile (stage 1's rows / A^T q kernels and
+# the projection kernel rmv_qtv's P^T v runs)
+GK_KERNEL_NAMES = r"rows_kernel|rmv_partial_kernel|rmv_finish_kernel|proj_"
+
+
+def sigma_list(s):
+    return [float(x) for x in s.float().cpu()]
+
+
+def dist_solve(fn, profile=False):
+    """Run ``fn`` once with the collective stats and the stage-1 counts set
+    to 0 just before it and read just after: (result, record).  With
+    ``profile`` the device time under torch.profiler is split into the
+    gk_step kernels' and the rest."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.matvec import (collective_stats,
+                                                reset_collectives)
+    from repro_torch.kernels import gk_step as gs
+    from repro_torch.kernels import sparse_matvec as spm
+    dist.barrier()
+    gs.reset_launches()
+    spm.reset_launches()
+    reset_collectives()
+    if profile and DEV == "cuda":
+        from torch.autograd import DeviceType
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            out, wall = timed(fn)
+        dev = [e for e in prof.events()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+        gk = sum(e.time_range.elapsed_us() for e in dev
+                 if re.search(GK_KERNEL_NAMES, e.name)) / 1e3
+        total = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        prof_rec = dict(kernel_device_ms=gk,
+                        other_device_ms=total - gk)
+    else:
+        out, wall = timed(fn)
+        prof_rec = {}
+    stats = collective_stats()
+    # a rank's process runs only the sharded seam's stage-1 launches
+    rec = dict(wall_s=wall,
+               launches={name: gs.LAUNCHES[name[len("local_"):]]
+                         for name in LOCAL_KERNELS},
+               sparse_matvec=spm.LAUNCHES["sparse_matvec"],
+               collectives=stats["calls"],
+               collective_s=stats["seconds"],
+               floats_sent=stats["floats_sent"],
+               floats_received=stats["floats_received"], **prof_rec)
+    return out, rec
+
+
+def local_kernel_checks(block, seed, rank):
+    """Each stage-1 kernel on this rank's block against its plain version
+    (bases of the main path's widths, f32): max |kernel - plain|."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    m, n = block.shape
+    g = torch.Generator(device=DEV).manual_seed(seed + 40 + rank)
+    p = torch.randn(n, generator=g, device=DEV)
+    q = torch.randn(m, generator=g, device=DEV)
+    ym = torch.randn(m, generator=g, device=DEV)
+    yn = torch.randn(n, generator=g, device=DEV)
+    Q = torch.linalg.qr(torch.randn(m, MAX_ITERS + 1, generator=g,
+                                    device=DEV))[0].contiguous()
+    P = torch.linalg.qr(torch.randn(n, MAX_ITERS, generator=g,
+                                    device=DEV))[0].contiguous()
+    alpha = torch.tensor([0.37], device=DEV)
+    beta = torch.tensor([1.7], device=DEV)
+    errs = {}
+    for name, kern, plain in [
+            ("local_mv_qtv", lambda: kops.local_mv_qtv(block, p, ym, alpha, Q),
+             lambda: ref.mv_qtv(block, p, ym, alpha, Q)),
+            ("local_rmv_qtv",
+             lambda: kops.local_rmv_qtv(block, q, yn, beta, P),
+             lambda: ref.rmv_qtv(block, q, yn, beta, P))]:
+        errs[name] = compare(name, kern(), plain(), (torch.float32,
+                                                      torch.float32))
+        a, b = kern(), kern()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{name} differs bitwise from call to call")
+    return errs, (p, q, ym, yn, Q, P, alpha, beta)
+
+
+def local_kernel_times(block, inputs):
+    """Rank 0 times both stage-1 kernels at its shard shape by device time
+    (graph_ms), beside the plain version and torch.addmv + torch.mv(Q^T u),
+    and the bound: bytes read once at 3.35 TB/s or f32 operations."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    p, q, ym, yn, Q, P, alpha, beta = inputs
+    m, n = block.shape
+    kq, kp = Q.shape[1], P.shape[1]
+    f = 4
+
+    def lib_mv():
+        u = torch.addmv(ym, block, p, beta=-0.37)
+        return u, torch.mv(Q.T, u)
+
+    def lib_rmv():
+        v = torch.addmv(yn, block.T, q, beta=-1.7)
+        return v, torch.mv(P.T, v)
+
+    rows = {
+        "local_mv_qtv": (lambda: kops.local_mv_qtv(block, p, ym, alpha, Q),
+                         lambda: ref.mv_qtv(block, p, ym, alpha, Q), lib_mv,
+                         f * (m * n + n + m + m * kq + 1 + m + kq),
+                         2 * m * n + 2 * m + 2 * m * kq, kq),
+        "local_rmv_qtv": (lambda: kops.local_rmv_qtv(block, q, yn, beta, P),
+                          lambda: ref.rmv_qtv(block, q, yn, beta, P),
+                          lib_rmv, f * (m * n + m + n + n * kp + n + kp),
+                          2 * m * n + 2 * n + 2 * n * kp, kp),
+    }
+    out = {}
+    for name, (kern, plain, lib, nbytes, flops, k) in rows.items():
+        out[name] = time_row(name, kern, plain, lib, nbytes, flops,
+                             f"({m}x{n} shard, k={k}, f32)", phase=12,
+                             graph=MAIN_GRAPH)
+    return out
+
+
+def dist_dense(rank, world, seed, m, n):
+    """(a) the 1e5 x 8e4 f32 operand A = M N over mesh (world,) ("data",),
+    backend "pallas": each rank makes its own m/world rows from the
+    shared seed and no rank holds the whole operand."""
+    import torch
+    from repro_torch.api import SVDSpec, estimate_rank, factorize
+    from repro_torch.distributed.matvec import ShardedOp
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((world,), ("data",), device_type=DEV)
+    check(m % world == 0, f"{m} rows do not split over {world} ranks")
+    rows = m // world
+    M, N = operand_factors(seed, m, n)
+    s_true = factored_sigma(M, N.T)
+    block = (M[rank * rows:(rank + 1) * rows] @ N).contiguous()
+    del M, N
+    _sync()
+    smax = float(s_true[0])
+    op = ShardedOp(block, mesh, lshape=(m, n), backend="pallas")
+    spec = SVDSpec(method="fsvd_sharded", rank=R_WANT, max_iters=MAX_ITERS,
+                   backend="pallas")
+
+    def gen():
+        return torch.Generator(device=DEV).manual_seed(seed)
+
+    rec = {}
+    k = MAX_ITERS
+    f1, rec["fsvd"] = dist_solve(lambda: factorize(
+        op, spec, generator=gen()))
+    f2, rec["fsvd_rerun"] = dist_solve(lambda: factorize(
+        op, spec, generator=gen()), profile=True)
+    err = float((f1.s.double() - s_true[:R_WANT]).abs().max()) / smax
+    rec["fsvd"].update(sigma=sigma_list(f1.s), sigma_err=err,
+                       iterations=int(f1.iterations))
+    check(err < FSVD_STOL, f"phase 12 (a) fsvd_sharded sigma error {err}")
+    check(torch.equal(f1.s, f2.s), "phase 12 (a): sigma differs bitwise on "
+                                   "a rerun")
+    # the kernels launch on CUDA tensors only (a CPU rehearsal counts 0)
+    want = {"local_mv_qtv": k, "local_rmv_qtv": k - 1} if DEV == "cuda" \
+        else {"local_mv_qtv": 0, "local_rmv_qtv": 0}
+    for key in ("fsvd", "fsvd_rerun"):
+        check(rec[key]["launches"] == want,
+              f"phase 12 (a) {key} launches {rec[key]['launches']} != {want}")
+        # 2k - 1 half-steps, one collective each, + A^T q1 and A V
+        check(rec[key]["collectives"] == 2 * k + 1,
+              f"phase 12 (a) {key}: {rec[key]['collectives']} collectives, "
+              f"not {2 * k + 1}")
+    est, rec["estimate_rank"] = dist_solve(lambda:
+                                           estimate_rank(
+        op, SVDSpec(max_iters=RANK_ITERS, backend="pallas"),
+        generator=gen()))
+    rec["estimate_rank"]["rank"] = int(est.rank)
+    check(int(est.rank) == RANK, f"phase 12 (a) rank {int(est.rank)}")
+    for method, fields, bound in SKETCH_SOLVES:
+        if method not in ("fsvd_blocked", "rbk"):
+            continue
+        fact, r = dist_solve(lambda: factorize(
+            op, SVDSpec(method=method, rank=R_WANT, backend="pallas",
+                        **fields), generator=gen()))
+        e = float((fact.s.double() - s_true[:R_WANT]).abs().max()) / smax
+        r.update(sigma=sigma_list(fact.s), sigma_err=e, bound=bound)
+        check(e < bound, f"phase 12 (a) {method} sigma error {e}")
+        rec[method] = r
+    errs, inputs = local_kernel_checks(block, seed, rank)
+    rec["kernel_errs"] = errs
+    rec["shard"] = list(block.shape)
+    if rank == 0 and DEV == "cuda":
+        rec["times"] = local_kernel_times(block, inputs)
+    del inputs, op, block
+    import torch.distributed as dist
+    dist.barrier()                 # the other rank waits out the timing
+    return rec
+
+
+def dist_model(rank, world, seed, m, n):
+    """(b) mesh (1, world) ("data", "model") at phase 5's width in f32:
+    each rank holds n/world columns; two collectives a half-step."""
+    import torch
+    from repro_torch.api import SVDSpec, factorize
+    from repro_torch.distributed.matvec import ShardedOp
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, world), ("data", "model"), device_type=DEV)
+    check(n % world == 0, f"{n} columns do not split over {world} ranks")
+    cols = n // world
+    M, N = operand_factors(seed + 12, m, n)
+    s_true = factored_sigma(M, N.T)
+    block = (M @ N[:, rank * cols:(rank + 1) * cols]).contiguous()
+    del M, N
+    op = ShardedOp(block, mesh, lshape=(m, n), backend="pallas")
+    spec = SVDSpec(method="fsvd_sharded", rank=R_WANT, max_iters=MAX_ITERS,
+                   backend="pallas")
+    fact, rec = dist_solve(lambda: factorize(
+        op, spec, generator=torch.Generator(device=DEV).manual_seed(seed)))
+    k = MAX_ITERS
+    err = float((fact.s.double() - s_true[:R_WANT]).abs().max()) / float(
+        s_true[0])
+    rec.update(sigma=sigma_list(fact.s), sigma_err=err, shard=[m, cols])
+    check(err < FSVD_STOL, f"phase 12 (b) sigma error {err}")
+    # two per half-step, + A^T q1, the gather of V over "model" and A V
+    check(rec["collectives"] == 2 * (2 * k - 1) + 3,
+          f"phase 12 (b): {rec['collectives']} collectives, not "
+          f"{2 * (2 * k - 1) + 3}")
+    check(not any(rec["launches"].values()),
+          f"phase 12 (b): a 'model' axis took the stage-1 kernels "
+          f"{rec['launches']}")
+    return rec
+
+
+def dist_sparse(rank, world, seed, m, n):
+    """(c) the sparse cell over mesh (world,) ("data",): each rank packs
+    its rows from the shared COO triplets; the local packs go through
+    sparse_matvec."""
+    import torch
+    from repro_torch.api import SVDSpec, estimate_rank, factorize
+    from repro_torch.core.operators import SparseOp
+    from repro_torch.distributed.matvec import sharded_operator
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((world,), ("data",), device_type=DEV)
+    data, idx, s_true = netflix_operand(seed, m, n)
+    nnz = int(data.shape[0])
+    op, t_pack = timed(lambda: sharded_operator(
+        SparseOp.from_coo(data, idx, (m, n)), mesh, backend="pallas"))
+    del data, idx
+    smax = float(s_true[0])
+
+    def gen():
+        return torch.Generator(device=DEV).manual_seed(seed)
+
+    rec = dict(nnz=nnz, pack_s=t_pack,
+               packs=[list(op.A.mv_vals.shape), list(op.A.rmv_vals.shape)])
+    fact, rec["fsvd"] = dist_solve(lambda: factorize(
+        op, SVDSpec(method="fsvd_sharded", rank=R_WANT, max_iters=MAX_ITERS),
+        generator=gen()))
+    err = float((fact.s.double() - s_true[:R_WANT]).abs().max()) / smax
+    rec["fsvd"].update(sigma=sigma_list(fact.s), sigma_err=err)
+    check(err < SPARSE_STOL, f"phase 12 (c) sparse sigma error {err}")
+    est, rec["estimate_rank"] = dist_solve(lambda:
+                                           estimate_rank(
+        op, SVDSpec(max_iters=RANK_ITERS), generator=gen()))
+    rec["estimate_rank"]["rank"] = int(est.rank)
+    check(int(est.rank) == RANK, f"phase 12 (c) rank {int(est.rank)}")
+    if DEV == "cuda":
+        check(rec["fsvd"]["sparse_matvec"] > 0,
+              "phase 12 (c): the local packs took no sparse_matvec launch")
+    # the local packs through the kernel against its plain version
+    g = torch.Generator(device=DEV).manual_seed(seed + 41 + rank)
+    a = op.A
+    errs = []
+    for vals, cols, nx in [(a.mv_vals, a.mv_cols, n),
+                           (a.rmv_vals, a.rmv_rows, a.mv_vals.shape[0])]:
+        x = torch.randn(nx, generator=g, device=DEV)
+        got, want = kops.sparse_matvec(vals, cols, x), ref.sparse_matvec(
+            vals, cols, x)
+        errs.append(float((got - want).abs().max()
+                          / want.abs().max().clamp_min(1e-30)))
+    rec["pack_rel_err"] = errs
+    check(max(errs) < 1e-5, f"phase 12 (c): local packs {errs}")
+    return rec
+
+
+def dist_compress(rank, world, seed, shape):
+    """(d) compress_mean over the ranks' (m, n) gradients: a shared
+    rank-COMPRESS_RANK part plus each worker's own noise, k = COMPRESS_K
+    Lanczos iterations; sigma against the exact mean's SVD."""
+    import torch
+    from repro_torch.core.gk import start_vector
+    from repro_torch.distributed.compression import compress_mean
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((world,), ("data",), device_type=DEV)
+    m, n = shape
+    g = torch.Generator(device=DEV).manual_seed(seed + 30)
+    low = torch.randn(m, COMPRESS_RANK, generator=g, device=DEV) @ \
+        torch.randn(COMPRESS_RANK, n, generator=g, device=DEV)
+
+    def noise(r):
+        gr = torch.Generator(device=DEV).manual_seed(seed + 31 + r)
+        return COMPRESS_NOISE * torch.randn(m, n, generator=gr, device=DEV)
+
+    G = low + noise(rank)
+    mean = low.double() + sum(noise(r).double() for r in range(world)) / world
+    s_exact = torch.linalg.svdvals(mean)[:COMPRESS_RANK]
+    del mean, low
+    q1 = start_vector(torch.Generator(device=DEV).manual_seed(seed + 32), m,
+                      device=DEV)
+    (U, s, V), rec = dist_solve(lambda: compress_mean(
+        G, "data", COMPRESS_RANK, COMPRESS_K, mesh=mesh, q1=q1))
+    err = float((s.double() - s_exact).abs().max() / s_exact[0])
+    r, k = COMPRESS_RANK, COMPRESS_K
+    rec.update(sigma=sigma_list(s), sigma_err=err, shape=[m, n],
+               floats_dense=m * n, floats_compressed=k * (m + n) + r * m,
+               ratio=(k * (m + n) + r * m) / (m * n))
+    check(err < FSVD_STOL, f"phase 12 (d) compressed sigma error {err}")
+    return rec
+
+
+def dist_rank(rank, world, dev, seed, dims, out_dir):
+    """One rank of phase 12: (a) to (d) in turn; writes rank<r>.json."""
+    import torch
+    global DEV
+    DEV = dev
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.kernels import ops as kops
+        from repro_torch.kernels import sparse_matvec as spm
+        kops.load_dense_libraries()     # built by the parent: loads only
+        spm._lib()
+    m, n, m64, n64, sm, sn, cshape = dims
+    t0 = time.perf_counter()
+    rec = dict(rank=rank, dense=dist_dense(rank, world, seed, m, n))
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    rec["model"] = dist_model(rank, world, seed, m64, n64)
+    rec["sparse"] = dist_sparse(rank, world, seed, sm, sn)
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / GIB
+    rec["compress"] = dist_compress(rank, world, seed, cshape)
+    rec["wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+
+
+def phase_distributed(seed, dims, walls3):
+    """Phase 12: the distributed layer on the card; see the module
+    docstring.  Returns the kernels line's rows of the two local stage-1
+    launches and the {"distributed": ...} record."""
+    import shutil
+
+    import torch
+    from repro_torch.launch.mesh import run_world
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    out_dir = os.path.join(ROOT, "build", "phase12")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    run_world(dist_rank, DIST_WORLD, os.path.join(out_dir, "rendezvous"),
+              (DEV, seed, dims, out_dir), timeout_s=DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            recs.append(json.load(fh))
+    # every rank holds the same global answer, bit for bit
+    for part, key in [("dense", "fsvd"), ("dense", "fsvd_blocked"),
+                      ("dense", "rbk"), ("model", None), ("sparse", "fsvd"),
+                      ("compress", None)]:
+        sig = [(rec[part][key] if key else rec[part])["sigma"]
+               for rec in recs]
+        check(all(s == sig[0] for s in sig),
+              f"phase 12 {part} {key}: sigma differs between ranks")
+    dense = [rec["dense"] for rec in recs]
+    for r, d in enumerate(dense):
+        f, p = d["fsvd"], d["fsvd_rerun"]
+        print(f"phase 12 (a) rank {r}: fsvd_sharded on its {d['shard']} "
+              f"shard: wall {f['wall_s']:.3f} s (phase 3 single card "
+              f"{walls3[0]:.3f} / {walls3[1]:.3f} s), collectives "
+              f"{f['collectives']} ({f['collective_s']:.3f} s host), "
+              f"launches {f['launches']}, sigma error {f['sigma_err']:.3e}; "
+              f"rerun under the profiler: wall {p['wall_s']:.3f} s, gk_step "
+              f"kernels {p.get('kernel_device_ms', 0.0):.1f} ms device, "
+              f"other device work {p.get('other_device_ms', 0.0):.1f} ms, "
+              f"collectives {p['collective_s']:.3f} s; estimate_rank "
+              f"{d['estimate_rank']['rank']} in "
+              f"{d['estimate_rank']['wall_s']:.3f} s; fsvd_blocked "
+              f"{d['fsvd_blocked']['sigma_err']:.3e} in "
+              f"{d['fsvd_blocked']['wall_s']:.3f} s, collectives "
+              f"{d['fsvd_blocked']['collectives']} "
+              f"({d['fsvd_blocked']['collective_s']:.3f} s, floats sent "
+              f"{d['fsvd_blocked']['floats_sent']}, received "
+              f"{d['fsvd_blocked']['floats_received']}); rbk "
+              f"{d['rbk']['sigma_err']:.3e} in {d['rbk']['wall_s']:.3f} s; "
+              f"kernel vs plain {d['kernel_errs']}", flush=True)
+    for r, rec in enumerate(recs):
+        b, c, q = rec["model"], rec["sparse"], rec["compress"]
+        print(f"phase 12 (b) rank {r}: ('data', 'model') 1 x "
+              f"{DIST_WORLD}, shard {b['shard']}: wall {b['wall_s']:.3f} s, "
+              f"collectives {b['collectives']} ({b['collective_s']:.3f} s), "
+              f"sigma error {b['sigma_err']:.3e}", flush=True)
+        print(f"phase 12 (c) rank {r}: sparse nnz {c['nnz']}, packs "
+              f"{c['packs']} built in {c['pack_s']:.3f} s; fsvd_sharded wall "
+              f"{c['fsvd']['wall_s']:.3f} s, sigma error "
+              f"{c['fsvd']['sigma_err']:.3e}, sparse_matvec launches "
+              f"{c['fsvd']['sparse_matvec']}, collectives "
+              f"{c['fsvd']['collectives']}; estimate_rank "
+              f"{c['estimate_rank']['rank']} in "
+              f"{c['estimate_rank']['wall_s']:.3f} s; packs vs plain "
+              f"{c['pack_rel_err']}", flush=True)
+        print(f"phase 12 (d) rank {r}: compress_mean {q['shape']} rank "
+              f"{COMPRESS_RANK} k {COMPRESS_K}: sigma error "
+              f"{q['sigma_err']:.3e}, payload k(m+n)+rm "
+              f"{q['floats_compressed']} vs mn {q['floats_dense']} "
+              f"({100 * q['ratio']:.2f} %); measured floats sent "
+              f"{q['floats_sent']}, received {q['floats_received']} "
+              f"({DIST_WORLD} x sent); wall {q['wall_s']:.3f} s, "
+              f"collectives {q['collectives']}",
+              flush=True)
+    print(f"phase 12: {DIST_WORLD} ranks on one card in {wall:.1f} s",
+          flush=True)
+    rows = {}
+    times = dense[0].get("times", {})
+    for name in LOCAL_KERNELS:
+        per_rank = []
+        for rec in recs:
+            n_part = sum(rec["dense"][key]["launches"][name] for key in
+                         ("fsvd", "fsvd_rerun", "estimate_rank",
+                          "fsvd_blocked", "rbk"))
+            n_part += rec["model"]["launches"][name]
+            n_part += sum(rec["sparse"][key]["launches"][name]
+                          for key in ("fsvd", "estimate_rank"))
+            n_part += rec["compress"]["launches"][name]
+            per_rank.append(n_part)
+        t = times.get(name, {})
+        rows[name] = dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/gk_step.cu",
+            replaces=LOCAL_REPLACES[name], launches=sum(per_rank),
+            max_abs_err=max(d["kernel_errs"][name] for d in dense),
+            ms=t.get("ms"), plain_ms=t.get("plain_ms"),
+            bound_ms=t.get("bound_ms"), bound_by=t.get("bound_by"),
+            library_ms=t.get("library_ms"),
+            host_loop_ms=t.get("host_loop_ms"),
+            shape=f"{dense[0]['shard'][0]}x{dense[0]['shard'][1]} shard f32",
+            launches_per_rank=per_rank,
+            launches_per_solve=dense[0]["fsvd"]["launches"][name])
+    return rows, dict(wall_s=wall, ranks=recs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4047,6 +4549,12 @@ def main(argv=None) -> int:
         # operands
         served = phase_serve(args.seed)
         print(json.dumps({"serve": served}, default=str))
+        # phase 12: the distributed layer, after phase 11 has freed its
+        # memory; a failure in a rank raises here
+        local_rows, distributed = phase_distributed(
+            args.seed, (args.m, args.n, args.m64, args.n64, args.sm,
+                        args.sn, COMPRESS_SHAPE), walls3)
+        print(json.dumps({"distributed": distributed}, default=str))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4099,6 +4607,7 @@ def main(argv=None) -> int:
             row["calls"] = times[name]["calls"]
             row["wide"] = times[name]["wide"]
         kernels.append(row)
+    kernels.extend(local_rows[name] for name in LOCAL_KERNELS)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,11 +7,12 @@
     est = estimate_rank(A, SVDSpec(max_iters=256, backend="pallas"),
                         generator=g)
 
-Ported methods: ``fsvd``, ``rsvd``, ``rbk``, ``gnystrom`` and
-``fsvd_blocked``; ``fsvd_sharded`` raises ``NotImplementedError`` naming
-its ``ROADMAP.md`` row.  Operands: dense tensors and every operator of
-``core.operators`` (sparse, Kronecker, low-rank, sums, scalings,
-transposes, Gram).  The rank-k update (``update_factorization``,
+Methods: ``fsvd``, ``rsvd``, ``rbk``, ``gnystrom``, ``fsvd_blocked`` and
+``fsvd_sharded`` (F-SVD on a ``repro_torch.distributed.ShardedOp``, an
+operand sharded over the ranks of a ``torch.distributed`` mesh; this
+package registers it on import).  Operands: dense tensors, every operator
+of ``core.operators`` (sparse, Kronecker, low-rank, sums, scalings,
+transposes, Gram) and sharded operators, on which every method runs.  The rank-k update (``update_factorization``,
 ``downdate_rows``, ``downdate_cols``) revises a factorization with zero
 Krylov iterations.  ``factorize`` and ``estimate_rank`` run through the
 plan layer (``plan``, ``SolverPlan``: a process-wide cache of runners,
@@ -53,3 +54,6 @@ __all__ = [
     "as_operator",
     "resolve_generator", "ImplicitKeyWarning",
 ]
+
+# registers the "fsvd_sharded" method (it imports this package's facade)
+from repro_torch.distributed import gk_dist as _gk_dist  # noqa: E402,F401

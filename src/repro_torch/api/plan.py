@@ -209,6 +209,13 @@ def _sig(x, leaf=False):
         return ("scalar", type(x).__name__) if leaf else ("static", x)
     if isinstance(x, (tuple, list)):
         return (type(x).__name__, tuple(_sig(v, leaf) for v in x))
+    if hasattr(x, "mesh_dim_names") and hasattr(x, "get_coordinate"):
+        # a sharded operand's DeviceMesh (the reference keys its Mesh as
+        # static aux data): shape, axis names and world, so plans on
+        # different meshes or factorizations never share a runner
+        import torch.distributed as dist
+        return ("mesh", tuple(x.mesh.shape), tuple(x.mesh_dim_names),
+                str(x.device_type), dist.get_world_size())
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         leaves = _SCALAR_LEAVES.get(type(x).__name__, frozenset())
         return (type(x).__qualname__,

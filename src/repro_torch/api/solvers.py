@@ -4,8 +4,10 @@ Counterpart of ``repro.api.solvers``: every solver takes the same
 (operator, spec, generator, q1) inputs and returns the same
 :class:`~repro_torch.api.results.Factorization`, with the reference's
 mapping from ``SVDSpec`` fields to solver arguments.  ``fsvd_sharded``
-is not ported yet; :func:`not_ported` names the ``ROADMAP.md`` row that
-will bring it.
+registers from ``repro_torch.distributed.gk_dist``, which
+``repro_torch.api`` imports.  ``NOT_PORTED`` is empty: every method of
+the reference is ported, and :func:`not_ported` stays for a method that
+a later reference change adds.
 """
 from __future__ import annotations
 
@@ -24,9 +26,7 @@ from repro_torch.core.rsvd import rsvd as _rsvd
 from repro_torch.core.sketch import gnystrom as _gnystrom
 from repro_torch.core.sketch import rbk as _rbk
 
-NOT_PORTED = {
-    "fsvd_sharded": "ROADMAP.md Queue 1 item 6 (distributed/gk_dist.py)",
-}
+NOT_PORTED: dict = {}
 
 
 def not_ported(method: str) -> NotImplementedError:

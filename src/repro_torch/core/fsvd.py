@@ -51,6 +51,9 @@ def _assemble(op, res: gk_mod.GKResult, r: int) -> FSVDResult:
     s = torch.sqrt(torch.clamp(torch.where(pad, torch.zeros_like(theta_r),
                                            theta_r), min=0.0))
     V = _mixed_matmul(res.P, G_r)                       # line 3: V2 = P V1
+    gather = getattr(op, "gather_basis", None)
+    if gather is not None:             # a sharded operand's P is local
+        V = gather(V, "right")
     AV = op.matmat(V)                                   # lines 6-8
     U = AV / torch.where(s > 0, s, torch.ones_like(s))[None, :]
     U = torch.where(pad[None, :], torch.zeros_like(U), U)

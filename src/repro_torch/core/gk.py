@@ -18,7 +18,10 @@ kernel stage for the whole batch.
 
 All route every half-iteration through the operator's fused
 ``lanczos_step`` / ``lanczos_rstep`` (the CUDA kernels for
-``DenseOp(backend="pallas")``), and both take ``precision="bf16"``: the
+``DenseOp(backend="pallas")``; a ``repro_torch.distributed.ShardedOp``'s
+seam takes its own ranks' rows of q and Q and columns of p and P, placed
+by its ``place_basis``, so P and Q of the result are this rank's rows),
+and both take ``precision="bf16"``: the
 P/Q bases are stored half-width while every reduction stays f32.  The
 basis buffers are updated in place (torch tensors are mutable; the
 reference rebuilds them functionally).
@@ -112,6 +115,14 @@ def start_vector(generator: torch.Generator, m: int,
         device=device or generator.device, dtype=dtype)
 
 
+def _place(op, x: Tensor, side: str) -> Tensor:
+    """A sharded operator's Lanczos seam takes vectors on its own ranks'
+    rows ("left") or columns ("right"): this rank's part of the global
+    ``x``; ``x`` itself for any other operator."""
+    place = getattr(op, "place_basis", None)
+    return x if place is None else place(x, side)
+
+
 def _setup(op, k, generator, q1, dtype, precision, caller, device):
     op = as_operator(op, device=device)
     m, n = op.shape
@@ -146,9 +157,11 @@ def gk_bidiag(op, k: int, *, generator: Optional[torch.Generator] = None,
         op, k, generator, q1, dtype, precision, "gk_bidiag", device)
     alpha1 = torch.linalg.vector_norm(p)
     p = p / _nonzero(alpha1)
+    # a sharded operand's bases hold this rank's rows only
+    q, p = _place(op, q, "left"), _place(op, p, "right")
 
-    Q = torch.zeros((m, k + 1), dtype=store, device=dev)
-    P = torch.zeros((n, k), dtype=store, device=dev)
+    Q = torch.zeros((q.shape[0], k + 1), dtype=store, device=dev)
+    P = torch.zeros((p.shape[0], k), dtype=store, device=dev)
     Q[:, 0] = q.to(store)
     P[:, 0] = p.to(store)
     alphas = torch.zeros(k, dtype=dtype, device=dev)
@@ -218,6 +231,7 @@ def gk_bidiag_host(op, k: int, *,
         op, k, generator, q1, dtype, precision, "gk_bidiag_host", device)
     alpha1 = float(torch.linalg.vector_norm(p))
     p = p / (alpha1 if alpha1 > 0 else 1.0)
+    q, p = _place(op, q, "left"), _place(op, p, "right")
     eff_eps = _eff_eps(eps, dtype, store)
     thresh = eff_eps * max(alpha1, 1.0) if relative_eps else eps
 
@@ -225,8 +239,8 @@ def gk_bidiag_host(op, k: int, *,
     breakdown = False
     # fixed-width zero-padded basis buffers: zero columns contribute
     # nothing to CGS, and every step sees the same shapes.
-    Qm = torch.zeros((m, k + 1), dtype=store, device=dev)
-    Pm = torch.zeros((n, k), dtype=store, device=dev)
+    Qm = torch.zeros((q.shape[0], k + 1), dtype=store, device=dev)
+    Pm = torch.zeros((p.shape[0], k), dtype=store, device=dev)
     Qm[:, 0] = q.to(store)
     Pm[:, 0] = p.to(store)
 

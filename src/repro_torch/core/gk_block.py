@@ -14,8 +14,11 @@ Host syncs (the breakdown norms, the MGS column norms, the locking
 residuals) are ``.item()`` / ``.tolist()`` transfers, as the reference's
 ``float(...)`` calls are.  The reference's sharded-operand branch (blocked
 Gram orthonormalization ``_mgs_block_gram``, replicated Rayleigh–Ritz
-``_gram_rayleigh_ritz``) is left out with its helpers: the port has no
-mesh until ``ROADMAP.md`` Queue 1 item 12.
+``_gram_rayleigh_ritz``) has no counterpart: a sharded operand's
+``matmat`` / ``rmatmat`` (``repro_torch.distributed.matvec.ShardedOp``)
+return the whole product, with the same bits, on every rank, so the MGS
+and ``svd(AV)`` below take the same decisions on every rank with no
+further collective.
 """
 from __future__ import annotations
 

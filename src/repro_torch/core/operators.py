@@ -38,6 +38,7 @@ Tensor = torch.Tensor
 
 _BACKENDS = ("xla", "pallas")
 _GRAM_SIDES = ("ata", "aat")
+_OTHER_SIDE = {"left": "right", "right": "left"}
 
 # rows of a narrow-storage basis widened to f32 at a time by the mixed
 # products below: the basis itself is never upcast in memory.
@@ -513,6 +514,16 @@ class TransposedOp(Operator):
     def rmatmat(self, Q):
         return self.inner.matmat(Q)
 
+    # a sharded inner operand's Lanczos seam keeps its vectors on its own
+    # ranks' rows / columns: the transpose swaps the two sides
+    def place_basis(self, X, side):
+        fn = getattr(self.inner, "place_basis", None)
+        return X if fn is None else fn(X, _OTHER_SIDE[side])
+
+    def gather_basis(self, X, side):
+        fn = getattr(self.inner, "gather_basis", None)
+        return X if fn is None else fn(X, _OTHER_SIDE[side])
+
     @property
     def T(self):
         return self.inner
@@ -865,9 +876,25 @@ def as_operator(A, *, backend: str = "xla", device=None) -> Operator:
 
 def sharding_mesh(op):
     """The device mesh a (possibly wrapped) operator is sharded over, or
-    None.  Counterpart of ``repro.core.operators.sharding_mesh``: the port
-    has no sharded operator yet (``ROADMAP.md`` Queue 1 item 6), so every
-    operator is on one device and this is None."""
+    None.  Counterpart of ``repro.core.operators.sharding_mesh``: a
+    ``repro_torch.distributed.ShardedOp`` exposes a ``sharding_mesh``
+    property, and wrapper operators are walked through their operator
+    fields (``inner``, ``op``, ``terms``, ...), so any wrapper takes part
+    without registering here."""
+    mesh = getattr(op, "sharding_mesh", None)
+    if mesh is not None:
+        return mesh
+    if not (isinstance(op, Operator) and dataclasses.is_dataclass(op)):
+        return None
+    stack = [getattr(op, f.name) for f in dataclasses.fields(op)]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, Operator):
+            mesh = sharding_mesh(x)
+            if mesh is not None:
+                return mesh
+        elif isinstance(x, (tuple, list)):
+            stack.extend(x)
     return None
 
 

@@ -237,8 +237,8 @@ def rbk(A, r: int, *, passes: int = 2, sketch_dim: Optional[int] = None,
         basis = torch.cat([basis, block.to(store)], dim=1)
 
     AV = A.matmat(basis).to(F32)                         # 1 sweep
-    # (the reference's sharded operands take a Gram Rayleigh-Ritz here;
-    # the port has no mesh until ROADMAP.md Queue 1 item 12)
+    # (the reference's sharded operands take a Gram Rayleigh-Ritz here; a
+    # ShardedOp's AV is whole and alike on every rank, so svd(AV) serves)
     U, s, Wt = torch.linalg.svd(AV, full_matrices=False)
     V = basis.to(F32) @ Wt.T
     sweeps = 2 * q_eff + 1

@@ -2,6 +2,8 @@
 
 Counterpart of ``repro.kernels.ops``:
 
+  * ``local_mv_qtv`` / ``local_rmv_qtv`` (the half-steps of a row-sharded
+    ``ShardedOp(backend="pallas")``): stage 1 alone over one shard;
   * ``gk_step_fused`` / ``gk_rstep_fused`` (``DenseOp(backend="pallas")``
     half-steps): stage 1 (``mv_qtv`` or ``rmv_qtv``), then ``passes − 1`` ×
     ``proj_qtv``, then ``proj_norm``, so the basis is read ``passes + 1``
@@ -121,6 +123,27 @@ def gk_rstep_fused(A: Tensor, q: Tensor, y: Tensor, beta, P: Tensor,
     stacked as :func:`gk_step_fused`."""
     v, c = gs.rmv_qtv(A, _f32(q), _f32(y), beta, P)
     return _project(v, P, c, passes)
+
+
+def local_mv_qtv(A: Tensor, p: Tensor, y: Tensor, alpha,
+                 Q: Tensor) -> tuple[Tensor, Tensor]:
+    """Stage 1 of the left half-step over one LOCAL shard: ``u = A p − α y``
+    and the partial first CGS product ``c = Qᵀu``, from one ``mv_qtv``
+    launch (its fixed-order finish included), and nothing after it: the
+    sharded seam (``distributed.matvec``) sums c across shards before the
+    rest of the CGS algebra.  A (m, n) f32/bf16; p (n,); y (m,); Q (m, k)
+    → (u (m,), c (k,)) f32.  Counted where it launches, as the
+    ``gk_step.LAUNCHES["mv_qtv"]`` it is; CPU tensors take the plain
+    version."""
+    return gs.mv_qtv(A, _f32(p), _f32(y), alpha, Q)
+
+
+def local_rmv_qtv(A: Tensor, q: Tensor, y: Tensor, beta,
+                  P: Tensor) -> tuple[Tensor, Tensor]:
+    """The right direction of :func:`local_mv_qtv`: ``v = Aᵀ q − β y`` and
+    the partial ``c = Pᵀv`` from one ``rmv_qtv`` launch over a local
+    shard.  A (m, n); q (m,); y (n,); P (n, k) → (v (n,), c (k,)) f32."""
+    return gs.rmv_qtv(A, _f32(q), _f32(y), beta, P)
 
 
 def _project(u: Tensor, Q: Tensor, c: Tensor,

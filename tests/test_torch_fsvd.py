@@ -236,13 +236,16 @@ def test_spec_dtype_is_a_torch_dtype():
 
 
 def test_methods_not_ported_name_their_roadmap_row():
-    """Five of the reference's six methods are ported; only fsvd_sharded
-    still raises, naming its ROADMAP.md row."""
+    """All six of the reference's methods are ported, so none is left to
+    name a ROADMAP.md row; fsvd_sharded, like the reference's, refuses an
+    operand that is not sharded."""
+    from repro_torch.api.solvers import NOT_PORTED
     A = torch.from_numpy(np.array(make_lowrank(jax.random.PRNGKey(0),
                                                  40, 30, 4)))
-    assert available_solvers() == ("fsvd", "fsvd_blocked", "gnystrom",
-                                   "rbk", "rsvd")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6 "):
+    assert NOT_PORTED == {}
+    assert available_solvers() == ("fsvd", "fsvd_blocked", "fsvd_sharded",
+                                   "gnystrom", "rbk", "rsvd")
+    with pytest.raises(TypeError, match="ShardedOp"):
         factorize(A, SVDSpec(method="fsvd_sharded", rank=3))
     g = torch.Generator().manual_seed(0)
     for method in ("rsvd", "fsvd_blocked", "rbk", "gnystrom"):

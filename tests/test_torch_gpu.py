@@ -1528,3 +1528,44 @@ def test_warmup_loads_every_reachable_library(cuda, monkeypatch):
                   kind="entries", tenant="t", timeout=120.0)
         assert srv.stats()["worker_restarts"] == 0
     assert len(builds) == warm
+
+
+# --- slice 14: the distributed layer's stage-1 launches ----------------------
+
+@pytest.mark.parametrize("m,n,k", [(5003, 777, 201), (1001, 4099, 33)])
+def test_local_stage1_kernels_match_plain_versions(cuda, m, n, k):
+    """local_mv_qtv / local_rmv_qtv on a shard whose rows are not a
+    multiple of the row kernel's tile (8 rows a block group): one stage-1
+    launch each, counted, against the plain versions at f32 bounds."""
+    A, p, q, ym, yn, Q, P = _inputs(m, n, k, torch.float32, torch.float32,
+                                    m + n + k)
+    alpha = torch.tensor([0.37], device=cuda)
+    before = dict(gs.LAUNCHES)
+    u, c = ops.local_mv_qtv(A, p, ym, alpha, Q)
+    v, d = ops.local_rmv_qtv(A, q, yn, 1.7, P)
+    assert gs.LAUNCHES["mv_qtv"] == before["mv_qtv"] + 1
+    assert gs.LAUNCHES["rmv_qtv"] == before["rmv_qtv"] + 1
+    for got, want in [((u, c), ref.mv_qtv(A, p, ym, alpha, Q)),
+                      ((v, d), ref.rmv_qtv(A, q, yn, 1.7, P))]:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5,
+                                       atol=1e-5 * float(w.abs().max()))
+
+
+def test_two_ranks_fsvd_sharded_on_one_card(cuda, tmp_path):
+    """Two gloo ranks share cuda:0: fsvd_sharded through the stage-1
+    kernels within 1e-5·σ_max of the single-device port's fsvd from the
+    same q1, the same σ on both ranks."""
+    import torch_world as tw
+    rng = np.random.default_rng(14)
+    A = (rng.standard_normal((3001, 40)) @ rng.standard_normal((40, 1200))
+         + 1e-3 * rng.standard_normal((3001, 1200))).astype(np.float32)
+    q1 = (2.0 + rng.standard_normal(3001)).astype(np.float32)
+    np.savez(tmp_path / "in.npz", A=A, q1=q1)
+    ranks = tw.run_port(tw.gpu_fsvd_case, str(tmp_path),
+                        str(tmp_path / "in.npz"), world=2)
+    smax = float(np.linalg.svd(A.astype(np.float64), compute_uv=False)[0])
+    for got in ranks:
+        np.testing.assert_array_equal(got["sharded"], ranks[0]["sharded"])
+        assert np.max(np.abs(got["sharded"] - got["single"])) / smax < 1e-5
+        assert list(got["launches"]) == [48, 47]

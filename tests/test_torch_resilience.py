@@ -30,11 +30,18 @@ RESET_S = 0.3
 
 @pytest.fixture(autouse=True)
 def _clean_failpoints():
+    # the lifetime fire counts too: an earlier file in the same process
+    # (tests/test_torch_plan.py fires plan.solve) must not leak into a
+    # test that counts fires
     faults.disarm_all()
     ref_faults.disarm_all()
+    faults.reset_stats()
+    ref_faults.reset_stats()
     yield
     faults.disarm_all()
     ref_faults.disarm_all()
+    faults.reset_stats()
+    ref_faults.reset_stats()
 
 
 @pytest.mark.parametrize("mod", [res, rres], ids=["port", "reference"])
