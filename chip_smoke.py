@@ -1955,84 +1955,205 @@ def batched_vs_singles(label, As, q1s, spec):
     return fb, row
 
 
-def batched_stage_times(As, seed, k):
+STAGE_BATCHES = (2, 4, 8)     # phase 8's stage times: the server's
+                              # dispatches run B <= 4, the big batch 8
+
+
+def batched_stage_times(As, seed, k, batches=STAGE_BATCHES):
     """Each GK-step stage at the big batch's solve shapes by device time
-    (``graph_ms``): the stacked call, B single launches and one single
-    launch, beside the bound (B x each input byte read and each output
-    byte written once at 3.35 TB/s) and the yardstick of rows 1-4 applied
-    to the whole stack in batched library calls (``torch.baddbmm`` for
-    the matvec or the projection's update, then ``torch.bmm`` for the
-    basis product or the norm): two calls where the kernel is one."""
+    (``graph_ms``), for the first B examples of the stack for each B of
+    ``batches`` the stack holds: the stacked call, B single launches,
+    one single launch and the stacked plain version (``kernels.ref``),
+    beside the bound (B x each input byte read and each output byte
+    written once at 3.35 TB/s) and the yardstick of rows 1-4 applied to
+    the whole stack in batched library calls (``torch.baddbmm`` for the
+    matvec or the projection's update, then ``torch.bmm`` for the basis
+    product or the norm): two calls where the kernel is one.  Returns
+    {stage: the largest B's row, with every B's row under
+    ``by_batch``}."""
     import torch
     from repro_torch.kernels import gk_step as gs
-    B, m, n = As.shape
+    from repro_torch.kernels import ref
+    m, n = As.shape[1:]
     g = torch.Generator(device=DEV).manual_seed(seed + 30)
     kq, kp = k + 1, k
+    f = 4
+
+    def t(*shape):
+        return torch.randn(*shape, generator=g, device=DEV)
+
+    batches = [B for B in batches if B <= As.shape[0]] or [As.shape[0]]
+    Bmax = max(batches)
+    p, q, ym, yn, al = (t(Bmax, n), t(Bmax, m), t(Bmax, m), t(Bmax, n),
+                        t(Bmax))
+    Q, P = t(Bmax, m, kq) / m ** 0.5, t(Bmax, n, kp) / n ** 0.5
+    cq = t(Bmax, kq)
+    rows = {}
+    for B in batches:
+        # the first B examples: every one a contiguous stack
+        Ab, pb, qb, ymb, ynb, alb = (As[:B], p[:B], q[:B], ym[:B], yn[:B],
+                                     al[:B])
+        Qb, Pb, cqb = Q[:B], P[:B], cq[:B]
+        At, Qt, Pt = (Ab.transpose(1, 2), Qb.transpose(1, 2),
+                      Pb.transpose(1, 2))
+
+        def lib_mv():
+            u = torch.baddbmm(ymb[:, :, None], Ab, pb[:, :, None],
+                              beta=-0.37)
+            return u, torch.bmm(Qt, u)
+
+        def lib_rmv():
+            v = torch.baddbmm(ynb[:, :, None], At, qb[:, :, None],
+                              beta=-1.7)
+            return v, torch.bmm(Pt, v)
+
+        def lib_proj(norm):
+            w = torch.baddbmm(ymb[:, :, None], Qb, cqb[:, :, None],
+                              alpha=-1.0)
+            return w, torch.bmm(w.transpose(1, 2), w) if norm \
+                else torch.bmm(Qt, w)
+
+        stages = {
+            "mv_qtv": (lambda b=None: gs.mv_qtv(Ab, pb, ymb, alb, Qb)
+                       if b is None else gs.mv_qtv(Ab[b], pb[b], ymb[b],
+                                                   alb[b], Qb[b]), lib_mv,
+                       lambda: ref.mv_qtv(Ab, pb, ymb, alb, Qb),
+                       f * (m * n + n + m + m * kq + 1 + m + kq),
+                       2 * m * n + 2 * m + 2 * m * kq, f"{m}x{n}, k={kq}"),
+            "rmv_qtv": (lambda b=None: gs.rmv_qtv(Ab, qb, ynb, alb, Pb)
+                        if b is None else gs.rmv_qtv(Ab[b], qb[b], ynb[b],
+                                                     alb[b], Pb[b]),
+                        lib_rmv, lambda: ref.rmv_qtv(Ab, qb, ynb, alb, Pb),
+                        f * (m * n + m + n + n * kp + n + kp),
+                        2 * m * n + 2 * n + 2 * n * kp, f"{m}x{n}, k={kp}"),
+            "proj_qtv": (lambda b=None: gs.proj_qtv(ymb, Qb, cqb)
+                         if b is None else gs.proj_qtv(ymb[b], Qb[b],
+                                                       cqb[b]),
+                         lambda: lib_proj(False),
+                         lambda: ref.proj_qtv(ymb, Qb, cqb),
+                         f * (m * kq + 2 * m + 2 * kq), 4 * m * kq + m,
+                         f"Q {m}x{kq}"),
+            "proj_norm": (lambda b=None: gs.proj_norm(ymb, Qb, cqb)
+                          if b is None else gs.proj_norm(ymb[b], Qb[b],
+                                                         cqb[b]),
+                          lambda: lib_proj(True),
+                          lambda: ref.proj_norm(ymb, Qb, cqb),
+                          f * (m * kq + 2 * m + kq + 1), 2 * m * kq + 3 * m,
+                          f"Q {m}x{kq}"),
+        }
+        for name, (call, lib, plain, nbytes, flops, shape) in \
+                stages.items():
+            t_bytes = B * nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = B * flops / F32_FLOP_PER_S * 1e3
+            row = dict(call=f"B={B} x {shape} f32",
+                       ms=graph_ms([call], 60, 5),
+                       singles_ms=graph_ms(
+                           [lambda: [call(b) for b in range(B)]], 20, 5),
+                       one_ms=graph_ms([lambda: call(0)], 60, 5),
+                       library_ms=graph_ms([lib], 60, 5),
+                       plain_ms=graph_ms([plain], 20, 5),
+                       library="torch.baddbmm + torch.bmm (two calls)",
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops
+                       else "operations")
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            print(f"phase 8: {name} stacked {row['call']}, device time: "
+                  f"{row['ms']:.4f} ms ({100 * row['share_of_bound']:.0f} % "
+                  f"of the bound {row['bound_ms']:.4f} ms), {B} single "
+                  f"launches {row['singles_ms']:.4f} ms, one single launch "
+                  f"{row['one_ms']:.4f} ms, library on the stack "
+                  f"({row['library']}) {row['library_ms']:.4f} ms, plain "
+                  f"version on the stack {row['plain_ms']:.4f} ms",
+                  flush=True)
+            rows.setdefault(name, {})[B] = row
+    return {name: dict(by_B[Bmax], by_batch=by_B)
+            for name, by_B in rows.items()}
+
+
+TRACE_CALLS = 3               # stacked calls of each kernel under the profiler
+
+
+def stacked_trace(As, seed, k, calls=TRACE_CALLS):
+    """One torch.profiler trace each of ``calls`` stacked ``rmv_qtv`` and
+    ``mv_qtv`` calls on ``As`` (the big batch's stack, P side k columns,
+    Q side k + 1), and of their library yardsticks (``torch.baddbmm`` +
+    ``torch.bmm``), after one traced call that is dropped: every launch
+    of a call by its kernel's name and device µs, and the call's span
+    from its first launch's start to its last launch's end, so the gaps
+    between a call's launches show too."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.kernels import gk_step as gs
+    B, m, n = As.shape
+    g = torch.Generator(device=DEV).manual_seed(seed + 31)
 
     def t(*shape):
         return torch.randn(*shape, generator=g, device=DEV)
 
     p, q, ym, yn, al = t(B, n), t(B, m), t(B, m), t(B, n), t(B)
-    Q, P = t(B, m, kq) / m ** 0.5, t(B, n, kp) / n ** 0.5
-    cq = t(B, kq)
-    f = 4
-    At, Qt, Pt = As.transpose(1, 2), Q.transpose(1, 2), P.transpose(1, 2)
+    Q, P = t(B, m, k + 1) / m ** 0.5, t(B, n, k) / n ** 0.5
+    Qt, Pt = Q.transpose(1, 2), P.transpose(1, 2)
+
+    def lib_rmv():
+        v = torch.baddbmm(yn[:, :, None], As.transpose(1, 2),
+                          q[:, :, None], beta=-1.7)
+        return v, torch.bmm(Pt, v)
 
     def lib_mv():
         u = torch.baddbmm(ym[:, :, None], As, p[:, :, None], beta=-0.37)
         return u, torch.bmm(Qt, u)
 
-    def lib_rmv():
-        v = torch.baddbmm(yn[:, :, None], At, q[:, :, None], beta=-1.7)
-        return v, torch.bmm(Pt, v)
+    cases = {"rmv_qtv": lambda: gs.rmv_qtv(As, q, yn, al, P),
+             "mv_qtv": lambda: gs.mv_qtv(As, p, ym, al, Q),
+             "rmv_qtv library": lib_rmv, "mv_qtv library": lib_mv}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for name, fn in cases.items():
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls + 1):   # the first waits on the profiler
+                fn()
+            torch.cuda.synchronize()
+        dev = sorted((e for e in prof.events()
+                      if getattr(e, "device_type", None) == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
 
-    def lib_proj(norm):
-        w = torch.baddbmm(ym[:, :, None], Q, cq[:, :, None], alpha=-1.0)
-        return w, torch.bmm(w.transpose(1, 2), w) if norm \
-            else torch.bmm(Qt, w)
+        def short(e):
+            hit = re.search(r"\w*(?:kernel|gemv|gemm)\w*(<[^(]*>)?",
+                            e.name)
+            return (hit.group(0) if hit else e.name)[:60]
 
-    stages = {
-        "mv_qtv": (lambda b=None: gs.mv_qtv(As, p, ym, al, Q) if b is None
-                   else gs.mv_qtv(As[b], p[b], ym[b], al[b], Q[b]), lib_mv,
-                   f * (m * n + n + m + m * kq + 1 + m + kq),
-                   2 * m * n + 2 * m + 2 * m * kq, f"{m}x{n}, k={kq}"),
-        "rmv_qtv": (lambda b=None: gs.rmv_qtv(As, q, yn, al, P) if b is None
-                    else gs.rmv_qtv(As[b], q[b], yn[b], al[b], P[b]),
-                    lib_rmv, f * (m * n + m + n + n * kp + n + kp),
-                    2 * m * n + 2 * n + 2 * n * kp, f"{m}x{n}, k={kp}"),
-        "proj_qtv": (lambda b=None: gs.proj_qtv(ym, Q, cq) if b is None
-                     else gs.proj_qtv(ym[b], Q[b], cq[b]),
-                     lambda: lib_proj(False),
-                     f * (m * kq + 2 * m + 2 * kq), 4 * m * kq + m,
-                     f"Q {m}x{kq}"),
-        "proj_norm": (lambda b=None: gs.proj_norm(ym, Q, cq) if b is None
-                      else gs.proj_norm(ym[b], Q[b], cq[b]),
-                      lambda: lib_proj(True),
-                      f * (m * kq + 2 * m + kq + 1), 2 * m * kq + 3 * m,
-                      f"Q {m}x{kq}"),
-    }
-    rows = {}
-    for name, (call, lib, nbytes, flops, shape) in stages.items():
-        t_bytes = B * nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = B * flops / F32_FLOP_PER_S * 1e3
-        row = dict(call=f"B={B} x {shape} f32",
-                   ms=graph_ms([call], 60, 5),
-                   singles_ms=graph_ms([lambda: [call(b) for b in range(B)]],
-                                       20, 5),
-                   one_ms=graph_ms([lambda: call(0)], 60, 5),
-                   library_ms=graph_ms([lib], 60, 5),
-                   library="torch.baddbmm + torch.bmm (two calls)",
-                   bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
-        row["share_of_bound"] = row["bound_ms"] / row["ms"]
-        print(f"phase 8: {name} stacked {row['call']}, device time: "
-              f"{row['ms']:.4f} ms ({100 * row['share_of_bound']:.0f} % of "
-              f"the bound {row['bound_ms']:.4f} ms), {B} single launches "
-              f"{row['singles_ms']:.4f} ms, one single launch "
-              f"{row['one_ms']:.4f} ms, library on the stack "
-              f"({row['library']}) {row['library_ms']:.4f} ms", flush=True)
-        rows[name] = row
-    return rows
+        # a measurement, not a gate: where the library's calls do not
+        # launch alike, its launches are grouped by name, with no span
+        per = len(dev) // (calls + 1)
+        if dev and per * (calls + 1) == len(dev):
+            dev = dev[per:]
+            launches = [dict(kernel=short(dev[i]),
+                             us=[e.time_range.elapsed_us()
+                                 for e in dev[i::per]])
+                        for i in range(per)]
+            spans = [dev[c * per + per - 1].time_range.end
+                     - dev[c * per].time_range.start for c in range(calls)]
+        else:
+            groups = {}
+            for e in dev:
+                groups.setdefault(short(e), []).append(
+                    e.time_range.elapsed_us())
+            launches = [dict(kernel=k, us=v) for k, v in groups.items()]
+            spans = []
+        out[name] = dict(call=f"B={B} x {m}x{n} f32", launches=launches,
+                         span_us=spans)
+        print(f"phase 8: trace of stacked {name} B={B} x {m}x{n} "
+              f"({calls} calls): "
+              + "; ".join(f"{r['kernel']} "
+                          + "/".join(f"{u:.1f}" for u in r["us"]) + " us"
+                          for r in launches)
+              + "; span " + ("/".join(f"{s:.1f}" for s in spans)
+                             or "not taken (uneven launches)") + " us",
+              flush=True)
+    return out
 
 
 def phase_plan(A, seed, walls3, drift):
@@ -2085,12 +2206,13 @@ def phase_plan(A, seed, walls3, drift):
           f"stable; max abs err against the stacked plain versions "
           + ", ".join(f"{k}={v:.3e}" for k, v in big_errs.items()),
           flush=True)
+    trace = stacked_trace(As, seed, BIG_ITERS)
     stages = batched_stage_times(As, seed, BIG_ITERS)
     del As, q1s, fb
     torch.cuda.empty_cache()
-    return dict(stages=stages, serve=serve, big=big, big_errs=big_errs,
-                plan_walls=walls, estimate_walls=est_walls,
-                update_err=update_err)
+    return dict(stages=stages, trace=trace, serve=serve, big=big,
+                big_errs=big_errs, plan_walls=walls,
+                estimate_walls=est_walls, update_err=update_err)
 
 
 # --- phase 7: the sketch-resident state ------------------------------------
@@ -4595,6 +4717,8 @@ def main(argv=None) -> int:
             # the stacked launches of solve_batched (phases 2 and 8)
             row["batched"] = dict(
                 planned["stages"][name], B=list(BATCHES),
+                trace=planned["trace"].get(name),
+                trace_library=planned["trace"].get(f"{name} library"),
                 cases=batched_cases, max_abs_err=batched_errs[name],
                 max_abs_err_big=planned["big_errs"][name],
                 bitwise_vs_single=True,

@@ -55,11 +55,10 @@
 //    same rows, so the blocks of a chunk stream the same rows of A
 //    together.  Each block writes its partial column sums to its
 //    own slot; rmv_finish_kernel adds a column's chunks in a fixed order,
-//    split over as many threads as there are chunks, lanes on adjacent
-//    columns (coalesced), and subtracts beta y.  Where n % V or A's
-//    alignment rules 16-byte loads out, each thread takes V columns a
-//    group's width apart with element loads: the same sums in the same
-//    order, so the same bits.
+//    lanes on adjacent columns (coalesced whatever the chunk count), and
+//    subtracts beta y.  Where n % V or A's alignment rules 16-byte loads
+//    out, each thread takes V columns a group's width apart with element
+//    loads: the same sums in the same order, so the same bits.
 //  * The projection pair and rmv_qtv's P^T v: flat tiles of whole rows
 //    staged in shared memory (proj_tiles.cuh).
 //  * Cross-block sums are deterministic.  The TPU grid runs in sequence and
@@ -442,12 +441,34 @@ __global__ void __launch_bounds__(kThreads, kRmvBlocksPerSm)
 
 // v_j = (sum over the chunks of their slot's column j) - beta y_j, where
 // chunk k's column j sits at vpart[k * width + j] (width = tiles x the
-// tile's columns).  A block's threads split into `ways` residues (a power
-// of two, as many as there are chunks, at most kThreads) of C = kThreads /
-// ways adjacent columns: residue r adds chunks r, r + ways, ... of its
-// column (lanes on adjacent columns: coalesced where C >= 32), then a
-// fixed tree adds the residues, so every column is summed in the same
-// order on every run.  blockIdx.y is the stacked example.
+// tile's columns).  The order of the sum is fixed by `ways` (a power of
+// two, as many as there are chunks, at most kThreads): residue r < ways
+// adds chunks r, r + ways, ... in turn from 0, then a halving tree adds
+// the residues (at h = ways/2, ..., 1, residue r < h adds residue r + h).
+// Lanes take adjacent columns whatever the chunk count, so every load is
+// a coalesced 128 bytes a warp: the residues of a column split over
+// sub = min(ways, kWarps) warps, warp rc holding the L = ways / sub
+// residues rc, rc + sub, ... in registers.  The tree's levels h >= sub
+// add residues of one warp (s[i] += s[i + h / sub]), its levels h < sub
+// add across warps in shared memory: the same sums in the same order, so
+// every column's bits.  A lane issues all its loads of a round at once: a
+// residue past the last chunk reads the last chunk's value and drops it,
+// a column past n reads column n - 1's.  A block holds kWarps / sub
+// groups of 32 columns; blockIdx.y is the stacked example.
+
+// s[i] += s[i + E] for i < E, then the same for E / 2, ..., 1: the
+// halving tree over s[0 : 2E], every index known when it compiles, so s
+// stays in registers.
+template <int E>
+__device__ __forceinline__ void halve(float* s) {
+  if constexpr (E > 0) {
+#pragma unroll
+    for (int i = 0; i < E; ++i) s[i] += s[i + E];
+    halve<E / 2>(s);
+  }
+}
+
+template <int L>
 __global__ void __launch_bounds__(kThreads)
     rmv_finish_kernel(const float* __restrict__ vpart, long long n,
                       long long width, long long chunks, int ways,
@@ -459,20 +480,48 @@ __global__ void __launch_bounds__(kThreads)
   y += ex * n;
   beta += ex;
   v += ex * n;
-  const int C = kThreads / ways;
-  const int r = threadIdx.x / C, c = threadIdx.x - r * C;
-  const long long j = (long long)blockIdx.x * C + c;
-  float s = 0.f;
-  if (j < n) {
-#pragma unroll 4
-    for (long long k = r; k < chunks; k += ways) s += vpart[k * width + j];
+  const int sub = ways / L;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cg = warp / sub, rc = warp - cg * sub;
+  const long long j =
+      ((long long)blockIdx.x * (kWarps / sub) + cg) * 32 + lane;
+  const float* col = vpart + (j < n ? j : n - 1);
+  // chunks x width = tiles x chunks x the tile's columns < 2^31 wherever
+  // there is more than one chunk (rmatvec's limits): 32-bit offsets
+  const int w = chunks > 1 ? (int)width : 0;
+  float s[L];
+#pragma unroll
+  for (int i = 0; i < L; ++i) s[i] = 0.f;
+  for (long long k0 = 0; k0 < chunks; k0 += ways) {
+    float x[L];
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      const long long k = k0 + rc + (long long)sub * i;
+      x[i] = col[(int)(k < chunks ? k : chunks - 1) * w];
+    }
+#pragma unroll
+    for (int i = 0; i < L; ++i)
+      if (k0 + rc + (long long)sub * i < chunks) s[i] += x[i];
   }
-  part[threadIdx.x] = s;
-  for (int h = ways / 2; h > 0; h >>= 1) {
+  halve<L / 2>(s);
+  part[threadIdx.x] = s[0];
+  for (int h = sub / 2; h > 0; h >>= 1) {
     __syncthreads();
-    if (r < h) part[threadIdx.x] += part[threadIdx.x + h * C];
+    if (rc < h) part[threadIdx.x] += part[threadIdx.x + h * 32];
   }
-  if (r == 0 && j < n) v[j] = part[c] - beta[0] * y[j];
+  if (rc == 0 && j < n) v[j] = part[threadIdx.x] - beta[0] * y[j];
+}
+
+template <int L>
+cudaError_t launch_rmv_finish(const float* vpart, long long n,
+                              long long width, long long chunks, int ways,
+                              const float* y, const float* beta, float* v,
+                              cudaStream_t stream, int batch) {
+  const long long cols = 32LL * (kWarps / (ways / L));  // a block's columns
+  rmv_finish_kernel<L><<<dim3((unsigned)((n + cols - 1) / cols), batch),
+                         kThreads, 0, stream>>>(vpart, n, width, chunks,
+                                                ways, y, beta, v);
+  return cudaGetLastError();
 }
 
 // v = A^T q - beta y, for `batch` stacked examples (vpart holds each
@@ -508,11 +557,20 @@ cudaError_t rmatvec(const void* A, const float* q, const float* y,
   if (e != cudaSuccess) return e;
   int ways = 1;
   while (ways < kThreads && ways < chunks) ways *= 2;
-  const long long C = kThreads / ways;
-  rmv_finish_kernel<<<dim3((unsigned)((n + C - 1) / C), batch), kThreads, 0,
-                      stream>>>(
-      vpart, n, tiles * TC, chunks, ways, y, beta, v);
-  return cudaGetLastError();
+  switch (ways <= kWarps ? 1 : ways / kWarps) {
+    case 1: return launch_rmv_finish<1>(vpart, n, tiles * TC, chunks, ways,
+                                        y, beta, v, stream, batch);
+    case 2: return launch_rmv_finish<2>(vpart, n, tiles * TC, chunks, ways,
+                                        y, beta, v, stream, batch);
+    case 4: return launch_rmv_finish<4>(vpart, n, tiles * TC, chunks, ways,
+                                        y, beta, v, stream, batch);
+    case 8: return launch_rmv_finish<8>(vpart, n, tiles * TC, chunks, ways,
+                                        y, beta, v, stream, batch);
+    case 16: return launch_rmv_finish<16>(vpart, n, tiles * TC, chunks, ways,
+                                          y, beta, v, stream, batch);
+    default: return launch_rmv_finish<32>(vpart, n, tiles * TC, chunks,
+                                          ways, y, beta, v, stream, batch);
+  }
 }
 
 // (v, c) = (A^T q - beta y, P^T v): rmatvec, then the staged-tile c' = P^T v

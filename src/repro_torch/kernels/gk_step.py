@@ -25,8 +25,9 @@ loop, and no barrier, so u has the bits of ``mv_qtv``'s u.
 columns of A (16-byte loads where A allows; row groups where A is
 narrow), one block per (column tile, row chunk) in a grid of one wave
 (``rmv_plan``), whose partial column sums a finishing pass adds in a
-fixed order.  ``rmv_qtv`` then forms c = Pᵀv as ``reorth.qtv`` does, so
-its v has ``rmatvec_fused``'s bits and its c ``reorth.qtv(P, v)``'s.
+fixed order, lanes on adjacent columns whatever the chunk count.
+``rmv_qtv`` then forms c = Pᵀv as ``reorth.qtv`` does, so its v has
+``rmatvec_fused``'s bits and its c ``reorth.qtv(P, v)``'s.
 
 The projection pair is bound by the bytes of the basis, which it reads
 from device memory once a call: each block copies tiles of whole rows,

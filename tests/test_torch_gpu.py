@@ -124,7 +124,7 @@ def _stacked_inputs(m, n, k, adt, qdt, B, seed):
                                      (torch.bfloat16, torch.bfloat16)])
 @pytest.mark.parametrize("m,n,k", [(64, 48, 4), (300, 517, 17),
                                    (127, 383, 9), (192, 128, 25),
-                                   (1025, 333, 201)])
+                                   (1025, 333, 201), (4096, 2048, 101)])
 def test_stacked_launches_are_single_launches(cuda, m, n, k, adt, qdt, B):
     """One launch of each stage covers a stack of B examples: example b
     is bit for bit a single launch on it (the same plan, partials and
@@ -157,6 +157,22 @@ def test_stacked_launches_are_single_launches(cuda, m, n, k, adt, qdt, B):
         for b in range(B):
             for a, w in zip(got, single(b)):
                 assert torch.equal(a[b], w), (name, b)
+    torch.cuda.synchronize()
+
+
+def test_stacked_rmv_qtv_at_the_batched_shape(cuda):
+    """The batched solve's shape, 2 × 8192 × 4096 f32 with a 100-column
+    P: a stacked walk of many row chunks and tiles an example.  Example b
+    is bit for bit a single launch on it, and the stack is within f32
+    bounds of ``ref.rmv_qtv``."""
+    m, n, k, B = 8192, 4096, 100, 2
+    A, _, q, _, yn, al, _, P, _ = _stacked_inputs(m, n, k, torch.float32,
+                                                   torch.float32, B, 26)
+    got = gs.rmv_qtv(A, q, yn, al, P)
+    _assert_close(got, ref.rmv_qtv(A, q, yn, al, P), 1e-5)
+    for b in range(B):
+        for a, w in zip(got, gs.rmv_qtv(A[b], q[b], yn[b], al[b], P[b])):
+            assert torch.equal(a[b], w), b
     torch.cuda.synchronize()
 
 

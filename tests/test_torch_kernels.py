@@ -500,6 +500,106 @@ def test_rmv_plan_depends_only_on_its_arguments():
     assert params == ["m", "n", "dtype"]
 
 
+@pytest.mark.parametrize("B", [1, 2, 3, 8])
+def test_stacked_rmv_grid_covers_every_slot_once(B):
+    """A numpy model of the stacked Aᵀq launches for every plan of
+    RMV_PLAN_SHAPES: block (x, y) of the partial kernel's (slots, B) grid
+    takes slot x of example y, the rows and tile block x of a single
+    launch on that example takes; the B × slots blocks fill the wrapper's
+    vpart (B · tiles · chunks · tile_cols floats) once, slot by slot in
+    (example, chunk, tile) order; and the finish reads example y's
+    chunks from the place the partial wrote them, so example y sums what
+    a single launch on it sums."""
+    for m, n in RMV_PLAN_SHAPES:
+        for dt in RMV_DTYPES.values():
+            plan = gs.rmv_plan(m, n, dt)
+            slots, tc = plan.tiles * plan.chunks, plan.tile_cols
+            width = plan.tiles * tc
+            single = _rmv_blocks(m, plan)
+            x, y = np.meshgrid(np.arange(slots), np.arange(B))
+            start = (y * slots + x) * tc          # the partial's writes
+            assert np.array_equal(np.sort(start.ravel()),
+                                  np.arange(B * slots) * tc)
+            assert B * slots * tc == B * plan.tiles * plan.chunks * tc
+            # the finish's base for example y is the partial's
+            assert plan.chunks * width == slots * tc
+            c, t = np.divmod(np.arange(slots), plan.tiles)
+            assert [(b, tt, i0) for b, tt, i0, _ in single] == \
+                list(zip(range(slots), t, c * plan.rows))
+
+
+def _finish_before(vpart, chunks):
+    """The finish's order in float32, a thread a residue: ``ways``
+    residues (the power of two at or past the chunks, at most 256),
+    residue r adding chunks r, r + ways, ... from 0, then the halving tree
+    over the residues."""
+    ways = 1
+    while ways < 256 and ways < chunks:
+        ways *= 2
+    s = np.zeros((ways,) + vpart.shape[1:], np.float32)
+    for r in range(ways):
+        for k in range(r, chunks, ways):
+            s[r] = s[r] + vpart[k]
+    h = ways // 2
+    while h > 0:
+        s[:h] = s[:h] + s[h:2 * h]
+        h //= 2
+    return s[0]
+
+
+def _finish_lanes(vpart, chunks):
+    """The coalesced finish in float32: a column's residues over sub =
+    min(ways, 8) warps, warp rc holding residues rc + sub·i (i < L =
+    ways / sub) in registers, its rounds k0 = 0, ways, ... adding chunk
+    k0 + rc + sub·i to s[i]; the in-warp halving tree, then the one
+    across warps in shared memory."""
+    ways = 1
+    while ways < 256 and ways < chunks:
+        ways *= 2
+    sub = min(ways, 8)
+    L = ways // sub
+    part = []
+    for rc in range(sub):
+        s = [np.zeros(vpart.shape[1:], np.float32) for _ in range(L)]
+        for k0 in range(0, chunks, ways):
+            for i in range(L):
+                k = k0 + rc + sub * i
+                if k < chunks:
+                    s[i] = s[i] + vpart[k]
+        e = L // 2
+        while e > 0:
+            for i in range(e):
+                s[i] = s[i] + s[i + e]
+            e //= 2
+        part.append(s[0])
+    h = sub // 2
+    while h > 0:
+        for rc in range(h):
+            part[rc] = part[rc] + part[rc + h]
+        h //= 2
+    return part[0]
+
+
+@pytest.mark.parametrize("ways", [1, 2, 4, 8, 16, 32, 64, 128, 256])
+def test_rmv_finish_lanes_keep_the_tree_bit_for_bit(ways):
+    """For every chunk count from 1 to 600 (grouped by the ``ways`` it
+    gives), the coalesced finish's mapping adds each column's chunks in
+    the old finish's order: the float32 results are equal bit for bit,
+    on data spread over many binades with signed zeros mixed in."""
+    lo = ways // 2 + 1 if ways > 1 else 1
+    hi = ways if ways < 256 else 600
+    rng = np.random.default_rng(ways)
+    for chunks in range(lo, hi + 1):
+        vpart = (rng.standard_normal((chunks, 48))
+                 * 10.0 ** rng.integers(-6, 7, (chunks, 48))
+                 ).astype(np.float32)
+        vpart[rng.random((chunks, 48)) < 0.05] = -0.0
+        got, want = _finish_lanes(vpart, chunks), _finish_before(vpart,
+                                                                 chunks)
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), \
+            chunks
+
+
 def test_build_targets_sm90a_with_a_plain_c_interface():
     assert _build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
     assert {"-O3", "-shared", "-fPIC"} <= set(_build.NVCC_FLAGS)
