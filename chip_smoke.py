@@ -77,11 +77,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      sigma_max of its own plan.solve from the same q1, host walls beside
      a loop of single solves and the GK loops' device time; the four
      stacked launches on the big batch's own operands with bases of
-     101 (Q side) and 100 (P side) columns: one launch a call, every
-     example bit for bit a single launch on it, within phase 2's
-     tolerance of the stacked plain versions, bitwise stable; each stacked
-     stage at the big batch by device time beside B single launches and
-     its bound;
+     101 (Q side) and 100 (P side) columns, and the projection pair on
+     the P side's basis too: one launch a call, every example bit for
+     bit a single launch on it, within phase 2's tolerance of the
+     stacked plain versions, bitwise stable; a profiler trace of each
+     stacked stage (the pair on both sides at B = 2, 4 and 8), launch
+     by launch; each stacked stage at B = 2, 4 and 8 by device time
+     beside B single launches, its bound, the library and the plain
+     version (the pair on both sides, also with a cold L2);
   4. the sketch and blocked solvers on the same operand, backend="pallas":
      gnystrom (one sketch_pass, three sketch_matmat launches, bitwise
      rerun), rbk (5 sweeps, bitwise rerun), rsvd and fsvd_blocked, each
@@ -376,7 +379,8 @@ MATVECS = ("matvec_fused", "rmatvec_fused")
 # the kernels of the batched launches on the main path's widths (k <= 256:
 # the projection modes' register path): the build must show no spills
 BATCHED_KERNELS = (r"rows_kernelINS_5MvRow|rmv_partial_kernel|rmv_finish_kernel"
-                   r"|proj_(?:stacked_)?kernelI\w*Li[013]ELb1E|finish_kernel")
+                   r"|proj_(?:stacked_)?kernelI\w*Li[013]ELb1E|finish_kernel"
+                   r"|finish_warps_kernel")
 # phase 2's stacked cases (m, n, k), each at B = 1, 3 and 8: ragged m, n
 # and k, the serving shape and a basis past a tile of rows
 BATCH_SHAPES = [(64, 48, 4), (300, 517, 17), (127, 383, 9), (192, 128, 25),
@@ -1684,9 +1688,10 @@ def phase_materialize(seed, m, n):
 # --- phase 2 (stacked) and phase 8: the plan --------------------------------
 
 def check_batched(gen, m, n, k, adt, qdt, B, A=None, kp=None):
-    """The four GK-step stages on a stack of B examples: one launch a call
-    for the whole stack, each example bit for bit a single launch on it,
-    the stack within phase 2's tolerance of its stacked plain version and
+    """The four GK-step stages on a stack of B examples, and the
+    projection pair on the P side's basis too: one launch a call for the
+    whole stack, each example bit for bit a single launch on it, the
+    stack within phase 2's tolerance of its stacked plain version and
     bitwise stable; returns {kernel: max abs error}.  ``A`` (B, m, n)
     defaults to a random stack; the Q side's basis has k columns, the P
     side's ``kp`` (default k)."""
@@ -1702,6 +1707,7 @@ def check_batched(gen, m, n, k, adt, qdt, B, A=None, kp=None):
     p, q, ym, yn = t(B, n), t(B, m), t(B, m), t(B, n)
     al, c = t(B), t(B, k)
     Q, P = t(B, m, k, dt=qdt), t(B, n, kp, dt=qdt)
+    cp = t(B, kp)
     tag = f"(B={B}, {m}x{n}, k={k}/{kp}, A {adt}, basis {qdt})"
     cases = {
         "mv_qtv": (lambda: gs.mv_qtv(A, p, ym, al, Q),
@@ -1716,19 +1722,28 @@ def check_batched(gen, m, n, k, adt, qdt, B, A=None, kp=None):
         "proj_norm": (lambda: gs.proj_norm(ym, Q, c),
                       lambda b: gs.proj_norm(ym[b], Q[b], c[b]),
                       lambda: ref.proj_norm(ym, Q, c), (qdt,)),
+        # the pair on the P side's basis, as the batched solve runs it
+        "proj_qtv P": (lambda: gs.proj_qtv(yn, P, cp),
+                       lambda b: gs.proj_qtv(yn[b], P[b], cp[b]),
+                       lambda: ref.proj_qtv(yn, P, cp), (qdt,)),
+        "proj_norm P": (lambda: gs.proj_norm(yn, P, cp),
+                        lambda b: gs.proj_norm(yn[b], P[b], cp[b]),
+                        lambda: ref.proj_norm(yn, P, cp), (qdt,)),
     }
     errs = {}
-    for name, (stacked, single, plain, dts) in cases.items():
+    for case, (stacked, single, plain, dts) in cases.items():
+        name = case.split()[0]
         before = gs.LAUNCHES[name]
-        got = bitwise_twice(f"stacked {name} {tag}", stacked)
+        got = bitwise_twice(f"stacked {case} {tag}", stacked)
         check(gs.LAUNCHES[name] == before + 2,
-              f"stacked {name} {tag}: not one launch a call")
+              f"stacked {case} {tag}: not one launch a call")
         for b in range(B):
             for x, y in zip(got, single(b)):
-                check(torch.equal(x[b], y), f"stacked {name} {tag}: example "
+                check(torch.equal(x[b], y), f"stacked {case} {tag}: example "
                                             f"{b} differs bitwise from a "
                                             f"single launch on it")
-        errs[name] = compare(f"stacked {name} {tag}", got, plain(), dts)
+        errs[name] = max(errs.get(name, 0.0),
+                         compare(f"stacked {case} {tag}", got, plain(), dts))
     torch.cuda.synchronize()
     return errs
 
@@ -1957,6 +1972,24 @@ def batched_vs_singles(label, As, q1s, spec):
 
 STAGE_BATCHES = (2, 4, 8)     # phase 8's stage times: the server's
                               # dispatches run B <= 4, the big batch 8
+COLD_BYTES = 100e6            # a cold-L2 timing cycles through stacks of
+                              # at least this much (twice the 50 MB L2)
+
+
+def proj_library(u, X, c, norm):
+    """The yardstick of rows 3-4 on a stack: w = u - X c by
+    ``torch.baddbmm``, then Xᵀw or wᵀw by ``torch.bmm``."""
+    import torch
+    w = torch.baddbmm(u[:, :, None], X, c[:, :, None], alpha=-1.0)
+    return w, torch.bmm(w.transpose(1, 2), w) if norm \
+        else torch.bmm(X.transpose(1, 2), w)
+
+
+def basis_copies(X):
+    """``X`` and copies of it, at least three and ``COLD_BYTES`` in all,
+    so a timing that cycles through them reads each from device memory."""
+    n = max(3, -(-int(COLD_BYTES) // (X.numel() * X.element_size())))
+    return [X] + [X.clone() for _ in range(n - 1)]
 
 
 def batched_stage_times(As, seed, k, batches=STAGE_BATCHES):
@@ -1968,9 +2001,14 @@ def batched_stage_times(As, seed, k, batches=STAGE_BATCHES):
     written once at 3.35 TB/s) and the yardstick of rows 1-4 applied to
     the whole stack in batched library calls (``torch.baddbmm`` for the
     matvec or the projection's update, then ``torch.bmm`` for the basis
-    product or the norm): two calls where the kernel is one.  Returns
-    {stage: the largest B's row, with every B's row under
-    ``by_batch``}."""
+    product or the norm): two calls where the kernel is one.  The
+    projection pair runs on the Q side's basis (k + 1 columns) and, as
+    "proj_qtv P" / "proj_norm P", on the P side's (k); its rows add the
+    kernel and the library with a cold L2 (``cold_ms``,
+    ``library_cold_ms``: one graph cycling through ``basis_copies`` of
+    the stack's basis), where the warm figures replay one call on the
+    same basis.  Returns {stage: the largest B's row, with every B's row
+    under ``by_batch``}."""
     import torch
     from repro_torch.kernels import gk_step as gs
     from repro_torch.kernels import ref
@@ -1988,12 +2026,13 @@ def batched_stage_times(As, seed, k, batches=STAGE_BATCHES):
                         t(Bmax))
     Q, P = t(Bmax, m, kq) / m ** 0.5, t(Bmax, n, kp) / n ** 0.5
     cq = t(Bmax, kq)
+    cp = t(Bmax, kp)
     rows = {}
     for B in batches:
         # the first B examples: every one a contiguous stack
         Ab, pb, qb, ymb, ynb, alb = (As[:B], p[:B], q[:B], ym[:B], yn[:B],
                                      al[:B])
-        Qb, Pb, cqb = Q[:B], P[:B], cq[:B]
+        Qb, Pb, cqb, cpb = Q[:B], P[:B], cq[:B], cp[:B]
         At, Qt, Pt = (Ab.transpose(1, 2), Qb.transpose(1, 2),
                       Pb.transpose(1, 2))
 
@@ -2007,11 +2046,29 @@ def batched_stage_times(As, seed, k, batches=STAGE_BATCHES):
                               beta=-1.7)
             return v, torch.bmm(Pt, v)
 
-        def lib_proj(norm):
-            w = torch.baddbmm(ymb[:, :, None], Qb, cqb[:, :, None],
-                              alpha=-1.0)
-            return w, torch.bmm(w.transpose(1, 2), w) if norm \
-                else torch.bmm(Qt, w)
+        def pair(name, u, X, c, L, kk, side):
+            """The stage row of proj_qtv / proj_norm on basis X (B, L,
+            kk): call(b=None, X) runs the stacked call on X (example b's
+            single launch), and cold the kernel and the library over
+            copies of X."""
+            kern = getattr(gs, name)
+            plain = getattr(ref, name)
+            norm = name == "proj_norm"
+
+            def call(b=None, Xc=X):
+                return kern(u, Xc, c) if b is None else kern(u[b], Xc[b],
+                                                             c[b])
+
+            nbytes = (f * (L * kk + 2 * L + kk + 1) if norm
+                      else f * (L * kk + 2 * L + 2 * kk))
+            flops = 2 * L * kk + 3 * L if norm else 4 * L * kk + L
+            return (call, lambda: proj_library(u, X, c, norm),
+                    lambda: plain(u, X, c), nbytes, flops,
+                    f"{side} {L}x{kk}",
+                    dict(kernel=lambda Xc: (lambda: call(None, Xc)),
+                         library=lambda Xc: (lambda: proj_library(u, Xc, c,
+                                                              norm)),
+                         basis=X))
 
         stages = {
             "mv_qtv": (lambda b=None: gs.mv_qtv(Ab, pb, ymb, alb, Qb)
@@ -2019,29 +2076,21 @@ def batched_stage_times(As, seed, k, batches=STAGE_BATCHES):
                                                    alb[b], Qb[b]), lib_mv,
                        lambda: ref.mv_qtv(Ab, pb, ymb, alb, Qb),
                        f * (m * n + n + m + m * kq + 1 + m + kq),
-                       2 * m * n + 2 * m + 2 * m * kq, f"{m}x{n}, k={kq}"),
+                       2 * m * n + 2 * m + 2 * m * kq, f"{m}x{n}, k={kq}",
+                       None),
             "rmv_qtv": (lambda b=None: gs.rmv_qtv(Ab, qb, ynb, alb, Pb)
                         if b is None else gs.rmv_qtv(Ab[b], qb[b], ynb[b],
                                                      alb[b], Pb[b]),
                         lib_rmv, lambda: ref.rmv_qtv(Ab, qb, ynb, alb, Pb),
                         f * (m * n + m + n + n * kp + n + kp),
-                        2 * m * n + 2 * n + 2 * n * kp, f"{m}x{n}, k={kp}"),
-            "proj_qtv": (lambda b=None: gs.proj_qtv(ymb, Qb, cqb)
-                         if b is None else gs.proj_qtv(ymb[b], Qb[b],
-                                                       cqb[b]),
-                         lambda: lib_proj(False),
-                         lambda: ref.proj_qtv(ymb, Qb, cqb),
-                         f * (m * kq + 2 * m + 2 * kq), 4 * m * kq + m,
-                         f"Q {m}x{kq}"),
-            "proj_norm": (lambda b=None: gs.proj_norm(ymb, Qb, cqb)
-                          if b is None else gs.proj_norm(ymb[b], Qb[b],
-                                                         cqb[b]),
-                          lambda: lib_proj(True),
-                          lambda: ref.proj_norm(ymb, Qb, cqb),
-                          f * (m * kq + 2 * m + kq + 1), 2 * m * kq + 3 * m,
-                          f"Q {m}x{kq}"),
+                        2 * m * n + 2 * n + 2 * n * kp, f"{m}x{n}, k={kp}",
+                        None),
+            "proj_qtv": pair("proj_qtv", ymb, Qb, cqb, m, kq, "Q"),
+            "proj_norm": pair("proj_norm", ymb, Qb, cqb, m, kq, "Q"),
+            "proj_qtv P": pair("proj_qtv", ynb, Pb, cpb, n, kp, "P"),
+            "proj_norm P": pair("proj_norm", ynb, Pb, cpb, n, kp, "P"),
         }
-        for name, (call, lib, plain, nbytes, flops, shape) in \
+        for name, (call, lib, plain, nbytes, flops, shape, cold) in \
                 stages.items():
             t_bytes = B * nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = B * flops / F32_FLOP_PER_S * 1e3
@@ -2057,13 +2106,27 @@ def batched_stage_times(As, seed, k, batches=STAGE_BATCHES):
                        bound_by="bytes" if t_bytes >= t_ops
                        else "operations")
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            extra = ""
+            if cold is not None:
+                copies = basis_copies(cold["basis"])
+                row["cold_ms"] = graph_ms(
+                    [cold["kernel"](X) for X in copies], 60, 5)
+                row["library_cold_ms"] = graph_ms(
+                    [cold["library"](X) for X in copies], 60, 5)
+                row["cold_copies"] = len(copies)
+                row["cold_share_of_bound"] = row["bound_ms"] / row["cold_ms"]
+                del copies
+                extra = (f"; cold L2 ({row['cold_copies']} copies of the "
+                         f"basis) {row['cold_ms']:.4f} ms "
+                         f"({100 * row['cold_share_of_bound']:.0f} % of the "
+                         f"bound), library {row['library_cold_ms']:.4f} ms")
             print(f"phase 8: {name} stacked {row['call']}, device time: "
                   f"{row['ms']:.4f} ms ({100 * row['share_of_bound']:.0f} % "
                   f"of the bound {row['bound_ms']:.4f} ms), {B} single "
                   f"launches {row['singles_ms']:.4f} ms, one single launch "
                   f"{row['one_ms']:.4f} ms, library on the stack "
                   f"({row['library']}) {row['library_ms']:.4f} ms, plain "
-                  f"version on the stack {row['plain_ms']:.4f} ms",
+                  f"version on the stack {row['plain_ms']:.4f} ms" + extra,
                   flush=True)
             rows.setdefault(name, {})[B] = row
     return {name: dict(by_B[Bmax], by_batch=by_B)
@@ -2073,14 +2136,18 @@ def batched_stage_times(As, seed, k, batches=STAGE_BATCHES):
 TRACE_CALLS = 3               # stacked calls of each kernel under the profiler
 
 
-def stacked_trace(As, seed, k, calls=TRACE_CALLS):
+def stacked_trace(As, seed, k, calls=TRACE_CALLS, batches=STAGE_BATCHES):
     """One torch.profiler trace each of ``calls`` stacked ``rmv_qtv`` and
     ``mv_qtv`` calls on ``As`` (the big batch's stack, P side k columns,
-    Q side k + 1), and of their library yardsticks (``torch.baddbmm`` +
-    ``torch.bmm``), after one traced call that is dropped: every launch
-    of a call by its kernel's name and device µs, and the call's span
-    from its first launch's start to its last launch's end, so the gaps
-    between a call's launches show too."""
+    Q side k + 1), of the stacked ``proj_qtv`` / ``proj_norm`` on the Q
+    and the P side's basis (named "proj_qtv P", ...) for the first B
+    examples, each B of ``batches``, and of their library yardsticks
+    (``torch.baddbmm`` + ``torch.bmm``) on the whole stack, after one
+    traced call that is dropped: every launch of a call by its kernel's
+    name and device µs, and the call's span from its first launch's
+    start to its last launch's end, so the gaps between a call's launches
+    show too.  Keys: the kernel's name (and " library") for the whole
+    stack, with " B=b" for a smaller stack."""
     import torch
     from torch.autograd import DeviceType
     from repro_torch.kernels import gk_step as gs
@@ -2093,6 +2160,7 @@ def stacked_trace(As, seed, k, calls=TRACE_CALLS):
     p, q, ym, yn, al = t(B, n), t(B, m), t(B, m), t(B, n), t(B)
     Q, P = t(B, m, k + 1) / m ** 0.5, t(B, n, k) / n ** 0.5
     Qt, Pt = Q.transpose(1, 2), P.transpose(1, 2)
+    cq, cp = t(B, k + 1), t(B, k)
 
     def lib_rmv():
         v = torch.baddbmm(yn[:, :, None], As.transpose(1, 2),
@@ -2103,13 +2171,29 @@ def stacked_trace(As, seed, k, calls=TRACE_CALLS):
         u = torch.baddbmm(ym[:, :, None], As, p[:, :, None], beta=-0.37)
         return u, torch.bmm(Qt, u)
 
-    cases = {"rmv_qtv": lambda: gs.rmv_qtv(As, q, yn, al, P),
-             "mv_qtv": lambda: gs.mv_qtv(As, p, ym, al, Q),
-             "rmv_qtv library": lib_rmv, "mv_qtv library": lib_mv}
+    cases = {"rmv_qtv": (lambda: gs.rmv_qtv(As, q, yn, al, P),
+                         f"B={B} x {m}x{n} f32"),
+             "mv_qtv": (lambda: gs.mv_qtv(As, p, ym, al, Q),
+                        f"B={B} x {m}x{n} f32"),
+             "rmv_qtv library": (lib_rmv, f"B={B} x {m}x{n} f32"),
+             "mv_qtv library": (lib_mv, f"B={B} x {m}x{n} f32")}
+    for side, u, X, c, L, kk in (("", ym, Q, cq, m, k + 1),
+                                 (" P", yn, P, cp, n, k)):
+        for name in ("proj_qtv", "proj_norm"):
+            kern = getattr(gs, name)
+            for b in sorted(x for x in batches if x <= B):
+                key = f"{name}{side}" + ("" if b == B else f" B={b}")
+                cases[key] = ((lambda kern=kern, u=u[:b], X=X[:b],
+                               c=c[:b]: kern(u, X, c)),
+                              f"B={b} x {'P' if side else 'Q'} {L}x{kk} f32")
+            cases[f"{name}{side} library"] = (
+                (lambda u=u, X=X, c=c, norm=name == "proj_norm":
+                 proj_library(u, X, c, norm)),
+                f"B={B} x {'P' if side else 'Q'} {L}x{kk} f32")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     out = {}
-    for name, fn in cases.items():
+    for name, (fn, call) in cases.items():
         fn()
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
@@ -2143,10 +2227,8 @@ def stacked_trace(As, seed, k, calls=TRACE_CALLS):
                     e.time_range.elapsed_us())
             launches = [dict(kernel=k, us=v) for k, v in groups.items()]
             spans = []
-        out[name] = dict(call=f"B={B} x {m}x{n} f32", launches=launches,
-                         span_us=spans)
-        print(f"phase 8: trace of stacked {name} B={B} x {m}x{n} "
-              f"({calls} calls): "
+        out[name] = dict(call=call, launches=launches, span_us=spans)
+        print(f"phase 8: trace of stacked {name} {call} ({calls} calls): "
               + "; ".join(f"{r['kernel']} "
                           + "/".join(f"{u:.1f}" for u in r["us"]) + " us"
                           for r in launches)
@@ -4724,6 +4806,16 @@ def main(argv=None) -> int:
                 bitwise_vs_single=True,
                 launches_serve=planned["serve"]["launches"][name],
                 launches_big=planned["big"]["launches"][name])
+            if name in ("proj_qtv", "proj_norm"):
+                # the pair on the P side's basis, and the traces of the
+                # smaller stacks
+                row["batched"]["p_side"] = dict(
+                    planned["stages"][f"{name} P"],
+                    trace=planned["trace"].get(f"{name} P"),
+                    trace_library=planned["trace"].get(f"{name} P library"))
+                row["batched"]["traces_by_batch"] = {
+                    key: tr for key, tr in planned["trace"].items()
+                    if key.startswith(name) and " B=" in key}
         if name in SERVE_KERNELS:
             row["launches_serve"] = served["launches"][name]
         if name == "scatter_add":

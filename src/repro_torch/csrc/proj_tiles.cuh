@@ -39,6 +39,20 @@
 // before it runs proj_kernel's body.  Every example then runs the single
 // launch's plan on its own rows, partials and finishing sums, so its
 // outputs have that launch's bits; a batch of 1 is proj_kernel itself.
+// What bounds a stacked call at the batched solve's shapes (8 x 8192 x
+// 101 and 8 x 4096 x 100 f32, one tile a block: 1,176 and 592 blocks of
+// 56 rows) is less the bytes than each block's chain: the copy of its
+// tile, then its warps' passes over the rows, with the SM's issue slots
+// shared by the 4 blocks it holds, so the instructions a row costs set
+// the pace.  So the register path takes only as many slots a lane as the
+// basis has columns (S = 4 up to 128 columns, else the 8 it holds), in
+// every launch: the same products in the same order, then one +0 add
+// for the slots left out (see project_tile_regs), so S changes no bit.
+// Every call's finishing sums run a warp an output (finish_warps_kernel),
+// in finish_kernel's order, with no barrier.  A persistent walk of
+// (example, block) items, with one ring across a block's items and the
+// finishing sums folded into the launch behind a per-example count,
+// measured slower at every batch (PERF.md, Findings).
 
 #pragma once
 
@@ -48,7 +62,8 @@ namespace {
 
 // out[e] = sum of part[e*G : (e+1)*G], summed in a fixed order, for
 // e = (example) * count + (output): each example's count outputs follow
-// the previous example's.
+// the previous example's.  Stage 1's finish (gk_step.cu), whose grids
+// are wider than a projection plan's.
 __global__ void __launch_bounds__(kThreads)
     finish_kernel(const float* __restrict__ part, int G,
                   float* __restrict__ out) {
@@ -64,6 +79,52 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
   if (threadIdx.x == 0) out[e] = s[0];
+}
+
+constexpr int kProjBlocks = 264;     // grid cap: two blocks on each of 132 SMs
+static_assert(kProjBlocks <= 2 * kThreads, "a thread of finish_kernel adds "
+                                           "at most two partials");
+
+// finish_kernel's sums of a projection plan's G <= kProjBlocks partials,
+// a warp an output (e < n), in two passes (G > kThreads takes the
+// second): thread t of finish_kernel's block is lane t % 32's register
+// t / 32, so the tree's levels 128, 64 and 32 add registers and 16 to 1
+// shuffle down, the same operands in the same order.  Every load is in
+// straight-line code at a clamped address, all in flight at once; a
+// partial past G adds +0, which leaves a sum that starts from +0 (never
+// -0) as finish_kernel's skip leaves it.  No barrier and 1/8 of
+// finish_kernel's blocks.
+__global__ void __launch_bounds__(kThreads)
+    finish_warps_kernel(const float* __restrict__ part, int G, long long n,
+                        float* __restrict__ out) {
+  constexpr int R = kThreads / 32;  // finish_kernel's slots a lane holds
+  const long long e = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (e >= n) return;  // a whole warp
+  const int lane = threadIdx.x & 31;
+  const float* row = part + e * G;
+  float v[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int t = lane + 32 * i;
+    const float x = row[min(t, G - 1)];
+    v[i] = 0.f + (t < G ? x : 0.f);
+  }
+  if (G > kThreads) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int t = lane + 32 * i + kThreads;
+      const float x = row[min(t, G - 1)];
+      v[i] += t < G ? x : 0.f;
+    }
+  }
+#pragma unroll
+  for (int h = R / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int i = 0; i < h; ++i) v[i] += v[i + h];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v[0] += __shfl_down_sync(0xffffffffu, v[0], o);
+  if (lane == 0) out[e] = v[0];
 }
 
 cudaError_t finish(const float* part, int G, int count, float* out,
@@ -94,7 +155,6 @@ struct Epilogue {
 // which this tile ignores.  Only at the two ends of the array does an
 // aligned chunk reach outside it: there the elements are copied one by one.
 
-constexpr int kProjBlocks = 264;     // grid cap: two blocks on each of 132 SMs
 constexpr int kMaxTileRows = 512;
 constexpr int kMaxK = 49152;         // the wrappers' MAX_K
 constexpr long long kSmemLimit = 232448 - 256;  // 227 KB a block can have,
@@ -102,10 +162,11 @@ constexpr long long kSmemLimit = 232448 - 256;  // 227 KB a block can have,
 constexpr int kMaxStages = 2;
 constexpr int kCShared = 1;          // plan flag: c in shared memory
 constexpr int kMaxBatch = 65535;     // stacked examples: the grid's y limit
-// proj_stacked_kernel's register bound, <= 64 a thread: 4 blocks of
-// kThreads an SM, as many as the f32 stages' shared memory allows (the
-// grid holds 2).  Under proj_kernel's default bound ptxas stops at 48
-// registers, and the examples' offsets then spill.
+// proj_stacked_kernel's register bound, and proj_kernel's past the
+// register path, <= 64 a thread: 4 blocks of kThreads an SM, as many as
+// the f32 stages' shared memory allows (the grid holds 2).  Under the
+// default bound ptxas stops at 48 registers, and the examples' offsets,
+// or proj_qtv's column sums past 256 columns, then spill.
 constexpr int kProjBlocksPerSm = 4;
 
 __host__ __device__ inline long long round16(long long x) {
@@ -264,7 +325,7 @@ __device__ void project_tile(char* stage, const ProjTile<TQ>& tile, int k,
 // rows only: the block adds its warps' sums at the end, in warp order).
 constexpr int kRegCols = 8;  // k up to 256
 
-template <typename TQ, int MODE>
+template <typename TQ, int MODE, int S>
 __device__ void project_tile_regs(const char* stage, const ProjTile<TQ>& tile,
                                   int k, const float (&cr)[kRegCols],
                                   float (&ar)[kRegCols],
@@ -279,15 +340,20 @@ __device__ void project_tile_regs(const char* stage, const ProjTile<TQ>& tile,
     float qv[kRegCols];
     float dot = 0.f;
 #pragma unroll
-    for (int t = 0; t < kRegCols; ++t) {
+    for (int t = 0; t < S; ++t) {
       const int j = lane + 32 * t;
       qv[t] = j < k ? ld(qr + j) : 0.f;
       if (E::kDot) dot = fmaf(qv[t], cr[t], dot);
     }
+    // The 8-slot chain's slots S..7 hold +0 in qv and cr, and each adds
+    // fmaf(+0, +0, dot) = dot + (+0): one such add gives their bits.  It
+    // turns a -0 dot (a product below the least subnormal rounds to -0)
+    // into +0, and changes nothing else; __fadd_rn is never folded away.
+    if (E::kDot && S < kRegCols) dot = __fadd_rn(dot, 0.f);
     const float wr = E::kDot ? su[r] - warp_sum(dot) : su[r];
-    if (E::kCols) {
+    if (E::kCols) {  // the columns from 32 S on are never stored
 #pragma unroll
-      for (int t = 0; t < kRegCols; ++t) ar[t] = fmaf(qv[t], wr, ar[t]);
+      for (int t = 0; t < S; ++t) ar[t] = fmaf(qv[t], wr, ar[t]);
     }
     if (E::kDot && lane == 0) {
       w[tile.r0 + r] = wr;
@@ -303,7 +369,7 @@ __device__ void project_tile_regs(const char* stage, const ProjTile<TQ>& tile,
 // partials in a fixed order.  REGS (k <= 256): c and the column sums in
 // registers.  Otherwise c sits in shared memory where the plan's flag puts
 // it, and the column sums accumulate in place in part.
-template <typename TQ, int MODE, bool REGS>
+template <typename TQ, int MODE, bool REGS, int S>
 __device__ __forceinline__ void proj_block(
     const float* __restrict__ u, const TQ* __restrict__ Q,
     const float* __restrict__ c_in, long long L, int k, int tile_rows,
@@ -358,7 +424,7 @@ __device__ __forceinline__ void proj_block(
     char* stage = smem + (it % stages) * sbytes;
     const ProjTile<TQ> tile(Q, L, k, tile_rows, t);
     if (REGS)
-      project_tile_regs<TQ, MODE>(stage, tile, k, cr, ar, w, nrm);
+      project_tile_regs<TQ, MODE, S>(stage, tile, k, cr, ar, w, nrm);
     else
       project_tile<TQ, MODE>(stage, tile, k, cc, acc, w, nrm);
     __syncthreads();  // the stage is refilled next
@@ -385,18 +451,20 @@ __device__ __forceinline__ void proj_block(
   }
 }
 
-template <typename TQ, int MODE, bool REGS>
-__global__ void __launch_bounds__(kThreads)
+// S register slots a lane where the register path runs (REGS).  Past it
+// the bound is kProjBlocksPerSm; on it 0 sets none, as ever.
+template <typename TQ, int MODE, bool REGS, int S>
+__global__ void __launch_bounds__(kThreads, REGS ? 0 : kProjBlocksPerSm)
     proj_kernel(const float* __restrict__ u, const TQ* __restrict__ Q,
                 const float* __restrict__ c_in, long long L, int k,
                 int tile_rows, long long tiles, int stages, int flags,
                 float* __restrict__ w, float* __restrict__ part) {
-  proj_block<TQ, MODE, REGS>(u, Q, c_in, L, k, tile_rows, tiles, stages,
-                             flags, w, part);
+  proj_block<TQ, MODE, REGS, S>(u, Q, c_in, L, k, tile_rows, tiles, stages,
+                                flags, w, part);
 }
 
 // proj_kernel over stacked examples: blockIdx.y is the example.
-template <typename TQ, int MODE, bool REGS>
+template <typename TQ, int MODE, bool REGS, int S>
 __global__ void __launch_bounds__(kThreads, kProjBlocksPerSm)
     proj_stacked_kernel(const float* __restrict__ u,
                         const TQ* __restrict__ Q,
@@ -406,21 +474,21 @@ __global__ void __launch_bounds__(kThreads, kProjBlocksPerSm)
                         float* __restrict__ part) {
   using E = Epilogue<MODE>;
   const long long ex = blockIdx.y;
-  proj_block<TQ, MODE, REGS>(
+  proj_block<TQ, MODE, REGS, S>(
       u + ex * L, Q + ex * L * k, E::kDot ? c_in + ex * k : c_in, L, k,
       tile_rows, tiles, stages, flags, E::kDot ? w + ex * L : w,
       MODE == kSubtract ? part
                         : part + ex * (E::kNorm ? 1LL : k) * gridDim.x);
 }
 
-template <typename TQ, int MODE, bool REGS>
+template <typename TQ, int MODE, bool REGS, int S>
 cudaError_t launch_proj(const float* u, const void* Q, const float* c_in,
                         long long L, int k, int tile_rows, long long tiles,
                         int grid, int stages, int flags, long long smem,
                         float* w, float* part, cudaStream_t stream,
                         int batch) {
-  auto kernel = batch == 1 ? proj_kernel<TQ, MODE, REGS>
-                           : proj_stacked_kernel<TQ, MODE, REGS>;
+  auto kernel = batch == 1 ? proj_kernel<TQ, MODE, REGS, S>
+                           : proj_stacked_kernel<TQ, MODE, REGS, S>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -458,15 +526,24 @@ cudaError_t proj(const float* u, const void* Q, const float* c_in,
   if (grid > tiles || smem > kSmemLimit ||
       stage_bytes(tile_rows, k, sizeof(TQ)) * stages < sums)
     return cudaErrorInvalidValue;
+
+  // the register path takes 4 slots a lane up to 128 columns, else 8
   const cudaError_t e =
-      regs ? launch_proj<TQ, MODE, true>(u, Q, c_in, L, k, tile_rows, tiles,
-                                         grid, stages, flags, smem, w, part,
-                                         stream, batch)
-           : launch_proj<TQ, MODE, false>(u, Q, c_in, L, k, tile_rows, tiles,
-                                          grid, stages, flags, smem, w, part,
-                                          stream, batch);
+      !regs ? launch_proj<TQ, MODE, false, kRegCols>(
+                  u, Q, c_in, L, k, tile_rows, tiles, grid, stages, flags,
+                  smem, w, part, stream, batch)
+      : k <= 32 * 4 ? launch_proj<TQ, MODE, true, 4>(
+                          u, Q, c_in, L, k, tile_rows, tiles, grid, stages,
+                          flags, smem, w, part, stream, batch)
+                    : launch_proj<TQ, MODE, true, kRegCols>(
+                          u, Q, c_in, L, k, tile_rows, tiles, grid, stages,
+                          flags, smem, w, part, stream, batch);
   if (e != cudaSuccess || MODE == kSubtract) return e;
-  return finish(part, grid, E::kNorm ? 1 : k, out, stream, batch);
+  const long long n = (long long)(E::kNorm ? 1 : k) * batch;
+  if (n == 0) return cudaSuccess;
+  finish_warps_kernel<<<(unsigned)((n + kWarps - 1) / kWarps), kThreads, 0,
+                        stream>>>(part, grid, n, out);
+  return cudaGetLastError();
 }
 
 }  // namespace

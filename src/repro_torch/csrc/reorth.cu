@@ -36,7 +36,7 @@
 // cudaGetLastError() as an int.  (tile_rows, grid, stages, flags) is the
 // wrappers' proj_plan for Q.
 
-#include "proj_tiles.cuh"  // proj, finish
+#include "proj_tiles.cuh"  // proj
 
 extern "C" {
 

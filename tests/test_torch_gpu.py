@@ -176,6 +176,172 @@ def test_stacked_rmv_qtv_at_the_batched_shape(cuda):
     torch.cuda.synchronize()
 
 
+def test_stacked_mv_qtv_at_the_batched_shape(cuda):
+    """The batched solve's shape, 2 × 8192 × 4096 f32 with a 101-column
+    Q: stage 1's row grid has 1,024 blocks, so its finish sums 1,024
+    partials a column, more than the 512 a warp of the projection pair's
+    stacked finish could take.  Example b is bit for bit a single launch
+    on it, and the stack is within f32 bounds of ``ref.mv_qtv``."""
+    m, n, k, B = 8192, 4096, 101, 2
+    A, p, _, ym, _, al, Q, _, _ = _stacked_inputs(m, n, k, torch.float32,
+                                                   torch.float32, B, 27)
+    assert gs.rows_plan(m)[1] > 2 * gs.THREADS
+    got = gs.mv_qtv(A, p, ym, al, Q)
+    _assert_close(got, ref.mv_qtv(A, p, ym, al, Q), 1e-5)
+    for b in range(B):
+        for a, w in zip(got, gs.mv_qtv(A[b], p[b], ym[b], al[b], Q[b])):
+            assert torch.equal(a[b], w), b
+    torch.cuda.synchronize()
+
+
+def _pair_stack(cuda, B, L, k, qdt, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randn(B, L, generator=g, device=cuda)
+    X = (torch.randn(B, L, k, generator=g, device=cuda) / L ** 0.5).to(qdt)
+    return u, X, torch.randn(B, k, generator=g, device=cuda)
+
+
+def _assert_pair_is_single_launches(name, got, u, X, c):
+    kern = getattr(gs, name)
+    for b in range(u.shape[0]):
+        for a, w in zip(got, kern(u[b], X[b], c[b])):
+            assert torch.equal(a[b], w), (name, b)
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,k", [(8192, 101), (4096, 100)])
+def test_stacked_projection_pair_at_the_batched_shapes(cuda, L, k, qdt):
+    """The batched solve's Q (2 × 8192 × 101) and P (2 × 4096 × 100)
+    bases: the stacked proj_qtv and proj_norm are bit for bit a single
+    launch on each example, bitwise the same run to run, and within f32
+    bounds of the plain versions."""
+    u, X, c = _pair_stack(cuda, 2, L, k, qdt, L + k)
+    for name in ("proj_qtv", "proj_norm"):
+        got = getattr(gs, name)(u, X, c)
+        _assert_close(got, getattr(ref, name)(u, X, c), 1e-5)
+        for a, b in zip(got, getattr(gs, name)(u, X, c)):
+            assert torch.equal(a, b)
+        _assert_pair_is_single_launches(name, got, u, X, c)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 96, 127, 128, 129, 200, 256,
+                               300])
+def test_stacked_projection_pair_across_register_widths(cuda, k, qdt):
+    """The register path takes 4 slots a lane up to 128 columns, else 8:
+    on either side of that width, past the register path (k > 256) and
+    with zeros of both signs in u, c and the basis, every example of the
+    stacked proj_qtv, proj_norm and rmv_qtv's Pᵀv is bit for bit a single
+    launch on it."""
+    B, L = 3, 777
+    u, X, c = _pair_stack(cuda, B, L, k, qdt, k)
+    u[:, ::5] = -0.0
+    c[:, ::3] = -0.0
+    X[:, ::7] = -0.0
+    X[1] = 0.0                             # example 1: every product 0
+    for name in ("proj_qtv", "proj_norm"):
+        _assert_pair_is_single_launches(name, getattr(gs, name)(u, X, c),
+                                        u, X, c)
+    g = torch.Generator(device="cuda").manual_seed(k)
+    A = torch.randn(B, 64, L, generator=g, device=cuda)
+    q = torch.randn(B, 64, generator=g, device=cuda)
+    got = gs.rmv_qtv(A, q, u, 0.5, X)
+    for b in range(B):
+        for a, w in zip(got, gs.rmv_qtv(A[b], q[b], u[b], 0.5, X[b])):
+            assert torch.equal(a[b], w), b
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+def test_stacked_projection_pair_past_one_finishing_pass(cuda, qdt):
+    """A stack of 2 × 49152 × 101 (Q) and 2 × 49152 × 100 (rmv_qtv's P):
+    each plan's grid is past 256 for an f32 and a bf16 basis, so the warp
+    finish takes its second pass over the partials.  Every example of the
+    stacked proj_qtv, proj_norm and rmv_qtv's Pᵀv is bit for bit a single
+    launch on it, and the stack is within f32 bounds of the plain
+    versions."""
+    B, L = 2, 49152
+    for k in (101, 100):
+        assert gs.proj_plan(L, k, qdt).grid > gs.THREADS
+    u, X, c = _pair_stack(cuda, B, L, 101, qdt, 16)
+    for name in ("proj_qtv", "proj_norm"):
+        got = getattr(gs, name)(u, X, c)
+        _assert_close(got, getattr(ref, name)(u, X, c), 1e-5)
+        _assert_pair_is_single_launches(name, got, u, X, c)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    A = torch.randn(B, 64, L, generator=g, device=cuda)
+    q = torch.randn(B, 64, generator=g, device=cuda)
+    P = X[..., :100].contiguous()
+    got = gs.rmv_qtv(A, q, u, 0.5, P)
+    _assert_close(got, ref.rmv_qtv(A, q, u, 0.5, P), 1e-5)
+    for b in range(B):
+        for a, w in zip(got, gs.rmv_qtv(A[b], q[b], u[b], 0.5, P[b])):
+            assert torch.equal(a[b], w), b
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [64, 128, 200])
+def test_projection_keeps_the_sign_of_underflowed_dots(cuda, k, qdt, B):
+    """Rows whose every product Q[r, j]·c[j] lies below the least
+    subnormal, with u = −0: each product rounds to −0.  A lane's chain
+    ends as the 8-slot chain of the register path, whose slots past k add
+    +0 and turn its −0 into +0 (at k = 128 only the +0 add after 4 slots
+    does), so every w_r = −0 − (+0) = −0, bit for bit, in proj_qtv,
+    proj_norm and subtract_qc."""
+    g = torch.Generator(device="cuda").manual_seed(k)
+    L = 1000
+    X = (torch.rand(B, L, k, generator=g, device=cuda) + 0.5) * 1e-30
+    X = X.to(qdt)
+    c = -(torch.rand(B, k, generator=g, device=cuda) + 0.5) * 1e-20
+    u = torch.full((B, L), -0.0, device=cuda)
+    ws = [gs.proj_qtv(u, X, c)[0], gs.proj_norm(u, X, c)[0]]
+    ws += [rk.subtract_qc(u[b], X[b], c[b]) for b in range(B)]
+    for w in ws:
+        assert bool((w == 0).all()) and bool(torch.signbit(w).all())
+    torch.cuda.synchronize()
+
+
+def test_stacked_projection_pair_on_streams_and_in_graphs(cuda):
+    """The stacked proj_qtv at the batched solve's Q stack (8 × 8192 ×
+    101: the kernel, then the warp finish): two streams calling it at
+    once, and a call captured in a CUDA graph and replayed twice, give
+    the bits of serial calls."""
+    B, L, k = 8, 8192, 101
+    calls = [_pair_stack(cuda, B, L, k, torch.float32, s) for s in (1, 2)]
+    want = [gs.proj_qtv(*args) for args in calls]
+    streams = [torch.cuda.Stream() for _ in calls]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = [None] * len(calls)
+    for rep in range(4):
+        for i, (st, args) in enumerate(zip(streams, calls)):
+            with torch.cuda.stream(st):
+                got[i] = gs.proj_qtv(*args)
+        for st in streams:
+            torch.cuda.current_stream().wait_stream(st)
+        for outs, w in zip(got, want):
+            for a, b in zip(outs, w):
+                assert torch.equal(a, b), rep
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gs.proj_qtv(*calls[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = gs.proj_qtv(*calls[0])
+    for _ in range(2):
+        for x in captured:
+            x.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, want[0]):
+            assert torch.equal(a, b)
+
+
 def test_solve_batched_on_the_card(cuda):
     """fsvd over B = 3 stacked operands: one call a stage for the batch
     (a single solve's launch counts), each example's σ within 1e-5·σ_max

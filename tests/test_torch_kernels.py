@@ -414,6 +414,114 @@ def test_proj_plan_depends_only_on_its_arguments():
     assert params == ["L", "k", "dtype"]
 
 
+def _finish_tree(part):
+    """finish_kernel in float32: thread t of 256 adds slots t, t + 256,
+    ... from 0, then the shared halving tree 128, 64, ..., 1."""
+    G = part.shape[0]
+    s = np.zeros((256,) + part.shape[1:], np.float32)
+    for t in range(256):
+        for b in range(t, G, 256):
+            s[t] = s[t] + part[b]
+    w = 128
+    while w > 0:
+        s[:w] = s[:w] + s[w:2 * w]
+        w //= 2
+    return s[0]
+
+
+def _finish_warp(part):
+    """``finish_warps_kernel`` in float32, pass for pass: lane l's register
+    i starts as +0 + (slot l + 32 i, or +0 past G); where G > 256 a second
+    pass adds slot l + 32 i + 256 (or +0); then the levels 128, 64 and 32
+    add registers i and i + h, and 16 to 1 take lane l + o's value
+    (``__shfl_down_sync``).  Like the kernel it takes no G past
+    ``PROJ_BLOCKS``."""
+    G = part.shape[0]
+    assert 1 <= G <= gs.PROJ_BLOCKS <= 2 * gs.THREADS
+    zero = np.zeros(part.shape[1:], np.float32)
+    v = np.zeros((32, 8) + part.shape[1:], np.float32)
+    for lane in range(32):
+        for i in range(8):
+            t = lane + 32 * i
+            v[lane, i] = zero + (part[t] if t < G else zero)
+            if G > gs.THREADS:
+                t += gs.THREADS
+                v[lane, i] = v[lane, i] + (part[t] if t < G else zero)
+    h = 4
+    while h > 0:
+        for i in range(h):
+            v[:, i] = v[:, i] + v[:, i + h]
+        h //= 2
+    x = v[:, 0]
+    for o in (16, 8, 4, 2, 1):
+        down = np.concatenate([x[o:], x[:o]])   # lanes past 31 unused
+        x = x + down
+    return x[0]
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 64), (65, 200), (201, 256),
+                                   (257, gs.PROJ_BLOCKS)])
+def test_warp_finish_keeps_the_tree_bit_for_bit(lo, hi):
+    """For every grid G a projection plan can take (1 to ``PROJ_BLOCKS``:
+    one pass up to 256 partials, two past it), the warp finish adds each
+    output's partials as finish_kernel's shared tree does: the float32
+    results are equal bit for bit, on data spread over many binades with
+    zeros of both signs mixed in."""
+    rng = np.random.default_rng(lo)
+    for G in range(lo, hi + 1):
+        part = (rng.standard_normal((G, 24))
+                * 10.0 ** rng.integers(-6, 7, (G, 24))).astype(np.float32)
+        part[rng.random((G, 24)) < 0.05] = -0.0
+        part[:, 0] = -0.0                       # an output of -0 partials
+        got, want = _finish_warp(part), _finish_tree(part)
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), G
+
+
+def _fmaf(a, b, c):
+    """float32 fmaf for the model: a·b is exact in float64, and a product
+    below float32's least subnormal rounds to a zero of its sign, as the
+    fused operation's one rounding gives it where c is ±0."""
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 64, 96, 100, 101, 127, 128])
+def test_narrow_register_slots_keep_the_lane_sums_bit_for_bit(k):
+    """The register path takes 4 slots a lane up to 128 columns where it
+    holds 8: the 8-slot chain's slots 4-7 hold +0 in the row and in c, so
+    each adds fmaf(+0, +0, dot) = dot + (+0), and the 4-slot chain ends
+    with one such add.  A float32 model of a lane's chain, on rows and c
+    with zeros of both signs and on rows whose every product lies below
+    the least subnormal (each rounds to -0, so the 4 slots leave a -0
+    that the add turns into +0), gives the same bits either way.  Below
+    97 columns every lane's 4 slots already hold one past k, which adds
+    the same +0, so only a wider basis leaves a -0 for the add."""
+    rng = np.random.default_rng(k)
+    negative_zero_dots = 0
+    for trial in range(200):
+        q = (rng.standard_normal(256) * 10.0 ** rng.integers(-4, 5, 256)
+             ).astype(np.float32)
+        c = rng.standard_normal(256).astype(np.float32)
+        if trial % 4 == 3:                 # every product underflows
+            q = np.abs(q) * np.float32(1e-30)
+            c = -np.abs(c) * np.float32(1e-20)
+        q[rng.random(256) < 0.3] = -0.0
+        q[rng.random(256) < 0.2] = 0.0
+        c[rng.random(256) < 0.3] = -0.0
+        q[k:], c[k:] = 0.0, 0.0            # what the kernel loads past k
+        for lane in range(32):
+            dots = []
+            for slots in (4, 8):
+                dot = np.float32(0.0)
+                for t in range(slots):
+                    dot = _fmaf(q[lane + 32 * t], c[lane + 32 * t], dot)
+                if slots == 4:
+                    negative_zero_dots += bool(dot == 0 and np.signbit(dot))
+                    dot = dot + np.float32(0.0)     # __fadd_rn(dot, 0.f)
+                dots.append(dot)
+            assert dots[0].view(np.uint32) == dots[1].view(np.uint32), lane
+    assert (negative_zero_dots > 0) == (k > 96)
+
+
 # (m, n) of the Aᵀq plan: the shapes the previous chunk plan was held at,
 # those of qtv's previous plan, the main and f64 operands, the sparse
 # cell's Lanczos basis, a wide single row and a tall narrow operand
