@@ -252,6 +252,31 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      local_rmv_qtv, and a {"distributed": ...} line holds every rank's
      record.
 
+ 13. the LM stack (after phase 12 has freed its memory): (a) each of the
+     ten registry configs' reduced() (f32) on the card: one
+     build_train_step step (AdamW) with a finite loss and grad norm,
+     skipped == 0 and the parameters moved, its loss within 1e-5 relative
+     of the port's CPU loss on the same parameters and batch, and
+     prefill -> decode consistency within 2e-2 of max |logit| (MoE at
+     capacity factor 100, tests/test_models_smoke.py:58-87); (b)
+     stablelm-1.6b through get_arch at its published width and depth (24
+     layers, d_model 2048, vocabulary 100,352, bf16, ~1.64 B parameters
+     drawn on the card from --seed): three AdamW steps on lm_batch at 2 x
+     4096 (SHAPES["train_4k"]'s global batch 256 cut to 2), each finite
+     and not skipped, timed by the host clock and CUDA events; ms a step,
+     tokens/s and the model-FLOP share 6 N tokens / (step x 989 TFLOP/s),
+     the peak memory; gradient_rank_summary (k 8, four leaves) on the last
+     step's gradients, every sigma finite and rank 0-8; one more step
+     under torch.profiler (device time by kernel kind); a prefill of 2 x
+     4096 and 16 decode steps on the padded cache, the last within 2e-2
+     of a prefill of all 4112 tokens, prefill ms and decode ms a token;
+     (c) olmoe-1b-7b at its published width (64 experts, top-8, d_ff_expert
+     1024, vocabulary 50,304) cut to 2 of 16 layers: one train step at 2 x
+     4096, the share of routed slots capacity 1.25 drops, and prefill ->
+     decode at capacity 100 (2 x 512).  The phase launches none of the
+     twelve kernels (checked with the launch counters) and prints an
+     {"lm": {...}} JSON line with its figures and cuts.
+
 The line before the last is the card as nvidia-smi reports it; the last is
 {"ok": true, "device": {...}}.  A kernels JSON line precedes them.
 """
@@ -4655,6 +4680,379 @@ def phase_distributed(seed, dims, walls3):
     return rows, dict(wall_s=wall, ranks=recs)
 
 
+# --- phase 13: the LM stack ----------------------------------------------
+
+LM_ARCH = "stablelm-1.6b"
+LM_BATCH = 2                  # SHAPES["train_4k"]'s global batch 256, cut
+LM_STEPS = 3                  # AdamW steps at the full width and depth
+LM_DECODE = 16                # decode steps on the padded cache
+LM_CONSISTENCY = 2e-2         # tests/test_models_smoke.py:87
+LM_LOSS_RTOL = 1e-5           # card vs CPU loss, same parameters and batch
+LM_SUMMARY_K = 8              # tests/test_telemetry.py:50-63
+LM_SUMMARY_LEAVES = 4
+MOE_ARCH = "olmoe-1b-7b"
+MOE_LAYERS = 2                # of 16
+MOE_CHECK_SEQ = 512           # capacity 100 holds (E, 100 T k / E, D) slots
+BF16_PEAK = 989e12            # H100 SXM dense bf16 tensor-core FLOP/s
+SMALL_B, SMALL_S = 2, 32      # tests/test_models_smoke.py's batch
+
+
+def lm_spec(cfg, B, S):
+    from repro_torch.data.synthetic import LMBatchSpec
+    img = cfg.vlm.num_image_tokens if cfg.vlm is not None else 0
+    frames = S if cfg.encdec is not None else 0
+    return LMBatchSpec(B, S, cfg.vocab_size, img, frames, cfg.d_model)
+
+
+def lm_consistency(model, cfg, seed, tag, B, S, n_decode=1):
+    """Prefill S tokens, decode the next ``n_decode`` on the padded cache,
+    and hold the last decode's logits against a prefill of all S +
+    n_decode tokens: max |difference| / max |logit|.  MoE configs run at
+    capacity factor 100, as tests/test_models_smoke.py:58-87 does.
+    Returns the error and the prefill's and a decode step's ms, by CUDA
+    events and by the host clock."""
+    import dataclasses
+    import torch
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import model as M
+    from repro_torch.runtime.steps import (build_decode_step,
+                                           build_prefill_step)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=100.0))
+    full = lm_batch(lm_spec(cfg, B, S + n_decode), seed, 10_000, device=DEV)
+    full.pop("labels")
+    part = dict(full, tokens=full["tokens"][:, :S])
+    img = cfg.vlm.num_image_tokens if cfg.vlm is not None else 0
+    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+    start, mid, end = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    _, cache = prefill(model, part)
+    mid.record()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cache = M.pad_cache_to(cache, cfg, S + n_decode + img)
+    for j in range(n_decode):
+        pos = torch.full((B, 1), S + j + img, dtype=torch.int32, device=DEV)
+        logits, cache = decode(model, cache, {
+            "tokens": full["tokens"][:, S + j:S + j + 1], "positions": pos})
+    end.record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del cache
+    want, _ = prefill(model, full)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits).all()), f"phase 13 {tag}: decode "
+          "logits not finite")
+    err = float((logits - want).abs().max() / want.abs().max())
+    check(err < LM_CONSISTENCY, f"phase 13 {tag}: prefill -> decode "
+          f"{err:.3e} >= {LM_CONSISTENCY}")
+    return dict(consistency=err, prefill_ms=start.elapsed_time(mid),
+                prefill_wall_ms=(t1 - t0) * 1e3,
+                decode_ms=mid.elapsed_time(end) / n_decode,
+                decode_wall_ms=(t2 - t1) * 1e3 / n_decode)
+
+
+def lm_train(model, cfg, opt_cfg, batches, keep_last=False):
+    """``build_train_step`` over ``batches``: each step's wall and
+    CUDA-event ms, loss, grad norm and skip flag; the last step's
+    gradients when ``keep_last``."""
+    import torch
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.steps import TrainState, build_train_step
+    init, _ = make_optimizer(opt_cfg)
+    state = TrainState(model, init(dict(model.named_parameters())))
+    step = build_train_step(cfg, opt_cfg)
+    last = build_train_step(cfg, opt_cfg, keep_grads=keep_last)
+    steps, grads = [], None
+    for i, batch in enumerate(batches):
+        fn = last if i == len(batches) - 1 else step
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        state, met = fn(state, batch)
+        ev1.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        steps.append(dict(wall_ms=wall, event_ms=ev0.elapsed_time(ev1),
+                          loss=float(met["loss"]),
+                          grad_norm=float(met["grad_norm"]),
+                          skipped=int(met["skipped"])))
+        grads = met.get("grads")
+    for i, s in enumerate(steps):
+        check(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+              and s["skipped"] == 0, f"phase 13 {cfg.name} step {i}: {s}")
+    return steps, grads
+
+
+LM_KERNEL_KINDS = (("matrix products", r"gemm|nvjet|cutlass|xmma"),
+                   ("softmax", r"softmax"),
+                   ("copies and fills", r"^Memcpy|^Memset|copy|fill"))
+
+
+def lm_profile(model, cfg, batch):
+    """One AdamW step (fresh moments) under torch.profiler: the device
+    time of its kernels by kind and the ten costliest kernels, beside the
+    step's wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.configs import OptimConfig
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.steps import TrainState, build_train_step
+    opt = OptimConfig()
+    state = TrainState(model, make_optimizer(opt)[0](
+        dict(model.named_parameters())))
+    step = build_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del state
+    kinds, names = {}, {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        kind = next((k for k, pat in LM_KERNEL_KINDS
+                     if re.search(pat, e.name, re.I)),
+                    "elementwise and reductions")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+        names[e.name[:90]] = names.get(e.name[:90], 0.0) + ms
+    device_ms = sum(kinds.values())
+    check(device_ms > 0, "phase 13 (b): the profiler saw no device time")
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                host_share=1 - device_ms / wall_ms, by_kind=kinds,
+                kernels=sum(1 for e in prof.events() if getattr(
+                    e, "device_type", None) == DeviceType.CUDA),
+                top=top)
+
+
+def lm_reduced(seed):
+    """(a) every architecture's reduced config on the card."""
+    import copy
+    import torch
+    from repro_torch.configs import ARCHS, OptimConfig, get_arch
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import model as M
+    opt_cfg = OptimConfig(lr=1e-3, warmup_steps=0)
+    out = {}
+    for i, arch in enumerate(sorted(ARCHS)):
+        cfg = get_arch(arch).reduced()
+        model, _ = M.init_model(
+            cfg, torch.Generator(device=DEV).manual_seed(seed + 100 + i))
+        batch = lm_batch(lm_spec(cfg, SMALL_B, SMALL_S), seed, i, device=DEV)
+        cpu = copy.deepcopy(model).to("cpu")
+        with torch.no_grad():
+            cpu_loss = float(M.loss_fn(
+                cpu, {k: v.cpu() for k, v in batch.items()}, cfg)[0])
+        del cpu
+        before = [p.detach().clone() for p in model.parameters()]
+        steps, _ = lm_train(model, cfg, opt_cfg, [batch])
+        moved = max(float((p.detach() - b).abs().max())
+                    for p, b in zip(model.parameters(), before))
+        rel = abs(steps[0]["loss"] - cpu_loss) / abs(cpu_loss)
+        check(rel < LM_LOSS_RTOL, f"phase 13 (a) {arch}: card loss "
+              f"{steps[0]['loss']} vs CPU {cpu_loss} ({rel:.2e})")
+        check(moved > 0, f"phase 13 (a) {arch}: the step moved no parameter")
+        err = lm_consistency(model, cfg, seed, f"(a) {arch}", SMALL_B,
+                             SMALL_S)["consistency"]
+        out[arch] = dict(loss=steps[0]["loss"], cpu_loss=cpu_loss,
+                         loss_rel=rel, grad_norm=steps[0]["grad_norm"],
+                         max_param_move=moved, consistency=err,
+                         step_ms=steps[0]["wall_ms"])
+        print(f"phase 13 (a) {arch}: loss {steps[0]['loss']:.6f} (CPU "
+              f"{cpu_loss:.6f}, rel {rel:.1e}), grad norm "
+              f"{steps[0]['grad_norm']:.4f}, prefill -> decode {err:.2e}",
+              flush=True)
+        del model, before
+    return out
+
+
+def lm_full(seed):
+    """(b) stablelm-1.6b at its published width and depth."""
+    import torch
+    from repro_torch.configs import OptimConfig, get_arch, get_shape
+    from repro_torch.data.synthetic import lm_batch, spec_for
+    from repro_torch.models import model as M
+    from repro_torch.runtime.telemetry import gradient_rank_summary
+    cfg = get_arch(LM_ARCH)
+    shape = get_shape("train_4k")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, _ = M.init_model(cfg, torch.Generator(device=DEV).manual_seed(
+        seed + 13))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    spec = spec_for(cfg, shape, batch_override=LM_BATCH)
+    batches = [lm_batch(spec, seed, s, device=DEV) for s in range(LM_STEPS)]
+    steps, grads = lm_train(model, cfg, OptimConfig(), batches,
+                            keep_last=True)
+    train_peak = torch.cuda.max_memory_allocated()
+    del batches
+    summary = gradient_rank_summary(grads, k=LM_SUMMARY_K,
+                                    max_leaves=LM_SUMMARY_LEAVES)
+    check(len(summary) == LM_SUMMARY_LEAVES, f"phase 13 (b): "
+          f"{len(summary)} summary leaves")
+    spectra = {}
+    for name, s in summary.items():
+        sig = s["sigma"].float().cpu()
+        rank = int(s["rank"])
+        check(bool(torch.isfinite(sig).all()) and 0 <= rank <= LM_SUMMARY_K,
+              f"phase 13 (b): gradient summary {name}: {sig} rank {rank}")
+        spectra[name] = dict(sigma=sig.tolist(), rank=rank,
+                             energy_r=float(s["energy_r"]))
+    del grads, summary
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile = lm_profile(model, cfg, lm_batch(spec, seed, LM_STEPS,
+                                              device=DEV))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serve = lm_consistency(model, cfg, seed, "(b)", LM_BATCH, spec.seq_len,
+                           LM_DECODE)
+    serve_peak = torch.cuda.max_memory_allocated()
+    tokens = LM_BATCH * spec.seq_len
+    timed_steps = steps[1:]
+    step_ms = sum(s["wall_ms"] for s in timed_steps) / len(timed_steps)
+    event_ms = sum(s["event_ms"] for s in timed_steps) / len(timed_steps)
+    flops = 6 * n_params * tokens
+    rec = dict(
+        arch=LM_ARCH, params=n_params, dtype=cfg.dtype, layers=cfg.num_layers,
+        d_model=cfg.d_model, vocab=cfg.vocab_size, batch=LM_BATCH,
+        seq=spec.seq_len, init_s=init_s, steps=steps,
+        step_ms=step_ms, step_event_ms=event_ms,
+        tokens_per_s=tokens / (step_ms / 1e3),
+        model_flop_share=flops / (step_ms / 1e3) / BF16_PEAK,
+        flop_formula="6 * params * tokens / step_s / 989e12 (H100 SXM "
+                     "dense bf16)",
+        train_peak_gib=train_peak / GIB, decode_tokens=LM_DECODE,
+        serve_peak_gib=serve_peak / GIB, **serve, gradient_summary=spectra,
+        profile=profile)
+    print(f"phase 13 (b) {LM_ARCH}: {n_params:,} params ({cfg.dtype}), "
+          f"init {init_s:.2f} s; steps wall "
+          f"{[round(s['wall_ms'], 1) for s in steps]} ms, events "
+          f"{[round(s['event_ms'], 1) for s in steps]} ms, losses "
+          f"{[round(s['loss'], 4) for s in steps]}; {step_ms:.1f} ms a step "
+          f"(steps 2-{LM_STEPS}), {rec['tokens_per_s']:.0f} tokens/s, "
+          f"model-FLOP share {100 * rec['model_flop_share']:.2f} % of "
+          f"989 TFLOP/s; train peak {rec['train_peak_gib']:.2f} GiB; prefill "
+          f"{LM_BATCH} x {spec.seq_len} {serve['prefill_ms']:.1f} ms (wall "
+          f"{serve['prefill_wall_ms']:.1f}), decode {serve['decode_ms']:.2f} "
+          f"ms a token (wall {serve['decode_wall_ms']:.2f}), peak "
+          f"{rec['serve_peak_gib']:.2f} GiB, prefill -> decode "
+          f"{serve['consistency']:.2e}; "
+          f"gradient ranks {[v['rank'] for v in spectra.values()]}",
+          flush=True)
+    print(f"phase 13 (b) profiled step: wall {profile['wall_ms']:.1f} ms, "
+          f"device {profile['device_ms']:.1f} ms in {profile['kernels']} "
+          f"kernels (host share {100 * profile['host_share']:.1f} %): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in
+                      sorted(profile["by_kind"].items(),
+                             key=lambda kv: -kv[1]))
+          + "; top: " + "; ".join(f"{n} {v:.1f}" for n, v in
+                                   profile["top"][:6]), flush=True)
+    return rec
+
+
+def moe_dispatch_spy(moe_mod, calls):
+    """Wrap ``moe.dispatch`` to keep each call's kept-slot count."""
+    real = moe_mod.dispatch
+
+    def spy(gates, eidx, num_experts, C):
+        tok, gate = real(gates, eidx, num_experts, C)
+        calls.append(((tok < eidx.shape[0]).sum(), eidx.numel()))
+        return tok, gate
+    return real, spy
+
+
+def lm_moe(seed):
+    """(c) olmoe-1b-7b at its published width, depth cut."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import OptimConfig, get_arch, get_shape
+    from repro_torch.data.synthetic import lm_batch, spec_for
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), num_layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model, _ = M.init_model(cfg, torch.Generator(device=DEV).manual_seed(
+        seed + 14))
+    spec = spec_for(cfg, get_shape("train_4k"), batch_override=LM_BATCH)
+    calls = []
+    real, spy = moe_dispatch_spy(moe_mod, calls)
+    moe_mod.dispatch = spy
+    try:
+        steps, _ = lm_train(model, cfg, OptimConfig(),
+                            [lm_batch(spec, seed, 0, device=DEV)])
+    finally:
+        moe_mod.dispatch = real
+    # the forward pass's calls (the backward pass recomputes each layer)
+    kept = sum(int(k) for k, _ in calls[:MOE_LAYERS])
+    routed = sum(n for _, n in calls[:MOE_LAYERS])
+    peak = torch.cuda.max_memory_allocated()
+    serve = lm_consistency(model, cfg, seed, "(c)", LM_BATCH, MOE_CHECK_SEQ)
+    rec = dict(arch=MOE_ARCH, layers=MOE_LAYERS,
+               experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+               d_ff_expert=cfg.moe.d_ff_expert, vocab=cfg.vocab_size,
+               params=sum(p.numel() for p in model.parameters()),
+               batch=LM_BATCH, seq=spec.seq_len, step=steps[0],
+               capacity=moe_mod.capacity(cfg.moe, LM_BATCH * spec.seq_len),
+               dropped_share=1 - kept / routed, peak_gib=peak / GIB,
+               consistency_seq=MOE_CHECK_SEQ, **serve)
+    print(f"phase 13 (c) {MOE_ARCH} ({MOE_LAYERS} of 16 layers, "
+          f"{rec['params']:,} params): step {steps[0]['wall_ms']:.1f} ms "
+          f"(events {steps[0]['event_ms']:.1f}), loss "
+          f"{steps[0]['loss']:.4f}; capacity {rec['capacity']} a expert "
+          f"drops {100 * rec['dropped_share']:.2f} % of {routed} routed "
+          f"slots; peak {rec['peak_gib']:.2f} GiB; prefill -> decode "
+          f"(capacity 100, {LM_BATCH} x {MOE_CHECK_SEQ}) "
+          f"{serve['consistency']:.2e}",
+          flush=True)
+    return rec
+
+
+def phase_lm(seed):
+    """Phase 13: the LM stack on one card; see the module docstring.
+    Returns the {"lm": ...} record."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    rec = dict(reduced=lm_reduced(seed))
+    rec["stablelm"] = lm_full(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["olmoe"] = lm_moe(seed)
+    launched = {k: v - before.get(k, 0) for k, v in kernel_launches().items()
+                if v != before.get(k, 0)}
+    check(not launched, f"phase 13 launched kernels: {launched}")
+    rec["cuts"] = [
+        f"{LM_ARCH}: global batch {256} -> {LM_BATCH} (SHAPES['train_4k'], "
+        "seq 4096): full attention's f32 logits beside the weights",
+        f"{MOE_ARCH}: num_layers 16 -> {MOE_LAYERS}; global batch 256 -> "
+        f"{LM_BATCH}; its capacity-100 check at seq {MOE_CHECK_SEQ}",
+        "random weights drawn on the card from --seed"]
+    rec["wall_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 13: {rec['wall_s']:.1f} s; none of the twelve kernels "
+          "launched", flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4759,6 +5157,8 @@ def main(argv=None) -> int:
             args.seed, (args.m, args.n, args.m64, args.n64, args.sm,
                         args.sn, COMPRESS_SHAPE), walls3)
         print(json.dumps({"distributed": distributed}, default=str))
+        # phase 13: the LM stack, after phase 12 has freed its memory
+        print(json.dumps({"lm": phase_lm(args.seed)}, default=str))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -5,10 +5,10 @@ inputs.  These functions turn what the reference holds — an operand (dense,
 sparse COO triplets, low-rank factors, or any reference operator), a
 matrix-free problem, a start vector, a sketch test matrix, a hashed-sign
 table and a sketch-resident state, a ``Factorization``, an ``SVDSpec``,
-a manifold point, a tangent vector and an RSL dataset — into the port's
-objects, given as numpy arrays
-(``np.asarray`` of a JAX array) or as objects with the reference's field
-names.  Nothing here imports JAX.
+a manifold point, a tangent vector, an RSL dataset, a model's parameter
+pytree and an optimizer state — into the port's objects, given as numpy
+arrays (``np.asarray`` of a JAX array) or as objects with the reference's
+field names.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -26,6 +26,8 @@ from repro_torch.core import operators as ops
 from repro_torch.core.operators import DenseOp
 from repro_torch.core.sketch import GaussianSketch, SparseSignSketch
 from repro_torch.data.synthetic import MatrixFreeProblem, RSLDataset
+from repro_torch.models.model import STACKED, ParamTree
+from repro_torch.optim.optimizers import OptState
 from repro_torch.sketchres.state import SketchState, _HashedSketch
 
 
@@ -192,3 +194,116 @@ def rsl_dataset(ref: Any, *, device=None) -> RSLDataset:
         return to_tensor(np.asarray(x), device=device)
     return RSLDataset(arr(ref.X), arr(ref.V), arr(ref.y), arr(ref.Wu),
                       arr(ref.Wv))
+
+
+# ---------------------------------------------------------------------------
+# model parameters and optimizer state
+# ---------------------------------------------------------------------------
+
+def _split_layers(tree: Mapping, device) -> dict:
+    """A reference parameter pytree (nested mappings of arrays) in the
+    port's layout: each stacked key (``layers``, ``enc_layers``,
+    ``dec_layers``) split along axis 0 into a list of per-layer
+    subtrees."""
+    def conv(node):
+        if isinstance(node, Mapping):
+            return {k: conv(v) for k, v in node.items()}
+        return to_tensor(np.asarray(node), device=device)
+
+    def layer(node, i):
+        if isinstance(node, Mapping):
+            return {k: layer(v, i) for k, v in node.items()}
+        return node[i]
+
+    def depth(node):
+        while isinstance(node, Mapping):
+            node = next(iter(node.values()))
+        return node.shape[0]
+
+    out = {}
+    for k, v in tree.items():
+        v = conv(v)
+        out[k] = ([layer(v, i) for i in range(depth(v))] if k in STACKED
+                  else v)
+    return out
+
+
+def _names(tree: Mapping, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_names(v, name + "."))
+        elif isinstance(v, list):
+            for i, t in enumerate(v):
+                out.update(_names(t, f"{name}.{i}."))
+        else:
+            out[name] = v
+    return out
+
+
+def named_tensors(ref_tree: Mapping, *, device=None) -> dict:
+    """A pytree of numpy arrays in the reference's parameter layout (params,
+    gradients, moments) as the port's name -> tensor dict, named as the
+    model's ``named_parameters()`` (``layers.0.attn.wq``)."""
+    return _names(_split_layers(ref_tree, device))
+
+
+def model_params(cfg, ref_params: Mapping, *, device=None) -> ParamTree:
+    """The reference's ``init_model`` params (a pytree of numpy arrays) as
+    the port's model, on ``device`` (default: the card).  bfloat16 arrays
+    are carried over bit for bit.  The layer stacks must have the
+    config's depth."""
+    tree = _split_layers(ref_params, device)
+    depths = {"layers": None, "enc_layers": None, "dec_layers":
+              cfg.num_layers}
+    if cfg.encdec is not None:
+        depths["enc_layers"] = cfg.encdec.encoder_layers
+    n_prefix = sum(1 for k in tree if k.startswith("layer")
+                   and k[5:].isdigit())
+    depths["layers"] = cfg.num_layers - n_prefix
+    for k, want in depths.items():
+        if k in tree and len(tree[k]) != want:
+            raise ValueError(f"{k}: {len(tree[k])} layers, the config "
+                             f"has {want}")
+    return ParamTree(tree)
+
+
+def reference_tree(named) -> dict:
+    """The port's parameters or gradients (a model, or a name -> tensor
+    mapping such as ``dict(model.named_parameters())``) in the
+    reference's pytree layout: nested dicts, each layer list stacked along
+    a new axis 0.  Tensors are detached, on their own device."""
+    if isinstance(named, torch.nn.Module):
+        named = dict(named.named_parameters())
+    root: dict = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        node = root
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = t.detach()
+
+    def collapse(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return stack([collapse(node[str(i)]) for i in range(len(node))])
+        return {k: collapse(v) for k, v in node.items()}
+
+    def stack(items):
+        if isinstance(items[0], dict):
+            return {k: stack([it[k] for it in items]) for k in items[0]}
+        return torch.stack(items, 0)
+
+    return collapse(root)
+
+
+def opt_state(ref: Any, *, device=None) -> OptState:
+    """A reference ``OptState`` (``step``, ``mu``, ``nu``: pytrees shaped
+    like the params, ``nu`` None for SGD) as the port's, keyed by the
+    port's parameter names."""
+    def named(tree):
+        return None if tree is None else named_tensors(tree, device=device)
+    return OptState(to_tensor(np.asarray(ref.step, np.int32), device=device),
+                    named(ref.mu), named(ref.nu))

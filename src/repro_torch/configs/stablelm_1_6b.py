@@ -1,0 +1,25 @@
+"""stablelm-1.6b — 24L d_model=2048 32H (kv=32) d_ff=5632 vocab=100352.
+
+SwiGLU MLP, partial rotary (25%), LayerNorm, untied embeddings.
+[hf:stabilityai/stablelm-2-1_6b; unverified]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-1.6b",
+    family="dense",
+    num_layers=24,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=5632,
+    vocab_size=100352,
+    rope_theta=10000.0,
+    partial_rotary_factor=0.25,
+    attn_pattern=("global",),
+    qkv_bias=True,
+    mlp_act="silu",            # SwiGLU
+    norm="layernorm",
+    tie_embeddings=False,
+    source="hf:stabilityai/stablelm-2-1_6b; unverified",
+)

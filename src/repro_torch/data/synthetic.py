@@ -1,14 +1,16 @@
-"""Synthetic data: the paper's RSL similarity pairs, and matrix-free
-problem generators (sparse and Kronecker operands with a dense oracle).
-Counterpart of the RSL and matrix-free parts of ``repro.data.synthetic``
-(``RSLDataset``, ``make_rsl_dataset``, ``rsl_batch``,
-``MatrixFreeProblem``, ``make_sparse_problem``, ``make_kron_problem``).
+"""Synthetic data: LM token batches, the paper's RSL similarity pairs, and
+matrix-free problem generators (sparse and Kronecker operands with a dense
+oracle).  Counterpart of ``repro.data.synthetic`` (``LMBatchSpec``,
+``spec_for``, ``lm_batch``, ``host_slice``, ``RSLDataset``,
+``make_rsl_dataset``, ``rsl_batch``, ``MatrixFreeProblem``,
+``make_sparse_problem``, ``make_kron_problem``).
 
 Each maker takes an explicit ``torch.Generator`` and draws on its device;
-``rsl_batch`` is a pure function of (seed, step), as the reference
-promises.  The two packages draw different numbers from one seed: parity
-tests build the data on the reference side and hand them over
-(``bridge.rsl_dataset``, ``bridge.problem``).
+``lm_batch`` and ``rsl_batch`` are pure functions of (seed, step), as the
+reference promises.  The two packages draw different numbers from one
+seed: parity tests build the data on the reference side and hand them
+over (``bridge.rsl_dataset``, ``bridge.problem``, the LM batch as numpy
+arrays).
 """
 from __future__ import annotations
 
@@ -16,9 +18,74 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core._keys import fold_in, normal
 
 Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# LM token streams
+# ---------------------------------------------------------------------------
+
+class LMBatchSpec(NamedTuple):
+    batch: int
+    seq_len: int
+    vocab: int
+    num_image_tokens: int = 0     # vlm stub
+    num_frames: int = 0           # audio stub
+    d_model: int = 0
+
+
+def spec_for(cfg: ModelConfig, shape: ShapeConfig,
+             batch_override: Optional[int] = None) -> LMBatchSpec:
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+    img = audio = 0
+    if cfg.family == "vlm":
+        img = cfg.vlm.num_image_tokens
+        S = S - img                       # text tokens fill the remainder
+    if cfg.family == "audio":
+        audio = shape.seq_len
+    return LMBatchSpec(B, S, cfg.vocab_size, img, audio, cfg.d_model)
+
+
+def lm_batch(spec: LMBatchSpec, seed: int, step: int, device=None) -> dict:
+    """One deterministic LM training batch, drawn on ``device`` (default:
+    the card) from a generator derived from (``seed``, ``step``).
+
+    Tokens follow a repeating 8-gram per row with 5 % of them replaced by
+    uniform noise (so tiny models can learn structure, unlike iid-uniform
+    tokens); labels are the tokens shifted by one.  VLM and audio specs
+    add stub patch / frame embeddings (normal, std 0.02).
+    """
+    dev = resolve_device(device)
+    g = fold_in(seed, step, device=dev)
+    base = torch.randint(0, spec.vocab, (spec.batch, 8), generator=g,
+                         device=dev, dtype=torch.int32)
+    reps = -(-(spec.seq_len + 1) // 8)
+    stream = base.repeat(1, reps)[:, :spec.seq_len + 1]
+    noise = torch.randint(0, spec.vocab, stream.shape, generator=g,
+                          device=dev, dtype=torch.int32)
+    flip = torch.rand(stream.shape, generator=g, device=dev) < 0.05
+    stream = torch.where(flip, noise, stream)
+    batch = {"tokens": stream[:, :-1], "labels": stream[:, 1:]}
+    if spec.num_image_tokens:
+        batch["img_embeds"] = normal(
+            g, (spec.batch, spec.num_image_tokens, spec.d_model)) * 0.02
+    if spec.num_frames:
+        batch["frames"] = normal(
+            g, (spec.batch, spec.num_frames, spec.d_model)) * 0.02
+    return batch
+
+
+def host_slice(batch: dict, host_id: int, num_hosts: int) -> dict:
+    """Per-host shard of a global batch (multi-host input pipeline)."""
+    def f(x):
+        per = x.shape[0] // num_hosts
+        return x[host_id * per:(host_id + 1) * per]
+    return {k: f(v) for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,373 @@
+"""Attention blocks: GQA (full / sliding-window local, logit softcap), MLA
+(DeepSeek-V2 multi-head latent attention with absorbed decode), and
+encoder-decoder cross attention.  Counterpart of
+``repro.models.attention``, with the reference's arithmetic: logits in f32
+before the softcap, the mask and the softmax.
+
+Shapes: activations are ``(B, S, D)``; per-head tensors ``(B, S, H, hd)``.
+The decode path updates KV caches with a one-hot blend (``blend``, the
+default) or a one-slot write (``dus``), and returns new caches.
+
+The sliding window is a per-layer Python int (``GLOBAL_WINDOW`` = global
+attention), so alternating local/global stacks (gemma2) share one layer
+body.  ``impl="chunked"`` computes attention in query chunks so the
+(Sq, Sk) logits are never held at once; ``impl="online"`` runs the
+flash-style online softmax over KV chunks, each step checkpointed so the
+backward pass recomputes its probability tile.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (ParamBag, apply_rope, proj,
+                                       proj_heads, repeat_interleave)
+
+Tensor = torch.Tensor
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+GLOBAL_WINDOW = torch.iinfo(torch.int32).max // 2   # sentinel: "no window"
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_gqa(bag: ParamBag, cfg: ModelConfig, dtype, name: str = "attn"):
+    sub = bag.sub(name)
+    d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    sub.dense("wq", (d, h, hd), ("embed", "heads", "head_dim"), dtype)
+    sub.dense("wk", (d, kv, hd), ("embed", "kv_heads", "head_dim"), dtype)
+    sub.dense("wv", (d, kv, hd), ("embed", "kv_heads", "head_dim"), dtype)
+    sub.dense("wo", (h, hd, d), ("heads", "head_dim", "embed"), dtype)
+    if cfg.qkv_bias:
+        sub.zeros("bq", (h, hd), ("heads", "head_dim"), dtype)
+        sub.zeros("bk", (kv, hd), ("kv_heads", "head_dim"), dtype)
+        sub.zeros("bv", (kv, hd), ("kv_heads", "head_dim"), dtype)
+
+
+def init_mla(bag: ParamBag, cfg: ModelConfig, dtype, name: str = "attn"):
+    mla = cfg.mla
+    sub = bag.sub(name)
+    d, h = cfg.d_model, cfg.num_heads
+    dn, dr, dv = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
+    sub.dense("w_dq", (d, mla.q_lora_rank), ("embed", "q_lora"), dtype)
+    sub.ones("q_norm", (mla.q_lora_rank,), ("q_lora",), dtype)
+    sub.dense("w_uq", (mla.q_lora_rank, h, dn + dr),
+              ("q_lora", "heads", "head_dim"), dtype)
+    sub.dense("w_dkv", (d, mla.kv_lora_rank + dr), ("embed", "kv_lora"),
+              dtype)
+    sub.ones("kv_norm", (mla.kv_lora_rank,), ("kv_lora",), dtype)
+    sub.dense("w_uk", (mla.kv_lora_rank, h, dn),
+              ("kv_lora", "heads", "head_dim"), dtype)
+    sub.dense("w_uv", (mla.kv_lora_rank, h, dv),
+              ("kv_lora", "heads", "head_dim"), dtype)
+    sub.dense("wo", (h, dv, d), ("heads", "head_dim", "embed"), dtype)
+
+
+def init_cross_attn(bag: ParamBag, cfg: ModelConfig, dtype,
+                    name: str = "xattn"):
+    sub = bag.sub(name)
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+    sub.dense("wq", (d, h, hd), ("embed", "heads", "head_dim"), dtype)
+    sub.dense("wk", (d, h, hd), ("embed", "heads", "head_dim"), dtype)
+    sub.dense("wv", (d, h, hd), ("embed", "heads", "head_dim"), dtype)
+    sub.dense("wo", (h, hd, d), ("heads", "head_dim", "embed"), dtype)
+
+
+# ---------------------------------------------------------------------------
+# core attend
+# ---------------------------------------------------------------------------
+
+def _softcap32(logits: Tensor, cap: Optional[float]) -> Tensor:
+    return logits if cap is None else cap * torch.tanh(logits / cap)
+
+
+def _attend_full(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
+                 scale: float, cap: Optional[float]) -> Tensor:
+    """q: (B,Sq,H,hd)  k/v: (B,Sk,H,hd|hv)  mask: (B,Sq,Sk) bool or None.
+    The logits are taken in f32 (the products of the inputs, summed in
+    f32), as the reference's ``preferred_element_type``."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = _softcap32(logits, cap)
+    if mask is not None:
+        logits = torch.where(mask[:, None, :, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhv->bqhv", probs, v)
+
+
+def _causal_window_mask(qpos: Tensor, kpos: Tensor, window: int) -> Tensor:
+    """(B,Sq,Sk) bool: causal, and within ``window`` of the query."""
+    ok = kpos[:, None, :] <= qpos[:, :, None]
+    ok &= (qpos[:, :, None] - kpos[:, None, :]) < window
+    return ok
+
+
+def _kv_step(m, l, acc, qi, kj, vj, qpi, kpj, window, scale, cap, causal):
+    """One KV chunk of the online softmax: the running (max, denominator,
+    accumulator) updated by the (Cq, Ck) tile."""
+    s = torch.einsum("bqhd,bkhd->bqhk", qi.float(), kj.float()) * scale
+    s = _softcap32(s, cap)
+    if causal:
+        ok = _causal_window_mask(qpi, kpj, window)            # (B,Cq,Ck)
+        s = torch.where(ok[:, :, None, :], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))                      # (B,Cq,H)
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(-1)
+    acc = acc * corr[..., None] + torch.einsum("bqhk,bkhv->bqhv", p,
+                                               vj.float())
+    return m_new, l, acc
+
+
+def _attend_online(q: Tensor, k: Tensor, v: Tensor, qpos: Tensor,
+                   kpos: Tensor, window: int, scale: float,
+                   cap: Optional[float], q_chunk: int, kv_chunk: int,
+                   causal: bool) -> Tensor:
+    """Flash-style online-softmax attention: query chunks outer, KV chunks
+    inner with running (max, denominator, accumulator) statistics; the
+    (Sq, Sk) score matrix never exists.  Each KV step is checkpointed, so
+    the backward pass recomputes its (Cq, Ck) tile instead of keeping all
+    of them (exact online rescaling, not an approximation)."""
+    B, Sq, H, _ = q.shape
+    Sk = k.shape[1]
+    hv = v.shape[-1]
+    assert Sq % q_chunk == 0 and Sk % kv_chunk == 0, (Sq, Sk, q_chunk,
+                                                      kv_chunk)
+    step = _kv_step
+    if torch.is_grad_enabled():
+        def step(*args):
+            return checkpoint(_kv_step, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+    outs = []
+    for q0 in range(0, Sq, q_chunk):
+        qi, qpi = q[:, q0:q0 + q_chunk], qpos[:, q0:q0 + q_chunk]
+        m = torch.full((B, q_chunk, H), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, q_chunk, H), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, q_chunk, H, hv), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, Sk, kv_chunk):
+            m, l, acc = step(m, l, acc, qi, k[:, k0:k0 + kv_chunk],
+                             v[:, k0:k0 + kv_chunk], qpi,
+                             kpos[:, k0:k0 + kv_chunk], window, scale, cap,
+                             causal)
+        outs.append((acc / l.clamp(min=1e-30)[..., None]).to(v.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def attend(q: Tensor, k: Tensor, v: Tensor, qpos: Tensor, kpos: Tensor, *,
+           window: int, scale: float, cap: Optional[float],
+           impl: str = "full", q_chunk: int = 1024,
+           causal: bool = True) -> Tensor:
+    """Masked attention with selectable implementation.
+
+    ``full``    — materialize the (Sq, Sk) score matrix (baseline);
+    ``chunked`` — query-chunked full softmax (peak-memory relief);
+    ``online``  — flash-style online softmax (no S^2 buffer at all);
+    ``auto``    — chunked when Sq > 8192 else full.
+    ``window``: an int; GLOBAL_WINDOW for global attention.
+    ``causal=False`` (encoder self-attention) attends everywhere.
+    """
+    Sq, Sk = q.shape[1], k.shape[1]
+    if impl == "auto":
+        impl = "chunked" if (Sq > 8192 and Sq % q_chunk == 0) else "full"
+    if impl == "online":
+        qc, kvc = min(q_chunk, Sq), min(q_chunk, Sk)
+        if Sq % qc == 0 and Sk % kvc == 0 and Sq > 1:
+            return _attend_online(q, k, v, qpos, kpos, window, scale, cap,
+                                  qc, kvc, causal)
+        impl = "full"
+    if impl != "chunked" or Sq <= q_chunk:
+        mask = _causal_window_mask(qpos, kpos, window) if causal else None
+        return _attend_full(q, k, v, mask, scale, cap)
+
+    assert Sq % q_chunk == 0, (Sq, q_chunk)
+    outs = []
+    for q0 in range(0, Sq, q_chunk):
+        qi, qpi = q[:, q0:q0 + q_chunk], qpos[:, q0:q0 + q_chunk]
+        mask = _causal_window_mask(qpi, kpos, window) if causal else None
+        outs.append(_attend_full(qi, k, v, mask, scale, cap))
+    return torch.cat(outs, dim=1)
+
+
+def _repeat_kv(x: Tensor, h: int) -> Tensor:
+    kv = x.shape[2]
+    return x if kv == h else repeat_interleave(x, h // kv, 2)
+
+
+def _blend(cache: Tensor, new: Tensor, pos: Tensor,
+           impl: str = "blend") -> Tensor:
+    """Write ``new: (B,1,...)`` into ``cache: (B,S,...)`` at positions
+    ``pos: (B,)``, returning a new cache.
+
+    ``blend`` — one-hot convex blend: reads and rewrites the whole cache
+    (scatter-free).  ``dus`` — writes one token slot per row.
+    """
+    if impl == "dus":
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        return cache.index_put((rows, pos.long()), new[:, 0].to(cache.dtype))
+    S = cache.shape[1]
+    slots = torch.arange(S, device=cache.device)
+    oh = (slots[None, :] == pos[:, None]).to(cache.dtype)     # (B, S)
+    oh = oh.reshape(oh.shape + (1,) * (cache.dim() - 2))
+    return cache * (1 - oh) + oh * new.to(cache.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA forward
+# ---------------------------------------------------------------------------
+
+def gqa_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
+                  window: int = GLOBAL_WINDOW, cache: Optional[dict] = None,
+                  collect_kv: bool = False, causal: bool = True,
+                  ) -> tuple[Tensor, Optional[dict]]:
+    """GQA self-attention.
+
+    Train: ``x: (B,S,D)``, ``positions: (B,S)``, ``cache=None``.
+    Prefill: additionally ``collect_kv=True`` -> returns {"k","v"} as the
+    decode cache (kv-head layout, pre-repeat).
+    Decode: ``x: (B,1,D)``, ``positions: (B,1)`` = current index,
+    ``cache = {"k": (B,Smax,Kv,hd), "v": ...}``; returns the new cache.
+    """
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    scale = hd ** -0.5
+    q = proj(x, p["wq"])
+    k = proj(x, p["wk"])
+    v = proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor)
+
+    if cache is None:
+        ctx = attend(q, _repeat_kv(k, h), _repeat_kv(v, h), positions,
+                     positions, window=window, scale=scale,
+                     cap=cfg.attn_logit_softcap, impl=cfg.attn_impl,
+                     q_chunk=cfg.q_chunk, causal=causal)
+        new_cache = {"k": k, "v": v} if collect_kv else None
+    else:
+        pos = positions[:, 0]                                 # (B,)
+        ck = _blend(cache["k"], k, pos, cfg.cache_update)
+        cv = _blend(cache["v"], v, pos, cfg.cache_update)
+        S = ck.shape[1]
+        kpos = torch.arange(S, dtype=positions.dtype,
+                            device=x.device)[None, :].expand(x.shape[0], S)
+        ctx = attend(q, _repeat_kv(ck, h), _repeat_kv(cv, h), positions,
+                     kpos, window=window, scale=scale,
+                     cap=cfg.attn_logit_softcap, impl="full")
+        new_cache = {"k": ck, "v": cv}
+    return proj_heads(ctx, p["wo"]), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA forward (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def _rmsn(x: Tensor, w: Tensor, eps: float = 1e-6) -> Tensor:
+    x32 = x.float()
+    y = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+def mla_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
+                  window: int = GLOBAL_WINDOW, cache: Optional[dict] = None,
+                  collect_kv: bool = False, causal: bool = True,
+                  ) -> tuple[Tensor, Optional[dict]]:
+    """Multi-head latent attention.
+
+    The cache stores only the latents: ``{"ckv": (B,Smax,kv_lora),
+    "krope": (B,Smax,dr)}``.  Decode uses the absorbed form (q folded
+    through W_uk, the context combined in latent space), so per-head K/V
+    are never materialized over the cache length.
+    """
+    mla = cfg.mla
+    dn, dr = mla.qk_nope_head_dim, mla.qk_rope_head_dim
+    scale = (dn + dr) ** -0.5
+
+    cq = _rmsn(proj(x, p["w_dq"]), p["q_norm"])
+    qfull = proj(cq, p["w_uq"])
+    q_nope, q_rope = qfull[..., :dn], qfull[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckv_full = proj(x, p["w_dkv"])
+    ckv, krope = (ckv_full[..., :mla.kv_lora_rank],
+                  ckv_full[..., mla.kv_lora_rank:])
+    ckv = _rmsn(ckv, p["kv_norm"])
+    krope = apply_rope(krope[:, :, None, :], positions,
+                       cfg.rope_theta)[:, :, 0, :]
+
+    if cache is None:
+        # full sequence: materialize per-head K/V (train / prefill)
+        k_nope = proj(ckv, p["w_uk"])
+        v = proj(ckv, p["w_uv"])
+        k = torch.cat([k_nope, krope[:, :, None, :].expand(
+            *k_nope.shape[:3], dr)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        ctx = attend(q, k, v, positions, positions, window=window,
+                     scale=scale, cap=cfg.attn_logit_softcap,
+                     impl=cfg.attn_impl, q_chunk=cfg.q_chunk)
+        new_cache = {"ckv": ckv, "krope": krope} if collect_kv else None
+        return proj_heads(ctx, p["wo"]), new_cache
+
+    # --- absorbed decode ---
+    pos = positions[:, 0]
+    c_ckv = _blend(cache["ckv"], ckv, pos, cfg.cache_update)   # (B,S,r)
+    c_kr = _blend(cache["krope"], krope, pos, cfg.cache_update)  # (B,S,dr)
+    S = c_ckv.shape[1]
+    # fold q through W_uk: (B,1,H,dn) x (r,H,dn) -> (B,1,H,r)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+    logits = (torch.einsum("bshr,btr->bhst", q_lat.float(), c_ckv.float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             c_kr.float())) * scale
+    kpos = torch.arange(S, dtype=positions.dtype, device=x.device)[None, :]
+    mask = kpos[:, None, :] <= pos[:, None, None]
+    logits = torch.where(mask[:, None, :, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(c_ckv.dtype)
+    ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_ckv)   # (B,1,H,r)
+    ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, p["w_uv"])  # (B,1,H,dv)
+    return proj_heads(ctx, p["wo"]), {"ckv": c_ckv, "krope": c_kr}
+
+
+# ---------------------------------------------------------------------------
+# cross attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attention(p: dict, x: Tensor, enc_kv: tuple[Tensor, Tensor],
+                    cfg: ModelConfig) -> Tensor:
+    """x: (B,S,D); enc_kv: precomputed (K, V) each (B,T,H,hd)."""
+    hd = cfg.resolved_head_dim
+    q = proj(x, p["wq"])
+    B, Sq = x.shape[:2]
+    T = enc_kv[0].shape[1]
+    qpos = torch.zeros((B, Sq), dtype=torch.int32, device=x.device)
+    kpos = torch.zeros((B, T), dtype=torch.int32, device=x.device)
+    ctx = attend(q, enc_kv[0], enc_kv[1], qpos, kpos, window=GLOBAL_WINDOW,
+                 scale=hd ** -0.5, cap=None, causal=False,
+                 impl=cfg.attn_impl, q_chunk=cfg.q_chunk)
+    return proj_heads(ctx, p["wo"])
+
+
+def encode_cross_kv(p: dict, enc_out: Tensor) -> tuple[Tensor, Tensor]:
+    return proj(enc_out, p["wk"]), proj(enc_out, p["wv"])
+
+
+def init_gqa_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                   device=None) -> dict:
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (batch, max_seq, kv, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                   device=None) -> dict:
+    mla = cfg.mla
+    return {"ckv": torch.zeros((batch, max_seq, mla.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_seq, mla.qk_rope_head_dim),
+                                 dtype=dtype, device=device)}

@@ -1751,3 +1751,76 @@ def test_two_ranks_fsvd_sharded_on_one_card(cuda, tmp_path):
         np.testing.assert_array_equal(got["sharded"], ranks[0]["sharded"])
         assert np.max(np.abs(got["sharded"] - got["single"])) / smax < 1e-5
         assert list(got["launches"]) == [48, 47]
+
+
+# --- the LM stack (phase 13 of chip_smoke.py) ---------------------------------
+
+LM_ARCHS = ["deepseek-v2-236b", "gemma-7b", "gemma2-9b", "llava-next-34b",
+            "mamba2-780m", "olmoe-1b-7b", "stablelm-1.6b", "starcoder2-15b",
+            "whisper-base", "zamba2-1.2b"]
+
+
+def _lm_setup(arch, device, seed=0):
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import LMBatchSpec, lm_batch
+    from repro_torch.models import model as TM
+    cfg = get_arch(arch).reduced()
+    model, _ = TM.init_model(cfg, torch.Generator(device=device).manual_seed(
+        seed))
+    img = cfg.vlm.num_image_tokens if cfg.vlm is not None else 0
+    frames = 32 if cfg.encdec is not None else 0
+    batch = lm_batch(LMBatchSpec(2, 32, cfg.vocab_size, img, frames,
+                                 cfg.d_model), seed, 0, device=device)
+    return cfg, model, batch
+
+
+def _lm_state(model, opt):
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.steps import TrainState
+    return TrainState(model, make_optimizer(opt)[0](
+        dict(model.named_parameters())))
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_on_the_card(cuda, arch):
+    """Each family's reduced train step on the card: finite, not skipped,
+    the parameters moved, and its loss within 1e-5 relative of the port's
+    CPU loss on the same parameters and batch."""
+    import copy
+    from repro_torch.configs import OptimConfig
+    from repro_torch.models import model as TM
+    from repro_torch.runtime.steps import build_train_step
+    cfg, model, batch = _lm_setup(arch, cuda)
+    cpu = copy.deepcopy(model).to("cpu")
+    with torch.no_grad():
+        cpu_loss = float(TM.loss_fn(cpu, {k: v.cpu() for k, v in
+                                          batch.items()}, cfg)[0])
+    before = [p.detach().clone() for p in model.parameters()]
+    opt = OptimConfig(lr=1e-3, warmup_steps=0)
+    _, metrics = build_train_step(cfg, opt)(_lm_state(model, opt), batch)
+    loss = float(metrics["loss"])
+    assert int(metrics["skipped"]) == 0
+    assert np.isfinite(loss) and np.isfinite(float(metrics["grad_norm"]))
+    assert abs(loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    assert any(not torch.equal(p.detach(), b)
+               for p, b in zip(model.parameters(), before))
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "olmoe-1b-7b"])
+def test_lm_train_step_never_syncs(cuda, arch):
+    """A train step (forward, backward, clip, AdamW, the NaN guard's
+    select) under torch.cuda.set_sync_debug_mode("error"): nothing reads a
+    value back to the host."""
+    from repro_torch.configs import OptimConfig
+    from repro_torch.runtime.steps import build_train_step
+    cfg, model, batch = _lm_setup(arch, cuda)
+    opt = OptimConfig(lr=1e-3, warmup_steps=0)
+    step = build_train_step(cfg, opt)
+    state, _ = step(_lm_state(model, opt), batch)     # warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(metrics["skipped"]) == 0

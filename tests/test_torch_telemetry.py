@@ -6,11 +6,12 @@ port, on the reference's own gradients, held to that test's assertions
 (σ within rtol 1e-3 of the dense SVD, the rank, the energy bounds); then
 the port's σ / rank / energy against the reference's on the same inputs:
 σ within rtol 1e-3 of the reference's (its own bound against the dense
-SVD), the same rank, energy within 1e-3.  The reference's model-gradient
-case needs the training stack, which the port has not yet
-(``ROADMAP.md`` Queue 1 item 7): ``gradient_rank_summary`` is held to the
-reference's names, order and spectra on a nested dict of gradients
-instead.  The ``LatencyStats`` lock regression runs as the reference's.
+SVD), the same rank, energy within 1e-3.  ``gradient_rank_summary`` is
+held to the reference's names, order and spectra on a nested dict of
+gradients, and the reference's model-gradient case runs on the port's
+model gradients (the reduced stablelm) and on the same gradients in the
+reference's layout (``bridge.reference_tree``) beside the reference's own.
+The ``LatencyStats`` lock regression runs as the reference's.
 The config dataclasses have the reference's fields, defaults and
 ``to_dict``.
 """
@@ -189,6 +190,44 @@ def test_gradient_rank_summary_takes_named_parameters():
         # rank-5 gradients (a batch of 5): exact in 16 GK steps
         _parity(got[name], ref[name])
         assert int(got[name]["rank"]) == 4
+
+
+def test_summary_on_model_grads():
+    """tests/test_telemetry.py::test_summary_on_model_grads on the port's
+    model; then on the reference's params and batch (carried over), the
+    port's summary of its stacked gradients beside the reference's."""
+    import torch_lm_ref as L
+    from repro_torch import bridge
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as TM
+    cfg, model, _ = L.port_model("stablelm-1.6b")
+    batch = L.port_batch(cfg)
+    loss, _ = TM.loss_fn(model, batch, cfg)
+    named = dict(model.named_parameters())
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    summary = T.gradient_rank_summary(
+        grads, tcb.FsvdConfig(compression_min_dim=64), k=8, max_leaves=4)
+    assert len(summary) >= 1
+    for name, s in summary.items():
+        assert s["sigma"].shape == (8,)
+        assert bool(torch.isfinite(s["sigma"]).all())
+        assert 0 <= int(s["rank"]) <= 8
+    # the same leaves, names and spectra as the reference on its gradients
+    ref = L.reference("stablelm-1.6b")
+    model = bridge.model_params(get_arch("stablelm-1.6b").reduced(),
+                                ref["params"], device="cpu")
+    loss, _ = TM.loss_fn(model, L.to_torch(ref["batch"]), cfg)
+    named = dict(model.named_parameters())
+    stacked = bridge.reference_tree(dict(zip(named, torch.autograd.grad(
+        loss, list(named.values())))))
+    got = T.gradient_rank_summary(
+        stacked, tcb.FsvdConfig(compression_min_dim=64), k=8, max_leaves=4)
+    want = rtel.gradient_rank_summary(
+        jax.tree.map(jnp.asarray, ref["grads"]),
+        rcb.FsvdConfig(compression_min_dim=64), k=8, max_leaves=4)
+    assert list(got) == list(want) and len(got) == 4
+    for name in got:
+        _parity(got[name], want[name])
 
 
 # --- LatencyStats ---------------------------------------------------------------
