@@ -271,11 +271,41 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      4096 and 16 decode steps on the padded cache, the last within 2e-2
      of a prefill of all 4112 tokens, prefill ms and decode ms a token;
      (c) olmoe-1b-7b at its published width (64 experts, top-8, d_ff_expert
-     1024, vocabulary 50,304) cut to 2 of 16 layers: one train step at 2 x
-     4096, the share of routed slots capacity 1.25 drops, and prefill ->
+     1024, vocabulary 50,304) cut to 2 of 16 layers: two train steps at 2 x
+     4096 (phase 14 (b)'s reference), the share of routed slots capacity 1.25 drops, and prefill ->
      decode at capacity 100 (2 x 512).  The phase launches none of the
      twelve kernels (checked with the launch counters) and prints an
      {"lm": {...}} JSON line with its figures and cuts.
+
+ 14. training (after phase 13): (a) the fault-tolerant Trainer on
+     stablelm-1.6b at its published width cut to 2 layers (bf16, 2 x
+     4096): six steps asked, a checkpoint every 3 (f32 on disk, ~6.2 GB),
+     a real os.kill(SIGTERM) after step 4 that drains it at step 5 with a
+     final checkpoint, then a Trainer built from another seed resumes:
+     the step, every parameter and moment leaf and the eval loss of the
+     next batch bit for bit; the Trainer's solver Session (a rank-20
+     8192 x 4096 f32 operand, fsvd, backend "pallas", solved before the
+     run) resumes too, and its update on a 1e-3 drift is a refine that
+     launches rows 1-4 (counted from 0); ms a step, the checkpoint's
+     bytes, save and restore seconds; (b) two gloo ranks on cuda:0, as
+     phase 12 sets them up: olmoe-1b-7b's sharded step (2 layers, 2 x
+     4096) on ("data", "model") (1, 2), expert-parallel, and (2, 1), FSDP
+     and the batch split, two steps each: the first loss within 1e-2 of
+     phase 13 (c)'s single-card step on the same seed and batch; on
+     (1, 2) also the first gradient norm and the second loss within 1e-3
+     of phase 13 (c)'s; (2, 1) takes capacity and the aux loss by batch
+     shard, so it runs again with no slot dropped and no aux loss, and
+     then its first loss, first gradient norm and second loss are within
+     1e-3 of the same config's two steps on one card; every loss finite
+     and the same bits on both ranks, each rank's peak and
+     the collectives a step with their host seconds; (c) on the same
+     ranks the compressed step over ("pod",) (stablelm-1.6b, 2 layers, 1
+     x 4096 a rank, FsvdConfig defaults): two finite steps, compressed /
+     dense bytes, and the top 8 sigma of one 2048 x 5632 MLP gradient's
+     compressed mean within 1e-2 sigma_max of the exact mean's
+     (svdvals); (d) after (a), so that (a) has the card to itself, the
+     CLIs side by side: launch.train --reduced (20 steps, the loss
+     lowers), launch.serve --reduced and launch.quickstart exit 0.  It prints a {"train": {...}} JSON line with its cuts.
 
 The line before the last is the card as nvidia-smi reports it; the last is
 {"ok": true, "device": {...}}.  A kernels JSON line precedes them.
@@ -4995,7 +5025,8 @@ def lm_moe(seed):
     moe_mod.dispatch = spy
     try:
         steps, _ = lm_train(model, cfg, OptimConfig(),
-                            [lm_batch(spec, seed, 0, device=DEV)])
+                            [lm_batch(spec, seed, t, device=DEV)
+                             for t in range(SHARD_STEPS)])
     finally:
         moe_mod.dispatch = real
     # the forward pass's calls (the backward pass recomputes each layer)
@@ -5008,6 +5039,7 @@ def lm_moe(seed):
                d_ff_expert=cfg.moe.d_ff_expert, vocab=cfg.vocab_size,
                params=sum(p.numel() for p in model.parameters()),
                batch=LM_BATCH, seq=spec.seq_len, step=steps[0],
+               next_step=steps[1],
                capacity=moe_mod.capacity(cfg.moe, LM_BATCH * spec.seq_len),
                dropped_share=1 - kept / routed, peak_gib=peak / GIB,
                consistency_seq=MOE_CHECK_SEQ, **serve)
@@ -5050,6 +5082,526 @@ def phase_lm(seed):
     torch.cuda.empty_cache()
     print(f"phase 13: {rec['wall_s']:.1f} s; none of the twelve kernels "
           "launched", flush=True)
+    return rec
+
+
+# --- phase 14: the Trainer, the sharded and compressed steps, the CLIs ------
+
+TRAIN_LAYERS = 2              # of stablelm's 24 (and of olmoe's 16)
+TRAIN_BATCH = 2               # x 4096 tokens, SHAPES["train_4k"] cut
+TRAIN_STEPS = 6               # asked of the Trainer; SIGTERM drains it at 5
+TRAIN_EVERY = 3               # checkpoint period
+TRAIN_TERM_AFTER = 4          # os.kill(SIGTERM) once this step is done
+TRAIN_KEEP = 2                # checkpoints kept (each ~6 GB at this width)
+TSESSION_SHAPE = (8192, 4096)  # the Trainer's solver Session operand
+TSESSION_RANK = 20
+TSESSION_ITERS = 64
+TSESSION_DRIFT = 1e-3
+# (tag, ("data", "model") shape, without drops or aux loss): (2, 1) takes
+# capacity and the aux loss by batch shard, so its gradients differ from
+# the global batch's (12 % in the norm at this width); without drops or
+# aux they are the sum of the shards' (see _no_drops)
+SHARD_RUNS = (("1x2", (1, 2), False), ("2x1", (2, 1), False),
+              ("2x1 no drops", (2, 1), True))
+SHARD_STEPS = 2               # (phase 13 (c) takes as many on one card)
+SHARD_LOSS_RTOL = 1e-2        # the first loss vs phase 13 (c), every run
+# the first loss, the first gradient norm and the second loss against the
+# same config's single-card steps, where the sums are the same: bf16 adds
+# in another order
+SHARD_RTOL = {"1x2": 1e-3, "2x1 no drops": 1e-3}
+COMP_STEPS = 2
+COMP_SIGMA_TOL = 1e-2         # compressed mean's top r sigma, x sigma_max
+COMP_LEAF = (2048, 5632)      # one MLP gradient (w_gate / w_up)
+CLI_TIMEOUT_S = 300
+
+
+def _no_drops(cfg):
+    """``cfg`` with a capacity that drops no routed slot on any batch
+    shard (C = T) and no aux loss."""
+    import dataclasses
+    moe = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k,
+        aux_loss_weight=0.0))
+
+
+def shard_reference(seed):
+    """The single-card steps of (b)'s run without drops: olmoe-1b-7b cut
+    as phase 13 (c), :func:`_no_drops`, the same seed and batches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import OptimConfig, get_arch, get_shape
+    from repro_torch.data.synthetic import lm_batch, spec_for
+    from repro_torch.models import model as M
+    cfg = _no_drops(dataclasses.replace(get_arch(MOE_ARCH),
+                                        num_layers=MOE_LAYERS))
+    model, _ = M.init_model(cfg, torch.Generator(device=DEV).manual_seed(
+        seed + 14))
+    spec = spec_for(cfg, get_shape("train_4k"), batch_override=LM_BATCH)
+    steps, _ = lm_train(model, cfg, OptimConfig(),
+                        [lm_batch(spec, seed, t, device=DEV)
+                         for t in range(SHARD_STEPS)])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step=steps[0], next_step=steps[1])
+
+
+def _tree_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def train_trainer(seed, out_dir):
+    """(a) the Trainer on stablelm-1.6b at its published width, 2 layers:
+    checkpoints, a real SIGTERM drain, a resume that restores every leaf
+    and the solver Session bit for bit."""
+    import dataclasses
+    import signal
+
+    import torch
+    from repro_torch.api import SVDSpec, session
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.checkpoint.store import _named_leaves
+    from repro_torch.configs import (CheckpointConfig, OptimConfig,
+                                     RunConfig, RuntimeConfig, ShapeConfig,
+                                     get_arch, get_shape)
+    from repro_torch.data.synthetic import lm_batch, spec_for
+    from repro_torch.runtime import Trainer
+    from repro_torch.runtime.steps import (build_eval_step, build_train_step,
+                                           init_state)
+    from repro_torch.runtime.trainer import saved_state
+    cfg = dataclasses.replace(get_arch(LM_ARCH), num_layers=TRAIN_LAYERS)
+    opt = OptimConfig()
+    spec = spec_for(cfg, get_shape("train_4k"), batch_override=TRAIN_BATCH)
+    ckpt = os.path.join(out_dir, "ckpt")
+    run = RunConfig(
+        model=cfg, shape=ShapeConfig("phase14", "train", spec.seq_len,
+                                     TRAIN_BATCH), optim=opt,
+        checkpoint=CheckpointConfig(directory=ckpt, every_steps=TRAIN_EVERY,
+                                    keep=TRAIN_KEEP, async_write=False),
+        runtime=RuntimeConfig(log_every=0))
+
+    def batch_fn(s):
+        return lm_batch(spec, seed, s, device=DEV)
+
+    def gen(k):
+        return torch.Generator(device=DEV).manual_seed(seed + k)
+    g = gen(60)
+    m, n = TSESSION_SHAPE
+    A = (torch.randn((m, TSESSION_RANK), generator=g, device=DEV)
+         @ torch.randn((TSESSION_RANK, n), generator=g, device=DEV))
+    sspec = SVDSpec(method="fsvd", rank=TSESSION_RANK,
+                    max_iters=TSESSION_ITERS, backend="pallas")
+    reset_kernel_launches()
+    sess = session(A, sspec, generator=gen(61))
+    sess.solve()
+    solve_launches = {k: kernel_launches()[k] for k in GK_STEP}
+    check(all(solve_launches[k] > 0 for k in GK_STEP),
+          f"phase 14 (a): the Session's solve launched {solve_launches}")
+
+    torch.cuda.reset_peak_memory_stats()
+    step = build_train_step(cfg, opt)
+    prev = signal.getsignal(signal.SIGTERM)
+    step_s, save_s = [], []
+    try:
+        tr = Trainer(run, step, batch_fn, init_state(cfg, opt, gen(62)),
+                     log_fn=lambda s: None, session=sess)
+        real_save, real_step = tr._save, tr.train_step
+
+        def timed_save():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_save()
+            save_s.append(time.perf_counter() - t0)
+
+        def step_then_term(st, b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_step(st, b)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if tr.step == TRAIN_TERM_AFTER:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+        tr._save, tr.train_step = timed_save, step_then_term
+        hist = tr.run(TRAIN_STEPS)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(x) for x in losses) and not any(
+        h.get("skipped", 0) for h in hist), f"phase 14 (a): losses {losses}")
+    check(tr._drain and tr.step == TRAIN_TERM_AFTER + 1,
+          f"phase 14 (a): drained {tr._drain} at step {tr.step}")
+    check(latest_step(ckpt) == tr.step, f"phase 14 (a): latest checkpoint "
+          f"{latest_step(ckpt)}, trainer at {tr.step}")
+    ckpt_bytes = _tree_bytes(os.path.join(ckpt, f"step_{tr.step}"))
+    eval_step = build_eval_step(cfg)
+    next_batch = batch_fn(tr.step)
+    loss_a = eval_step(tr.state.model, next_batch)["loss"]
+
+    sess2 = session(A, sspec, generator=gen(63))
+    tr2 = Trainer(run, step, batch_fn, init_state(cfg, opt, gen(64)),
+                  log_fn=lambda s: None, install_sigterm=False,
+                  session=sess2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed = tr2.maybe_resume()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(resumed and tr2.step == tr.step, f"phase 14 (a): resumed "
+          f"{resumed} at step {tr2.step}, saved {tr.step}")
+    a = dict(_named_leaves(saved_state(tr.state)))
+    b = dict(_named_leaves(saved_state(tr2.state)))
+    check(sorted(a) == sorted(b), "phase 14 (a): restored leaf names differ")
+    unequal = [k for k in a if a[k].dtype != b[k].dtype
+               or b[k].device.type != DEV or not torch.equal(a[k], b[k])]
+    check(not unequal, f"phase 14 (a): restored leaves differ: {unequal[:5]}")
+    loss_b = eval_step(tr2.state.model, next_batch)["loss"]
+    check(torch.equal(loss_a, loss_b), f"phase 14 (a): eval loss "
+          f"{float(loss_a)!r} vs restored {float(loss_b)!r}")
+    check(sess2.fact is not None and sess2.solves == sess.solves
+          and torch.equal(sess2.fact.s, sess.fact.s),
+          "phase 14 (a): the Session did not resume its factorization")
+    drift = A + TSESSION_DRIFT * torch.randn(A.shape, generator=gen(65),
+                                             device=DEV)
+    reset_kernel_launches()
+    sess2.update(drift)
+    torch.cuda.synchronize()
+    update_launches = {k: kernel_launches()[k] for k in GK_STEP}
+    kind = sess2.history[-1]["kind"]
+    check(kind == "refine", f"phase 14 (a): the resumed update was {kind}")
+    check(all(update_launches[k] > 0 for k in GK_STEP),
+          f"phase 14 (a): the refine launched {update_launches}")
+    n_params = sum(p.numel() for p in tr.state.model.parameters())
+    timed = step_s[1:]
+    rec = dict(arch=LM_ARCH, layers=TRAIN_LAYERS, params=n_params,
+               dtype=cfg.dtype, batch=TRAIN_BATCH, seq=spec.seq_len,
+               losses=losses, step_ms=1e3 * sum(timed) / len(timed),
+               step_ms_all=[1e3 * s for s in step_s], drained_at=tr.step,
+               checkpoints=len(save_s), save_s=save_s, restore_s=restore_s,
+               checkpoint_bytes=ckpt_bytes, eval_loss=float(loss_a),
+               peak_gib=peak / GIB, session=dict(
+                   shape=[m, n], rank=TSESSION_RANK, solves=sess.solves,
+                   solve_launches=solve_launches,
+                   update_launches=update_launches, update_kind=kind))
+    print(f"phase 14 (a) Trainer {LM_ARCH} ({TRAIN_LAYERS} of 24 layers, "
+          f"{n_params:,} params, {cfg.dtype}, {TRAIN_BATCH} x "
+          f"{spec.seq_len}): losses {[round(x, 4) for x in losses]}, "
+          f"{rec['step_ms']:.1f} ms a step (steps 2-{len(step_s)}); SIGTERM "
+          f"after step {TRAIN_TERM_AFTER} drained at {tr.step}; "
+          f"{len(save_s)} checkpoints of {ckpt_bytes / 1e9:.2f} GB in "
+          f"{[round(s, 2) for s in save_s]} s, restore {restore_s:.2f} s, "
+          f"every leaf and the eval loss bit for bit; peak "
+          f"{rec['peak_gib']:.2f} GiB; Session {m} x {n} rank "
+          f"{TSESSION_RANK}: solve launches {solve_launches}, resumed "
+          f"update {kind} launches {update_launches}", flush=True)
+    del tr, tr2, sess, sess2, A, drift
+    return rec
+
+
+def _mlp_leaf(named):
+    """The name of layer 0's first (2048, 5632) MLP weight."""
+    return next(k for k, p in named.items() if k.startswith("layers.0.")
+                and tuple(p.shape) == COMP_LEAF)
+
+
+def train_rank(rank, world, dev, seed, out_dir):
+    """(b) and (c) on one rank of a two-rank gloo world on cuda:0; writes
+    rank<r>.json."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import (FsvdConfig, OptimConfig, get_arch,
+                                     get_shape)
+    from repro_torch.core.gk import start_vector
+    from repro_torch.data.synthetic import lm_batch, spec_for
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed.matvec import (collective_stats, psum,
+                                                reset_collectives)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    global DEV
+    DEV = dev
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        reset_collectives()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0, collective_stats()
+
+    rec = dict(rank=rank, sharded={})
+    published = dataclasses.replace(get_arch(MOE_ARCH),
+                                    num_layers=MOE_LAYERS)
+    spec = spec_for(published, get_shape("train_4k"),
+                    batch_override=LM_BATCH)
+    opt = OptimConfig()
+    for tag, shape, no_drops in SHARD_RUNS:
+        cfg = _no_drops(published) if no_drops else published
+        mesh = make_mesh(shape, ("data", "model"), device_type=dev)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        state = S.init_sharded_state(cfg, opt, torch.Generator(
+            device=dev).manual_seed(seed + 14), mesh)
+        step = S.build_train_step(cfg, opt, mesh)
+        steps = []
+        for t in range(SHARD_STEPS):
+            batch = lm_batch(spec, seed, t, device=dev)
+            (state, met), wall, coll = timed(lambda: step(state, batch))
+            steps.append(dict(loss=float(met["loss"]),
+                              grad_norm=float(met["grad_norm"]),
+                              skipped=int(met["skipped"]), wall_s=wall,
+                              collectives=coll["calls"],
+                              collective_s=coll["seconds"],
+                              floats_sent=coll["floats_sent"]))
+        blocks = {k: v.device.type for k, v in state.params.items()}
+        rec["sharded"][tag] = dict(
+            steps=steps, devices=sorted(set(blocks.values())),
+            peak_gib=(torch.cuda.max_memory_allocated() / GIB
+                      if dev == "cuda" else 0.0),
+            param_bytes=sum(v.numel() * v.element_size()
+                            for v in state.params.values()))
+        del state, step, met
+        gc.collect()
+
+    # (c) the compressed step over ("pod",)
+    cfg = dataclasses.replace(get_arch(LM_ARCH), num_layers=TRAIN_LAYERS)
+    spec = spec_for(cfg, get_shape("train_4k"), batch_override=world)
+    mesh = make_mesh((world,), ("pod",), device_type=dev)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    fcfg = FsvdConfig()
+    state = S.init_state(cfg, opt, torch.Generator(device=dev).manual_seed(
+        seed + 13))
+    # one MLP gradient of this rank's shard, before any step
+    named = dict(state.model.named_parameters())
+    leaf = _mlp_leaf(named)
+    local = S.shard_batch(lm_batch(spec, seed, 0, device=dev), mesh)
+    loss, _ = M.loss_fn(state.model, local, cfg)
+    g = torch.autograd.grad(loss, [named[leaf]])[0].float()
+    r = fcfg.compression_rank
+    k = min(max(2 * r, r + 2), fcfg.max_iters)
+    q1 = start_vector(torch.Generator(device=dev).manual_seed(seed + 66),
+                      g.shape[0], torch.float32, g.device)
+    (U, s, V), comp_wall, comp_coll = timed(
+        lambda: C.compress_mean(g, "pod", r, k, mesh=mesh, q1=q1))
+    exact = torch.linalg.svdvals(psum(g, mesh, "pod") / world)
+    sigma_err = float((s - exact[:r]).abs().max() / exact[0])
+    del U, V, g, loss
+    step = S.build_compressed_train_step(cfg, opt, mesh, fcfg)
+    steps = []
+    for t in range(COMP_STEPS):
+        batch = lm_batch(spec, seed, t, device=dev)
+        (state, met), wall, coll = timed(lambda: step(state, batch))
+        steps.append(dict(loss=float(met["loss"]),
+                          skipped=int(met["skipped"]),
+                          dense_bytes=float(met["comm_dense_bytes"]),
+                          compressed_bytes=float(
+                              met["comm_compressed_bytes"]),
+                          wall_s=wall, collectives=coll["calls"],
+                          collective_s=coll["seconds"]))
+    rec["compressed"] = dict(
+        steps=steps, leaf=leaf, shape=list(COMP_LEAF), r=r, k=k,
+        sigma=s.tolist(), sigma_exact=exact[:r].tolist(),
+        sigma_err=sigma_err, compress_wall_s=comp_wall,
+        compress_collectives=comp_coll["calls"],
+        device=str(next(state.model.parameters()).device),
+        peak_gib=(torch.cuda.max_memory_allocated() / GIB
+                  if dev == "cuda" else 0.0))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+
+
+def start_clis(out_dir):
+    """(d) the three CLIs on the card, started side by side; returns the
+    processes and their start time for :func:`finish_clis`."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmds = {
+        "train": ["-m", "repro_torch.launch.train", "--arch", LM_ARCH,
+                  "--reduced", "--steps", "20", "--ckpt-dir",
+                  os.path.join(out_dir, "cli_ckpt")],
+        "serve": ["-m", "repro_torch.launch.serve", "--arch", LM_ARCH,
+                  "--reduced"],
+        "quickstart": ["-m", "repro_torch.launch.quickstart"]}
+    if DEV != "cuda":
+        for argv in cmds.values():
+            argv += ["--device", DEV]
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable] + argv, cwd=ROOT,
+                                    env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, argv in cmds.items()}
+    return procs, t0
+
+
+def finish_clis(procs, t0):
+    """Wait for the CLIs of :func:`start_clis` and check them: each exits
+    0, and the trainer lowers its loss."""
+    out = {}
+    for name, p in procs.items():
+        try:
+            so, se = p.communicate(timeout=CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            raise SmokeFailure(f"phase 14 (d): {name} timed out")
+        check(p.returncode == 0, f"phase 14 (d): {name} exited "
+              f"{p.returncode}: {se[-2000:]}")
+        out[name] = dict(rc=p.returncode, last=so.strip().splitlines()[-1:])
+    line = (out["train"]["last"] or [""])[0]
+    got = re.search(r"loss ([0-9.]+) -> ([0-9.]+)", line)
+    check(got is not None and float(got.group(2)) < float(got.group(1)),
+          f"phase 14 (d): train did not lower its loss: {line}")
+    out["train"]["loss"] = [float(got.group(1)), float(got.group(2))]
+    out["collected_after_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_train(seed, single):
+    """Phase 14: the Trainer, the sharded and compressed steps and the
+    CLIs; see the module docstring.  ``single`` is phase 13 (c)'s record
+    (its two steps on one card).  Returns the {"train": ...} record."""
+    import shutil
+
+    import torch
+    from repro_torch.launch.mesh import run_world
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(ROOT, "build", "phase14")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    clis = None
+    try:
+        rec = dict(trainer=train_trainer(seed, out_dir))
+        # (d) after (a), whose times are the card's alone
+        clis = start_clis(out_dir)
+        rec["cli"] = finish_clis(*clis)
+        clis = None
+        print(f"phase 14 (d) CLIs after (a): train loss "
+              f"{rec['cli']['train']['loss']}, serve and quickstart exit 0, "
+              f"all done {rec['cli']['collected_after_s']:.1f} s after their "
+              f"start", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        refs = {"1x2": single, "2x1": single,
+                "2x1 no drops": shard_reference(seed)}
+        t1 = time.perf_counter()
+        run_world(train_rank, DIST_WORLD, os.path.join(out_dir, "rendezvous"),
+                  (DEV, seed, out_dir), timeout_s=DIST_TIMEOUT_S)
+        world_s = time.perf_counter() - t1
+        recs = []
+        for r in range(DIST_WORLD):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+                recs.append(json.load(fh))
+        for tag in recs[0]["sharded"]:
+            per = [x["sharded"][tag] for x in recs]
+            losses = [[s["loss"] for s in p["steps"]] for p in per]
+            check(all(ls == losses[0] for ls in losses),
+                  f"phase 14 (b) {tag}: losses differ between ranks {losses}")
+            check(all(math.isfinite(x) for x in losses[0]) and not any(
+                s["skipped"] for p in per for s in p["steps"]),
+                f"phase 14 (b) {tag}: {per[0]['steps']}")
+            check(all(p["devices"] == [DEV] for p in per),
+                  f"phase 14 (b) {tag}: blocks on {per[0]['devices']}")
+            norms = [[s["grad_norm"] for s in p["steps"]] for p in per]
+            check(all(ns == norms[0] for ns in norms),
+                  f"phase 14 (b) {tag}: grad norms differ between ranks "
+                  f"{norms}")
+            got = dict(loss=losses[0][0], grad_norm=norms[0][0],
+                       loss2=losses[0][1])
+            want = dict(loss=refs[tag]["step"]["loss"],
+                        grad_norm=refs[tag]["step"]["grad_norm"],
+                        loss2=refs[tag]["next_step"]["loss"])
+            rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+            first = abs(losses[0][0] - single["step"]["loss"]) / abs(
+                single["step"]["loss"])
+            check(first < SHARD_LOSS_RTOL, f"phase 14 (b) {tag}: first loss "
+                  f"{losses[0][0]} vs phase 13 (c) {single['step']['loss']} "
+                  f"({first:.2e})")
+            if tag in SHARD_RTOL:
+                check(max(rel.values()) < SHARD_RTOL[tag],
+                      f"phase 14 (b) {tag}: {got} vs one card {want} "
+                      f"(relative {rel}, bound {SHARD_RTOL[tag]})")
+            for r, p in enumerate(per):
+                p["rel_vs_single"] = rel
+                p["first_loss_rel_vs_phase13"] = first
+                s = p["steps"][-1]
+                print(f"phase 14 (b) {MOE_ARCH} ({MOE_LAYERS} layers) on "
+                      f"('data', 'model') {tag}, rank {r}: losses "
+                      f"{[round(x, 5) for x in losses[r]]}, first grad "
+                      f"norm {norms[r][0]:.5f} (one card "
+                      f"{want['loss']:.5f}, {want['grad_norm']:.5f}, "
+                      f"{want['loss2']:.5f}; relative "
+                      + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+                      + (f", bound {SHARD_RTOL[tag]}" if tag in SHARD_RTOL
+                         else ", not bounded: capacity and aux by shard")
+                      + f"); step walls "
+                      f"{[round(q['wall_s'], 3) for q in p['steps']]} s, "
+                      f"collectives a step {s['collectives']} "
+                      f"({s['collective_s']:.3f} s, {s['floats_sent']} "
+                      f"words sent); blocks {p['param_bytes'] / 1e9:.2f} GB; "
+                      f"peak {p['peak_gib']:.2f} GiB", flush=True)
+        comp = [x["compressed"] for x in recs]
+        closs = [[s["loss"] for s in c["steps"]] for c in comp]
+        check(all(ls == closs[0] for ls in closs) and all(
+            math.isfinite(x) for x in closs[0]) and not any(
+            s["skipped"] for c in comp for s in c["steps"]),
+            f"phase 14 (c): losses {closs}")
+        check(all(c["device"].startswith(DEV) for c in comp),
+              f"phase 14 (c): state on {comp[0]['device']}")
+        for r, c in enumerate(comp):
+            check(c["sigma_err"] < COMP_SIGMA_TOL, f"phase 14 (c) rank {r}: "
+                  f"compressed sigma error {c['sigma_err']:.3e}")
+            s = c["steps"][-1]
+            c["ratio"] = s["compressed_bytes"] / s["dense_bytes"]
+            print(f"phase 14 (c) compressed step {LM_ARCH} "
+                  f"({TRAIN_LAYERS} layers, 1 x 4096 a rank) on ('pod',) "
+                  f"{DIST_WORLD}, rank {r}: losses "
+                  f"{[round(x, 5) for x in closs[r]]}, step walls "
+                  f"{[round(q['wall_s'], 3) for q in c['steps']]} s, "
+                  f"collectives a step {s['collectives']} "
+                  f"({s['collective_s']:.3f} s); bytes "
+                  f"{s['compressed_bytes']:.4g} / {s['dense_bytes']:.4g} = "
+                  f"{100 * c['ratio']:.3f} %; {c['leaf']} rank {c['r']} k "
+                  f"{c['k']}: sigma error {c['sigma_err']:.3e} of sigma_max "
+                  f"({c['compress_collectives']} collectives, "
+                  f"{c['compress_wall_s']:.3f} s); peak "
+                  f"{c['peak_gib']:.2f} GiB", flush=True)
+        rec.update(world_s=world_s, ranks=recs)
+    finally:
+        if clis is not None:
+            for p in clis[0].values():
+                p.kill()
+                p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    rec["cuts"] = [
+        f"{LM_ARCH}: num_layers 24 -> {TRAIN_LAYERS}; global batch 256 -> "
+        f"{TRAIN_BATCH} (SHAPES['train_4k'], seq 4096); (c) 1 x 4096 a rank",
+        f"{MOE_ARCH}: num_layers 16 -> {MOE_LAYERS}; global batch 256 -> "
+        f"{LM_BATCH}, as phase 13 (c); its run '2x1 no drops' also "
+        "capacity_factor 1.25 -> 8 and aux_loss_weight 0.01 -> 0",
+        f"two gloo ranks share one card (the mesh has {DIST_WORLD} ranks, "
+        "not 256)", "random weights drawn on the card from --seed"]
+    rec["wall_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 14: {rec['wall_s']:.1f} s (the world {world_s:.1f} s)",
+          flush=True)
     return rec
 
 
@@ -5158,7 +5710,11 @@ def main(argv=None) -> int:
                         args.sn, COMPRESS_SHAPE), walls3)
         print(json.dumps({"distributed": distributed}, default=str))
         # phase 13: the LM stack, after phase 12 has freed its memory
-        print(json.dumps({"lm": phase_lm(args.seed)}, default=str))
+        lm = phase_lm(args.seed)
+        print(json.dumps({"lm": lm}, default=str))
+        # phase 14: the Trainer, the sharded steps and the CLIs
+        print(json.dumps({"train": phase_train(args.seed, lm["olmoe"])},
+                         default=str))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -208,7 +208,9 @@ def _split_layers(tree: Mapping, device) -> dict:
     def conv(node):
         if isinstance(node, Mapping):
             return {k: conv(v) for k, v in node.items()}
-        return to_tensor(np.asarray(node), device=device)
+        if not isinstance(node, torch.Tensor):
+            node = np.asarray(node)
+        return to_tensor(node, device=device)
 
     def layer(node, i):
         if isinstance(node, Mapping):
@@ -243,9 +245,10 @@ def _names(tree: Mapping, prefix: str = "") -> dict:
 
 
 def named_tensors(ref_tree: Mapping, *, device=None) -> dict:
-    """A pytree of numpy arrays in the reference's parameter layout (params,
-    gradients, moments) as the port's name -> tensor dict, named as the
-    model's ``named_parameters()`` (``layers.0.attn.wq``)."""
+    """A pytree of numpy arrays (or tensors) in the reference's parameter
+    layout (params, gradients, moments) as the port's name -> tensor dict,
+    named as the model's ``named_parameters()`` (``layers.0.attn.wq``).
+    Tensors keep their device unless ``device`` is given."""
     return _names(_split_layers(ref_tree, device))
 
 

@@ -38,8 +38,9 @@ bfloat16 bit for bit.  Neither path needs ``ml_dtypes``.
 
 Placement.  ``load_checkpoint`` puts every leaf on ``device``: by default
 the CUDA card (:func:`repro_torch._device.resolve_device`, which raises
-without one); the CPU only when asked.  This takes the place of the
-reference's ``sharding_fn``: the port has no mesh yet.
+without one); the CPU only when asked.  The reference's ``sharding_fn``
+has no counterpart here: on a mesh, ``runtime.Trainer`` restores the
+whole state and its ``state_sharding_fn`` keeps each rank's blocks.
 
 Fault injection: the ``checkpoint.write`` failpoint
 (``repro_torch.runtime.faults``) fires at the start of the protocol and
@@ -141,22 +142,32 @@ def _host_copy(x):
     return np.array(x, copy=True)
 
 
-def _leaf_bytes(arr: np.ndarray) -> bytes:
-    """Serialize one leaf to .npy bytes in memory — the CRC is computed
-    over exactly the bytes that hit disk, header included."""
+def _leaf_parts(arr: np.ndarray) -> tuple[bytes, memoryview]:
+    """One C-contiguous leaf's .npy bytes as ``np.save`` writes them, in
+    two parts: the header, and the array's own buffer (not copied).  The
+    CRC is computed over exactly the bytes that hit disk, header
+    included."""
     buf = io.BytesIO()
-    np.save(buf, arr)
-    return buf.getvalue()
+    np.lib.format.write_array_header_1_0(
+        buf, np.lib.format.header_data_from_array_1_0(arr))
+    return buf.getvalue(), memoryview(arr).cast("B")
 
 
-def _leaf_tensor(raw: bytes, dtype: str) -> torch.Tensor:
-    """The tensor a leaf's .npy bytes hold; a ``<V2`` leaf recorded as
-    ``bfloat16`` (the reference's bf16 leaves) as bfloat16 bit for bit."""
-    arr = np.load(io.BytesIO(raw))
+def _leaf_tensor(raw: bytearray, dtype: str) -> torch.Tensor:
+    """The tensor a leaf's .npy bytes hold, over ``raw``'s own memory; a
+    ``<V2`` leaf recorded as ``bfloat16`` (the reference's bf16 leaves) as
+    bfloat16 bit for bit."""
+    head = io.BytesIO(raw)
+    version = np.lib.format.read_magic(head)
+    read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+            else np.lib.format.read_array_header_2_0)
+    shape, fortran, dt = read(head)
+    arr = np.frombuffer(raw, dtype=dt, count=int(np.prod(shape)),
+                        offset=head.tell())
+    arr = (arr.reshape(shape[::-1]).T if fortran else arr.reshape(shape))
     if dtype == "bfloat16" and arr.dtype.kind == "V" and arr.itemsize == 2:
-        return torch.from_numpy(arr.view(np.uint16).copy()).view(
-            torch.bfloat16)
-    return torch.from_numpy(np.array(arr, copy=True))
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def save_checkpoint(directory: str, step: int, tree: Tree,
@@ -168,7 +179,17 @@ def save_checkpoint(directory: str, step: int, tree: Tree,
     atomic rename — a crash at any instant leaves either the previous
     valid step or this one, never a same-size-but-truncated hybrid.
     """
+    return _write_checkpoint(directory, step, tree, extra)[0]
+
+
+def _write_checkpoint(directory: str, step: int, tree: Tree,
+                      extra: Optional[dict] = None) -> tuple[str, bool]:
+    """:func:`save_checkpoint`, and whether every leaf on disk is exactly
+    the bytes its CRC was taken over: False once the ``checkpoint.write``
+    failpoint was armed at a leaf, since its corrupt mode may have
+    mangled the bytes after the CRC."""
     _fp.fire(_fp.CHECKPOINT_WRITE)
+    exact = True
     os.makedirs(directory, exist_ok=True)
     leaves = [(name, _to_host(x)) for name, x in _named_leaves(tree)]
     tmp = tempfile.mkdtemp(prefix=f"tmp_step_{step}.", dir=directory)
@@ -177,18 +198,25 @@ def save_checkpoint(directory: str, step: int, tree: Tree,
     try:
         for i, (name, arr) in enumerate(leaves):
             fname = f"leaf_{i:05d}.npy"
-            raw = _leaf_bytes(arr)
-            # the corrupt-mode failpoint mangles bytes *after* the CRC is
-            # recorded — simulated bit-rot that _is_valid must catch
-            crc = zlib.crc32(raw)
-            raw = _fp.corrupt(_fp.CHECKPOINT_WRITE, raw)
+            parts = _leaf_parts(arr)
+            crc = zlib.crc32(parts[1], zlib.crc32(parts[0]))
+            if _fp.armed(_fp.CHECKPOINT_WRITE):
+                # the corrupt-mode failpoint mangles bytes *after* the CRC
+                # is recorded — simulated bit-rot that _is_valid must catch
+                exact = False
+                parts = (_fp.corrupt(_fp.CHECKPOINT_WRITE,
+                                     parts[0] + bytes(parts[1])),)
             with open(os.path.join(tmp, fname), "wb") as f:
-                f.write(raw)
+                for part in parts:
+                    f.write(part)
                 f.flush()
                 os.fsync(f.fileno())
             manifest["leaves"].append(
                 {"name": name, "file": fname, "shape": list(arr.shape),
-                 "dtype": str(arr.dtype), "bytes": len(raw), "crc32": crc})
+                 "dtype": str(arr.dtype),
+                 "bytes": sum(len(part) if isinstance(part, bytes)
+                              else part.nbytes for part in parts),
+                 "crc32": crc})
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
             f.flush()
@@ -201,7 +229,7 @@ def save_checkpoint(directory: str, step: int, tree: Tree,
             shutil.rmtree(final)
         os.rename(tmp, final)
         _fsync_dir(directory)
-        return final
+        return final, exact
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
@@ -257,9 +285,15 @@ def valid_steps(directory: str) -> list[int]:
 
 def latest_step(directory: str) -> Optional[int]:
     """Largest step with a *valid, checksum-verified* checkpoint, or
-    None."""
-    steps = valid_steps(directory)
-    return steps[0] if steps else None
+    None.  Steps are verified newest first, up to the first that checks
+    out."""
+    if not os.path.isdir(directory):
+        return None
+    steps = sorted((int(m.group(1)) for m in map(_STEP_RE.match,
+                                                 os.listdir(directory))
+                    if m), reverse=True)
+    return next((s for s in steps
+                 if _is_valid(os.path.join(directory, f"step_{s}"))), None)
 
 
 def load_checkpoint(directory: str, step: int, template: Tree,
@@ -277,8 +311,10 @@ def load_checkpoint(directory: str, step: int, template: Tree,
         if name not in by_name:
             raise KeyError(f"checkpoint {path} missing leaf {name!r}")
         entry = by_name[name]
-        with open(os.path.join(path, entry["file"]), "rb") as lf:
-            raw = lf.read()
+        fname = os.path.join(path, entry["file"])
+        raw = bytearray(os.path.getsize(fname))
+        with open(fname, "rb") as lf:
+            lf.readinto(raw)
         if "crc32" in entry and zlib.crc32(raw) != entry["crc32"]:
             # read-time integrity: rot between the _is_valid scan and the
             # load still fails loudly instead of restoring garbage
@@ -297,14 +333,20 @@ def load_checkpoint(directory: str, step: int, template: Tree,
     return _walk(template, load), manifest["extra"]
 
 
-def _gc(directory: str, keep: int) -> None:
+def _gc(directory: str, keep: int, fresh: Optional[str] = None) -> None:
+    """Drop the verified steps older than the newest ``keep`` verified
+    ones, and stale tmp dirs.  ``fresh`` is a path that
+    :func:`_write_checkpoint` has just written with every leaf exactly the
+    bytes it checksummed, taken as valid without reading it back; every
+    other step is verified."""
     if not os.path.isdir(directory):
         return
     valid = sorted(
         (int(m.group(1)), name)
         for name in os.listdir(directory)
         for m in [_STEP_RE.match(name)]
-        if m and _is_valid(os.path.join(directory, name)))
+        if m and (os.path.join(directory, name) == fresh
+                  or _is_valid(os.path.join(directory, name))))
     for _, name in valid[:-keep] if keep > 0 else []:
         shutil.rmtree(os.path.join(directory, name), ignore_errors=True)
     # reap stale tmp dirs (crashed writers)
@@ -329,10 +371,10 @@ def save_session_state(directory: str, step: int, session,
     state: the previous :class:`Factorization` through the leaf protocol,
     the spec, policy knobs and history in the manifest ``extra``.
     ``keep > 0`` prunes to the newest ``keep`` valid session states."""
-    path = save_checkpoint(directory, step, {"fact": session.fact},
-                           extra={"session": session.meta()})
+    path, exact = _write_checkpoint(directory, step, {"fact": session.fact},
+                                    extra={"session": session.meta()})
     if keep > 0:
-        _gc(directory, keep)
+        _gc(directory, keep, fresh=path if exact else None)
     return path
 
 
@@ -388,8 +430,10 @@ class CheckpointManager:
 
         def work():
             try:
-                save_checkpoint(self.directory, step, host_tree, extra)
-                _gc(self.directory, self.keep)
+                path, exact = _write_checkpoint(self.directory, step,
+                                                host_tree, extra)
+                _gc(self.directory, self.keep,
+                    fresh=path if exact else None)
             except BaseException as e:       # surfaced on next wait()
                 self._error = e
 

@@ -23,7 +23,7 @@ rank of the group computes the same bits.  Each rank calls these with its
 own local gradients and a generator seeded alike on every rank (the
 Lanczos start vectors must agree).  The gradient pytree is a dict, list
 or tuple of tensors (nested freely).  The multi-pod train step that calls
-this comes with the models (``ROADMAP.md`` Queue 1 item 7).
+this is ``runtime.steps.build_compressed_train_step``.
 """
 from __future__ import annotations
 

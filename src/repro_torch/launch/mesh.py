@@ -11,6 +11,9 @@ Nothing here tells a program about a cluster: the caller initialises the
 process group, or :func:`run_world` starts ``world`` processes on this
 host, each with its rank, a ``FileStore`` rendezvous and a short timeout
 (a dead rank then fails the others instead of hanging them).
+:func:`make_production_mesh` lays out the reference's production meshes
+(one pod of 256 devices, or two pods of 256) over a world of that size;
+:func:`mesh_from_config` reads a ``MeshConfig``.
 """
 from __future__ import annotations
 
@@ -54,6 +57,31 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
                            "ranks")
     ranks = torch.arange(world, dtype=torch.int64).reshape(shape)
     return DeviceMesh(device_type, ranks, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """One pod: (16, 16) = 256 ranks, axes ("data", "model").  Two pods:
+    (2, 16, 16) = 512 ranks, axes ("pod", "data", "model").  The world
+    must have that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != math.prod(shape):
+        raise ValueError(
+            f"the production mesh {shape} {axes} needs a world of "
+            f"{math.prod(shape)} ranks; this world has {world} (pass "
+            f"MeshConfig(shape=..., axes=...) for another layout)")
+    return make_mesh(shape, axes, device_type=device_type)
+
+
+def mesh_from_config(cfg, *, device_type: str = "cuda"):
+    """``RunConfig.mesh`` -> a mesh: ``cfg.shape`` / ``cfg.axes`` when
+    given, else the production mesh."""
+    if cfg.shape is not None:
+        return make_mesh(cfg.shape, cfg.axes, device_type=device_type)
+    return make_production_mesh(multi_pod=cfg.multi_pod,
+                                device_type=device_type)
 
 
 def _rank_main(rank, fn, world, init_file, timeout_s, threads, args):

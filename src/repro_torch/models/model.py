@@ -1,11 +1,17 @@
 """Model zoo assembly: every assigned architecture behind one API.
 Counterpart of ``repro.models.model``.
 
-    init_model(cfg, generator)             -> (model, logical_axes)
-    loss_fn(model, batch, cfg)             -> (loss, metrics)         [train]
-    prefill_step(model, batch, cfg)        -> (last_logits, cache)    [prefill]
-    decode_step(model, cache, batch, cfg)  -> (logits, new_cache)     [decode]
-    init_cache(cfg, batch, max_seq)        -> cache dict
+    init_model(cfg, generator)                 -> (model, logical_axes)
+    loss_fn(model, batch, cfg, mesh)           -> (loss, metrics)   [train]
+    prefill_step(model, batch, cfg, mesh)      -> (last_logits, cache)
+    decode_step(model, cache, batch, cfg, mesh) -> (logits, new_cache)
+    init_cache(cfg, batch, max_seq)            -> cache dict
+
+``mesh`` (default None: one device) is a ``DeviceMesh`` of
+``repro_torch.launch.mesh``: the MoE blocks then run expert-parallel
+(``repro_torch.models.moe``) on this rank's batch shard, with the expert
+weights of ``model`` this rank's blocks.  Every other layer runs whole on
+each rank.
 
 Families: dense / moe / vlm share the decoder-LM skeleton; audio is an
 encoder-decoder (whisper); ssm is a Mamba2 stack; hybrid is Zamba2 (Mamba2
@@ -174,6 +180,13 @@ def _run_layers(body, x: Tensor, layers: list, windows, caches,
     return x, _stack(new), aux
 
 
+def _pin_batch(x: Tensor, cfg: ModelConfig, mesh) -> Tensor:
+    """The reference's batch-sharding constraint on (B, S, D) activations
+    (``ModelConfig.pin_activations``), a layout hint to GSPMD.  Here each
+    rank already holds only its batch shard, so this is the identity."""
+    return x
+
+
 def _embed(params: dict, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     emb = params["embed"]
     x = torch.index_select(emb, 0, tokens.reshape(-1))
@@ -314,10 +327,11 @@ def _init_decoder_lm(cfg: ModelConfig, gen) -> tuple[dict, dict]:
 
 
 def _decoder_block(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
-                   window: int, cache, kind: str, collect_kv: bool
+                   mesh, window: int, cache, kind: str, collect_kv: bool
                    ) -> tuple[Tensor, Optional[dict], Tensor]:
     attn_fn = (attn_mod.mla_attention if cfg.mla is not None
                else attn_mod.gqa_attention)
+    x = _pin_batch(x, cfg, mesh)
     h = apply_norm(p["attn_norm"], x, cfg.norm)
     a, new_cache = attn_fn(p["attn"], h, positions, cfg, window=window,
                            cache=cache, collect_kv=collect_kv)
@@ -327,18 +341,18 @@ def _decoder_block(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
     h = apply_norm(p["mlp_norm"], x, cfg.norm)
     aux = x.new_zeros((), dtype=torch.float32)
     if kind == "moe":
-        m, aux = moe_mod.moe_block(p["moe"], h, cfg)
+        m, aux = moe_mod.moe_block(p["moe"], h, cfg, mesh)
         if "shared_mlp" in p:
             m = m + mlp(p["shared_mlp"], h, cfg.mlp_act)
     else:
         m = mlp(p["mlp"], h, cfg.mlp_act)
     if cfg.post_norm:
         m = apply_norm(p["post_mlp_norm"], m, cfg.norm)
-    return x + m, new_cache, aux
+    return _pin_batch(x + m, cfg, mesh), new_cache, aux
 
 
 def _decoder_backbone(params: dict, x: Tensor, positions: Tensor,
-                      cfg: ModelConfig, caches: Optional[dict],
+                      cfg: ModelConfig, mesh, caches: Optional[dict],
                       collect_kv: bool
                       ) -> tuple[Tensor, Optional[dict], Tensor]:
     """Runs the prefix layers, then the homogeneous tail."""
@@ -351,7 +365,8 @@ def _decoder_backbone(params: dict, x: Tensor, positions: Tensor,
     for i in range(n_prefix):
         cache_i = caches[f"layer{i}"] if caches is not None else None
         x, nc, aux = _decoder_block(params[f"layer{i}"], x, positions, cfg,
-                                    windows[i], cache_i, "dense", collect_kv)
+                                    mesh, windows[i], cache_i, "dense",
+                                    collect_kv)
         aux_total = aux_total + aux
         if nc is not None:
             new_prefix_caches[f"layer{i}"] = nc
@@ -359,8 +374,8 @@ def _decoder_backbone(params: dict, x: Tensor, positions: Tensor,
     tail_kind = kinds[-1]
 
     def body(x, p, w, cache):
-        return _decoder_block(p, x, positions, cfg, w, cache, tail_kind,
-                              collect_kv)
+        return _decoder_block(p, x, positions, cfg, mesh, w, cache,
+                              tail_kind, collect_kv)
 
     tail_caches = caches["layers"] if caches is not None else None
     x, new_tail, aux = _run_layers(body, x, params["layers"],
@@ -619,15 +634,30 @@ def init_model(cfg: ModelConfig, generator: torch.Generator
     return ParamTree(params), logical
 
 
-def _backbone_hidden(params: dict, batch: dict, cfg: ModelConfig, caches,
-                     collect_kv: bool):
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the ``meta`` device: shapes and
+    dtypes, no storage."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def init_abstract(cfg: ModelConfig) -> tuple[ParamTree, dict]:
+    """:func:`init_model` on the ``meta`` device: every parameter's shape
+    and dtype, with no allocation (a 236e9-parameter config included)."""
+    return init_model(cfg, _MetaGenerator())
+
+
+def _backbone_hidden(params: dict, batch: dict, cfg: ModelConfig, mesh,
+                     caches, collect_kv: bool):
     """Family dispatch: returns (hidden (B,S,d) normed, caches, aux,
     labels)."""
     aux = None
     if cfg.family in ("dense", "moe", "vlm"):
         x, positions, labels = _lm_inputs(params, batch, cfg)
         x, new_caches, aux = _decoder_backbone(params, x, positions, cfg,
-                                               caches, collect_kv)
+                                               mesh, caches, collect_kv)
     elif cfg.family == "audio":
         tokens = batch["tokens"]
         labels = batch.get("labels")
@@ -662,10 +692,13 @@ def _backbone_hidden(params: dict, batch: dict, cfg: ModelConfig, caches,
     return x, new_caches, aux, labels
 
 
-def loss_fn(model, batch: dict, cfg: ModelConfig) -> tuple[Tensor, Metrics]:
-    """Training loss (next-token CE + MoE aux)."""
+def loss_fn(model, batch: dict, cfg: ModelConfig, mesh=None
+            ) -> tuple[Tensor, Metrics]:
+    """Training loss (next-token CE + MoE aux) of ``batch`` (this rank's
+    shard on a mesh)."""
     params = model.tree()
-    x, _, aux, labels = _backbone_hidden(params, batch, cfg, None, False)
+    x, _, aux, labels = _backbone_hidden(params, batch, cfg, mesh, None,
+                                         False)
     ce, n = _chunked_ce(params, x, labels, cfg)
     loss = ce
     if cfg.moe is not None:
@@ -673,23 +706,23 @@ def loss_fn(model, batch: dict, cfg: ModelConfig) -> tuple[Tensor, Metrics]:
     return loss, Metrics(loss=loss, ce=ce, aux=aux, n_tokens=n)
 
 
-def prefill_step(model, batch: dict, cfg: ModelConfig
+def prefill_step(model, batch: dict, cfg: ModelConfig, mesh=None
                  ) -> tuple[Tensor, dict]:
     """Run the full prompt, return (last-position logits (B,V), cache)."""
     params = model.tree()
-    x, caches, _, _ = _backbone_hidden(params, batch, cfg, None, True)
+    x, caches, _, _ = _backbone_hidden(params, batch, cfg, mesh, None, True)
     return _head_logits(params, x[:, -1, :], cfg), caches
 
 
-def decode_step(model, cache: dict, batch: dict, cfg: ModelConfig
-                ) -> tuple[Tensor, dict]:
+def decode_step(model, cache: dict, batch: dict, cfg: ModelConfig,
+                mesh=None) -> tuple[Tensor, dict]:
     """One-token decode.  batch = {"tokens": (B,1), "positions": (B,1)}."""
     params = model.tree()
     tokens, positions = batch["tokens"], batch["positions"]
     x = _embed(params, tokens, cfg)
     if cfg.family in ("dense", "moe", "vlm"):
         x, new_caches, _ = _decoder_backbone(params, x, positions, cfg,
-                                             cache, collect_kv=False)
+                                             mesh, cache, collect_kv=False)
     elif cfg.family == "audio":
         x, new_caches = _whisper_decode_stack(params, x, positions, cfg,
                                               None, cache, collect_kv=False)

@@ -52,9 +52,11 @@ def global_norm(tree: dict) -> Tensor:
     return torch.stack(sq).sum().sqrt()
 
 
-def clip_by_global_norm(grads: dict, max_norm: float
+def clip_by_global_norm(grads: dict, max_norm: float,
+                        gnorm: Optional[Tensor] = None
                         ) -> tuple[dict, Tensor]:
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(max_norm / gnorm.clamp(min=1e-12), max=1.0)
     return {k: g * scale.to(g.dtype) for k, g in grads.items()}, gnorm
 
@@ -64,15 +66,17 @@ def make_optimizer(cfg: OptimConfig) -> tuple[
         Callable[[dict, OptState, dict], tuple[dict, OptState, dict]]]:
     """Returns (init_fn, update_fn).
 
-    ``update_fn(params, state, grads) -> (new_params, new_state, stats)``
-    with new tensors (the inputs are not changed); ``stats`` holds the
-    pre-clip ``grad_norm`` and the step's ``lr``.
+    ``update_fn(params, state, grads, gnorm=None) -> (new_params,
+    new_state, stats)`` with new tensors (the inputs are not changed);
+    ``stats`` holds the pre-clip ``grad_norm`` and the step's ``lr``.
+    ``gnorm`` clips by a norm computed elsewhere (the global norm of a
+    sharded step, whose ``grads`` are one rank's blocks).
     """
     sched = make_schedule(cfg)
 
     if cfg.name == "adamw":
-        def update(params, state, grads):
-            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        def update(params, state, grads, gnorm=None):
+            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
             step = state.step + 1
             t = step.to(torch.float32)
             lr = sched(state.step)
@@ -94,8 +98,8 @@ def make_optimizer(cfg: OptimConfig) -> tuple[
         return adamw_init, update
 
     if cfg.name == "sgd":
-        def update(params, state, grads):
-            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        def update(params, state, grads, gnorm=None):
+            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
             step = state.step + 1
             lr = sched(state.step)
             new_p, mu = {}, {}

@@ -294,6 +294,37 @@ def test_corrupt_failpoint_bitrot_is_detected(tmp_path, tree):
     assert latest_step(str(tmp_path)) == 1
 
 
+@pytest.mark.parametrize("writer", ["manager", "async_manager", "session"])
+def test_keep_n_never_counts_a_corrupt_fresh_step(tmp_path, tree, writer):
+    """keep=1: a new step whose bytes the corrupt failpoint mangled after
+    its CRC is not counted toward keep-N, so the good step it follows
+    stays on disk and stays the newest valid one."""
+    if writer == "session":
+        sess = session(torch.eye(8), SVDSpec(rank=2),
+                       generator=torch.Generator().manual_seed(0))
+        sess.solve()
+
+        def save(step):
+            save_session_state(str(tmp_path), step, sess, keep=1)
+    else:
+        mgr = CheckpointManager(str(tmp_path), keep=1,
+                                async_write=writer == "async_manager")
+
+        def save(step):
+            mgr.save(step, tree)
+            mgr.wait()
+    save(1)
+    faults.arm(faults.CHECKPOINT_WRITE, mode="corrupt", p=1.0)
+    save(2)
+    faults.disarm_all()
+    assert (tmp_path / "step_2").exists()
+    assert (tmp_path / "step_1").exists()
+    assert latest_step(str(tmp_path)) == 1
+    save(3)                       # a clean save then drops the good one
+    assert valid_steps(str(tmp_path)) == [3]
+    assert not (tmp_path / "step_1").exists()
+
+
 def test_session_restore_falls_back_to_newest_verified(tmp_path):
     A = _lowrank(11, 20, 16, 4)
     g = torch.Generator().manual_seed(11)

@@ -1,0 +1,312 @@
+"""The port's sharded training path against the reference and against its
+own single-device step, on the CPU.
+
+  * ``logical_to_spec`` / ``param_shardings`` entry for entry against the
+    reference's, over ``jax.sharding.AbstractMesh`` (2, 4), (4, 2),
+    (2, 2, 2), (16, 16) and (2, 16, 16), for every leaf of every registry
+    arch at full size (no devices needed; the port takes a {name: size}
+    mapping), and ``spec_for_batch`` likewise;
+  * in gloo worlds of CPU processes (``tests/torch_train_world.py``; each
+    world spawned once for the module): a dense reduced arch's sharded
+    step on (2, 2) ("data", "model") against the single-device step on
+    the global batch (loss within 1e-5 relative, gradients and updated
+    parameters within 1e-4 of each leaf's max, tests/torch_lm_ref.py's
+    bounds), and the reduced MoE arch's on (2, 2), (1, 2) and (2, 1) at
+    the same bounds with no slot dropped and no aux loss; the
+    expert-parallel ``moe_block`` on (1, 2) and (2, 2)
+    against the single-device ``_local_moe`` on each batch shard (y within
+    1e-5 of max |y|, gradients within 1e-4); the reference's
+    ``test_partition_rules_divisibility_fallback`` and
+    ``test_sharded_train_step_runs``; reshard-on-restore (a checkpoint of
+    a (2, 2) Trainer restores on (4,) and on one process with equal
+    values); the compressed step on ("pod",) (2,) against the dense-mean
+    step (the same loss and small leaves, the byte accounting
+    ``k (m + n) + r m`` against ``m n``, and the same bytes as the
+    reference's ``build_compressed_train_step``, which runs in a
+    subprocess with 8 forced host devices beside the worlds).
+Every rank must return the same global results bit for bit.  The
+sharded step refuses a mesh whose ranks cannot hold every rank's
+gradients (the production meshes on an 80 GB card).
+"""
+import functools
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import torch_world as tw
+import torch_train_world as ttw
+from repro.compat import abstract_mesh
+from repro.configs import get_arch as ref_get_arch
+from repro.distributed import partition as RP
+from repro.launch import input_specs as RI
+from repro_torch.configs import ARCHS, get_arch
+from repro_torch.distributed import partition as TP
+from repro_torch.launch import input_specs as TI
+
+REFERENCE = """
+from repro.configs import get_arch
+from repro.configs.base import FsvdConfig, OptimConfig
+from repro.data.synthetic import LMBatchSpec, lm_batch
+from repro.launch.mesh import make_mesh
+from repro.runtime.steps import build_compressed_train_step, init_state
+mesh = make_mesh((2,), ("pod",))
+cfg = get_arch("stablelm-1.6b").reduced()
+opt = OptimConfig(name="sgd", lr=0.1, warmup_steps=0, grad_clip=1e9)
+step = build_compressed_train_step(cfg, opt, mesh, FsvdConfig(
+    compression_rank=4, compression_min_dim=64, max_iters=16))
+with mesh:
+    _, met = jax.jit(step)(init_state(cfg, opt, jax.random.PRNGKey(0)),
+                           lm_batch(LMBatchSpec(4, 32, cfg.vocab_size), 0, 0))
+for k in ("loss", "skipped", "comm_dense_bytes", "comm_compressed_bytes"):
+    OUT[k] = met[k]
+"""
+
+MESHES = [((2, 4), ("data", "model")), ((4, 2), ("data", "model")),
+          ((2, 2, 2), ("pod", "data", "model")), ((16, 16), ("data", "model")),
+          ((2, 16, 16), ("pod", "data", "model"))]
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_init(arch):
+    return RI.abstract_init(ref_get_arch(arch))
+
+
+@functools.lru_cache(maxsize=None)
+def _port_init(arch):
+    return TI.abstract_init(get_arch(arch))
+
+
+def _pairs(logical, struct, path=""):
+    """(path, axes, shape) of every leaf of a logical-axes tree."""
+    if isinstance(logical, dict):
+        for k in sorted(logical):
+            yield from _pairs(logical[k], struct[k], f"{path}/{k}")
+    else:
+        yield path, tuple(logical), tuple(struct.shape)
+
+
+def _norm(spec):
+    spec = list(spec)
+    while spec and spec[-1] is None:
+        spec.pop()
+    return tuple(spec)
+
+
+@pytest.mark.parametrize("shape,axes", MESHES,
+                         ids=["x".join(map(str, s)) for s, _ in MESHES])
+def test_logical_to_spec_matches_reference(shape, axes):
+    amesh = abstract_mesh(shape, axes)
+    sizes = dict(zip(axes, shape))
+    n = 0
+    for arch in sorted(ARCHS):
+        r_struct, r_logical = _ref_init(arch)
+        p_struct, p_logical = _port_init(arch)
+        ref = list(_pairs(r_logical, r_struct))
+        port = list(_pairs(p_logical, p_struct))
+        assert [p for p, _, _ in ref] == [p for p, _, _ in port], arch
+        specs = TP.param_shardings(p_logical, p_struct, sizes)
+        for (path, r_axes, r_shape), (_, p_axes, p_shape) in zip(ref, port):
+            assert (r_axes, r_shape) == (p_axes, p_shape), (arch, path)
+            want = _norm(RP.logical_to_spec(r_axes, r_shape, amesh))
+            got = TP.logical_to_spec(p_axes, p_shape, sizes)
+            assert got == want, (arch, path, got, want)
+            node = specs
+            for part in path.strip("/").split("/"):
+                node = node[part]
+            assert node == got, (arch, path)
+            assert "pod" not in TP.spec_axes(got)
+            n += 1
+    assert n > 150
+
+
+@pytest.mark.parametrize("batch,ndim,seq", [(8, 2, False), (4, 3, False),
+                                            (1, 2, True), (1, 4, True),
+                                            (3, 2, False)])
+def test_spec_for_batch_matches_reference(batch, ndim, seq):
+    for shape, axes in MESHES[:3]:
+        want = RP.spec_for_batch(abstract_mesh(shape, axes), batch, ndim,
+                                 seq_axis_shard=seq)
+        got = TP.spec_for_batch(dict(zip(axes, shape)), batch, ndim,
+                                seq_axis_shard=seq)
+        assert got == _norm(want), (shape, got, want)
+
+
+def test_partition_rules_divisibility_fallback():
+    """tests/test_distributed.py's case on the port's rules."""
+    mesh = {"data": 2, "model": 4}
+    s1 = TP.logical_to_spec(("embed", "heads", "head_dim"), (64, 8, 32), mesh)
+    s2 = TP.logical_to_spec(("embed", "kv_heads", "head_dim"), (64, 3, 32),
+                            mesh)            # 3 % 4 != 0 -> replicated
+    s3 = TP.logical_to_spec(("experts", "embed", "mlp"), (8, 64, 128), mesh)
+    assert "model" in s1
+    assert "model" not in s2
+    # conflict rule: experts claim model; mlp must NOT re-claim it
+    assert s3.count("model") == 1 and "data" in s3
+
+
+def test_production_mesh_needs_its_world():
+    from repro_torch.launch.mesh import make_production_mesh
+    with pytest.raises(ValueError, match="256"):
+        make_production_mesh()
+    with pytest.raises(ValueError, match="512"):
+        make_production_mesh(multi_pod=True)
+
+
+def test_compressed_step_refuses_moe_and_meshes_without_pods():
+    from repro_torch.configs import FsvdConfig, OptimConfig
+    from repro_torch.runtime.steps import build_compressed_train_step
+    with pytest.raises(ValueError, match="MoE"):
+        build_compressed_train_step(get_arch("olmoe-1b-7b").reduced(),
+                                    OptimConfig(), {"pod": 2}, FsvdConfig())
+    with pytest.raises(ValueError, match="pod"):
+        build_compressed_train_step(get_arch("stablelm-1.6b").reduced(),
+                                    OptimConfig(), {"data": 2}, FsvdConfig())
+
+
+@pytest.mark.parametrize("arch, shape, fits", [
+    ("stablelm-1.6b", (16, 16), False),
+    ("olmoe-1b-7b", (16, 16), False),
+    ("stablelm-1.6b", (2, 2), True),
+    ("olmoe-1b-7b", (1, 2), True)])
+def test_sharded_step_refuses_a_mesh_whose_gradients_do_not_fit(
+        monkeypatch, arch, shape, fits):
+    """A rank of the sharded step holds every rank's gradients: on an
+    80 GB card the production mesh's 256 ranks cannot, two to four can."""
+    from repro_torch.runtime import steps as S
+    monkeypatch.setattr(S, "_device_bytes", lambda mesh: 80 * 10 ** 9)
+    mesh = dict(zip(("data", "model"), shape))
+    layout = S.param_layout(get_arch(arch), mesh)
+    if fits:
+        S._check_gather_fits(layout, mesh)
+    else:
+        with pytest.raises(ValueError, match=r"\(256 ranks \+ 1\)"):
+            S._check_gather_fits(layout, mesh)
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    ref_dir = tmp_path_factory.mktemp("reference")
+    np.savez(ref_dir / "in.npz", none=np.zeros(1))
+    proc = tw.start_reference(REFERENCE, str(ref_dir / "in.npz"),
+                              str(ref_dir / "ref.npz"))
+    out = {}
+    for world, fn in ((4, ttw.world4_cases), (2, ttw.world2_cases),
+                      (8, ttw.world8_cases)):
+        d = tmp_path_factory.mktemp(f"world{world}")
+        np.savez(d / "in.npz", none=np.zeros(1))
+        out[world] = (str(d), tw.run_port(fn, str(d), str(d / "in.npz"),
+                                          world=world))
+    out["reference"] = tw.finish_reference(proc, str(ref_dir / "ref.npz"))
+    return out
+
+
+def test_every_rank_returns_the_same_bits(worlds):
+    per_rank = {"moe22", "moe12"}         # each rank's own batch shard
+    for world in (2, 4, 8):
+        ranks = worlds[world][1]
+        for key in ranks[0]:
+            if any(key.startswith(p) for p in per_rank) \
+                    or key.endswith(("_err",)):
+                continue
+            for r in range(1, world):
+                np.testing.assert_array_equal(ranks[r][key], ranks[0][key],
+                                              err_msg=f"{key} on rank {r}")
+
+
+@pytest.mark.parametrize("world,tag", [(4, "dm22"), (4, "ms22"),
+                                       (2, "ms12"), (2, "ms21")])
+def test_sharded_step_matches_single_device(worlds, world, tag):
+    """The sharded step against one device on the global batch: a dense
+    reduced arch on (2, 2) ("dm22"), and the reduced MoE arch, experts over
+    "model" and the batch over "data", on (2, 2), (1, 2) and (2, 1) with
+    no slot dropped and no aux loss ("ms..": the two terms it takes by
+    batch shard)."""
+    for got in worlds[world][1]:
+        loss, want = float(got[f"{tag}_loss"]), float(got[f"{tag}_loss_single"])
+        assert abs(loss - want) <= 1e-5 * abs(want)
+        assert abs(float(got[f"{tag}_gnorm"])
+                   - float(got[f"{tag}_gnorm_single"])) \
+            <= 1e-5 * float(got[f"{tag}_gnorm_single"])
+        assert float(got[f"{tag}_grad_err"]) < 1e-4
+        assert float(got[f"{tag}_param_err"]) < 1e-4
+
+
+@pytest.mark.parametrize("world,tag", [(2, "moe12"), (4, "moe22")])
+def test_ep_moe_block_matches_local_moe(worlds, world, tag):
+    for got in worlds[world][1]:
+        assert float(got[f"{tag}_y_err"]) < 1e-5
+        for part in ("expert", "router", "x"):
+            assert float(got[f"{tag}_{part}_grad_err"]) < 1e-4, part
+        assert abs(float(got[f"{tag}_aux"]) - float(got[f"{tag}_aux_want"])) \
+            <= 1e-6 * abs(float(got[f"{tag}_aux_want"]))
+    # the ranks of one EP group hold the same y bit for bit
+    ranks = worlds[world][1]
+    mp = 2
+    for r in range(0, world, mp):
+        assert all(ranks[r + j][f"{tag}_y_sum"] == ranks[r][f"{tag}_y_sum"]
+                   for j in range(mp))
+
+
+def test_sharded_train_step_runs(worlds):
+    """tests/test_distributed.py's case: reduced olmoe on (2, 2, 2), two
+    steps, finite."""
+    for got in worlds[8][1]:
+        assert np.all(np.isfinite(got["losses"]))
+        assert int(got["skipped"]) == 0
+
+
+def test_reshard_on_restore(worlds):
+    directory, ranks = worlds[4]
+    for got in ranks:
+        assert bool(got["reshard_resumed"])
+        assert int(got["reshard_step"]) == 2
+        assert int(got["reshard_opt_step"]) == 2
+        assert float(got["reshard_max_diff"]) == 0.0
+        assert np.isfinite(float(got["reshard_next_loss"]))
+    # one process, no mesh: the whole state, equal values
+    from repro_torch.configs import (CheckpointConfig, OptimConfig,
+                                     RunConfig, ShapeConfig)
+    from repro_torch.runtime import steps as S
+    from repro_torch.runtime.trainer import Trainer
+    cfg = get_arch(ttw.ARCH).reduced()
+    opt = OptimConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", "train", 32, 4),
+                    optim=opt, checkpoint=CheckpointConfig(
+                        directory=os.path.join(directory, "ckpt"),
+                        every_steps=2, async_write=False))
+    tr = Trainer(run, S.build_train_step(cfg, opt), None,
+                 S.init_state(cfg, opt, torch.Generator().manual_seed(7)),
+                 install_sigterm=False, log_fn=lambda s: None)
+    assert tr.maybe_resume() and tr.step == 2
+    whole = dict(np.load(os.path.join(directory, "whole.npz")))
+    for k, p in tr.state.model.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(), whole[k])
+    for k, v in tr.state.opt.mu.items():
+        np.testing.assert_array_equal(v.numpy(), whole[f"mu/{k}"])
+
+
+def test_compressed_step_matches_dense_mean(worlds):
+    for got in worlds[2][1]:
+        assert float(got["cm_loss"]) == float(got["cm_loss_dense"])
+        assert int(got["cm_n_small"]) > 0
+        assert float(got["cm_small_max_diff"]) == 0.0
+        assert float(got["cm_dense_bytes"]) == float(got["cm_dense_want"])
+        assert float(got["cm_compressed_bytes"]) == \
+            float(got["cm_compressed_want"])
+        assert float(got["cm_compressed_bytes"]) < \
+            float(got["cm_dense_bytes"])
+        assert int(got["cm_skipped"]) == 0
+
+
+def test_compressed_step_bytes_match_reference(worlds):
+    """The reference's compressed step runs on 8 forced host devices and
+    counts the same dense and compressed bytes as the port's."""
+    ref = worlds["reference"]
+    assert np.isfinite(float(ref["loss"])) and int(ref["skipped"]) == 0
+    for got in worlds[2][1]:
+        assert float(got["cm_dense_bytes"]) == \
+            float(ref["comm_dense_bytes"])
+        assert float(got["cm_compressed_bytes"]) == \
+            float(ref["comm_compressed_bytes"])

@@ -1824,3 +1824,62 @@ def test_lm_train_step_never_syncs(cuda, arch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(metrics["skipped"]) == 0
+
+
+# --- the Trainer and the sharded step (phase 14 of chip_smoke.py) -----------
+
+def test_trainer_resumes_on_the_card(cuda, tmp_path):
+    """A reduced stablelm trained 4 steps on the card with checkpoints
+    every 2 resumes a Trainer built from another seed: the step, and every
+    parameter and moment leaf bit for bit, on the card."""
+    from repro_torch.checkpoint.store import _named_leaves
+    from repro_torch.configs import (CheckpointConfig, OptimConfig,
+                                     RunConfig, RuntimeConfig, ShapeConfig,
+                                     get_arch)
+    from repro_torch.data.synthetic import LMBatchSpec, lm_batch
+    from repro_torch.runtime import Trainer
+    from repro_torch.runtime.steps import build_train_step, init_state
+    from repro_torch.runtime.trainer import saved_state
+    cfg = get_arch("stablelm-1.6b").reduced()
+    opt = OptimConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", "train", 32, 4),
+                    optim=opt,
+                    checkpoint=CheckpointConfig(directory=str(tmp_path),
+                                                every_steps=2),
+                    runtime=RuntimeConfig(log_every=0))
+    spec = LMBatchSpec(4, 32, cfg.vocab_size)
+    step = build_train_step(cfg, opt)
+
+    def trainer(seed):
+        return Trainer(run, step, lambda s: lm_batch(spec, 0, s,
+                                                     device=cuda),
+                       init_state(cfg, opt, torch.Generator(
+                           device=cuda).manual_seed(seed)),
+                       install_sigterm=False, log_fn=lambda s: None)
+    tr = trainer(0)
+    tr.run(4)
+    tr2 = trainer(1)
+    assert tr2.maybe_resume() and tr2.step == 4
+    a = dict(_named_leaves(saved_state(tr.state)))
+    b = dict(_named_leaves(saved_state(tr2.state)))
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert b[k].device.type == "cuda", k
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_two_ranks_sharded_train_step_on_one_card(cuda, tmp_path):
+    """Two gloo ranks share cuda:0: one expert-parallel step of reduced
+    olmoe on (1, 2) ("data", "model"), its loss within 1e-5 relative of
+    the single-card step's, the same on both ranks, on the card."""
+    import torch_world as tw
+    import torch_train_world as ttw
+    np.savez(tmp_path / "in.npz", none=np.zeros(1))
+    ranks = tw.run_port(ttw.gpu_sharded_case, str(tmp_path),
+                        str(tmp_path / "in.npz"), world=2)
+    for got in ranks:
+        assert float(got["loss"]) == float(ranks[0]["loss"])
+        assert abs(float(got["loss"]) - float(got["single"])) \
+            <= 1e-5 * abs(float(got["single"]))
+        assert int(got["skipped"]) == 0
+        assert str(got["device"]).startswith("cuda")

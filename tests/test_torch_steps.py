@@ -155,5 +155,7 @@ def test_runtime_resolves_step_members_lazily():
     assert R.TrainState is TS.TrainState
     assert R.build_train_step is TS.build_train_step
     assert R.build_eval_step is TS.build_eval_step
+    from repro_torch.runtime import trainer
+    assert R.Trainer is trainer.Trainer
     with pytest.raises(AttributeError):
-        R.Trainer
+        R.NoSuchMember

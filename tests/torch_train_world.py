@@ -1,0 +1,334 @@
+"""The gloo worlds of the port's sharded training tests (no JAX: spawn
+imports this module in every rank).
+
+Each function runs on every rank of a world of CPU processes
+(``torch_world.run_port``) and writes ``rank<r>.npz``: the sharded
+results beside the single-device port's on the same inputs, computed in
+the same rank, so the test only compares numbers.  ``gpu_sharded_case``
+is the card's (tests/test_torch_gpu.py): two ranks on cuda:0.
+"""
+import functools
+import os
+
+import numpy as np
+
+from torch_world import _mesh, _mesh_on, save_rank
+
+ARCH = "stablelm-1.6b"
+MOE_ARCH = "olmoe-1b-7b"
+B, S = 4, 32
+
+
+def _rel(got, want) -> float:
+    want = want.detach().double()
+    got = got.detach().double()
+    return float((got - want).abs().max() / max(float(want.abs().max()),
+                                                1e-30))
+
+
+def _batch(cfg, batch=B, seq=S, device="cpu"):
+    from repro_torch.data.synthetic import LMBatchSpec, lm_batch
+    return lm_batch(LMBatchSpec(batch, seq, cfg.vocab_size), 0, 0,
+                    device=device)
+
+
+def _state(cfg, opt, seed=0, device="cpu"):
+    import torch
+
+    from repro_torch.runtime import steps as S_
+    return S_.init_state(cfg, opt, torch.Generator(device=device)
+                         .manual_seed(seed))
+
+
+def _no_drops(cfg):
+    """``cfg`` with a capacity that drops no routed slot on any batch
+    shard (C = T) and no aux loss: the two terms the expert-parallel
+    step takes by batch shard, where the single device takes them over
+    the global batch."""
+    import dataclasses
+    moe = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k,
+        aux_loss_weight=0.0))
+
+
+def dense_step_case(mesh, out: dict, tag: str, arch: str = ARCH) -> None:
+    """The sharded step of a reduced arch against the single-device step
+    on the global batch: loss, this rank's gradient blocks (AdamW step,
+    ``keep_grads``), its parameter blocks after an SGD step.  A MoE arch
+    runs without drops or aux loss (:func:`_no_drops`), so that the
+    global batch's gradients are exactly the sum of the shards'."""
+    from repro_torch.configs import OptimConfig, get_arch
+    from repro_torch.distributed import partition as P
+    from repro_torch.runtime import steps as S_
+    cfg = get_arch(arch).reduced()
+    if cfg.moe is not None:
+        cfg = _no_drops(cfg)
+    batch = _batch(cfg)
+    errs = {"grad": 0.0, "param": 0.0}
+    for name, opt in (("adamw", OptimConfig(lr=1e-3, warmup_steps=0)),
+                      ("sgd", OptimConfig(name="sgd", lr=0.1, warmup_steps=0,
+                                          weight_decay=0.01))):
+        sharded = S_.shard_state(_state(cfg, opt), mesh, cfg)
+        sharded, met = S_.build_train_step(cfg, opt, mesh, keep_grads=True)(
+            sharded, batch)
+        single, want = S_.build_train_step(cfg, opt, keep_grads=True)(
+            _state(cfg, opt), batch)
+        for k, lf in sharded.layout.items():
+            if name == "adamw":
+                errs["grad"] = max(errs["grad"], _rel(
+                    met["grads"][k], P.local_block(want["grads"][k],
+                                                   lf.spec, mesh)))
+            else:
+                p = dict(single.model.named_parameters())[k]
+                errs["param"] = max(errs["param"], _rel(
+                    sharded.params[k], P.local_block(p.detach(), lf.spec,
+                                                     mesh)))
+        if name == "adamw":
+            out[f"{tag}_loss"] = float(met["loss"])
+            out[f"{tag}_loss_single"] = float(want["loss"])
+            out[f"{tag}_gnorm"] = float(met["grad_norm"])
+            out[f"{tag}_gnorm_single"] = float(want["grad_norm"])
+    out[f"{tag}_grad_err"] = errs["grad"]
+    out[f"{tag}_param_err"] = errs["param"]
+
+
+def moe_case(mesh, out: dict, tag: str, seed: int = 5) -> None:
+    """The expert-parallel ``moe_block`` on this rank's batch shard with its
+    expert blocks against the single-device ``_local_moe`` on every batch
+    shard: y, the gradients of sum(y * r) for the expert blocks, the
+    router and the tokens, and the aux loss."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import partition as P
+    from repro_torch.models import moe as M
+    cfg = get_arch(MOE_ARCH).reduced()
+    moe, D = cfg.moe, cfg.d_model
+    g = torch.Generator().manual_seed(seed)
+    E, F = moe.num_experts, moe.d_ff_expert
+    x = torch.randn(B, S, D, generator=g)
+    r = torch.randn(B, S, D, generator=g)
+    w = {"w_router": torch.randn(D, E, generator=g) * D ** -0.5,
+         "w_gate": torch.randn(E, D, F, generator=g) * D ** -0.5,
+         "w_up": torch.randn(E, D, F, generator=g) * D ** -0.5,
+         "w_down": torch.randn(E, F, D, generator=g) * F ** -0.5}
+    spec = {"w_router": (), "w_gate": ("model", "data"),
+            "w_up": ("model", "data"), "w_down": ("model", None, "data")}
+    bspec = P.spec_for_batch(mesh, B, 3)
+    shards = [P.block_slices(bspec, x.shape, mesh, c)
+              for c in P.rank_coords(mesh)]
+    mine = P.block_slices(bspec, x.shape, mesh)
+    # the single device on each distinct batch shard
+    want = {k: torch.zeros_like(v) for k, v in w.items()}
+    seen, aux_want = set(), []
+    for sl in shards:
+        if sl[0].start in seen:
+            continue
+        seen.add(sl[0].start)
+        leaves = {k: v.clone().requires_grad_() for k, v in w.items()}
+        xs = x[sl].clone().requires_grad_()
+        y, aux = M._local_moe(xs, *(leaves[k] for k in
+                                    ("w_router", "w_gate", "w_up",
+                                     "w_down")), moe=moe, act=cfg.mlp_act)
+        grads = torch.autograd.grad((y * r[sl]).sum(),
+                                    [xs] + list(leaves.values()))
+        for k, gk in zip(leaves, grads[1:]):
+            want[k] += gk
+        aux_want.append(float(aux))
+        if sl == mine:
+            y_want, x_want = y.detach(), grads[0]
+            router_want = grads[1 + list(leaves).index("w_router")]
+    # the expert-parallel block on this rank
+    blocks = {k: P.local_block(v, spec[k], mesh).requires_grad_()
+              for k, v in w.items()}
+    xs = x[mine].clone().requires_grad_()
+    y, aux = M.moe_block(blocks, xs, cfg, mesh)
+    grads = torch.autograd.grad((y * r[mine]).sum(),
+                                [xs] + list(blocks.values()))
+    out[f"{tag}_y_err"] = _rel(y, y_want)
+    out[f"{tag}_x_grad_err"] = _rel(grads[0], x_want)
+    out[f"{tag}_router_grad_err"] = _rel(grads[1], router_want)
+    out[f"{tag}_expert_grad_err"] = max(
+        _rel(gk, P.local_block(want[k], spec[k], mesh))
+        for k, gk in zip(list(blocks)[1:], grads[2:]))
+    out[f"{tag}_aux"] = float(aux)
+    out[f"{tag}_aux_want"] = float(np.mean(aux_want))
+    out[f"{tag}_y_sum"] = y.detach().double().sum().item()
+
+
+def reshard_case(mesh, rank, directory, out: dict) -> None:
+    """A sharded Trainer on ``mesh`` checkpoints two steps; a fresh one on
+    a (4,) ("data",) mesh restores it, resharded."""
+    from repro_torch.configs import (CheckpointConfig, OptimConfig,
+                                     RunConfig, RuntimeConfig, ShapeConfig,
+                                     get_arch)
+    from repro_torch.runtime import steps as S_
+    from repro_torch.runtime.trainer import Trainer
+    cfg = get_arch(ARCH).reduced()
+    opt = OptimConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", "train", S, B),
+                    optim=opt,
+                    checkpoint=CheckpointConfig(
+                        directory=os.path.join(directory, "ckpt"),
+                        every_steps=2, async_write=True),
+                    runtime=RuntimeConfig(log_every=0))
+
+    def batch_fn(step):
+        from repro_torch.data.synthetic import LMBatchSpec, lm_batch
+        return lm_batch(LMBatchSpec(B, S, cfg.vocab_size), 0, step,
+                        device="cpu")
+    shard = functools.partial(S_.shard_state, mesh=mesh, cfg=cfg)
+    tr = Trainer(run, S_.build_train_step(cfg, opt, mesh), batch_fn,
+                 shard(_state(cfg, opt)), state_sharding_fn=shard,
+                 install_sigterm=False, log_fn=lambda s: None)
+    tr.run(2)
+    whole = S_.gather_state(tr.state)
+    mesh4 = _mesh((4,), ("data",))
+    shard4 = functools.partial(S_.shard_state, mesh=mesh4, cfg=cfg)
+    tr4 = Trainer(run, S_.build_train_step(cfg, opt, mesh4), batch_fn,
+                  shard4(_state(cfg, opt, seed=9)), state_sharding_fn=shard4,
+                  install_sigterm=False, log_fn=lambda s: None)
+    out["reshard_resumed"] = tr4.maybe_resume()
+    out["reshard_step"] = tr4.step
+    back = S_.gather_state(tr4.state)
+    diffs = [float((a.detach() - b.detach()).abs().max()) for a, b in
+             zip(whole.model.parameters(), back.model.parameters())]
+    for tree_a, tree_b in ((whole.opt.mu, back.opt.mu),
+                           (whole.opt.nu, back.opt.nu)):
+        diffs += [float((tree_a[k] - tree_b[k]).abs().max()) for k in tree_a]
+    out["reshard_max_diff"] = max(diffs)
+    out["reshard_opt_step"] = int(back.opt.step)
+    if rank == 0:
+        np.savez(os.path.join(directory, "whole.npz"),
+                 **{k: p.detach().numpy() for k, p in
+                    whole.model.named_parameters()},
+                 **{f"mu/{k}": v.numpy() for k, v in whole.opt.mu.items()})
+    # one more step on the resharded state: finite, the same everywhere
+    _, met = tr4.train_step(tr4.state, batch_fn(2))
+    out["reshard_next_loss"] = float(met["loss"])
+
+
+def world4_cases(rank, world, inputs, directory):
+    """(2, 2) ("data", "model"): the dense and the MoE step, the EP block,
+    the reshard."""
+    out = {}
+    mesh = _mesh((2, 2), ("data", "model"))
+    dense_step_case(mesh, out, "dm22")
+    dense_step_case(mesh, out, "ms22", MOE_ARCH)
+    moe_case(mesh, out, "moe22")
+    reshard_case(mesh, rank, directory, out)
+    save_rank(directory, rank, out)
+
+
+def compressed_case(mesh, out: dict) -> None:
+    """The compressed step on ("pod",) against the sharded dense-mean step
+    on the same mesh, SGD without clipping: the loss, the small leaves,
+    the byte accounting (k (m + n) + r m floats of a compressed m x n
+    gradient against m n, by the shapes of the reference's tree)."""
+    from repro_torch import bridge
+    from repro_torch.configs import FsvdConfig, OptimConfig, get_arch
+    from repro_torch.distributed import compression as C
+    from repro_torch.runtime import steps as S_
+    cfg = get_arch(ARCH).reduced()
+    opt = OptimConfig(name="sgd", lr=0.1, warmup_steps=0, grad_clip=1e9)
+    fcfg = FsvdConfig(compression_rank=4, compression_min_dim=64,
+                      max_iters=16)
+    batch = _batch(cfg)
+    comp, met = S_.build_compressed_train_step(cfg, opt, mesh, fcfg)(
+        _state(cfg, opt), batch)
+    dense, dmet = S_.build_train_step(cfg, opt, mesh)(
+        S_.shard_state(_state(cfg, opt), mesh, cfg), batch)
+    out["cm_loss"], out["cm_loss_dense"] = float(met["loss"]), \
+        float(dmet["loss"])
+    small = [float((p.detach() - dense.params[k]).abs().max())
+             for k, p in comp.model.named_parameters()
+             if p.dim() < 2 or min(p.shape[0], int(np.prod(p.shape[1:])))
+             < fcfg.compression_min_dim]
+    out["cm_small_max_diff"] = max(small)
+    out["cm_n_small"] = len(small)
+    out["cm_dense_bytes"] = float(met["comm_dense_bytes"])
+    out["cm_compressed_bytes"] = float(met["comm_compressed_bytes"])
+    r = fcfg.compression_rank
+    k = min(max(2 * r, r + 2), fcfg.max_iters)
+    dense_want = comp_want = 0
+    for g in _leaves(bridge.reference_tree(comp.model)):
+        lay = C._layout(g, fcfg)
+        if lay is None:
+            continue
+        L, m, n = (1,) + lay[1:] if lay[0] == "2d" else lay[1:]
+        dense_want += 4 * L * m * n
+        comp_want += 4 * L * (k * (m + n) + r * m)
+    out["cm_dense_want"], out["cm_compressed_want"] = dense_want, comp_want
+    out["cm_skipped"] = int(met["skipped"])
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def world2_cases(rank, world, inputs, directory):
+    """(1, 2) ("data", "model"): the EP block and the MoE step; (2, 1): the
+    MoE step; ("pod",) (2,): the
+    compressed step."""
+    out = {}
+    mesh = _mesh((1, 2), ("data", "model"))
+    moe_case(mesh, out, "moe12")
+    dense_step_case(mesh, out, "ms12", MOE_ARCH)
+    dense_step_case(_mesh((2, 1), ("data", "model")), out, "ms21", MOE_ARCH)
+    compressed_case(_mesh((2,), ("pod",)), out)
+    save_rank(directory, rank, out)
+
+
+def world8_cases(rank, world, inputs, directory):
+    """tests/test_distributed.py::test_sharded_train_step_runs: a reduced
+    MoE arch, (2, 2, 2) ("pod", "data", "model"), two real steps."""
+    from repro_torch.configs import OptimConfig, get_arch
+    from repro_torch.runtime import steps as S_
+    mesh = _mesh((2, 2, 2), ("pod", "data", "model"))
+    cfg = get_arch(MOE_ARCH).reduced()
+    opt = OptimConfig(lr=1e-3)
+    state = S_.shard_state(_state(cfg, opt), mesh, cfg)
+    step = S_.build_train_step(cfg, opt, mesh)
+    losses = []
+    for t in range(2):
+        from repro_torch.data.synthetic import LMBatchSpec, lm_batch
+        state, met = step(state, lm_batch(LMBatchSpec(8, 32, cfg.vocab_size),
+                                          0, t, device="cpu"))
+        losses.append(float(met["loss"]))
+    blocks = sorted(state.params)
+    save_rank(directory, rank, {
+        "losses": np.array(losses),
+        "skipped": int(met["skipped"]),
+        "param_sum": sum(state.params[k].double().sum().item()
+                         for k in blocks
+                         if not state.layout[k].spec)})
+
+
+# --- tests/test_torch_gpu.py: two ranks on one card
+
+def gpu_sharded_case(rank, world, inputs, directory):
+    """One sharded step of reduced olmoe on (1, 2) ("data", "model") over
+    cuda:0, beside the single-card step on the same state and batch."""
+    import torch
+
+    from repro_torch.configs import OptimConfig, get_arch
+    from repro_torch.runtime import steps as S_
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(MOE_ARCH).reduced()
+    opt = OptimConfig(lr=1e-3, warmup_steps=0)
+    mesh = _mesh_on((1, 2), ("data", "model"), "cuda")
+    batch = _batch(cfg, device="cuda")
+    sharded, met = S_.build_train_step(cfg, opt, mesh)(
+        S_.shard_state(_state(cfg, opt, device="cuda"), mesh, cfg), batch)
+    _, want = S_.build_train_step(cfg, opt)(_state(cfg, opt, device="cuda"),
+                                             batch)
+    save_rank(directory, rank, {
+        "loss": float(met["loss"]), "single": float(want["loss"]),
+        "skipped": int(met["skipped"]),
+        "device": str(next(iter(sharded.params.values())).device)})
