@@ -5,6 +5,7 @@
     python3 chip_bits.py compare A.pt B.pt
     python3 chip_bits.py times TREE OUT.json [--main]
     python3 chip_bits.py ab PARENT CHANGE OUT.json [ROUNDS]
+    python3 chip_bits.py skew SEEDS
 
 ``save`` imports ``TREE/src/repro_torch`` (a checkout of any commit of
 this repo, e.g. a ``git archive`` of the parent), runs ``mv_qtv``,
@@ -32,8 +33,13 @@ to compare their times on one card.  ``ab`` imports both trees into one
 process and takes rows 1-4 and 7-8 at their main shapes, the stacked
 projection pair and ``rmv_qtv`` and the batched GK loop in turns within
 each round, so the card's drift between processes stays out of the
-comparison.  It needs one CUDA card and no
-network.
+comparison.  ``skew`` runs ``tests/test_torch_gpu.py``'s skewed rows
+(empty to 30,000 slots; entries spread, and all in one column) through
+``sparse_matvec``'s block kernel for SEEDS seeds at b = 2, 7, 20 and 32,
+and prints, as JSON, each case's error against the plain version over
+max |y| and the kernel's and the plain version's errors against an f64
+sum of the same terms over sqrt(L + 1) u sum |a x|.  It needs one CUDA
+card and no network.
 """
 from __future__ import annotations
 
@@ -411,6 +417,52 @@ def ab(parent: str, change: str, out: str, rounds: int) -> None:
     print(f"wrote both trees' times to {out}", flush=True)
 
 
+def skew(seeds: int) -> None:
+    import json
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, "src")
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_matvec as spm
+    cuda, n, out = torch.device("cuda"), 60_000, []
+    counts = np.array([0, 30_000, 1, 7, 0, 4_000, 41, 40, 39, 2] * 3)
+    rows = np.repeat(np.arange(len(counts)), counts)
+    length = torch.from_numpy(counts).to(cuda).double()[:, None]
+    for seed in range(seeds):
+        for b in (2, 7, 20, 32):
+            g = torch.Generator(device=cuda).manual_seed(1000 * b + seed)
+            rng = np.random.default_rng(1000 * b + seed)
+            for kind, cols in (("spread", rng.integers(0, n, rows.shape[0])),
+                               ("one column", np.full(rows.shape[0], n - 1))):
+                idx = torch.from_numpy(np.stack([rows, cols], 1).astype(
+                    np.int32)).to(cuda)
+                data = torch.randn(rows.shape[0], device=cuda, generator=g)
+                vals, pc = spm.ell_pack(data, idx, (len(counts), n))
+                lay = spm.window_layout(vals, pc, n, torch.from_numpy(
+                    counts).to(cuda))
+                X = torch.randn(n, b, device=cuda, generator=g)
+                got = spm.sparse_matvec(lay.vals, lay.cols, X, lay)
+                plain = ref.sparse_matvec(vals, pc, X)
+                terms = vals.double()[..., None] * X.double()[pc.long()]
+                exact = terms.sum(1)
+                bound = (torch.sqrt(length + 1) * 2.0 ** -24
+                         * terms.abs().sum(1)).clamp(min=1e-300)
+                out.append(dict(
+                    seed=seed, b=b, kind=kind,
+                    vs_plain=float((got - plain).abs().max()
+                                   / plain.abs().max()),
+                    kernel_f64=float(((got.double() - exact).abs()
+                                      / bound).max()),
+                    plain_f64=float(((plain.double() - exact).abs()
+                                     / bound).max())))
+    print(json.dumps(dict(
+        cases=len(out), over_1e5=[r for r in out if r["vs_plain"] > 1e-5],
+        max_vs_plain=max(r["vs_plain"] for r in out),
+        max_kernel_f64=max(r["kernel_f64"] for r in out),
+        max_plain_f64=max(r["plain_f64"] for r in out))))
+
+
 def main(argv) -> int:
     if len(argv) == 3 and argv[0] == "save":
         save(argv[1], argv[2])
@@ -423,6 +475,9 @@ def main(argv) -> int:
     if len(argv) in (3, 4) and argv[0] == "times" and argv[3:] in ([],
                                                                   ["--main"]):
         times(argv[1], argv[2], argv[3:] == ["--main"])
+        return 0
+    if len(argv) == 2 and argv[0] == "skew":
+        skew(int(argv[1]))
         return 0
     print(__doc__, file=sys.stderr)
     return 2

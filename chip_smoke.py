@@ -298,7 +298,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      then its first loss, first gradient norm and second loss are within
      1e-3 of the same config's two steps on one card; every loss finite
      and the same bits on both ranks, each rank's peak and
-     the collectives a step with their host seconds; (c) on the same
+     the collectives a step with their host seconds and their calls and
+     bytes by kind; the gradient exchange (one all-to-all of each rank's
+     own blocks) holds each rank's summed blocks bit for bit to the whole
+     gather of every rank's gradient (tests/torch_train_world.py's
+     oracle) on the last step of (1, 2) and of (2, 1), its norm within
+     1e-6 of the oracle's; (c) on the same
      ranks the compressed step over ("pod",) (stablelm-1.6b, 2 layers, 1
      x 4096 a rank, FsvdConfig defaults): two finite steps, compressed /
      dense bytes, and the top 8 sigma of one 2048 x 5632 MLP gradient's
@@ -306,6 +311,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      (svdvals); (d) after (a), so that (a) has the card to itself, the
      CLIs side by side: launch.train --reduced (20 steps, the loss
      lowers), launch.serve --reduced and launch.quickstart exit 0.  It prints a {"train": {...}} JSON line with its cuts.
+
+ 15. the dry run (after phase 14): (a) ``python -m
+     repro_torch.launch.dryrun --arch A --mesh single|multi`` for every
+     arch and both production meshes, one subprocess each, DRYRUN_PROCS
+     at a time (each traces on one host core): every (arch x shape x
+     mesh) cell traced as rank 0 of a fake 256- or 512-rank world on fake
+     cuda tensors; a {"dryrun_counts": ...} line with the ok /
+     skipped / failed counts and each failed cell's reason (over the
+     device's memory, refused by a port check, an exception); the phase
+     fails if a cell fails by an exception; (b) stablelm-1.6b at phase
+     13's 2 x 4096, one single-card AdamW step traced under the dry run's
+     accounting on fake cuda tensors and run for real under
+     FlopCounterMode: the trace's dot FLOPs within 0.1 % of the real
+     count, its peak within 10 % of max_memory_allocated over what was
+     allocated before the state.  It prints a {"dryrun": {...}} JSON line.
 
 The line before the last is the card as nvidia-smi reports it; the last is
 {"ok": true, "device": {...}}.  A kernels JSON line precedes them.
@@ -5104,6 +5124,10 @@ TSESSION_DRIFT = 1e-3
 SHARD_RUNS = (("1x2", (1, 2), False), ("2x1", (2, 1), False),
               ("2x1 no drops", (2, 1), True))
 SHARD_STEPS = 2               # (phase 13 (c) takes as many on one card)
+# the runs whose last step is held bit for bit to the whole-gather
+# exchange (tests/torch_train_world.py's oracle): one a mesh; their peak
+# is taken before it (the oracle keeps a copy of the gradients)
+ORACLE_RUNS = ("1x2", "2x1")
 SHARD_LOSS_RTOL = 1e-2        # the first loss vs phase 13 (c), every run
 # the first loss, the first gradient norm and the second loss against the
 # same config's single-card steps, where the sums are the same: bf16 adds
@@ -5343,6 +5367,8 @@ def train_rank(rank, world, dev, seed, out_dir):
         return out, time.perf_counter() - t0, collective_stats()
 
     rec = dict(rank=rank, sharded={})
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_train_world import whole_gather_oracle
     published = dataclasses.replace(get_arch(MOE_ARCH),
                                     num_layers=MOE_LAYERS)
     spec = spec_for(published, get_shape("train_4k"),
@@ -5357,21 +5383,49 @@ def train_rank(rank, world, dev, seed, out_dir):
         state = S.init_sharded_state(cfg, opt, torch.Generator(
             device=dev).manual_seed(seed + 14), mesh)
         step = S.build_train_step(cfg, opt, mesh)
-        steps = []
+        steps, oracle, peak = [], None, None
         for t in range(SHARD_STEPS):
             batch = lm_batch(spec, seed, t, device=dev)
-            (state, met), wall, coll = timed(lambda: step(state, batch))
+            if t == SHARD_STEPS - 1 and tag in ORACLE_RUNS:
+                # the peak before the oracle's copy of the gradients
+                peak = torch.cuda.max_memory_allocated() if dev == "cuda" \
+                    else 0
+                # this step's gradients, kept for the whole-gather oracle
+                seen, exchange = {}, S._exchange
+
+                def spy(grads, *args):
+                    seen.update({k: v.clone() for k, v in grads.items()})
+                    return exchange(grads, *args)
+                keep = S.build_train_step(cfg, opt, mesh, keep_grads=True)
+                S._exchange = spy
+                try:
+                    (state, met), wall, coll = timed(
+                        lambda: keep(state, batch))
+                finally:
+                    S._exchange = exchange
+                want, norm = whole_gather_oracle(seen, state.layout, mesh)
+                oracle = dict(
+                    leaves=len(want),
+                    differ=sum(not torch.equal(met["grads"][k], want[k])
+                               for k in want),
+                    norm_rel=abs(float(met["grad_norm"]) - float(norm))
+                    / float(norm))
+                del seen, want, met["grads"]
+            else:
+                (state, met), wall, coll = timed(lambda: step(state, batch))
             steps.append(dict(loss=float(met["loss"]),
                               grad_norm=float(met["grad_norm"]),
                               skipped=int(met["skipped"]), wall_s=wall,
                               collectives=coll["calls"],
                               collective_s=coll["seconds"],
-                              floats_sent=coll["floats_sent"]))
+                              floats_sent=coll["floats_sent"],
+                              by_kind=coll["by_kind"]))
         blocks = {k: v.device.type for k, v in state.params.items()}
         rec["sharded"][tag] = dict(
-            steps=steps, devices=sorted(set(blocks.values())),
-            peak_gib=(torch.cuda.max_memory_allocated() / GIB
-                      if dev == "cuda" else 0.0),
+            steps=steps, devices=sorted(set(blocks.values())), oracle=oracle,
+            peak_gib=(peak if peak is not None else
+                      torch.cuda.max_memory_allocated()
+                      if dev == "cuda" else 0.0) / GIB,
             param_bytes=sum(v.numel() * v.element_size()
                             for v in state.params.values()))
         del state, step, met
@@ -5538,6 +5592,12 @@ def phase_train(seed, single):
                       f"phase 14 (b) {tag}: {got} vs one card {want} "
                       f"(relative {rel}, bound {SHARD_RTOL[tag]})")
             for r, p in enumerate(per):
+                o = p["oracle"]
+                if tag in ORACLE_RUNS:
+                    check(o is not None and o["differ"] == 0
+                          and o["norm_rel"] < 1e-6,
+                          f"phase 14 (b) {tag}, rank {r}: the exchange's "
+                          f"blocks against the whole gather: {o}")
                 p["rel_vs_single"] = rel
                 p["first_loss_rel_vs_phase13"] = first
                 s = p["steps"][-1]
@@ -5554,8 +5614,16 @@ def phase_train(seed, single):
                       f"{[round(q['wall_s'], 3) for q in p['steps']]} s, "
                       f"collectives a step {s['collectives']} "
                       f"({s['collective_s']:.3f} s, {s['floats_sent']} "
-                      f"words sent); blocks {p['param_bytes'] / 1e9:.2f} GB; "
-                      f"peak {p['peak_gib']:.2f} GiB", flush=True)
+                      f"words sent; received by kind "
+                      + ", ".join(f"{k} {v['calls']} x {v['bytes'] / 1e9:.3f}"
+                                  f" GB" for k, v in s["by_kind"].items()
+                                  if v["calls"])
+                      + f"); blocks {p['param_bytes'] / 1e9:.2f} GB; "
+                      f"peak {p['peak_gib']:.2f} GiB"
+                      + (f"; the exchange's {o['leaves']} blocks bit for bit "
+                         f"the whole gather's ({o['differ']} differ), norm "
+                         f"{o['norm_rel']:.1e} from it" if o else ""),
+                      flush=True)
         comp = [x["compressed"] for x in recs]
         closs = [[s["loss"] for s in c["steps"]] for c in comp]
         check(all(ls == closs[0] for ls in closs) and all(
@@ -5602,6 +5670,176 @@ def phase_train(seed, single):
     torch.cuda.empty_cache()
     print(f"phase 14: {rec['wall_s']:.1f} s (the world {world_s:.1f} s)",
           flush=True)
+    return rec
+
+
+# --- phase 15: the dry run ------------------------------------------------
+
+# the sweep runs one dry-run process an (arch, mesh), at most DRYRUN_PROCS
+# at a time: each traces on one host core
+DRYRUN_PROCS = 8
+DRYRUN_TIMEOUT_S = 900
+DRY_FLOP_RTOL = 1e-3          # trace vs FlopCounterMode on the real step
+DRY_PEAK_RTOL = 0.10          # trace vs max_memory_allocated
+
+
+def dryrun_sweep(out_dir):
+    """(a) ``python -m repro_torch.launch.dryrun`` over every (arch x shape
+    x mesh) cell on fake cuda tensors, an (arch, mesh) a subprocess: the
+    counts, each failed cell's reason, the wall.  Fails if a cell fails
+    by an exception."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import ARCHS
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    jobs = [(arch, mesh) for arch in sorted(ARCHS)
+            for mesh in ("single", "multi")]
+
+    def run(job):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               job[0], "--mesh", job[1], "--out", out_dir, "--device", DEV]
+        try:
+            return job, subprocess.run(cmd, cwd=ROOT, env=env,
+                                       capture_output=True, text=True,
+                                       timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            return job, None
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(DRYRUN_PROCS) as pool:
+        done = list(pool.map(run, jobs))
+    wall = time.perf_counter() - t0
+    for job, p in done:
+        check(p is not None, f"phase 15 (a): {job} ran past "
+              f"{DRYRUN_TIMEOUT_S} s")
+        check(p.returncode in (0, 1), f"phase 15 (a): the dry run of {job} "
+              f"exited {p.returncode}: {p.stderr[-2000:]}")
+    cells = {}
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as fh:
+            cells[name[:-len(".json")]] = json.load(fh)
+    counts = {st: sum(c["status"] == st for c in cells.values())
+              for st in ("ok", "skipped", "failed")}
+    failed = {tag: c["failure"] for tag, c in cells.items()
+              if c["status"] == "failed"}
+    by_reason = {r: sum(v == r for v in failed.values())
+                 for r in ("memory", "check", "exception")}
+    check(len(cells) == 4 * len(jobs), f"phase 15 (a): {len(cells)} cells "
+          f"for {len(jobs)} runs of 4 shapes")
+    keep = ("kind", "status", "failure", "error", "trace_s",
+            "flops_per_device", "bytes_per_device", "memory",
+            "model_flops_global")
+    rec = dict(wall_s=wall, processes=DRYRUN_PROCS,
+               counts=counts, failed_by_reason=by_reason, failed=failed,
+               cells={tag: {k: c[k] for k in keep if k in c}
+                      | ({"collective_bytes":
+                          c["collectives"]["total_bytes"]}
+                         if "collectives" in c else {})
+                      for tag, c in cells.items()})
+    print(json.dumps({"dryrun_counts": dict(
+        counts=counts, failed_by_reason=by_reason, failed=failed)}),
+          flush=True)
+    traced = sum(c.get("trace_s", 0) for c in cells.values())
+    print(f"phase 15 (a) the dry run's sweep over both production meshes: "
+          f"{len(cells)} cells in {wall:.1f} s, {len(jobs)} processes "
+          f"{DRYRUN_PROCS} at a time ({traced:.1f} s of traces)",
+          flush=True)
+    exc = [t for t, r in failed.items() if r == "exception"]
+    check(not exc, "phase 15 (a): cells failed by an exception: "
+          + "; ".join(f"{t}: {cells[t]['error'][:300]}" for t in exc))
+    return rec
+
+
+def dryrun_vs_real(seed):
+    """(b) one single-card AdamW step of stablelm-1.6b at phase 13's 2 x
+    4096, traced on fake cuda tensors under the dry run's accounting and
+    run for real under FlopCounterMode: dot FLOPs within 0.1 %, the peak
+    within 10 % of max_memory_allocated over what was allocated before
+    the state."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import OptimConfig, get_arch, get_shape
+    from repro_torch.data.synthetic import lm_batch, spec_for
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime import steps as S
+    cfg, opt = get_arch(LM_ARCH), OptimConfig()
+    spec = spec_for(cfg, get_shape("train_4k"), batch_override=LM_BATCH)
+    step = S.build_train_step(cfg, opt)
+    shapes = {k: (tuple(p.shape), p.dtype) for k, p in
+              M.init_abstract(cfg)[0].named_parameters()}
+    like = lm_batch(spec, seed, 0, device=DEV)
+
+    def fake_args():
+        model = M.ParamTree(S._nest({k: torch.empty(sh, dtype=dt, device=DEV)
+                                     for k, (sh, dt) in shapes.items()}))
+        state = S.TrainState(model, make_optimizer(opt)[0](
+            dict(model.named_parameters())))
+        return state, {k: torch.empty_like(v) for k, v in like.items()}
+    mode, arg_bytes, trace_s = dryrun.trace(step, fake_args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model, _ = M.init_model(cfg, torch.Generator(device=DEV).manual_seed(
+        seed + 15))
+    state = S.TrainState(model, make_optimizer(opt)[0](
+        dict(model.named_parameters())))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        state, met = step(state, like)
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    real_peak = torch.cuda.max_memory_allocated() - base
+    flops = fc.get_total_flops()
+    check(math.isfinite(float(met["loss"])), "phase 15 (b): the real step's "
+          f"loss is {float(met['loss'])}")
+    del state, met, model, like
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = dict(arch=LM_ARCH, batch=LM_BATCH, seq=spec.seq_len,
+               trace_s=trace_s, real_step_s=real_s,
+               dot_flops=mode.dot_flops, flop_counter_flops=flops,
+               flop_rel=abs(mode.dot_flops - flops) / flops,
+               peak_bytes=mode.peak_bytes, argument_bytes=arg_bytes,
+               real_peak_bytes=real_peak,
+               peak_ratio=mode.peak_bytes / real_peak,
+               hbm_bytes=mode.hbm_bytes)
+    print(f"phase 15 (b) {LM_ARCH} one step at {LM_BATCH} x {spec.seq_len}: "
+          f"the trace's dot FLOPs {mode.dot_flops:.6e}, FlopCounterMode's "
+          f"{flops:.6e} (relative {rec['flop_rel']:.2e}); the trace's peak "
+          f"{mode.peak_bytes / GIB:.3f} GiB (arguments {arg_bytes / GIB:.3f})"
+          f", the card's {real_peak / GIB:.3f} GiB (ratio "
+          f"{rec['peak_ratio']:.4f}); traced in {trace_s:.1f} s, the real "
+          f"step {real_s:.2f} s", flush=True)
+    check(rec["flop_rel"] < DRY_FLOP_RTOL, f"phase 15 (b): dot FLOPs "
+          f"{mode.dot_flops} vs {flops}")
+    check(abs(rec["peak_ratio"] - 1) < DRY_PEAK_RTOL, f"phase 15 (b): peak "
+          f"{mode.peak_bytes} vs {real_peak}")
+    return rec
+
+
+def phase_dryrun(seed):
+    """Phase 15: the dry run on the card; see the module docstring.
+    Returns the {"dryrun": ...} record."""
+    import shutil
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(ROOT, "build", "phase15")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    try:
+        rec = dict(sweep=dryrun_sweep(out_dir), step=dryrun_vs_real(seed))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    rec["wall_s"] = time.perf_counter() - t0
+    print(f"phase 15: {rec['wall_s']:.1f} s", flush=True)
     return rec
 
 
@@ -5715,6 +5953,8 @@ def main(argv=None) -> int:
         # phase 14: the Trainer, the sharded steps and the CLIs
         print(json.dumps({"train": phase_train(args.seed, lm["olmoe"])},
                          default=str))
+        # phase 15: the dry run, after phase 14 has freed its memory
+        print(json.dumps({"dryrun": phase_dryrun(args.seed)}, default=str))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

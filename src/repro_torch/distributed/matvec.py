@@ -26,15 +26,19 @@ half-step's local work is one stage-1 launch of ``csrc/gk_step.cu``
 (``kernels.ops.local_mv_qtv`` / ``local_rmv_qtv``): the GEMV and the
 first CGS product in one pass over the block.
 
-Every cross-rank exchange is one ``all_gather`` of this rank's local
-partial or block (:func:`_all_gather`), after which each rank combines
-the gathered parts itself: blocks are concatenated, and partials of the
-same block are added in shard order (:func:`psum` for a plain sum).  No
-backend reduction order enters, so σ has the same bits on gloo and NCCL,
-on every rank, and across the (8,), (2, 4) and (4, 2) row meshes.  A
-rank sends its own payload and receives world × it; gloo takes
-``all_gather`` for CUDA tensors.  :func:`_all_gather` is also where
-collectives are counted (:func:`collective_stats`).
+Every cross-rank exchange of the solvers is one ``all_gather`` of this
+rank's local partial or block (:func:`_all_gather`), after which each
+rank combines the gathered parts itself: blocks are concatenated, and
+partials of the same block are added in shard order (:func:`psum` for a
+plain sum).  No backend reduction order enters, so σ has the same bits
+on gloo and NCCL, on every rank, and across the (8,), (2, 4) and (4, 2)
+row meshes.  A rank sends its own payload and receives world × it; gloo
+takes ``all_gather`` for CUDA tensors.  The sharded train step's
+gradient exchange is the other collective, one ``all_to_all_single``
+with split sizes (:func:`_all_to_all`): each rank receives only what it
+asked for.  These two helpers are where collectives are counted
+(:func:`collective_stats`, by kind under the reference's names,
+:data:`COLLECTIVE_KINDS`).
 
 Global and local tensors: the public products (``mv``, ``rmv``, their
 fused forms, ``matmat``, ``rmatmat``, ``sketch_pass``, ``to_dense``) take
@@ -67,7 +71,7 @@ from repro_torch._device import to_tensor
 from repro_torch.core.operators import (GramOp, Operator, SparseOp,
                                         TransposedOp, cgs, mixed_mm,
                                         mixed_tmm)
-from repro_torch.distributed.partition import (mesh_sizes,
+from repro_torch.distributed.partition import (mesh_ranks, mesh_sizes,
                                                operator_axes,
                                                operator_counts,
                                                operator_spec,
@@ -77,47 +81,82 @@ from repro_torch.distributed.partition import (mesh_sizes,
 
 __all__ = ["ShardedOp", "SparseShards", "place_operator", "sharded_operator",
            "operator_axes", "operator_spec", "shard_shape", "psum",
-           "collective_stats", "reset_collectives"]
+           "collective_stats", "reset_collectives", "COLLECTIVE_KINDS"]
 
 Tensor = torch.Tensor
 F32 = torch.float32
 
 # --- the collective ---------------------------------------------------------
 
-# collectives issued in this process: calls, floats this rank sent and
-# received (world × sent), and host seconds spent in them
-_STATS = {"calls": 0, "floats_sent": 0, "floats_received": 0,
-          "seconds": 0.0}
+# the reference's names of collective kinds (repro.launch.hlo_analysis)
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+
+def _zero_stats() -> dict:
+    return {"calls": 0, "floats_sent": 0, "floats_received": 0,
+            "seconds": 0.0,
+            "by_kind": {k: {"calls": 0, "bytes": 0} for k in COLLECTIVE_KINDS}}
+
+
+# collectives issued in this process: calls, floats (4-byte words) this
+# rank sent and received, host seconds spent in them, and calls and bytes
+# received by kind
+_STATS = _zero_stats()
 _STATS_LOCK = threading.Lock()
 
 
 def reset_collectives() -> None:
     with _STATS_LOCK:
-        _STATS.update(calls=0, floats_sent=0, floats_received=0,
-                      seconds=0.0)
+        _STATS.update(_zero_stats())
 
 
 def collective_stats() -> dict:
-    """{calls, floats_sent, floats_received, seconds} of this process's
-    collectives since the last :func:`reset_collectives`."""
+    """{calls, floats_sent, floats_received, seconds, by_kind} of this
+    process's collectives since the last :func:`reset_collectives`;
+    ``by_kind[kind]`` holds the calls and the bytes received (the
+    collective's result, as the reference counts it) of each of
+    :data:`COLLECTIVE_KINDS`."""
     with _STATS_LOCK:
-        return dict(_STATS)
+        out = dict(_STATS)
+        out["by_kind"] = {k: dict(v) for k, v in _STATS["by_kind"].items()}
+        return out
 
 
-def _all_gather(x: Tensor) -> list:
-    """Every rank's ``x`` (one shape on all ranks), indexed by rank: one
-    ``all_gather``, the only collective of this package, counted."""
-    x = x.contiguous()
-    world = dist.get_world_size()
-    parts = [torch.empty_like(x) for _ in range(world)]
-    t0 = time.perf_counter()
-    dist.all_gather(parts, x)
+def _count(kind: str, sent: Tensor, received: int, t0: float) -> None:
     with _STATS_LOCK:
         _STATS["calls"] += 1
-        _STATS["floats_sent"] += x.numel()
-        _STATS["floats_received"] += world * x.numel()
+        _STATS["floats_sent"] += sent.numel()
+        _STATS["floats_received"] += received
         _STATS["seconds"] += time.perf_counter() - t0
-    return parts
+        by = _STATS["by_kind"][kind]
+        by["calls"] += 1
+        by["bytes"] += received * sent.element_size()
+
+
+def _all_gather(x: Tensor) -> Tensor:
+    """Every rank's ``x`` (one shape on all ranks) stacked by rank,
+    (world, *x.shape), so ``parts[r]`` is rank r's: one ``all_gather``,
+    counted."""
+    x = x.contiguous()
+    world = dist.get_world_size()
+    rows = x.new_empty((world,) + tuple(x.shape))
+    t0 = time.perf_counter()
+    dist.all_gather(list(rows.unbind(0)), x)
+    _count("all-gather", x, world * x.numel(), t0)
+    return rows
+
+
+def _all_to_all(x: Tensor, send: list, recv: list) -> Tensor:
+    """One ``all_to_all_single`` of the flat ``x``: ``send[r]`` elements
+    of it, in rank order, go to rank r, and the result holds ``recv[r]``
+    elements from each rank r, in rank order; counted."""
+    out = x.new_empty(sum(recv))
+    t0 = time.perf_counter()
+    dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv,
+                           input_split_sizes=send)
+    _count("all-to-all", x, out.numel(), t0)
+    return out
 
 
 def _combine(parts: list, mesh, cat_axes: Tuple[str, ...],
@@ -128,7 +167,7 @@ def _combine(parts: list, mesh, cat_axes: Tuple[str, ...],
     other mesh dimension."""
     names = tuple(mesh.mesh_dim_names)
     sizes = mesh_sizes(mesh)
-    ranks = mesh.mesh.tolist()
+    ranks = mesh_ranks(mesh)
     pos = dict(zip(names, mesh.get_coordinate()))
     out = []
     for ci in itertools.product(*(range(sizes[a]) for a in cat_axes)):
@@ -152,7 +191,9 @@ def psum(x: Tensor, mesh, axes) -> Tensor:
     the group and under any backend: one :func:`_all_gather`, then a
     left-to-right sum of the group's parts."""
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
-    return _combine(_all_gather(x), mesh, (), axes)[0]
+    out = _combine(_all_gather(x), mesh, (), axes)[0]
+    # a group of one adds nothing: copy the part out of the gathered rows
+    return out.clone() if out._is_view() else out
 
 
 # --- the payload and the local algebra ---------------------------------------

@@ -24,7 +24,9 @@ group is needed (the rules alone), a ``{name: size}`` mapping.
 :func:`local_block` cuts a rank's block of a tensor under its spec;
 :func:`gather_leaves` puts the blocks of every rank back together in
 shard order with one ``all_gather`` (``distributed.matvec``'s counted
-collective), the same bits on every rank.
+collective), the same bits on every rank; :func:`block_grid` and
+:func:`assemble_rows` see a tensor as every rank's block at once, so a
+gather or an exchange costs a few ops a leaf, not a few a rank.
 
 A dense (m, n) operand shards its rows over the ``("pod", "data")`` axes
 present and its columns over ``"model"`` when present, the layout every
@@ -41,6 +43,7 @@ from __future__ import annotations
 
 import itertools
 import math
+import weakref
 from typing import Any, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -74,7 +77,7 @@ def mesh_sizes(mesh) -> dict:
     mapping), in the mesh's order."""
     if isinstance(mesh, Mapping):
         return {str(k): int(v) for k, v in mesh.items()}
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
 
 
 def batch_axes(mesh) -> Tuple[str, ...]:
@@ -150,16 +153,42 @@ def spec_axes(spec: Spec) -> Tuple[str, ...]:
     return tuple(a for e in spec for a in _entry_axes(e))
 
 
+# a DeviceMesh's ranks and coordinates, read once (its ``mesh`` tensor
+# is rebuilt at every read in recent torch)
+_LAYOUTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _layout_of(mesh) -> tuple:
+    got = _LAYOUTS.get(mesh)
+    if got is None:
+        from torch.utils._python_dispatch import _disable_current_modes
+        # with every dispatch mode set aside: a step traced under
+        # ``FakeTensorMode`` reads them too
+        with _disable_current_modes():
+            ranks = mesh.mesh.tolist()
+        names = tuple(mesh.mesh_dim_names)
+        flat = ranks
+        for _ in range(len(names) - 1):
+            flat = [r for row in flat for r in row]
+        coords = [None] * len(flat)
+        for pos, r in zip(itertools.product(*(range(n) for n in
+                                              mesh_sizes(mesh).values())),
+                          flat):
+            coords[r] = dict(zip(names, pos))
+        got = _LAYOUTS[mesh] = (ranks, coords,
+                                flat == list(range(len(flat))))
+    return got
+
+
+def mesh_ranks(mesh) -> list:
+    """A ``DeviceMesh``'s ranks as nested lists (read-only)."""
+    return _layout_of(mesh)[0]
+
+
 def rank_coords(mesh) -> list:
     """The coordinate ({name: position}) of every rank of a
-    ``DeviceMesh``, indexed by rank."""
-    names = tuple(mesh.mesh_dim_names)
-    flat = mesh.mesh.reshape(-1).tolist()
-    coords = [None] * len(flat)
-    for pos, r in zip(itertools.product(*(range(n) for n in
-                                          mesh.mesh.shape)), flat):
-        coords[r] = dict(zip(names, pos))
-    return coords
+    ``DeviceMesh``, indexed by rank (read-only)."""
+    return _layout_of(mesh)[1]
 
 
 def my_coord(mesh) -> dict:
@@ -194,32 +223,54 @@ def local_block(x: Tensor, spec: Spec, mesh, coord=None) -> Tensor:
     return blk.clone(memory_format=torch.contiguous_format)
 
 
-def _words(t: Tensor) -> Tensor:
-    """``t``'s bytes as a flat float32 tensor (padded to 8 bytes): the
-    collective only copies them."""
-    raw = t.contiguous().reshape(-1).view(torch.uint8)
-    pad = -raw.numel() % 8
-    if pad:
-        raw = torch.cat([raw, raw.new_zeros(pad)])
-    return raw.view(torch.float32)
+ALIGN = 8              # bytes: every packed tensor starts on such a boundary
+
+
+def _padded(nbytes: int) -> int:
+    return -(-nbytes // ALIGN) * ALIGN
+
+
+def _nbytes(t: Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _require_row_major(mesh) -> None:
+    """The vectorized gathers read rank r at the r-th row-major position
+    of the mesh, as ``launch.mesh.make_mesh`` lays ranks out."""
+    if not _layout_of(mesh)[2]:
+        raise NotImplementedError(
+            "the packed gathers need rank r at the r-th row-major position "
+            "of the mesh (as make_mesh lays ranks out)")
+
+
+def _pack(tensors: Sequence[Tensor]) -> Tensor:
+    """The bytes of ``tensors``, each from an :data:`ALIGN`-byte boundary,
+    in one float32 buffer (each tensor copied once)."""
+    total = sum(_padded(_nbytes(t)) for t in tensors)
+    flat = torch.empty(total // 4, dtype=torch.float32,
+                       device=tensors[0].device)
+    raw = flat.view(torch.uint8)
+    off = 0
+    for t in tensors:
+        n = _nbytes(t)
+        raw[off:off + n].view(t.dtype).view(t.shape).copy_(t)
+        off += _padded(n)
+    return flat
 
 
 def gather_packed(tensors: Sequence[Tensor]) -> list:
     """Every rank's ``tensors`` (the same shapes and dtypes on all ranks,
-    on one device), indexed by rank, with ONE counted ``all_gather`` of
-    their bytes, whatever their dtypes."""
+    on one device) with ONE counted ``all_gather`` of their bytes,
+    whatever their dtypes: for each tensor, every rank's stacked by rank,
+    (world, *shape), views of one buffer."""
     from repro_torch.distributed.matvec import _all_gather
-    words = [_words(t) for t in tensors]
-    parts = _all_gather(torch.cat(words) if len(words) > 1 else words[0])
-    out = []
-    for part in parts:
-        raw = part.view(torch.uint8)
-        got, off = [], 0
-        for t, w in zip(tensors, words):
-            nb = t.numel() * t.element_size()
-            got.append(raw[off:off + nb].view(t.dtype).view(t.shape))
-            off += w.numel() * 4
-        out.append(got)
+    rows = _all_gather(_pack(tensors)).view(torch.uint8)
+    out, off = [], 0
+    for t in tensors:
+        n = _nbytes(t)
+        col = rows[:, off:off + n].view(t.dtype)
+        out.append(col.unflatten(1, t.shape) if t.dim() else col[:, 0])
+        off += _padded(n)
     return out
 
 
@@ -229,27 +280,64 @@ def restrict(spec: Spec, keep: Sequence[str]) -> Spec:
                    else None for e in spec])
 
 
-def assemble(parts: Sequence[Tensor], spec: Spec, shape: Sequence[int],
-             mesh, within: Spec = ()) -> Tensor:
+def block_grid(x: Tensor, spec: Spec, mesh, fixed: Sequence[str] = ()
+               ) -> Tensor:
+    """``x`` as every rank's block under ``spec``: a view of shape (the
+    sizes of the mesh axes outside ``fixed``, in mesh order) + the block
+    shape, whose entry at a coordinate is the block the rank there holds
+    (the same block along the axes ``spec`` does not name).  ``x`` is the
+    tensor whole, or its region at this rank's position on ``fixed``: the
+    entries of ``spec`` that name only ``fixed`` axes are cut already."""
+    sizes = mesh_sizes(mesh)
+    split, where, blocks = [], {}, []
+    for d, n in enumerate(x.shape):
+        axes = _entry_axes(spec[d]) if d < len(spec) else ()
+        if set(axes) <= set(fixed):
+            axes = ()
+        for a in axes:
+            where[a] = len(split)
+            split.append(sizes[a])
+        blocks.append(len(split))
+        split.append(n // math.prod(sizes[a] for a in axes))
+    out_axes = [a for a in sizes if a not in fixed]
+    v = x.reshape(split).permute(
+        [where[a] for a in out_axes if a in where] + blocks)
+    for i, a in enumerate(out_axes):
+        if a not in where:
+            v = v.unsqueeze(i)
+    return v.expand([sizes[a] for a in out_axes] + [-1] * len(blocks))
+
+
+def assemble_rows(rows: Tensor, spec: Spec, shape: Sequence[int], mesh,
+                  within: Spec = ()) -> Tensor:
     """This rank's block under ``within`` (default: the whole tensor) from
-    every rank's block under ``spec`` (``parts`` indexed by rank;
-    ``within`` a :func:`restrict` of ``spec``): each block is taken from
-    the first rank, in rank order, that holds it."""
-    coords = rank_coords(mesh)
-    region = block_slices(within, shape, mesh,
-                          my_coord(mesh) if within else coords[0])
-    out = parts[0].new_empty(tuple(g.stop - g.start for g in region))
-    seen = set()
-    for r, part in enumerate(parts):
-        sl = block_slices(spec, shape, mesh, coords[r])
-        key = tuple((s.start, s.stop) for s in sl)
-        if key in seen or any(s.start < g.start or s.stop > g.stop
-                              for s, g in zip(sl, region)):
-            continue
-        seen.add(key)
-        out[tuple(slice(s.start - g.start, s.stop - g.start)
-                  for s, g in zip(sl, region))] = part
-    return out
+    ``rows`` (world, *block): every rank's block under ``spec``, in rank
+    order (``within`` a :func:`restrict` of ``spec``).  A block several
+    ranks hold is taken from the first of them in rank order.  A fresh
+    tensor."""
+    _require_row_major(mesh)
+    sizes = mesh_sizes(mesh)
+    me = my_coord(mesh)
+    inside, named = set(spec_axes(within)), set(spec_axes(spec))
+    g = rows.reshape([sizes[a] for a in sizes] + list(rows.shape[1:]))
+    pick, kept = [], []
+    for a in sizes:
+        if a in named and a not in inside:
+            pick.append(slice(None))
+            kept.append(a)
+        else:
+            pick.append(me[a] if a in inside else 0)
+    g = g[tuple(pick)]
+    pos = {a: i for i, a in enumerate(kept)}
+    order, out_shape = [], []
+    for d in range(len(shape)):
+        axes = [a for a in (_entry_axes(spec[d]) if d < len(spec) else ())
+                if a in pos]
+        order += [pos[a] for a in axes] + [len(kept) + d]
+        out_shape.append(rows.shape[1 + d] * math.prod(sizes[a]
+                                                       for a in axes))
+    out = g.permute(order).reshape(out_shape)
+    return out.clone() if out._is_view() else out
 
 
 def gather_leaves(blocks: Sequence[Tensor], specs: Sequence[Spec],
@@ -269,10 +357,10 @@ def gather_leaves(blocks: Sequence[Tensor], specs: Sequence[Spec],
     out = list(blocks)
     if not idx:
         return out
-    per_rank = gather_packed([blocks[i] for i in idx])
+    rows = gather_packed([blocks[i] for i in idx])
     for j, i in enumerate(idx):
-        out[i] = assemble([p[j] for p in per_rank], specs[i], shapes[i],
-                          mesh, within[i])
+        out[i] = assemble_rows(rows[j], specs[i], shapes[i], mesh,
+                               within[i])
     return out
 
 

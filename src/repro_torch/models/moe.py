@@ -193,7 +193,7 @@ def _psum_many(xs, mesh, axes) -> list:
     from repro_torch.distributed.matvec import _combine
     from repro_torch.distributed.partition import gather_packed
     parts = gather_packed([x.contiguous() for x in xs])
-    return [_combine([p[j] for p in parts], mesh, (), axes)[0]
+    return [_combine(parts[j], mesh, (), axes)[0]
             for j in range(len(xs))]
 
 
@@ -242,7 +242,7 @@ class _FsdpGather(torch.autograd.Function):
         parts = gather_packed([wg, wu, wd])
         out = []
         for j, dim in enumerate((1, 1, 2)):
-            blocks = _combine([p[j] for p in parts], mesh, ("data",), ())
+            blocks = _combine(parts[j], mesh, ("data",), ())
             out.append(torch.cat(blocks, dim=dim))
         return tuple(out)
 

@@ -21,22 +21,33 @@ of every parameter and of its AdamW moments under
   3. weights each shard's cross entropy by its share of the global batch's
      valid tokens, so the loss is the exact global token mean that the
      reference's global-batch loss is;
-  4. gathers every rank's gradients with one collective and adds them
-     over the batch axes in shard order: a leaf the EP group computes
-     alike is taken from the ranks at "model" position 0 (no sum over
-     "model"), an expert weight from the ranks that own those experts;
-  5. computes the global gradient norm from the summed gradients, each
-     element counted once, the same bits on every rank;
+  4. exchanges the gradients with one collective (an
+     ``all_to_all_single``): each rank receives, from each rank whose
+     gradient adds up to a leaf's, only its own block of that leaf, and
+     adds the blocks over the batch axes in shard order.  A leaf the EP
+     group computes alike comes from the ranks at "model" position 0 (no
+     sum over "model"), an expert weight from the ranks that own those
+     experts.  So a rank's summed block has the bits of the same block of
+     the whole summed gradient;
+  5. computes the global gradient norm from each rank's sum of squares of
+     the blocks it owns, each element counted once (a block several ranks
+     hold is counted by the one at position 0 on the axes its spec does
+     not name), the partial sums and the loss terms exchanged in one small
+     gather and the partial sums added by one reduction over the gathered
+     vector: the same bits on every rank;
   6. updates AdamW on the rank's own blocks, with one NaN-guard decision
      that every rank takes alike.
 
 Memory.  Step 1 leaves every rank the parameters whole (the FSDP blocks
-save memory between steps, not during one), and step 4 leaves it every
-rank's gradients: world + 1 times the gradient a rank computes.  So a
-rank's peak grows with the world, and the step is built only where that
-fits the device (:func:`_check_gather_fits`); on the production meshes
-(256 or 512 ranks) it does not for any registry arch.  A reduce-scatter
-of the gradients by block would lift this.
+save memory between steps, not during one), with its gradient beside
+them at the end of the backward pass.  Step 4 then holds the gradient
+and the packed blocks it sends, then what it sends and what it receives.
+A rank at "model" position 0 sends every rank its block of each leaf the
+EP group computes alike, about one gradient for a leaf split over every
+mesh axis; a rank receives its blocks from the ranks of its batch axes,
+about a gradient over the "model" size.  The step is built only where the
+largest of those three moments fits the device
+(:func:`_check_exchange_fits`).
 
 :func:`build_compressed_train_step` is the multi-pod step with Krylov
 gradient compression over "pod" (``distributed.compression``).
@@ -52,6 +63,7 @@ import torch
 
 from repro_torch.configs.base import FsvdConfig, ModelConfig, OptimConfig
 from repro_torch.distributed import partition as P
+from repro_torch.distributed.matvec import _all_to_all
 from repro_torch.models import model as model_mod
 from repro_torch.optim import OptState, make_optimizer
 
@@ -242,6 +254,9 @@ def _contributors(mesh, model_pos: int) -> list:
     return sorted(ranks, key=lambda r: P.axes_index(mesh, baxes, coords[r]))
 
 
+H100_BYTES = 80 * 10 ** 9      # an H100's device memory (data sheet)
+
+
 def _device_bytes(mesh) -> int:
     """The memory of one of ``mesh``'s devices: the card's, or the host's
     for a CPU mesh."""
@@ -259,42 +274,181 @@ def _regions(layout: dict, mesh) -> dict:
             for k, lf in layout.items()}
 
 
-def _check_gather_fits(layout: dict, mesh) -> None:
-    """Refuse a mesh on which a step's gradient gather cannot fit: a rank
-    holds its own gradient and every rank's, world + 1 times the bytes of
-    what it computes (each leaf whole, or its experts).  That is a lower
-    bound of the step's peak."""
-    region = _regions(layout, mesh)
+def _numel(slices) -> int:
+    return math.prod(sl.stop - sl.start for sl in slices)
+
+
+def exchange_bytes(layout: dict, mesh) -> dict:
+    """The bytes of a rank's side of the step: ``params`` (what it
+    gathers: each leaf whole, or its experts), ``grad`` (what it computes,
+    the same), ``sent`` (the most any rank sends: a rank at "model"
+    position 0) and ``received`` (every rank's); no process group is
+    needed (``mesh`` may be a ``{name: size}`` mapping)."""
     sizes = P.mesh_sizes(mesh)
+    region = _regions(layout, mesh)
     origin = {a: 0 for a in sizes}
-    grad = sum(math.prod(sl.stop - sl.start for sl in P.block_slices(
-        region[k], lf.shape, mesh, origin)) * lf.dtype.itemsize
-        for k, lf in layout.items())
     world = math.prod(sizes.values())
-    need, have = (world + 1) * grad, _device_bytes(mesh)
+    n_model = sizes.get("model", 1)
+    group = world // n_model                 # the ranks of one "model" slot
+    grad = sent = received = 0
+    for k, lf in layout.items():
+        item = lf.dtype.itemsize
+        block = _numel(P.block_slices(lf.spec, lf.shape, mesh, origin))
+        grad += _numel(P.block_slices(region[k], lf.shape, mesh, origin)) \
+            * item
+        sent += (group if lf.expert else world) * block * item
+        received += group * block * item
+    return dict(params=grad, grad=grad, sent=sent, received=received)
+
+
+def _check_exchange_fits(layout: dict, mesh, device_bytes=None) -> None:
+    """Refuse a mesh on which a step's peak cannot fit: the largest of
+    the parameters whole with the gradient (the end of the backward
+    pass), the gradient with the packed blocks it sends, and those with
+    the blocks it receives (:func:`exchange_bytes`).  That is a lower
+    bound of the step's peak."""
+    b = exchange_bytes(layout, mesh)
+    moments = {"the parameters whole and the gradient":
+               b["params"] + b["grad"],
+               "the gradient and the blocks it sends":
+               b["grad"] + b["sent"],
+               "the blocks it sends and receives":
+               b["sent"] + b["received"]}
+    what, need = max(moments.items(), key=lambda kv: kv[1])
+    have = _device_bytes(mesh) if device_bytes is None else device_bytes
     if need > have:
         raise ValueError(
-            f"the sharded train step gathers every rank's gradients whole: "
-            f"({world} ranks + 1) x {grad / 1e9:.3f} GB = {need / 1e9:.1f} "
-            f"GB a rank, more than the device's {have / 1e9:.1f} GB; use a "
-            f"smaller mesh")
+            f"the sharded train step needs {what}, {need / 1e9:.1f} GB a "
+            f"rank (parameters {b['params'] / 1e9:.3f} GB, gradient "
+            f"{b['grad'] / 1e9:.3f}, sent {b['sent'] / 1e9:.3f}, received "
+            f"{b['received'] / 1e9:.3f}), more than the device's "
+            f"{have / 1e9:.1f} GB; use a smaller model or a mesh that "
+            f"splits it further")
+
+
+class _Exchange(NamedTuple):
+    """One rank's side of step 4, fixed by the layout and the mesh.
+
+    The ranks are (b, m): b the position over the batch axes, m over
+    "model" (the mesh's last axis, or absent: m = 0).  Rank (b, 0) sends
+    every rank (b', m') its block of each leaf the EP group computes
+    alike ("dense"); rank (b, m) sends every rank (b', m) its block of
+    each expert leaf.  So what a rank sends is, for each b', one row: the
+    dense blocks for (b', 0) and the expert ones for (b', m), then the
+    dense blocks for (b', 1) .. (b', M - 1); and what it receives one row
+    from each b': the dense blocks from (b', 0), then the expert ones from
+    (b', m).  A rank's dense blocks take ``dense_row`` bytes, its expert
+    blocks ``expert_row``; each block starts on a ``partition.ALIGN``-byte
+    boundary."""
+    dense: list         # (name, byte offset) of the dense leaves
+    experts: list       # (name, byte offset) of the expert leaves
+    dense_row: int      # bytes of one rank's dense blocks
+    expert_row: int     # bytes of one rank's expert blocks
+    send_counts: list   # words to each rank
+    recv_counts: list   # words from each rank
+    batch: tuple        # the sizes of the batch axes
+    n_model: int
+    pos: int            # this rank's "model" position
+    counted: tuple      # the names whose block this rank counts in the norm
+    blocks: dict        # name -> this rank's block shape
+
+
+def _exchange_plan(layout: dict, mesh) -> _Exchange:
+    sizes = P.mesh_sizes(mesh)
+    names = list(sizes)
+    if "model" in sizes and names[-1] != "model":
+        raise NotImplementedError(f"the sharded step takes meshes whose "
+                                  f"last axis is 'model'; got {names}")
+    P._require_row_major(mesh)
+    me = P.my_coord(mesh)
+    n_model, pos = sizes.get("model", 1), me.get("model", 0)
+    batch = tuple(n for a, n in sizes.items() if a != "model")
+    dense, experts, blocks, counted = [], [], {}, []
+    row = {False: 0, True: 0}
+    for k, lf in layout.items():
+        shape = tuple(sl.stop - sl.start for sl in
+                      P.block_slices(lf.spec, lf.shape, mesh, me))
+        blocks[k] = shape
+        (experts if lf.expert else dense).append((k, row[lf.expert]))
+        row[lf.expert] += P._padded(math.prod(shape) * lf.dtype.itemsize)
+        named = P.spec_axes(lf.spec)
+        if all(me[a] == 0 for a in sizes if a not in named):
+            counted.append(k)
+    wd, we = row[False], row[True]
+    send, recv = [], []
+    for c in P.rank_coords(mesh):
+        m = c.get("model", 0)
+        send.append((wd if pos == 0 else 0) + (we if m == pos else 0))
+        recv.append((wd if m == 0 else 0) + (we if m == pos else 0))
+    return _Exchange(dense, experts, wd, we, [n // 4 for n in send],
+                     [n // 4 for n in recv], batch, n_model, pos,
+                     tuple(counted), blocks)
+
+
+def _slot(buf: Tensor, off: int, shape: tuple, dtype) -> Tensor:
+    """The (..., *shape) ``dtype`` view of ``buf`` (..., bytes) at byte
+    ``off`` of its last dimension."""
+    n = math.prod(shape) * dtype.itemsize
+    return buf[..., off:off + n].view(dtype).unflatten(-1, shape)
+
+
+def _exchange(grads: dict, plan: _Exchange, layout: dict, mesh,
+              device) -> dict:
+    """Step 4: this rank's block of every summed gradient (one
+    ``all_to_all_single``; :class:`_Exchange`).  ``grads`` is emptied
+    once its blocks are packed, so the gradient is freed before the
+    blocks arrive."""
+    wd, we, M, pos = plan.dense_row, plan.expert_row, plan.n_model, \
+        plan.pos
+    B = plan.batch
+    head = (wd if pos == 0 else 0) + we       # the row to (b', pos)
+    rest = wd * (M - 1) if pos == 0 else 0    # the rows to (b', m != pos)
+    flat = torch.empty(sum(plan.send_counts), dtype=torch.float32,
+                       device=device)
+    out = flat.view(torch.uint8).view(B + (head + rest,))
+    first, others = out[..., :head], out[..., head:]
+    if rest:
+        others = others.reshape(B + (M - 1, wd))
+    no_model = "model" not in P.mesh_sizes(mesh)
+    for k, off in plan.dense if pos == 0 else ():
+        grid = P.block_grid(grads[k], layout[k].spec, mesh)
+        if no_model:
+            grid = grid.unsqueeze(len(B))
+        shape, dt = plan.blocks[k], layout[k].dtype
+        _slot(first, off, shape, dt).copy_(grid.select(len(B), 0))
+        if rest:
+            _slot(others, off, shape, dt).copy_(grid.narrow(len(B), 1,
+                                                            M - 1))
+    for k, off in plan.experts:
+        grid = P.block_grid(grads[k], layout[k].spec, mesh, ("model",))
+        _slot(first, off + (wd if pos == 0 else 0), plan.blocks[k],
+              layout[k].dtype).copy_(grid)
+    grads.clear()
+    del out, first, others
+    got = _all_to_all(flat, plan.send_counts, plan.recv_counts)
+    del flat
+    rows = got.view(torch.uint8).view(-1, wd + we)
+    mine = {}
+    for k, off in plan.dense + [(k, wd + o) for k, o in plan.experts]:
+        mine[k] = _add(_slot(rows, off, plan.blocks[k],
+                             layout[k].dtype).unbind(0))
+    return {k: mine[k] for k in layout}
 
 
 def _sharded_train_step(model_cfg: ModelConfig, optim_cfg: OptimConfig,
-                        mesh, nan_guard: bool, keep_grads: bool):
+                        mesh, nan_guard: bool, keep_grads: bool,
+                        device_bytes=None):
     _, opt_update = make_optimizer(optim_cfg)
     layout = param_layout(model_cfg, mesh)
     names = list(layout)
-    sizes = P.mesh_sizes(mesh)
     region = _regions(layout, mesh)
-    _check_gather_fits(layout, mesh)
-    n_model = sizes.get("model", 1)
-    groups = [_contributors(mesh, c) for c in range(n_model)]
+    _check_exchange_fits(layout, mesh, device_bytes)
+    plan = _exchange_plan(layout, mesh)
+    group0 = _contributors(mesh, 0)
     w_aux = model_cfg.moe.aux_loss_weight if model_cfg.moe is not None \
         else 0.0
 
     def train_step(state: ShardedState, batch: dict):
-        me = P.my_coord(mesh)
         # 1. the parameters a rank computes with (one collective)
         full = P.gather_leaves([state.params[k] for k in names],
                                [layout[k].spec for k in names],
@@ -310,31 +464,24 @@ def _sharded_train_step(model_cfg: ModelConfig, optim_cfg: OptimConfig,
         n_loc = met.n_tokens
         obj = met.ce * (n_loc.float() / n_all.float()) + w_aux * met.aux
         grads = _grads(obj, leaves)
+        device = full[0].device
         del full, leaves, obj
         with torch.no_grad():
-            # 4. every rank's gradients and loss terms (one collective)
-            scal = torch.stack([(met.ce * n_loc).float(), met.aux.float()])
-            parts = P.gather_packed([grads[k] for k in names] + [scal])
+            # 4. this rank's blocks of the summed gradients (one collective)
+            mine = _exchange(grads, plan, layout, mesh, device)
             del grads
-            nll = sum(parts[r][-1][0] for r in groups[0])
+            # 5. the norm's partial sums and the loss terms (one collective)
+            sq = torch.zeros((), dtype=torch.float32, device=device)
+            for k in plan.counted:
+                sq = sq + mine[k].float().square().sum()
+            scal = torch.stack([(met.ce * n_loc).float(), met.aux.float(),
+                                sq])
+            parts = P.gather_packed([scal])[0]
+            nll = sum(parts[r, 0] for r in group0)
             ce = nll / n_all.clamp(min=1).float()
             loss = ce + w_aux * met.aux.detach().float()
-            # 5. the summed gradients, each element once, and the norm
-            sq, mine = [], {}
-            for i, k in enumerate(names):
-                lf = layout[k]
-                if not lf.expert:
-                    g = _add([parts[r][i] for r in groups[0]])
-                    sq.append(g.float().square().sum())
-                    mine[k] = P.local_block(g, lf.spec, mesh)
-                    continue
-                for c, grp in enumerate(groups):
-                    g = _add([parts[r][i] for r in grp])
-                    sq.append(g.float().square().sum())
-                    if c == me.get("model", 0):
-                        mine[k] = _block_of_region(g, lf, region[k], mesh)
+            gnorm = parts[:, 2].sum().sqrt()
             del parts
-            gnorm = torch.stack(sq).sum().sqrt()
             # 6. AdamW on the rank's blocks
             new_params, new_opt, stats = opt_update(state.params, state.opt,
                                                     mine, gnorm=gnorm)
@@ -359,19 +506,9 @@ def _add(parts: list) -> Tensor:
     return acc
 
 
-def _block_of_region(g: Tensor, lf: Leaf, region: tuple, mesh) -> Tensor:
-    """This rank's block (under ``lf.spec``) of ``g``, its region (under
-    ``region``) of the leaf."""
-    me = P.my_coord(mesh)
-    reg = P.block_slices(region, lf.shape, mesh, me)
-    blk = P.block_slices(lf.spec, lf.shape, mesh, me)
-    return g[tuple(slice(b.start - r.start, b.stop - r.start)
-                   for b, r in zip(blk, reg))].contiguous()
-
-
 def build_train_step(model_cfg: ModelConfig, optim_cfg: OptimConfig,
                      mesh=None, nan_guard: bool = True,
-                     keep_grads: bool = False):
+                     keep_grads: bool = False, device_bytes=None):
     """(state, batch) -> (new_state, metrics dict).
 
     The NaN guard runs on the device: a non-finite loss or gradient norm
@@ -381,12 +518,13 @@ def build_train_step(model_cfg: ModelConfig, optim_cfg: OptimConfig,
     ``metrics["grads"]`` (on a mesh: this rank's blocks of the summed
     gradients).  With a ``mesh`` the state is a :class:`ShardedState` and
     ``batch`` the global batch, the same on every rank (see the module
-    docstring); a mesh on which every rank's gradients do not fit one
-    device raises ``ValueError``.
+    docstring); a mesh on which the step's exchange does not fit one
+    device (``device_bytes``, default the mesh's device's memory) raises
+    ``ValueError``.
     """
     if mesh is not None:
         return _sharded_train_step(model_cfg, optim_cfg, mesh, nan_guard,
-                                   keep_grads)
+                                   keep_grads, device_bytes)
     _, opt_update = make_optimizer(optim_cfg)
 
     def train_step(state: TrainState, batch: dict):

@@ -25,8 +25,11 @@ own single-device step, on the CPU.
     reference's ``build_compressed_train_step``, which runs in a
     subprocess with 8 forced host devices beside the worlds).
 Every rank must return the same global results bit for bit.  The
-sharded step refuses a mesh whose ranks cannot hold every rank's
-gradients (the production meshes on an 80 GB card).
+sharded step's gradient exchange (one all-to-all of each rank's own
+blocks) gives every rank's blocks bit for bit what the whole-gather
+exchange gives, on (2, 2), (4, 1) and (1, 4); the step refuses a mesh
+whose exchange cannot fit a rank (deepseek-v2-236b's parameters whole on
+an 80 GB card).
 """
 import functools
 import os
@@ -166,23 +169,41 @@ def test_compressed_step_refuses_moe_and_meshes_without_pods():
 
 
 @pytest.mark.parametrize("arch, shape, fits", [
-    ("stablelm-1.6b", (16, 16), False),
-    ("olmoe-1b-7b", (16, 16), False),
+    ("stablelm-1.6b", (16, 16), True),
+    ("olmoe-1b-7b", (16, 16), True),
     ("stablelm-1.6b", (2, 2), True),
-    ("olmoe-1b-7b", (1, 2), True)])
+    ("olmoe-1b-7b", (1, 2), True),
+    ("starcoder2-15b", (16, 16), True),
+    ("deepseek-v2-236b", (16, 16), False),
+    ("llava-next-34b", (2, 2), False)])
 def test_sharded_step_refuses_a_mesh_whose_gradients_do_not_fit(
         monkeypatch, arch, shape, fits):
-    """A rank of the sharded step holds every rank's gradients: on an
-    80 GB card the production mesh's 256 ranks cannot, two to four can."""
+    """A rank of the sharded step holds the parameters whole beside its
+    gradient, then its gradient beside the blocks it sends, then those
+    beside the blocks it receives: on an 80 GB card the production mesh
+    fits stablelm-1.6b, olmoe-1b-7b and starcoder2-15b (the whole-gather
+    exchange refused all three: world + 1 gradients), not deepseek-v2's
+    236e9 parameters whole.  The bound is the largest moment to the byte."""
     from repro_torch.runtime import steps as S
     monkeypatch.setattr(S, "_device_bytes", lambda mesh: 80 * 10 ** 9)
     mesh = dict(zip(("data", "model"), shape))
     layout = S.param_layout(get_arch(arch), mesh)
+    b = S.exchange_bytes(layout, mesh)
+    need = max(b["params"] + b["grad"], b["grad"] + b["sent"],
+               b["sent"] + b["received"])
+    world = shape[0] * shape[1]
+    assert (need <= 80 * 10 ** 9) == fits
+    if world == 256:
+        # the whole-gather exchange's bound, (world + 1) gradients
+        assert need < (world + 1) * b["grad"] / 50
     if fits:
-        S._check_gather_fits(layout, mesh)
+        S._check_exchange_fits(layout, mesh)
     else:
-        with pytest.raises(ValueError, match=r"\(256 ranks \+ 1\)"):
-            S._check_gather_fits(layout, mesh)
+        with pytest.raises(ValueError, match="more than the device"):
+            S._check_exchange_fits(layout, mesh)
+    S._check_exchange_fits(layout, mesh, device_bytes=need)
+    with pytest.raises(ValueError, match="more than the device"):
+        S._check_exchange_fits(layout, mesh, device_bytes=need - 1)
 
 
 @pytest.fixture(scope="module")
@@ -216,7 +237,9 @@ def test_every_rank_returns_the_same_bits(worlds):
 
 
 @pytest.mark.parametrize("world,tag", [(4, "dm22"), (4, "ms22"),
-                                       (2, "ms12"), (2, "ms21")])
+                                       (2, "ms12"), (2, "ms21"),
+                                       (4, "dm41"), (4, "dm14"),
+                                       (4, "ms41"), (4, "ms14")])
 def test_sharded_step_matches_single_device(worlds, world, tag):
     """The sharded step against one device on the global batch: a dense
     reduced arch on (2, 2) ("dm22"), and the reduced MoE arch, experts over
@@ -231,6 +254,29 @@ def test_sharded_step_matches_single_device(worlds, world, tag):
             <= 1e-5 * float(got[f"{tag}_gnorm_single"])
         assert float(got[f"{tag}_grad_err"]) < 1e-4
         assert float(got[f"{tag}_param_err"]) < 1e-4
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "4x1", "1x4"])
+@pytest.mark.parametrize("kind", ["dense", "moe"])
+def test_gradient_exchange_matches_whole_gather(worlds, mesh, kind):
+    """Each rank's summed gradient blocks, the optimizer's input, are bit
+    for bit what the whole-gather exchange gives (every rank's whole
+    gradient, added over the batch axes in shard order, the rank's block
+    cut out), on every leaf, for a dense and a MoE arch at its published
+    capacity and aux loss; the norm, summed by owned blocks, within 1e-6
+    of the whole-gather norm; one all-to-all and two all-gathers a step
+    (the parameters, the loss terms and the norm's partial sums)."""
+    tag = f"ex{mesh}{kind}"
+    for got in worlds[4][1]:
+        assert int(got[f"{tag}_leaves"]) > 10
+        assert int(got[f"{tag}_differ"]) == 0
+        assert float(got[f"{tag}_norm_rel"]) < 1e-6
+        assert np.isfinite(float(got[f"{tag}_loss"]))
+        assert int(got[f"{tag}_a2a_calls"]) == 1
+    # the loss and the norm: the same bits on every rank
+    ranks = worlds[4][1]
+    for key in (f"{tag}_loss", f"{tag}_gnorm"):
+        assert all(float(r[key]) == float(ranks[0][key]) for r in ranks)
 
 
 @pytest.mark.parametrize("world,tag", [(2, "moe12"), (4, "moe22")])

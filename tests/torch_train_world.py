@@ -209,15 +209,109 @@ def reshard_case(mesh, rank, directory, out: dict) -> None:
     out["reshard_next_loss"] = float(met["loss"])
 
 
+def _block_of_region(g, lf, region, mesh):
+    """This rank's block (under ``lf.spec``) of ``g``, its region (under
+    ``region``) of the leaf."""
+    from repro_torch.distributed import partition as P
+    me = P.my_coord(mesh)
+    reg = P.block_slices(region, lf.shape, mesh, me)
+    blk = P.block_slices(lf.spec, lf.shape, mesh, me)
+    return g[tuple(slice(b.start - r.start, b.stop - r.start)
+                   for b, r in zip(blk, reg))].contiguous()
+
+
+def whole_gather_oracle(grads, layout, mesh):
+    """The sharded step's gradient exchange as it was first written: every
+    rank's whole gradient gathered with one collective, added over the
+    batch axes in shard order, this rank's block cut from the sum; and
+    the norm of every summed gradient, each element once.  Returns
+    (this rank's blocks, the norm)."""
+    import torch
+
+    from repro_torch.distributed import partition as P
+    from repro_torch.runtime import steps as S_
+    names = list(layout)
+    parts = P.gather_packed([grads[k] for k in names])
+    sizes = P.mesh_sizes(mesh)
+    groups = [S_._contributors(mesh, c) for c in range(sizes.get("model", 1))]
+    region = S_._regions(layout, mesh)
+    me = P.my_coord(mesh)
+    sq, mine = [], {}
+    for i, k in enumerate(names):
+        lf = layout[k]
+        if not lf.expert:
+            g = S_._add([parts[i][r] for r in groups[0]])
+            sq.append(g.float().square().sum())
+            mine[k] = P.local_block(g, lf.spec, mesh)
+            continue
+        for c, grp in enumerate(groups):
+            g = S_._add([parts[i][r] for r in grp])
+            sq.append(g.float().square().sum())
+            if c == me.get("model", 0):
+                mine[k] = _block_of_region(g, lf, region[k], mesh)
+    return mine, torch.stack(sq).sum().sqrt()
+
+
+def exchange_case(mesh, out: dict, tag: str, arch: str = ARCH) -> None:
+    """One sharded AdamW step of a reduced arch (at its published capacity
+    and aux loss): this rank's summed gradient blocks against
+    :func:`whole_gather_oracle` on the same rank's gradients (the number
+    of leaves whose bits differ), the norm against the oracle's; the
+    loss, the norm and the collectives by kind, the same on every rank."""
+    import torch
+
+    from repro_torch.configs import OptimConfig, get_arch
+    from repro_torch.distributed.matvec import (collective_stats,
+                                                reset_collectives)
+    from repro_torch.runtime import steps as S_
+    cfg = get_arch(arch).reduced()
+    opt = OptimConfig(lr=1e-3, warmup_steps=0)
+    seen = {}
+    exchange = S_._exchange
+
+    def spy(grads, *args):
+        seen.update({k: v.clone() for k, v in grads.items()})
+        return exchange(grads, *args)
+    state = S_.shard_state(_state(cfg, opt), mesh, cfg)
+    step = S_.build_train_step(cfg, opt, mesh, keep_grads=True)
+    S_._exchange = spy
+    try:
+        reset_collectives()
+        _, met = step(state, _batch(cfg))
+        stats = collective_stats()
+    finally:
+        S_._exchange = exchange
+    want, norm = whole_gather_oracle(seen, state.layout, mesh)
+    out[f"{tag}_leaves"] = len(want)
+    out[f"{tag}_differ"] = sum(not torch.equal(met["grads"][k], want[k])
+                               for k in want)
+    out[f"{tag}_loss"] = float(met["loss"])
+    out[f"{tag}_gnorm"] = float(met["grad_norm"])
+    out[f"{tag}_norm_rel"] = abs(float(met["grad_norm"]) - float(norm)) \
+        / float(norm)
+    out[f"{tag}_a2a_calls"] = stats["by_kind"]["all-to-all"]["calls"]
+    out[f"{tag}_ag_calls"] = stats["by_kind"]["all-gather"]["calls"]
+
+
 def world4_cases(rank, world, inputs, directory):
     """(2, 2) ("data", "model"): the dense and the MoE step, the EP block,
-    the reshard."""
+    the reshard; on (2, 2), (4, 1) and (1, 4) the gradient exchange
+    against the whole-gather oracle, and on the last two the steps
+    against one device."""
     out = {}
     mesh = _mesh((2, 2), ("data", "model"))
     dense_step_case(mesh, out, "dm22")
     dense_step_case(mesh, out, "ms22", MOE_ARCH)
     moe_case(mesh, out, "moe22")
     reshard_case(mesh, rank, directory, out)
+    for shape in ((2, 2), (4, 1), (1, 4)):
+        m = _mesh(shape, ("data", "model"))
+        name = "x".join(map(str, shape))
+        for arch, kind in ((ARCH, "dense"), (MOE_ARCH, "moe")):
+            exchange_case(m, out, f"ex{name}{kind}", arch)
+        if shape != (2, 2):
+            dense_step_case(m, out, f"dm{shape[0]}{shape[1]}")
+            dense_step_case(m, out, f"ms{shape[0]}{shape[1]}", MOE_ARCH)
     save_rank(directory, rank, out)
 
 
