@@ -6,6 +6,8 @@
     python3 chip_bits.py times TREE OUT.json [--main]
     python3 chip_bits.py ab PARENT CHANGE OUT.json [ROUNDS]
     python3 chip_bits.py skew SEEDS
+    python3 chip_bits.py tp OUT.json [sweep]
+    python3 chip_bits.py scratch
 
 ``save`` imports ``TREE/src/repro_torch`` (a checkout of any commit of
 this repo, e.g. a ``git archive`` of the parent), runs ``mv_qtv``,
@@ -38,8 +40,15 @@ comparison.  ``skew`` runs ``tests/test_torch_gpu.py``'s skewed rows
 ``sparse_matvec``'s block kernel for SEEDS seeds at b = 2, 7, 20 and 32,
 and prints, as JSON, each case's error against the plain version over
 max |y| and the kernel's and the plain version's errors against an f64
-sum of the same terms over sqrt(L + 1) u sum |a x|.  It needs one CUDA
-card and no network.
+sum of the same terms over sqrt(L + 1) u sum |a x|.  ``tp`` runs
+``chip_smoke.py``'s phase 14 (b) tensor-parallel stablelm-1.6b run (two
+gloo ranks on the card beside one card's steps, prefill and decode) and
+phase 15 (b)'s two-rank trace of it, and with ``sweep`` phase 15 (a)'s
+dry-run sweep, alone, and writes their records to OUT.json.  ``scratch``
+prints, as JSON, the device bytes the CUDA softmax backward holds beyond
+its output (max_memory_allocated over its inputs and output) at shapes
+from (2, 16, 512, 512) to (8, 1024, 50176), f32 and bf16, beside the
+forward softmax's.  It needs one CUDA card and no network.
 """
 from __future__ import annotations
 
@@ -463,6 +472,97 @@ def skew(seeds: int) -> None:
         max_plain_f64=max(r["plain_f64"] for r in out))))
 
 
+def _tp_rank(rank, world, out_dir, seed):
+    """One rank of ``tp``'s two-rank world: ``chip_smoke.tp_rank``."""
+    import json
+    import time
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.distributed.matvec import (collective_stats,
+                                                reset_collectives)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        reset_collectives()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, collective_stats()
+    rec = cs.tp_rank(rank, "cuda", seed, out_dir, timed)
+    with open(f"{out_dir}/rank{rank}.json", "w") as fh:
+        json.dump({"tp": rec}, fh)
+
+
+def tp(out: str, sweep: bool) -> None:
+    import json
+    import os
+    import shutil
+
+    import torch
+    sys.path.insert(0, "src")
+    import chip_smoke as cs
+    from repro_torch.launch.mesh import run_world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(cs.smi_line(), flush=True)
+    work = os.path.join(cs.ROOT, "build", "chip_bits_tp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        single = cs.tp_reference(0, work)
+        run_world(_tp_rank, cs.DIST_WORLD, os.path.join(work, "rendezvous"),
+                  (work, 0), timeout_s=cs.DIST_TIMEOUT_S)
+        recs = []
+        for r in range(cs.DIST_WORLD):
+            with open(os.path.join(work, f"rank{r}.json")) as fh:
+                recs.append(json.load(fh))
+        res = dict(tp=cs.tp_check(single, recs, work))
+        res["tp_trace"] = cs.dryrun_vs_real_tp(res["tp"]["ranks"][0])
+        if sweep:
+            os.makedirs(os.path.join(work, "sweep"))
+            res["sweep"] = cs.dryrun_sweep(os.path.join(work, "sweep"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    with open(out, "w") as fh:
+        json.dump(res, fh, default=str)
+
+
+def scratch() -> None:
+    import json
+
+    import torch
+    cuda, out = torch.device("cuda"), []
+    for shape in ((2, 16, 512, 512), (2, 16, 2048, 2048), (2, 16, 4096, 4096),
+                  (2, 32, 4096, 4096), (1, 4, 1024, 8192), (8, 1024, 50176),
+                  (2, 16, 4096, 4097)):
+        for dt in (torch.float32, torch.bfloat16):
+            g = torch.randn(shape, device=cuda, dtype=dt)
+            o = torch.softmax(torch.randn(shape, device=cuda, dtype=dt), -1)
+            rows = {}
+            for name, fn in (("backward", lambda: torch.ops.aten
+                              ._softmax_backward_data(g, o, -1, dt)),
+                             ("forward", lambda: torch.softmax(g, -1))):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                r = fn()
+                torch.cuda.synchronize()
+                rows[name] = (torch.cuda.max_memory_allocated() - base
+                              - r.numel() * r.element_size())
+                del r
+            out.append(dict(shape=list(shape), dtype=str(dt),
+                            out_bytes=g.numel() * g.element_size(),
+                            backward_scratch=rows["backward"],
+                            forward_scratch=rows["forward"]))
+            del g, o
+            torch.cuda.empty_cache()
+    print(json.dumps(dict(torch=torch.__version__, cases=out)))
+
+
 def main(argv) -> int:
     if len(argv) == 3 and argv[0] == "save":
         save(argv[1], argv[2])
@@ -478,6 +578,13 @@ def main(argv) -> int:
         return 0
     if len(argv) == 2 and argv[0] == "skew":
         skew(int(argv[1]))
+        return 0
+    if len(argv) in (2, 3) and argv[0] == "tp" and argv[2:] in ([],
+                                                              ["sweep"]):
+        tp(argv[1], argv[2:] == ["sweep"])
+        return 0
+    if argv == ["scratch"]:
+        scratch()
         return 0
     print(__doc__, file=sys.stderr)
     return 2

@@ -303,7 +303,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      own blocks) holds each rank's summed blocks bit for bit to the whole
      gather of every rank's gradient (tests/torch_train_world.py's
      oracle) on the last step of (1, 2) and of (2, 1), its norm within
-     1e-6 of the oracle's; (c) on the same
+     1e-6 of the oracle's; and stablelm-1.6b at its published width (2
+     layers, bf16, 2 x 4096) tensor parallel on ("data", "model") (1, 2):
+     heads, kv heads, the MLP's width and the vocabulary split two ways
+     (steps.serving_model for prefill and decode, init_sharded_state for
+     training), beside the same 2-layer model on one card drawn from the
+     same seed in the parent: a prefill and 4 decode steps fed one card's
+     greedy tokens, every step's logits within 2e-2 of max |logit| of one
+     card's and the same bits on both ranks; two AdamW steps whose first
+     loss, first gradient norm and second loss are within 1e-3 of one
+     card's and the same bits on both ranks; ms a step, the collectives a
+     step with their host seconds and their calls and bytes by kind, the
+     first step's peak and FlopCounterMode's FLOPs (phase 15 (b)'s real
+     rank); (c) on the same
      ranks the compressed step over ("pod",) (stablelm-1.6b, 2 layers, 1
      x 4096 a rank, FsvdConfig defaults): two finite steps, compressed /
      dense bytes, and the top 8 sigma of one 2048 x 5632 MLP gradient's
@@ -325,7 +337,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      accounting on fake cuda tensors and run for real under
      FlopCounterMode: the trace's dot FLOPs within 0.1 % of the real
      count, its peak within 10 % of max_memory_allocated over what was
-     allocated before the state.  It prints a {"dryrun": {...}} JSON line.
+     allocated before the state; and phase 14 (b)'s tensor-parallel
+     stablelm step traced as rank 0 of a fake two-rank world on the same
+     (1, 2) mesh, against the real rank 0's first step: dot FLOPs within
+     0.1 % of FlopCounterMode's, the collectives' calls by kind equal to
+     collective_stats()'s and their bytes within 0.1 %, the peak within
+     10 % of max_memory_allocated.  It prints a {"dryrun": {...}} JSON
+     line.
 
 The line before the last is the card as nvidia-smi reports it; the last is
 {"ok": true, "device": {...}}.  A kernels JSON line precedes them.
@@ -4806,20 +4824,20 @@ def lm_consistency(model, cfg, seed, tag, B, S, n_decode=1):
                 decode_wall_ms=(t2 - t1) * 1e3 / n_decode)
 
 
-def lm_train(model, cfg, opt_cfg, batches, keep_last=False):
+def lm_train(model, cfg, opt_cfg, batches, keep=None):
     """``build_train_step`` over ``batches``: each step's wall and
-    CUDA-event ms, loss, grad norm and skip flag; the last step's
-    gradients when ``keep_last``."""
+    CUDA-event ms, loss, grad norm and skip flag; the gradients of step
+    ``keep`` (an index into ``batches``), or None."""
     import torch
     from repro_torch.optim import make_optimizer
     from repro_torch.runtime.steps import TrainState, build_train_step
     init, _ = make_optimizer(opt_cfg)
     state = TrainState(model, init(dict(model.named_parameters())))
     step = build_train_step(cfg, opt_cfg)
-    last = build_train_step(cfg, opt_cfg, keep_grads=keep_last)
+    kept = build_train_step(cfg, opt_cfg, keep_grads=True)
     steps, grads = [], None
     for i, batch in enumerate(batches):
-        fn = last if i == len(batches) - 1 else step
+        fn = kept if i == keep else step
         torch.cuda.synchronize()
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
@@ -4833,7 +4851,8 @@ def lm_train(model, cfg, opt_cfg, batches, keep_last=False):
                           loss=float(met["loss"]),
                           grad_norm=float(met["grad_norm"]),
                           skipped=int(met["skipped"])))
-        grads = met.get("grads")
+        if i == keep:
+            grads = met["grads"]
     for i, s in enumerate(steps):
         check(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
               and s["skipped"] == 0, f"phase 13 {cfg.name} step {i}: {s}")
@@ -4947,7 +4966,7 @@ def lm_full(seed):
     spec = spec_for(cfg, shape, batch_override=LM_BATCH)
     batches = [lm_batch(spec, seed, s, device=DEV) for s in range(LM_STEPS)]
     steps, grads = lm_train(model, cfg, OptimConfig(), batches,
-                            keep_last=True)
+                            keep=len(batches) - 1)
     train_peak = torch.cuda.max_memory_allocated()
     del batches
     summary = gradient_rank_summary(grads, k=LM_SUMMARY_K,
@@ -5431,6 +5450,9 @@ def train_rank(rank, world, dev, seed, out_dir):
         del state, step, met
         gc.collect()
 
+    # (b) stablelm-1.6b tensor parallel over "model"
+    rec["tp"] = tp_rank(rank, dev, seed, out_dir, timed)
+
     # (c) the compressed step over ("pod",)
     cfg = dataclasses.replace(get_arch(LM_ARCH), num_layers=TRAIN_LAYERS)
     spec = spec_for(cfg, get_shape("train_4k"), batch_override=world)
@@ -5478,6 +5500,278 @@ def train_rank(rank, world, dev, seed, out_dir):
                   if dev == "cuda" else 0.0))
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
         json.dump(rec, fh)
+
+
+# (b) stablelm-1.6b tensor parallel over "model": its published width cut
+# to TRAIN_LAYERS layers, bf16, LM_BATCH x 4096, on ("data", "model")
+# (1, 2): heads, kv heads, the MLP's width and the vocabulary split two ways
+TP_SHAPE = (1, 2)
+TP_STEPS = 2
+TP_DECODE = 4
+TP_RTOL = 1e-3          # first loss, first grad norm, second loss vs one card
+# each leaf's first gradient block vs one card's, x that leaf's max |g|:
+# 2.0e-3 to 8.5e-3 on the card (bf16), so a leaf whose gradient misses a
+# rank's part (O(1)) fails
+TP_GRAD_TOL = 2e-2
+# the embedding's: each row of the batch's repeated 8-grams gathers ~500
+# bf16 atomic adds, whose order changes from run to run (0.058-0.118 on
+# the card in two runs)
+TP_EMBED_GRAD_TOL = 0.3
+TP_LOGIT_TOL = 2e-2     # x max |logit|: prefill and decode vs one card
+TP_SEED = 31            # the model's draws: seed + TP_SEED
+
+
+def tp_config():
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(LM_ARCH), num_layers=TRAIN_LAYERS)
+
+
+def tp_spec(cfg):
+    from repro_torch.configs import get_shape
+    from repro_torch.data.synthetic import spec_for
+    return spec_for(cfg, get_shape("train_4k"), batch_override=LM_BATCH)
+
+
+def tp_serve(model, cfg, mesh, prompt, tokens=None):
+    """A prefill of ``prompt`` and TP_DECODE decode steps on the padded
+    cache, step t fed ``tokens[t]`` (one card's greedy picks) or, without
+    them, the greedy pick.  Returns (the logits of each step on the host,
+    the tokens fed, prefill ms, decode ms a token)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    prefill = S.build_prefill_step(cfg, mesh)
+    decode = S.build_decode_step(cfg, mesh)
+    sync = torch.cuda.synchronize if DEV == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, {"tokens": prompt})
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    S0 = prompt.shape[1]
+    cache = M.pad_cache_to(cache, cfg, S0 + TP_DECODE)
+    out, fed = [logits.float()], []
+    t0 = time.perf_counter()
+    for t in range(TP_DECODE):
+        tok = tokens[t] if tokens is not None else \
+            logits.argmax(-1)[:, None].int()
+        fed.append(tok)
+        logits, cache = decode(model, cache, {
+            "tokens": tok, "positions": torch.full_like(tok, S0 + t)})
+        out.append(logits.float())
+    sync()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / TP_DECODE
+    return [o.cpu() for o in out], fed, prefill_ms, decode_ms
+
+
+def tp_reference(seed, out_dir):
+    """(b)'s single-card run: the same 2-layer model drawn from the same
+    seed, a prefill and TP_DECODE greedy decode steps (the tokens kept in
+    ``out_dir`` for the ranks), then TP_STEPS AdamW steps on the same
+    batches, the first step's gradients kept in ``out_dir``."""
+    import torch
+    from repro_torch.configs import OptimConfig
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import model as M
+    cfg = tp_config()
+    spec = tp_spec(cfg)
+    model, _ = M.init_model(cfg, torch.Generator(device=DEV).manual_seed(
+        seed + TP_SEED))
+    prompt = lm_batch(spec, seed, 0, device=DEV)["tokens"]
+    with torch.no_grad():
+        logits, fed, prefill_ms, decode_ms = tp_serve(model, cfg, None,
+                                                      prompt)
+    torch.save([t.cpu() for t in fed], os.path.join(out_dir,
+                                                    "tp_tokens.pt"))
+    steps, grads = lm_train(model, cfg, OptimConfig(),
+                            [lm_batch(spec, seed, t, device=DEV)
+                             for t in range(TP_STEPS)], keep=0)
+    torch.save({k: g.cpu() for k, g in grads.items()},
+               os.path.join(out_dir, "tp_grads.pt"))
+    del model, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=steps, logits=logits, prefill_ms=prefill_ms,
+                decode_ms=decode_ms)
+
+
+def tp_rank(rank, dev, seed, out_dir, timed):
+    """(b)'s tensor-parallel run on one rank: the serving blocks
+    (``steps.serving_model``) prefill and decode the one card's tokens
+    (the logits saved to ``out_dir``), then TP_STEPS sharded AdamW steps,
+    the first under FlopCounterMode with the peak over what was allocated
+    before the state (phase 15 (b)'s real rank).  Its gradient blocks
+    are held to one card's (:func:`tp_grad_errs`)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import OptimConfig
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.distributed.matvec import (collective_stats,
+                                                reset_collectives)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    cuda = dev == "cuda"
+    cfg, opt = tp_config(), OptimConfig()
+    spec = tp_spec(cfg)
+    mesh = make_mesh(TP_SHAPE, ("data", "model"), device_type=dev)
+    model, _ = M.init_model(cfg, torch.Generator(device=dev).manual_seed(
+        seed + TP_SEED))
+    served = S.serving_model(model, cfg, mesh)
+    del model
+    tokens = [t.to(dev) for t in torch.load(os.path.join(out_dir,
+                                                         "tp_tokens.pt"))]
+    prompt = S.shard_batch({"tokens": lm_batch(spec, seed, 0, device=dev)[
+        "tokens"]}, mesh)["tokens"]
+    reset_collectives()
+    with torch.no_grad():
+        logits, _, prefill_ms, decode_ms = tp_serve(served, cfg, mesh,
+                                                    prompt, tokens)
+    serve_coll = collective_stats()
+    torch.save(logits, os.path.join(out_dir, f"tp_logits{rank}.pt"))
+    del served
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    state = S.init_sharded_state(cfg, opt, torch.Generator(
+        device=dev).manual_seed(seed + TP_SEED), mesh)
+    step = S.build_train_step(cfg, opt, mesh)
+    first = S.build_train_step(cfg, opt, mesh, keep_grads=True)
+    steps, flops, peak = [], None, 0
+    for t in range(TP_STEPS):
+        batch = lm_batch(spec, seed, t, device=dev)
+        if t == 0:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            with FlopCounterMode(display=False) as fc:
+                (state, met), wall, coll = timed(lambda: first(state, batch))
+            flops = fc.get_total_flops()
+            peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+            grad_errs = tp_grad_errs(met.pop("grads"), state.layout, mesh,
+                                     out_dir)
+        else:
+            (state, met), wall, coll = timed(lambda: step(state, batch))
+        steps.append(dict(loss=float(met["loss"]),
+                          grad_norm=float(met["grad_norm"]),
+                          skipped=int(met["skipped"]), wall_s=wall,
+                          collectives=coll["calls"],
+                          collective_s=coll["seconds"],
+                          by_kind=coll["by_kind"]))
+    rec = dict(steps=steps, flops=flops, peak_bytes=peak,
+               grad_errs=grad_errs,
+               param_bytes=sum(v.numel() * v.element_size()
+                               for v in state.params.values()),
+               prefill_ms=prefill_ms, decode_ms=decode_ms,
+               serve_collectives=serve_coll["calls"],
+               serve_collective_s=serve_coll["seconds"])
+    del state, step, met
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def tp_grad_errs(blocks, layout, mesh, out_dir):
+    """{leaf: max |this rank's block - one card's same block| / max |one
+    card's leaf|} of the first step's gradients; one card's are read from
+    ``out_dir`` (:func:`tp_reference`)."""
+    import torch
+    from repro_torch.distributed import partition as P
+    want = torch.load(os.path.join(out_dir, "tp_grads.pt"), mmap=True)
+    out = {}
+    for k, lf in layout.items():
+        w = want[k].to(blocks[k].device)
+        sl = P.block_slices(lf.spec, lf.shape, mesh)
+        out[k] = float((blocks[k].float() - w[sl].float()).abs().max()
+                       / w.float().abs().max())
+        del w
+    return out
+
+
+def tp_check(single, recs, out_dir):
+    """(b)'s checks: the same bits on both ranks, the steps and the
+    logits against one card's; prints a line a rank."""
+    import torch
+    per = [x["tp"] for x in recs]
+    for key in ("loss", "grad_norm"):
+        vals = [[s[key] for s in p["steps"]] for p in per]
+        check(all(v == vals[0] for v in vals), f"phase 14 (b) "
+              f"tensor parallel: {key} differs between ranks {vals}")
+    check(not any(s["skipped"] for p in per for s in p["steps"]) and all(
+        math.isfinite(s["loss"]) for s in per[0]["steps"]),
+        f"phase 14 (b) tensor parallel: {per[0]['steps']}")
+    got = dict(loss=per[0]["steps"][0]["loss"],
+               grad_norm=per[0]["steps"][0]["grad_norm"],
+               loss2=per[0]["steps"][1]["loss"])
+    want = dict(loss=single["steps"][0]["loss"],
+                grad_norm=single["steps"][0]["grad_norm"],
+                loss2=single["steps"][1]["loss"])
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+    check(max(rel.values()) < TP_RTOL, f"phase 14 (b) tensor parallel: "
+          f"{got} vs one card {want} (relative {rel}, bound {TP_RTOL})")
+    logits = [torch.load(os.path.join(out_dir, f"tp_logits{r}.pt"))
+              for r in range(len(recs))]
+    check(all(all(torch.equal(a, b) for a, b in zip(lg, logits[0]))
+              for lg in logits), "phase 14 (b) tensor parallel: the ranks' "
+          "logits differ")
+    scale = max(float(w.abs().max()) for w in single["logits"])
+    errs = [float((g - w).abs().max()) / scale
+            for g, w in zip(logits[0], single["logits"])]
+    check(max(errs) < TP_LOGIT_TOL, f"phase 14 (b) tensor parallel: "
+          f"logits {errs} of max |logit| from one card's (bound "
+          f"{TP_LOGIT_TOL})")
+    def bound(leaf):
+        return TP_EMBED_GRAD_TOL if leaf == "embed" else TP_GRAD_TOL
+    worst = [max(p["grad_errs"], key=lambda k: p["grad_errs"][k] / bound(k))
+             for p in per]
+    others = [max(e for k, e in p["grad_errs"].items() if k != "embed")
+              for p in per]
+    out = dict(rel_vs_single=rel, logit_errs=errs, single=dict(
+        steps=single["steps"], prefill_ms=single["prefill_ms"],
+        decode_ms=single["decode_ms"]), ranks=per)
+    for r, p in enumerate(per):
+        s = p["steps"][-1]
+        print(f"phase 14 (b) {LM_ARCH} ({TRAIN_LAYERS} layers, {LM_BATCH} x "
+              f"{tp_spec(tp_config()).seq_len}, bf16) tensor parallel on "
+              f"('data', 'model') "
+              f"{TP_SHAPE}, rank {r}: losses "
+              f"{[round(q['loss'], 5) for q in p['steps']]}, first grad "
+              f"norm {p['steps'][0]['grad_norm']:.5f} (one card "
+              f"{want['loss']:.5f}, {want['grad_norm']:.5f}, "
+              f"{want['loss2']:.5f}; relative "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+              + f", bound {TP_RTOL}); step walls "
+              f"{[round(q['wall_s'], 3) for q in p['steps']]} s (the first "
+              f"under FlopCounterMode; one card "
+              f"{[round(q['wall_ms'], 1) for q in single['steps']]} ms), "
+              f"collectives a step {s['collectives']} "
+              f"({s['collective_s']:.3f} s; received by kind "
+              + ", ".join(f"{k} {v['calls']} x {v['bytes'] / 1e9:.3f} GB"
+                          for k, v in s["by_kind"].items() if v["calls"])
+              + f"); blocks {p['param_bytes'] / 1e9:.3f} GB; first step's "
+              f"peak {p['peak_bytes'] / GIB:.3f} GiB; prefill "
+              f"{p['prefill_ms']:.1f} ms, decode {p['decode_ms']:.1f} ms a "
+              f"token ({p['serve_collectives']} collectives, "
+              f"{p['serve_collective_s']:.3f} s; one card "
+              f"{single['prefill_ms']:.1f} / {single['decode_ms']:.1f} ms); "
+              f"logits vs one card "
+              + ", ".join(f"{e:.2e}" for e in errs)
+              + f" of max |logit| (bound {TP_LOGIT_TOL}); first gradients "
+              f"vs one card's, of a leaf's max |g|: the embedding "
+              f"{p['grad_errs']['embed']:.2e} (bound {TP_EMBED_GRAD_TOL}), "
+              f"the other {len(p['grad_errs']) - 1} leaves "
+              f"{min(p['grad_errs'].values()):.2e} to {others[r]:.2e} "
+              f"(bound {TP_GRAD_TOL})", flush=True)
+    out["grad_errs"] = [p["grad_errs"] for p in per]
+    check(all(e < bound(k) for p in per for k, e in p["grad_errs"].items()),
+          f"phase 14 (b) tensor parallel: first gradients "
+          f"{[(w, p['grad_errs'][w]) for w, p in zip(worst, per)]} of a "
+          f"leaf's max |g| from one card's (bounds {TP_GRAD_TOL}, the "
+          f"embedding {TP_EMBED_GRAD_TOL})")
+    return out
 
 
 def start_clis(out_dir):
@@ -5554,6 +5848,7 @@ def phase_train(seed, single):
         torch.cuda.empty_cache()
         refs = {"1x2": single, "2x1": single,
                 "2x1 no drops": shard_reference(seed)}
+        tp_single = tp_reference(seed, out_dir)
         t1 = time.perf_counter()
         run_world(train_rank, DIST_WORLD, os.path.join(out_dir, "rendezvous"),
                   (DEV, seed, out_dir), timeout_s=DIST_TIMEOUT_S)
@@ -5624,6 +5919,9 @@ def phase_train(seed, single):
                          f"the whole gather's ({o['differ']} differ), norm "
                          f"{o['norm_rel']:.1e} from it" if o else ""),
                       flush=True)
+        rec["tp"] = tp_check(tp_single, recs, out_dir)
+        for x in recs:
+            del x["tp"]
         comp = [x["compressed"] for x in recs]
         closs = [[s["loss"] for s in c["steps"]] for c in comp]
         check(all(ls == closs[0] for ls in closs) and all(
@@ -5663,6 +5961,8 @@ def phase_train(seed, single):
         f"{MOE_ARCH}: num_layers 16 -> {MOE_LAYERS}; global batch 256 -> "
         f"{LM_BATCH}, as phase 13 (c); its run '2x1 no drops' also "
         "capacity_factor 1.25 -> 8 and aux_loss_weight 0.01 -> 0",
+        f"(b) tensor parallel: {LM_ARCH} num_layers 24 -> {TRAIN_LAYERS}, "
+        f"global batch 256 -> {LM_BATCH}, the 'model' axis 16 -> 2",
         f"two gloo ranks share one card (the mesh has {DIST_WORLD} ranks, "
         "not 256)", "random weights drawn on the card from --seed"]
     rec["wall_s"] = time.perf_counter() - t0
@@ -5693,8 +5993,9 @@ def dryrun_sweep(out_dir):
     from repro_torch.configs import ARCHS
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
-    jobs = [(arch, mesh) for arch in sorted(ARCHS)
-            for mesh in ("single", "multi")]
+    # the two-pod jobs trace the most: they go first
+    jobs = [(arch, mesh) for mesh in ("multi", "single")
+            for arch in sorted(ARCHS)]
 
     def run(job):
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -5822,9 +6123,72 @@ def dryrun_vs_real(seed):
     return rec
 
 
-def phase_dryrun(seed):
+def dryrun_vs_real_tp(real):
+    """(b) phase 14 (b)'s tensor-parallel stablelm step traced as rank 0
+    of a fake two-rank world on the same (1, 2) mesh, against the real
+    rank 0's first step (``real``): dot FLOPs within 0.1 % of
+    FlopCounterMode's, the collectives' calls by kind equal and their
+    bytes within 0.1 %, the peak within 10 % of max_memory_allocated over
+    what was allocated before the state."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    cfg = tp_config()
+    with dryrun.fake_world(2):
+        mesh = make_mesh(TP_SHAPE, ("data", "model"), device_type=DEV)
+        got = dryrun.trace_cell(cfg, ShapeConfig(
+            "tp", "train", tp_spec(cfg).seq_len, LM_BATCH), mesh,
+                                {"mesh": "x".join(map(str, TP_SHAPE))},
+                                device=DEV)
+    check(got["status"] == "ok", f"phase 15 (b) tensor parallel: the trace "
+          f"failed: {got.get('error')}")
+    first = real["steps"][0]
+    coll = {k: v for k, v in got["collectives"].items()
+            if k != "total_bytes"}
+    rec = dict(mesh=list(TP_SHAPE), trace_s=got["trace_s"],
+               dot_flops=got["flops_per_device"],
+               flop_counter_flops=real["flops"],
+               flop_rel=abs(got["flops_per_device"] - real["flops"])
+               / real["flops"],
+               collectives=coll, real_collectives=first["by_kind"],
+               peak_bytes=got["memory"]["peak_bytes"],
+               argument_bytes=got["memory"]["argument_bytes"],
+               real_peak_bytes=real["peak_bytes"],
+               peak_ratio=got["memory"]["peak_bytes"]
+               / max(real["peak_bytes"], 1))
+    bytes_rel = {k: abs(coll[k]["bytes"] - v["bytes"]) / v["bytes"]
+                 for k, v in first["by_kind"].items() if v["bytes"]}
+    rec["bytes_rel"] = bytes_rel
+    print(f"phase 15 (b) {LM_ARCH} ({TRAIN_LAYERS} layers) tensor parallel "
+          f"on {TP_SHAPE}, rank 0: the trace's dot FLOPs "
+          f"{rec['dot_flops']:.6e}, FlopCounterMode's "
+          f"{rec['flop_counter_flops']:.6e} (relative {rec['flop_rel']:.2e});"
+          f" collectives traced / real by kind "
+          + ", ".join(f"{k} {coll[k]['count']} / {v['calls']} calls, "
+                      f"{coll[k]['bytes']:.6g} / {v['bytes']:.6g} B"
+                      for k, v in first["by_kind"].items() if v["calls"]
+                      or coll[k]["count"])
+          + f"; the trace's peak {rec['peak_bytes'] / GIB:.3f} GiB, the "
+          f"rank's {rec['real_peak_bytes'] / GIB:.3f} GiB (ratio "
+          f"{rec['peak_ratio']:.4f}); traced in {rec['trace_s']:.1f} s",
+          flush=True)
+    check(rec["flop_rel"] < DRY_FLOP_RTOL, f"phase 15 (b) tensor parallel: "
+          f"dot FLOPs {rec['dot_flops']} vs {rec['flop_counter_flops']}")
+    check(all(coll[k]["count"] == v["calls"]
+              for k, v in first["by_kind"].items()),
+          f"phase 15 (b) tensor parallel: collective calls {coll} vs "
+          f"{first['by_kind']}")
+    check(all(r < DRY_FLOP_RTOL for r in bytes_rel.values()),
+          f"phase 15 (b) tensor parallel: collective bytes {bytes_rel}")
+    check(abs(rec["peak_ratio"] - 1) < DRY_PEAK_RTOL, f"phase 15 (b) tensor "
+          f"parallel: peak {rec['peak_bytes']} vs {rec['real_peak_bytes']}")
+    return rec
+
+
+def phase_dryrun(seed, tp_real):
     """Phase 15: the dry run on the card; see the module docstring.
-    Returns the {"dryrun": ...} record."""
+    ``tp_real`` is phase 14 (b)'s tensor-parallel rank 0.  Returns the
+    {"dryrun": ...} record."""
     import shutil
 
     import torch
@@ -5835,7 +6199,8 @@ def phase_dryrun(seed):
     os.makedirs(out_dir)
     t0 = time.perf_counter()
     try:
-        rec = dict(sweep=dryrun_sweep(out_dir), step=dryrun_vs_real(seed))
+        rec = dict(sweep=dryrun_sweep(out_dir), step=dryrun_vs_real(seed),
+                   tp_step=dryrun_vs_real_tp(tp_real))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     rec["wall_s"] = time.perf_counter() - t0
@@ -5951,10 +6316,11 @@ def main(argv=None) -> int:
         lm = phase_lm(args.seed)
         print(json.dumps({"lm": lm}, default=str))
         # phase 14: the Trainer, the sharded steps and the CLIs
-        print(json.dumps({"train": phase_train(args.seed, lm["olmoe"])},
-                         default=str))
+        trained = phase_train(args.seed, lm["olmoe"])
+        print(json.dumps({"train": trained}, default=str))
         # phase 15: the dry run, after phase 14 has freed its memory
-        print(json.dumps({"dryrun": phase_dryrun(args.seed)}, default=str))
+        print(json.dumps({"dryrun": phase_dryrun(
+            args.seed, trained["tp"]["ranks"][0])}, default=str))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -27,16 +27,20 @@ half-step's local work is one stage-1 launch of ``csrc/gk_step.cu``
 first CGS product in one pass over the block.
 
 Every cross-rank exchange of the solvers is one ``all_gather`` of this
-rank's local partial or block (:func:`_all_gather`), after which each
-rank combines the gathered parts itself: blocks are concatenated, and
+rank's local partial or block over the group of ranks it concerns (the
+ranks that share this rank's coordinates on every other mesh
+dimension; :func:`_all_gather`, :func:`_group`), after which each rank
+combines the gathered parts itself: blocks are concatenated, and
 partials of the same block are added in shard order (:func:`psum` for a
 plain sum).  No backend reduction order enters, so σ has the same bits
 on gloo and NCCL, on every rank, and across the (8,), (2, 4) and (4, 2)
-row meshes.  A rank sends its own payload and receives world × it; gloo
-takes ``all_gather`` for CUDA tensors.  The sharded train step's
-gradient exchange is the other collective, one ``all_to_all_single``
+row meshes.  A rank sends its own payload and receives the group's size
+× it; gloo takes ``all_gather`` for CUDA tensors.  A tensor too large to
+gather whole is summed by :func:`psum_large` (an ``all_to_all_single``
+of slices, the slices' sums, one ``all_gather``), with the same bits.
+The sharded train step's gradient exchange is one ``all_to_all_single``
 with split sizes (:func:`_all_to_all`): each rank receives only what it
-asked for.  These two helpers are where collectives are counted
+asked for.  These helpers are where collectives are counted
 (:func:`collective_stats`, by kind under the reference's names,
 :data:`COLLECTIVE_KINDS`).
 
@@ -62,6 +66,7 @@ import functools
 import itertools
 import threading
 import time
+import weakref
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
@@ -81,6 +86,7 @@ from repro_torch.distributed.partition import (mesh_ranks, mesh_sizes,
 
 __all__ = ["ShardedOp", "SparseShards", "place_operator", "sharded_operator",
            "operator_axes", "operator_spec", "shard_shape", "psum",
+           "psum_large",
            "collective_stats", "reset_collectives", "COLLECTIVE_KINDS"]
 
 Tensor = torch.Tensor
@@ -134,51 +140,127 @@ def _count(kind: str, sent: Tensor, received: int, t0: float) -> None:
         by["bytes"] += received * sent.element_size()
 
 
-def _all_gather(x: Tensor) -> Tensor:
-    """Every rank's ``x`` (one shape on all ranks) stacked by rank,
-    (world, *x.shape), so ``parts[r]`` is rank r's: one ``all_gather``,
-    counted."""
+class _Group(NamedTuple):
+    """The ranks that share this rank's coordinates on every mesh
+    dimension outside ``axes`` (in the mesh's order): their process group,
+    whose rank order is their shard order, row-major over ``axes``."""
+    axes: Tuple[str, ...]
+    pg: Any
+    size: int
+
+
+# a mesh's groups by their axes, made on first use: every rank makes
+# every group of a partition, in the same order
+_GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_GROUPS_LOCK = threading.Lock()
+
+
+def _members(mesh, axes: Tuple[str, ...], fixed: dict) -> list:
+    """The ranks at the coordinates ``fixed`` outside ``axes``, in
+    row-major order over ``axes``."""
+    sizes = mesh_sizes(mesh)
+    ranks = mesh_ranks(mesh)
+    out = []
+    for idx in itertools.product(*(range(sizes[a]) for a in axes)):
+        pos = dict(fixed, **dict(zip(axes, idx)))
+        r = ranks
+        for name in mesh.mesh_dim_names:
+            r = r[pos[name]]
+        out.append(r)
+    return out
+
+
+def _group(mesh, axes) -> _Group:
+    """The group of ``axes`` (a name or a tuple of names) on ``mesh``:
+    the mesh's own group of one dimension, the world for every dimension,
+    else one ``dist.new_group`` for each group of the partition, made by
+    every rank in the same order and cached on the mesh."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    with _GROUPS_LOCK:
+        cache = _GROUPS.setdefault(mesh, {})
+        got = cache.get(axes)
+        if got is not None:
+            return got
+        names = tuple(mesh.mesh_dim_names)
+        if len(set(axes)) != len(axes) or not set(axes) <= set(names):
+            raise ValueError(f"axes {axes} are not distinct dimensions of "
+                             f"a mesh of {names}")
+        sizes = mesh_sizes(mesh)
+        me = dict(zip(names, mesh.get_coordinate()))
+        rest = tuple(a for a in names if a not in axes)
+        mine = _members(mesh, axes, {a: me[a] for a in rest})
+        if not rest:
+            pg = dist.group.WORLD
+        elif len(axes) == 1:
+            pg = mesh.get_group(axes[0])
+        else:
+            pg = None
+            for idx in itertools.product(*(range(sizes[a]) for a in rest)):
+                ranks = _members(mesh, axes, dict(zip(rest, idx)))
+                made = dist.new_group(sorted(ranks))
+                if ranks == mine:
+                    pg = made
+        if mine != sorted(mine):
+            raise NotImplementedError(
+                "the group collectives need rank r at the r-th row-major "
+                "position of the mesh (as make_mesh lays ranks out)")
+        got = cache[axes] = _Group(axes, pg, len(mine))
+        return got
+
+
+def _all_gather(x: Tensor, mesh=None, axes=None) -> Tensor:
+    """Every rank's ``x`` (one shape on all ranks) stacked, one
+    ``all_gather``, counted: over the world by rank, (world, *x.shape),
+    or over the group of ``axes`` on ``mesh`` in shard order, (group,
+    *x.shape), a buffer of the group's size."""
     x = x.contiguous()
-    world = dist.get_world_size()
-    rows = x.new_empty((world,) + tuple(x.shape))
+    if mesh is None:
+        pg, size = None, dist.get_world_size()
+    else:
+        grp = _group(mesh, axes)
+        pg, size = grp.pg, grp.size
+    rows = x.new_empty((size,) + tuple(x.shape))
     t0 = time.perf_counter()
-    dist.all_gather(list(rows.unbind(0)), x)
-    _count("all-gather", x, world * x.numel(), t0)
+    dist.all_gather(list(rows.unbind(0)), x, group=pg)
+    _count("all-gather", x, size * x.numel(), t0)
     return rows
 
 
-def _all_to_all(x: Tensor, send: list, recv: list) -> Tensor:
+def _all_to_all(x: Tensor, send: list, recv: list, group=None) -> Tensor:
     """One ``all_to_all_single`` of the flat ``x``: ``send[r]`` elements
-    of it, in rank order, go to rank r, and the result holds ``recv[r]``
-    elements from each rank r, in rank order; counted."""
+    of it, in rank order, go to rank r (of ``group``, default the world),
+    and the result holds ``recv[r]`` elements from each rank r, in rank
+    order; counted."""
     out = x.new_empty(sum(recv))
     t0 = time.perf_counter()
     dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv,
-                           input_split_sizes=send)
+                           input_split_sizes=send, group=group)
     _count("all-to-all", x, out.numel(), t0)
     return out
 
 
-def _combine(parts: list, mesh, cat_axes: Tuple[str, ...],
+def _group_axes(mesh, axes) -> Tuple[str, ...]:
+    """``axes`` in the mesh's order."""
+    return tuple(a for a in mesh.mesh_dim_names if a in set(axes))
+
+
+def _combine(parts: Tensor, mesh, cat_axes: Tuple[str, ...],
              sum_axes: Tuple[str, ...]) -> list:
     """One tensor per index over ``cat_axes`` (row-major, as given): the
-    sum over ``sum_axes``, in shard order, of the gathered ``parts`` of
-    the ranks at that index that share this rank's coordinates on every
-    other mesh dimension."""
-    names = tuple(mesh.mesh_dim_names)
+    sum over ``sum_axes``, in shard order (row-major as given), of the
+    ``parts`` gathered over the group of ``cat_axes`` + ``sum_axes``
+    (:func:`_all_gather` with those axes in the mesh's order)."""
     sizes = mesh_sizes(mesh)
-    ranks = mesh_ranks(mesh)
-    pos = dict(zip(names, mesh.get_coordinate()))
+    gaxes = _group_axes(mesh, cat_axes + sum_axes)
     out = []
     for ci in itertools.product(*(range(sizes[a]) for a in cat_axes)):
-        pos.update(zip(cat_axes, ci))
         acc = None
         for si in itertools.product(*(range(sizes[a]) for a in sum_axes)):
-            pos.update(zip(sum_axes, si))
-            r = ranks
-            for name in names:
-                r = r[pos[name]]
-            acc = parts[r] if acc is None else acc + parts[r]
+            pos = dict(zip(cat_axes, ci)) | dict(zip(sum_axes, si))
+            i = 0
+            for a in gaxes:
+                i = i * sizes[a] + pos[a]
+            acc = parts[i] if acc is None else acc + parts[i]
         out.append(acc)
     return out
 
@@ -188,12 +270,92 @@ def psum(x: Tensor, mesh, axes) -> Tensor:
     every mesh dimension outside ``axes`` (a name or a tuple of names),
     added in shard order (row-major over ``axes`` as given): the
     counterpart of ``jax.lax.psum``.  Bitwise the same on every rank of
-    the group and under any backend: one :func:`_all_gather`, then a
-    left-to-right sum of the group's parts."""
+    the group and under any backend: one :func:`_all_gather` over the
+    group, then a left-to-right sum of its parts."""
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
-    out = _combine(_all_gather(x), mesh, (), axes)[0]
+    out = _combine(_all_gather(x, mesh, _group_axes(mesh, axes)), mesh, (),
+                   axes)[0]
     # a group of one adds nothing: copy the part out of the gathered rows
     return out.clone() if out._is_view() else out
+
+
+SLICE_ALIGN = 8    # bytes: every slice of the large reduction's rows
+
+
+def psum_large(xs, mesh, axes) -> list:
+    """Each of the tensors ``xs`` summed over the group of ``axes`` (as
+    :func:`psum`: in shard order, row-major over ``axes`` as given), the
+    same bits as :func:`psum` of each, for tensors too large to gather
+    whole.  One ``all_to_all_single`` gives each member of the group its
+    1/g slice of every member's ``xs``; it adds the slices in shard order,
+    each in its tensor's dtype; one ``all_gather`` returns every slice's
+    sum to every member.  A rank receives 2 x (its payload), not g x, and
+    the gather-then-sum's element sums are unchanged.  A tensor is
+    returned fresh; no collective for a group of one."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    grp = _group(mesh, _group_axes(mesh, axes))
+    g = grp.size
+    xs = [x.contiguous() for x in xs]
+    if g == 1:
+        return [x.clone() for x in xs]
+    # each tensor's slice per member: a whole number of SLICE_ALIGN bytes,
+    # so that every slice starts on a boundary its dtype can view
+    slices = []
+    for x in xs:
+        per = max(SLICE_ALIGN // x.element_size(), 1)
+        slices.append(-(-x.numel() // (g * per)) * per)
+    row = sum(s * x.element_size() for s, x in zip(slices, xs)) // 4
+    send = torch.empty((g, row), dtype=torch.float32, device=xs[0].device)
+    raw = send.view(torch.uint8)
+    off = 0
+    for x, s in zip(xs, slices):
+        nb = s * x.element_size()
+        flat = x.reshape(-1)
+        raw[:, off:off + nb].view(x.dtype).copy_(torch.nn.functional.pad(
+            flat, (0, g * s - flat.numel())).view(g, s))
+        off += nb
+    # member j of the group (in shard order) takes slice j
+    got = _all_to_all(send.reshape(-1), [row] * g, [row] * g,
+                      group=grp.pg).view(g, row)
+    del send, raw
+    # the shard order of the sum over ``axes`` as given
+    sizes = mesh_sizes(mesh)
+    gaxes = _group_axes(mesh, axes)
+    seq = []
+    for idx in itertools.product(*(range(sizes[a]) for a in axes)):
+        pos = dict(zip(axes, idx))
+        i = 0
+        for a in gaxes:
+            i = i * sizes[a] + pos[a]
+        seq.append(i)
+    graw = got.view(torch.uint8)
+    sums = torch.empty(row, dtype=torch.float32, device=xs[0].device)
+    sraw = sums.view(torch.uint8)
+    off = 0
+    for x, s in zip(xs, slices):
+        nb = s * x.element_size()
+        seg = graw[:, off:off + nb].view(x.dtype)
+        acc = seg[seq[0]]
+        for i in seq[1:]:
+            acc = acc + seg[i]
+        sraw[off:off + nb].view(x.dtype).copy_(acc)
+        off += nb
+    del got, graw
+    # member j holds slice j's sums
+    rows = sums.new_empty((g, row))
+    t0 = time.perf_counter()
+    dist.all_gather(list(rows.unbind(0)), sums, group=grp.pg)
+    _count("all-gather", sums, g * row, t0)
+    del sums, sraw
+    out = []
+    off = 0
+    rraw = rows.view(torch.uint8)
+    for x, s in zip(xs, slices):
+        nb = s * x.element_size()
+        whole = rraw[:, off:off + nb].view(x.dtype).reshape(-1)
+        out.append(whole[:x.numel()].reshape(x.shape).clone())
+        off += nb
+    return out
 
 
 # --- the payload and the local algebra ---------------------------------------
@@ -404,7 +566,8 @@ class ShardedOp(Operator):
         by rows, each the shard-order sum over ``sum_axes`` of the
         partials of that block."""
         if parts is None:
-            parts = _all_gather(x)
+            parts = _all_gather(x, self.mesh,
+                                _group_axes(self.mesh, cat_axes + sum_axes))
         return torch.cat(_combine(parts, self.mesh, tuple(cat_axes),
                                   tuple(sum_axes)), dim=0)
 
@@ -448,7 +611,8 @@ class ShardedOp(Operator):
         Y = _local_mv(a, self.place_basis(_f32(omega.dense()), "right"))
         Z = _local_rmv(a, self.place_basis(_f32(psi.dense()), "left"))
         cut = Y.numel()
-        parts = _all_gather(torch.cat([Y.reshape(-1), Z.reshape(-1)]))
+        parts = _all_gather(torch.cat([Y.reshape(-1), Z.reshape(-1)]),
+                            self.mesh, _group_axes(self.mesh, rows + cols))
         return (self._assemble(None, rows, cols, [p[:cut].reshape(Y.shape)
                                                   for p in parts])[:m],
                 self._assemble(None, cols, rows, [p[cut:].reshape(Z.shape)
@@ -460,8 +624,9 @@ class ShardedOp(Operator):
         m, n = self.shape
         rows, cols = self._sides()
         R, C = self._layout[2:4]
-        blocks = _combine(_all_gather(self._payload()), self.mesh,
-                          rows + cols, ())
+        blocks = _combine(_all_gather(self._payload(), self.mesh,
+                                      _group_axes(self.mesh, rows + cols)),
+                          self.mesh, rows + cols, ())
         return torch.cat([torch.cat(blocks[i * C:(i + 1) * C], dim=1)
                           for i in range(R)], dim=0)[:m, :n]
 

@@ -22,11 +22,13 @@ is a ``DeviceMesh`` of ``repro_torch.launch.mesh`` or, where no process
 group is needed (the rules alone), a ``{name: size}`` mapping.
 
 :func:`local_block` cuts a rank's block of a tensor under its spec;
-:func:`gather_leaves` puts the blocks of every rank back together in
-shard order with one ``all_gather`` (``distributed.matvec``'s counted
-collective), the same bits on every rank; :func:`block_grid` and
-:func:`assemble_rows` see a tensor as every rank's block at once, so a
-gather or an exchange costs a few ops a leaf, not a few a rank.
+:func:`gather_leaves` puts the blocks back together in shard order with
+one ``all_gather`` a group (``distributed.matvec``'s counted collective
+over the ranks that hold the other blocks), the same bits on every rank;
+:func:`block_grid` sees a tensor as every rank's block at once, so an
+exchange costs a few ops a leaf, not a few a rank.
+:func:`model_region` says which leaves the layers compute by their
+"model" block (tensor and expert parallelism) and which whole.
 
 A dense (m, n) operand shards its rows over the ``("pod", "data")`` axes
 present and its columns over ``"model"`` when present, the layout every
@@ -70,6 +72,24 @@ RULES: dict[str, Optional[str]] = {
     "ssm_state": None, "ssm_heads": None, "conv_k": None, "img_in": None,
     "layers": None,
 }
+
+
+# the logical axes whose "model" split the layers compute block by block:
+# tensor parallelism over heads, kv heads, the MLP's width and the
+# vocabulary, expert parallelism over the experts.  A leaf split over
+# "model" by another axis (ssm_inner) is gathered whole for its layer.
+MODEL_COMPUTE = ("vocab", "heads", "kv_heads", "mlp", "experts")
+
+
+def model_region(axes: Sequence[str], spec: Spec) -> Spec:
+    """What a rank computes with of a leaf of logical ``axes`` under
+    ``spec``: its "model" block where the spec splits a
+    :data:`MODEL_COMPUTE` dimension over "model", else the whole leaf
+    (``()``)."""
+    for name, entry in zip(axes, spec):
+        if entry == "model" and name in MODEL_COMPUTE:
+            return restrict(spec, ("model",))
+    return ()
 
 
 def mesh_sizes(mesh) -> dict:
@@ -258,13 +278,15 @@ def _pack(tensors: Sequence[Tensor]) -> Tensor:
     return flat
 
 
-def gather_packed(tensors: Sequence[Tensor]) -> list:
+def gather_packed(tensors: Sequence[Tensor], mesh=None, axes=()) -> list:
     """Every rank's ``tensors`` (the same shapes and dtypes on all ranks,
     on one device) with ONE counted ``all_gather`` of their bytes,
     whatever their dtypes: for each tensor, every rank's stacked by rank,
-    (world, *shape), views of one buffer."""
+    (world, *shape), or, with a ``mesh``, the group of ``axes``'s stacked
+    in shard order, (group, *shape); views of one buffer."""
     from repro_torch.distributed.matvec import _all_gather
-    rows = _all_gather(_pack(tensors)).view(torch.uint8)
+    rows = _all_gather(_pack(tensors), mesh,
+                       None if mesh is None else axes).view(torch.uint8)
     out, off = [], 0
     for t in tensors:
         n = _nbytes(t)
@@ -308,34 +330,22 @@ def block_grid(x: Tensor, spec: Spec, mesh, fixed: Sequence[str] = ()
     return v.expand([sizes[a] for a in out_axes] + [-1] * len(blocks))
 
 
-def assemble_rows(rows: Tensor, spec: Spec, shape: Sequence[int], mesh,
-                  within: Spec = ()) -> Tensor:
-    """This rank's block under ``within`` (default: the whole tensor) from
-    ``rows`` (world, *block): every rank's block under ``spec``, in rank
-    order (``within`` a :func:`restrict` of ``spec``).  A block several
-    ranks hold is taken from the first of them in rank order.  A fresh
-    tensor."""
-    _require_row_major(mesh)
+def assemble_group(rows: Tensor, spec: Spec, mesh,
+                   axes: Tuple[str, ...]) -> Tensor:
+    """This rank's region of a leaf from ``rows`` (group, *block): the
+    blocks under ``spec`` of the group of ``axes`` (in the mesh's order),
+    gathered in shard order.  The region is the block under ``spec``
+    with the entries of ``axes`` whole.  A fresh tensor."""
     sizes = mesh_sizes(mesh)
-    me = my_coord(mesh)
-    inside, named = set(spec_axes(within)), set(spec_axes(spec))
-    g = rows.reshape([sizes[a] for a in sizes] + list(rows.shape[1:]))
-    pick, kept = [], []
-    for a in sizes:
-        if a in named and a not in inside:
-            pick.append(slice(None))
-            kept.append(a)
-        else:
-            pick.append(me[a] if a in inside else 0)
-    g = g[tuple(pick)]
-    pos = {a: i for i, a in enumerate(kept)}
+    block = list(rows.shape[1:])
+    g = rows.reshape([sizes[a] for a in axes] + block)
+    pos = {a: i for i, a in enumerate(axes)}
     order, out_shape = [], []
-    for d in range(len(shape)):
-        axes = [a for a in (_entry_axes(spec[d]) if d < len(spec) else ())
-                if a in pos]
-        order += [pos[a] for a in axes] + [len(kept) + d]
-        out_shape.append(rows.shape[1 + d] * math.prod(sizes[a]
-                                                       for a in axes))
+    for d in range(len(block)):
+        named = [a for a in (_entry_axes(spec[d]) if d < len(spec) else ())
+                 if a in pos]
+        order += [pos[a] for a in named] + [len(axes) + d]
+        out_shape.append(block[d] * math.prod(sizes[a] for a in named))
     out = g.permute(order).reshape(out_shape)
     return out.clone() if out._is_view() else out
 
@@ -345,22 +355,26 @@ def gather_leaves(blocks: Sequence[Tensor], specs: Sequence[Spec],
                   within: Optional[Sequence[Spec]] = None) -> list:
     """The whole tensors (or, per leaf, this rank's block under
     ``within[i]``) of this rank's ``blocks``, each under its spec and of
-    its whole ``shape``, with one :func:`gather_packed`: the same bits on
-    every rank.  A leaf its spec leaves whole on every rank is returned
-    as it is, without a collective."""
+    its whole ``shape``: the same bits on every rank.  A leaf is gathered
+    over the group of the mesh axes its spec splits it over and
+    ``within`` keeps whole; the leaves of one such group travel in one
+    :func:`gather_packed` (one collective a group: the FSDP axis alone
+    for leaves kept by their "model" block).  A leaf its spec leaves
+    whole on every rank is returned as it is, without a collective."""
     sizes = mesh_sizes(mesh)
+    names = list(sizes)
     within = list(within) if within is not None else [()] * len(blocks)
-    # the leaves split over an axis of size > 1 that ``within`` keeps whole
-    idx = [i for i, s in enumerate(specs)
-           if math.prod(sizes[a] for a in spec_axes(s)
-                        if a not in spec_axes(within[i])) > 1]
+    groups: dict = {}
+    for i, s in enumerate(specs):
+        axes = tuple(a for a in names if a in spec_axes(s)
+                     and a not in spec_axes(within[i]) and sizes[a] > 1)
+        if axes:
+            groups.setdefault(axes, []).append(i)
     out = list(blocks)
-    if not idx:
-        return out
-    rows = gather_packed([blocks[i] for i in idx])
-    for j, i in enumerate(idx):
-        out[i] = assemble_rows(rows[j], specs[i], shapes[i], mesh,
-                               within[i])
+    for axes, idx in groups.items():
+        rows = gather_packed([blocks[i] for i in idx], mesh, axes)
+        for j, i in enumerate(idx):
+            out[i] = assemble_group(rows[j], specs[i], mesh, axes)
     return out
 
 

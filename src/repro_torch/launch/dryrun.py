@@ -20,9 +20,13 @@ the port's own step once under ``launch.op_analysis.CostMode``:
              of its sequences.
 
 For prefill and decode the model holds the expert weights as the rank's
-blocks (what the expert-parallel MoE takes) and every other leaf whole:
-the port runs each dense layer whole on every rank.  A port check that
-refuses a cell (a ``ValueError``: the batch does not split over the
+blocks (what the expert-parallel MoE takes), of each other leaf the
+layers compute by its "model" block (``partition.model_region``: heads,
+the MLP's width, the vocabulary) that block with every other dimension
+whole, and every other leaf whole (``steps.serving_specs``); the decode
+cache is the rank's block of the cell's cache under
+``input_specs.serving_cache_spec`` (kv heads over "model" where they
+divide, else whole).  A port check that refuses a cell (a ``ValueError``: the batch does not split over the
 batch axes, the train step's exchange cannot fit the device, the
 compressed step's mesh) is a failed cell, as is a cell whose traced peak
 exceeds the device's memory (the reference's OOM at compile); any other
@@ -183,13 +187,15 @@ def _train_args(cell, cfg, mesh, device, compressed: bool):
 
 
 def _serving_model(cfg, params_struct, mesh, device):
-    """The model a rank serves with: the expert weights as its blocks,
-    every other leaf whole."""
+    """The model a rank serves with (``steps.serving_specs``): the expert
+    weights as their blocks, the "model" block of each other leaf the
+    layers compute by block, every other leaf whole."""
     layout = steps_mod.param_layout(cfg, mesh)
     named = _named(params_struct, layout)
+    specs = steps_mod.serving_specs(layout, mesh)
     return model_mod.ParamTree(steps_mod._nest({
-        k: torch.empty(_block_shape(layout[k], mesh) if layout[k].expert
-                       else t.shape, dtype=t.dtype, device=device)
+        k: torch.empty(_block_shape(layout[k]._replace(spec=specs[k]),
+                                    mesh), dtype=t.dtype, device=device)
         for k, t in named.items()}))
 
 
@@ -204,8 +210,10 @@ def _inputs(cell, cfg, shape, mesh, device, compressed: bool) -> tuple:
     model = _serving_model(cfg, params_struct, mesh, device)
     if kind == "prefill":
         return model, local
-    cache = model_mod.init_cache(cfg, local["tokens"].shape[0],
-                                 shape.seq_len, device=device)
+    struct = model_mod.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                  device="meta")
+    cache = model_mod._map(lambda t: _fake(t, device), ispec.cache_block(
+        struct, cfg, shape, mesh))
     return model, cache, local
 
 

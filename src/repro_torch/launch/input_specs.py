@@ -16,6 +16,11 @@ Sharding layout:
   * KV / latent caches shard kv-heads (or SSD heads) over "model" when
     divisible, else their sequence axis;
   * parameters and optimizer moments follow ``distributed.partition``.
+
+:func:`serving_cache_spec` is the part of that layout the port's decode
+step holds today (kv heads over "model" where they divide, else the
+cache whole on the rank's batch shard), and :func:`cache_block` a rank's
+block of a cell's cache under it.
 """
 from __future__ import annotations
 
@@ -131,6 +136,45 @@ def _cache_leaf_spec(name: str, shape: tuple, mesh, B: int) -> tuple:
         if h_ax is not None and _div(shape[nd + h_ax], mesh, "model"):
             spec[nd + h_ax] = "model"
     return _strip(spec)
+
+
+def serving_cache_spec(name: str, shape: tuple, mesh, B: int) -> tuple:
+    """The spec of a cache leaf as the port's decode step holds it: that
+    of :func:`_cache_leaf_spec` where it splits the batch, the sequence
+    over "data" or the kv heads over "model" (the heads the
+    tensor-parallel attention computes), with no other split over
+    "model": a cache whose kv heads do not divide "model" (and the MLA
+    latents, and the Mamba2 states) stays whole on the rank's batch
+    shard."""
+    spec = list(_cache_leaf_spec(name, shape, mesh, B))
+    nd = len(shape)
+    head = _SEQ_LEAF_AXES.get(name, (None, None, None))[2]
+    for d, entry in enumerate(spec):
+        if entry is None or "model" not in ((entry,) if isinstance(
+                entry, str) else entry):
+            continue
+        if head is not None and d == nd + head:
+            continue
+        rest = tuple(a for a in ((entry,) if isinstance(entry, str)
+                                 else entry) if a != "model")
+        spec[d] = axes_entry(rest) if rest else None
+    return _strip(spec)
+
+
+def cache_block(struct: Tree, cfg: ModelConfig, shape: ShapeConfig,
+                mesh) -> Tree:
+    """This rank's block (meta tensors) of the cell's cache ``struct``
+    (``model.init_cache`` of the global batch) under
+    :func:`serving_cache_spec`."""
+    from repro_torch.distributed.partition import block_slices
+    B = shape.global_batch
+
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        spec = serving_cache_spec(name, tuple(tree.shape), mesh, B)
+        return tree[block_slices(spec, tree.shape, mesh)]
+    return walk(struct)
 
 
 def cache_struct_and_shardings(cfg: ModelConfig, shape: ShapeConfig,

@@ -53,7 +53,8 @@ stay there.  Not measured.
 each one :meth:`CostMode.track` is given, such as a step's arguments) is
 added when made and taken off when freed, rounded up to the 512 bytes
 of the CUDA caching allocator on a CUDA device, so ``peak_bytes`` is the
-most the traced code held at once.
+most the traced code held at once.  An op that holds a scratch buffer
+while it runs (:data:`CUDA_SCRATCH`) adds it to the peak of that moment.
 """
 from __future__ import annotations
 
@@ -74,6 +75,12 @@ L2_THRESHOLD = 50_000_000 // 4
 
 # the CUDA caching allocator's rounding of every block (512 bytes)
 CUDA_ROUND = 512
+
+# ops whose CUDA kernel holds a scratch buffer of the given multiple of
+# its output's bytes while it runs: the softmax backward (measured on the
+# card, torch 2.11: one output-sized buffer at every shape tried, last
+# dimension 512 to 50,176; the forward softmax holds none)
+CUDA_SCRATCH = {torch.ops.aten._softmax_backward_data.default: 1}
 
 _aten = torch.ops.aten
 
@@ -279,6 +286,13 @@ class CostMode(TorchDispatchMode):
         self.hbm_bytes += sum(b for b in map(_bytes, reads) if b >= thr)
         for t in _tensors(out):
             self._add_storage(t, t.device.type == "cuda")
+        scratch = CUDA_SCRATCH.get(func)
+        if scratch:
+            held = sum(-(-_bytes(t) // CUDA_ROUND) * CUDA_ROUND
+                       for t in _tensors(out) if t.device.type == "cuda")
+            with self._lock:
+                self.peak_bytes = max(self.peak_bytes,
+                                      self.live_bytes + scratch * held)
         return out
 
     def cost(self) -> OpCost:

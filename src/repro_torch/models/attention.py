@@ -14,6 +14,18 @@ body.  ``impl="chunked"`` computes attention in query chunks so the
 (Sq, Sk) logits are never held at once; ``impl="online"`` runs the
 flash-style online softmax over KV chunks, each step checkpointed so the
 backward pass recomputes its probability tile.
+
+On a mesh (``mesh``, a ``DeviceMesh``) whose "model" axis divides the
+heads, a block computes this rank's heads (Megatron's layout,
+``layers.enter`` / ``leave``): the q heads of its "model" block, the kv
+heads they read, the f32 logits of its heads alone, and its part of the
+output projection, summed over "model".  Where the kv heads divide too,
+the rank holds its kv heads and its block of the KV cache; where they do
+not (the weights whole), it takes the kv heads its q heads map to by
+:func:`_repeat_kv`'s grouping, and a cache stays whole.  MLA splits
+``w_uq``, ``w_uk``, ``w_uv`` and ``wo`` by heads and keeps its latents
+whole; cross attention splits as GQA.  Where "model" does not divide the
+heads, the block runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -23,8 +35,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (ParamBag, apply_rope, proj,
-                                       proj_heads, repeat_interleave)
+from repro_torch.models.layers import (ParamBag, apply_rope, block_split,
+                                       enter, leave, proj, proj_heads,
+                                       repeat_interleave)
 
 Tensor = torch.Tensor
 
@@ -222,10 +235,42 @@ def _blend(cache: Tensor, new: Tensor, pos: Tensor,
 # GQA forward
 # ---------------------------------------------------------------------------
 
+def _head_split(p: dict, cfg: ModelConfig, mesh, key: str = "wq"):
+    """(M, i) where this rank computes a block of the heads (its ``key``
+    holds its "model" block of them), else None."""
+    return block_split(mesh, p[key].shape[1], cfg.num_heads,
+                       f"{key}'s heads")
+
+
+def _kv_heads(p: dict, cfg: ModelConfig, mesh, split) -> tuple:
+    """Where this rank's q heads read their kv heads on a "model" block
+    ``split``: (kv weights whole?, first kv head, kv heads read, the kv
+    head of each local q head relative to the first, or None where
+    :func:`_repeat_kv` maps them)."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    M, i = split
+    h_loc = h // M
+    if block_split(mesh, p["wk"].shape[1], kv, "wk's kv heads") is not None:
+        return False, i * (kv // M), kv // M, None
+    rep = h // kv
+    lo = i * h_loc
+    first, last = lo // rep, (lo + h_loc - 1) // rep
+    idx = [q // rep - first for q in range(lo, lo + h_loc)]
+    return True, first, last - first + 1, idx
+
+
+def _take_kv(x: Tensor, h: int, idx) -> Tensor:
+    """The kv heads (B, S, Kv, hd) of ``h`` q heads: by
+    :func:`_repeat_kv`, or by the index of each q head's kv head."""
+    if idx is None:
+        return _repeat_kv(x, h)
+    return x.index_select(2, torch.tensor(idx, device=x.device))
+
+
 def gqa_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
                   window: int = GLOBAL_WINDOW, cache: Optional[dict] = None,
                   collect_kv: bool = False, causal: bool = True,
-                  ) -> tuple[Tensor, Optional[dict]]:
+                  mesh=None) -> tuple[Tensor, Optional[dict]]:
     """GQA self-attention.
 
     Train: ``x: (B,S,D)``, ``positions: (B,S)``, ``cache=None``.
@@ -233,19 +278,47 @@ def gqa_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
     decode cache (kv-head layout, pre-repeat).
     Decode: ``x: (B,1,D)``, ``positions: (B,1)`` = current index,
     ``cache = {"k": (B,Smax,Kv,hd), "v": ...}``; returns the new cache.
+    On a mesh that splits the heads the weights, the cache and the logits
+    are this rank's (module docstring).
     """
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     scale = hd ** -0.5
+    split = _head_split(p, cfg, mesh)
+    wk, wv = p["wk"], p["wv"]
+    bk, bv = (p["bk"], p["bv"]) if cfg.qkv_bias else (None, None)
+    idx, whole = None, False
+    if split is not None:
+        h //= split[0]
+        whole, first, n_kv, idx = _kv_heads(p, cfg, mesh, split)
+        serving = cache is not None or collect_kv
+        if whole:
+            # each rank reads part of the whole kv weights: their
+            # gradients are summed over "model"
+            ws = enter(mesh, *(w for w in (wk, wv, bk, bv) if w is not None))
+            wk, wv = ws[:2]
+            if cfg.qkv_bias:
+                bk, bv = ws[2:]
+        if whole and not serving:
+            wk, wv = wk[:, first:first + n_kv], wv[:, first:first + n_kv]
+            if cfg.qkv_bias:
+                bk, bv = bk[first:first + n_kv], bv[first:first + n_kv]
+        x, = enter(mesh, x)
     q = proj(x, p["wq"])
-    k = proj(x, p["wk"])
-    v = proj(x, p["wv"])
+    k = proj(x, wk)
+    v = proj(x, wv)
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + p["bq"], k + bk, v + bv
     q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor)
 
+    def read(c):
+        # the kv heads this rank's q heads read, from a whole cache
+        if split is not None and whole and serving:
+            c = c[:, :, first:first + n_kv]
+        return _take_kv(c, h, idx)
+
     if cache is None:
-        ctx = attend(q, _repeat_kv(k, h), _repeat_kv(v, h), positions,
+        ctx = attend(q, read(k), read(v), positions,
                      positions, window=window, scale=scale,
                      cap=cfg.attn_logit_softcap, impl=cfg.attn_impl,
                      q_chunk=cfg.q_chunk, causal=causal)
@@ -257,11 +330,11 @@ def gqa_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
         S = ck.shape[1]
         kpos = torch.arange(S, dtype=positions.dtype,
                             device=x.device)[None, :].expand(x.shape[0], S)
-        ctx = attend(q, _repeat_kv(ck, h), _repeat_kv(cv, h), positions,
+        ctx = attend(q, read(ck), read(cv), positions,
                      kpos, window=window, scale=scale,
                      cap=cfg.attn_logit_softcap, impl="full")
         new_cache = {"k": ck, "v": cv}
-    return proj_heads(ctx, p["wo"]), new_cache
+    return _out(proj_heads(ctx, p["wo"]), mesh, split), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +350,7 @@ def _rmsn(x: Tensor, w: Tensor, eps: float = 1e-6) -> Tensor:
 def mla_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
                   window: int = GLOBAL_WINDOW, cache: Optional[dict] = None,
                   collect_kv: bool = False, causal: bool = True,
-                  ) -> tuple[Tensor, Optional[dict]]:
+                  mesh=None) -> tuple[Tensor, Optional[dict]]:
     """Multi-head latent attention.
 
     The cache stores only the latents: ``{"ckv": (B,Smax,kv_lora),
@@ -288,18 +361,21 @@ def mla_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
     mla = cfg.mla
     dn, dr = mla.qk_nope_head_dim, mla.qk_rope_head_dim
     scale = (dn + dr) ** -0.5
+    split = _head_split(p, cfg, mesh, "w_uq")
 
     cq = _rmsn(proj(x, p["w_dq"]), p["q_norm"])
-    qfull = proj(cq, p["w_uq"])
-    q_nope, q_rope = qfull[..., :dn], qfull[..., dn:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-
     ckv_full = proj(x, p["w_dkv"])
     ckv, krope = (ckv_full[..., :mla.kv_lora_rank],
                   ckv_full[..., mla.kv_lora_rank:])
     ckv = _rmsn(ckv, p["kv_norm"])
     krope = apply_rope(krope[:, :, None, :], positions,
                        cfg.rope_theta)[:, :, 0, :]
+    if split is not None:
+        # the latents, whole on every rank, enter the rank's heads
+        cq, ckv, krope = enter(mesh, cq, ckv, krope)
+    qfull = proj(cq, p["w_uq"])
+    q_nope, q_rope = qfull[..., :dn], qfull[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
     if cache is None:
         # full sequence: materialize per-head K/V (train / prefill)
@@ -312,7 +388,7 @@ def mla_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
                      scale=scale, cap=cfg.attn_logit_softcap,
                      impl=cfg.attn_impl, q_chunk=cfg.q_chunk)
         new_cache = {"ckv": ckv, "krope": krope} if collect_kv else None
-        return proj_heads(ctx, p["wo"]), new_cache
+        return _out(proj_heads(ctx, p["wo"]), mesh, split), new_cache
 
     # --- absorbed decode ---
     pos = positions[:, 0]
@@ -330,7 +406,14 @@ def mla_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
     probs = torch.softmax(logits, dim=-1).to(c_ckv.dtype)
     ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_ckv)   # (B,1,H,r)
     ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, p["w_uv"])  # (B,1,H,dv)
-    return proj_heads(ctx, p["wo"]), {"ckv": c_ckv, "krope": c_kr}
+    return (_out(proj_heads(ctx, p["wo"]), mesh, split),
+            {"ckv": c_ckv, "krope": c_kr})
+
+
+def _out(y: Tensor, mesh, split) -> Tensor:
+    """A block's output projection: summed over "model" where the rank
+    computed a block of the heads."""
+    return y if split is None else leave(mesh, y)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -338,9 +421,13 @@ def mla_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def cross_attention(p: dict, x: Tensor, enc_kv: tuple[Tensor, Tensor],
-                    cfg: ModelConfig) -> Tensor:
-    """x: (B,S,D); enc_kv: precomputed (K, V) each (B,T,H,hd)."""
+                    cfg: ModelConfig, mesh=None) -> Tensor:
+    """x: (B,S,D); enc_kv: precomputed (K, V) each (B,T,H,hd), this
+    rank's heads where the mesh splits them (:func:`encode_cross_kv`)."""
     hd = cfg.resolved_head_dim
+    split = _head_split(p, cfg, mesh)
+    if split is not None:
+        x, = enter(mesh, x)
     q = proj(x, p["wq"])
     B, Sq = x.shape[:2]
     T = enc_kv[0].shape[1]
@@ -349,10 +436,15 @@ def cross_attention(p: dict, x: Tensor, enc_kv: tuple[Tensor, Tensor],
     ctx = attend(q, enc_kv[0], enc_kv[1], qpos, kpos, window=GLOBAL_WINDOW,
                  scale=hd ** -0.5, cap=None, causal=False,
                  impl=cfg.attn_impl, q_chunk=cfg.q_chunk)
-    return proj_heads(ctx, p["wo"])
+    return _out(proj_heads(ctx, p["wo"]), mesh, split)
 
 
-def encode_cross_kv(p: dict, enc_out: Tensor) -> tuple[Tensor, Tensor]:
+def encode_cross_kv(p: dict, enc_out: Tensor, cfg: ModelConfig,
+                    mesh=None) -> tuple[Tensor, Tensor]:
+    """The cross attention's (K, V) of the encoder output: this rank's
+    heads where the mesh splits them."""
+    if _head_split(p, cfg, mesh) is not None:
+        enc_out, = enter(mesh, enc_out)
     return proj(enc_out, p["wk"]), proj(enc_out, p["wv"])
 
 

@@ -5,6 +5,18 @@ dicts of tensors with a logical-axes twin of the same structure (a tuple
 of axis names per tensor dimension), under the reference's names; the
 model module (``repro_torch.models.model``) turns the tree into
 ``nn.Parameter``s.  The functions here act on plain tensors.
+
+Tensor parallelism over a mesh's "model" axis (Megatron's layout, what
+the reference's GSPMD derives from its rules): a layer whose weights'
+spec splits a dimension (heads, the MLP's width, the vocabulary) over
+"model" computes the rank's block of it, as the block it is given says
+(:func:`block_split`).  :func:`enter` marks where a tensor
+that every rank of the "model" group holds alike enters such a block
+(the identity; its gradient, partial on each rank, summed over the
+group), :func:`leave` where the block's partial result leaves it (summed
+over the group; its gradient passed on unchanged).  Both sums are
+``distributed.matvec``'s shard-order sums over the "model" group, so
+every rank of the group holds the same bits.
 """
 from __future__ import annotations
 
@@ -89,6 +101,84 @@ def stacked_logical(logical: dict, axis_name: str = "layers") -> dict:
     return {k: (stacked_logical(v, axis_name) if isinstance(v, dict)
                 else (axis_name,) + tuple(v))
             for k, v in logical.items()}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over "model"
+# ---------------------------------------------------------------------------
+
+def block_split(mesh, got: int, n: int, what: str
+                ) -> Optional[tuple[int, int]]:
+    """How a layer computes a dimension of ``n`` entries (heads, the MLP's
+    width, the vocabulary) of which the weight it is given holds ``got``:
+    None where it holds them all, (M, i) where it holds its block of a
+    "model" axis of size M > 1 at this rank's position i.  So the layer
+    follows the block its weight's spec gave it
+    (``distributed.partition.model_region``); any other count is
+    refused."""
+    if got == n:
+        return None
+    from repro_torch.distributed.partition import mesh_sizes, my_coord
+    M = mesh_sizes(mesh).get("model", 1) if mesh is not None else 1
+    if M > 1 and got * M == n:
+        return M, my_coord(mesh)["model"]
+    raise ValueError(f"{what} has {got} of {n} entries: neither all of "
+                     f"them nor a block of a 'model' axis of {M}")
+
+
+class _Enter(torch.autograd.Function):
+    """Forward: the identity.  Backward: the gradients summed over
+    "model" (one large-tensor reduction for all of them)."""
+
+    @staticmethod
+    def forward(ctx, mesh, *xs):
+        ctx.mesh = mesh
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        from repro_torch.distributed.matvec import psum_large
+        return (None, *psum_large(gs, ctx.mesh, ("model",)))
+
+
+class _Leave(torch.autograd.Function):
+    """Forward: the sum over "model" (the large-tensor reduction, or a
+    gather of the small tensors).  Backward: the gradients unchanged."""
+
+    @staticmethod
+    def forward(ctx, mesh, small, *xs):
+        from repro_torch.distributed.matvec import psum, psum_large
+        if small:
+            return tuple(psum(x, mesh, "model") for x in xs)
+        return tuple(psum_large(xs, mesh, ("model",)))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *gs)
+
+
+def enter(mesh, *xs: Tensor) -> tuple:
+    """``xs`` as they enter a block computed over "model": the identity,
+    with their gradients summed over the "model" group."""
+    if not torch.is_grad_enabled():
+        return xs
+    return _Enter.apply(mesh, *xs)
+
+
+def leave(mesh, *xs: Tensor, small: bool = False) -> tuple:
+    """The sums over the "model" group of the partial ``xs``, the same
+    bits on every rank of it; their gradients pass unchanged.  ``small``
+    tensors take one gather (:func:`distributed.matvec.psum`), large ones
+    the slice reduction (``psum_large``)."""
+    return _Leave.apply(mesh, small, *xs)
+
+
+def gather_model(x: Tensor, mesh, dim: int = -1) -> Tensor:
+    """The blocks of ``x`` along ``dim`` of every rank of the "model"
+    group, concatenated in shard order (no gradient)."""
+    from repro_torch.distributed.matvec import _all_gather
+    rows = _all_gather(x, mesh, ("model",))
+    return torch.cat(list(rows.unbind(0)), dim=dim)
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,16 @@ Counterpart of ``repro.models.model``.
     init_cache(cfg, batch, max_seq)            -> cache dict
 
 ``mesh`` (default None: one device) is a ``DeviceMesh`` of
-``repro_torch.launch.mesh``: the MoE blocks then run expert-parallel
-(``repro_torch.models.moe``) on this rank's batch shard, with the expert
-weights of ``model`` this rank's blocks.  Every other layer runs whole on
-each rank.
+``repro_torch.launch.mesh``.  Each rank then runs its batch shard, and a
+layer's compute follows its weights' spec
+(``distributed.partition.model_region``): where the spec splits the
+heads, the MLP's width or the vocabulary over "model", the rank computes
+its block (tensor parallelism, ``layers.enter`` / ``leave``: attention by
+heads, the MLP by columns and rows, the embedding lookup, the LM head and
+its cross entropy by vocabulary rows), and the MoE blocks run
+expert-parallel (``repro_torch.models.moe``); ``model`` then holds this
+rank's "model" blocks of those leaves.  A leaf the divisibility guard
+leaves whole runs whole on every rank, as do the Mamba2 layers.
 
 Families: dense / moe / vlm share the decoder-LM skeleton; audio is an
 encoder-decoder (whisper); ssm is a Mamba2 stack; hybrid is Zamba2 (Mamba2
@@ -53,8 +59,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (ParamBag, apply_norm, ce_sums,
-                                       init_norm, proj, stacked_logical)
+from repro_torch.models.layers import (ParamBag, apply_norm, block_split,
+                                       ce_sums, enter, gather_model,
+                                       init_norm, leave, proj,
+                                       stacked_logical)
 from repro_torch.models.mlp import init_mlp, mlp
 
 Tensor = torch.Tensor
@@ -187,19 +195,46 @@ def _pin_batch(x: Tensor, cfg: ModelConfig, mesh) -> Tensor:
     return x
 
 
-def _embed(params: dict, tokens: Tensor, cfg: ModelConfig) -> Tensor:
+def _vocab_split(params: dict, cfg: ModelConfig, mesh):
+    """(M, i) where this rank holds a block of the vocabulary rows, else
+    None."""
+    return block_split(mesh, params["embed"].shape[0], cfg.vocab_size,
+                       "the embedding's vocabulary")
+
+
+def _embed(params: dict, tokens: Tensor, cfg: ModelConfig,
+           mesh=None) -> Tensor:
     emb = params["embed"]
-    x = torch.index_select(emb, 0, tokens.reshape(-1))
+    split = _vocab_split(params, cfg, mesh)
+    if split is None:
+        x = torch.index_select(emb, 0, tokens.reshape(-1))
+    else:
+        # the rank's rows, zeros for the others' tokens, summed over
+        # "model": each token's row from the one rank that holds it
+        local = tokens.reshape(-1).long() - split[1] * emb.shape[0]
+        own = (local >= 0) & (local < emb.shape[0])
+        x = torch.index_select(emb, 0, torch.where(own, local, 0))
+        x, = leave(mesh, x * own[:, None].to(x.dtype))
     x = x.reshape(*tokens.shape, emb.shape[-1]).to(_dtype(cfg.dtype))
     if cfg.embedding_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
-def _head_logits(params: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+def _head_logits(params: dict, x: Tensor, cfg: ModelConfig,
+                 mesh=None) -> Tensor:
     """(..., d) -> (..., V) in f32, with the final softcap.  The products
     of the stored values are summed in f32, as the reference's
-    ``preferred_element_type``."""
+    ``preferred_element_type``.  Where the rank holds a block of the
+    vocabulary, its logits are gathered over "model"."""
+    split = _vocab_split(params, cfg, mesh)
+    logits = _local_logits(params, x, cfg)
+    return logits if split is None else gather_model(logits, mesh)
+
+
+def _local_logits(params: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """The logits of the vocabulary rows the rank holds (all of them on
+    one device)."""
     if cfg.tie_embeddings:
         logits = x.float() @ params["embed"].to(x.dtype).float().T
     else:
@@ -210,12 +245,42 @@ def _head_logits(params: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     return logits
 
 
-def _ce_chunk(params: dict, x: Tensor, labels: Tensor, cfg: ModelConfig):
-    return ce_sums(_head_logits(params, x, cfg), labels)
+def _ce_chunk(params: dict, x: Tensor, labels: Tensor, cfg: ModelConfig,
+              mesh=None):
+    split = _vocab_split(params, cfg, mesh)
+    if split is None:
+        return ce_sums(_local_logits(params, x, cfg), labels)
+    x, = enter(mesh, x)
+    return vocab_ce_sums(_local_logits(params, x, cfg), labels, mesh,
+                         split[1])
 
 
-def _chunked_ce(params: dict, x: Tensor, labels: Tensor, cfg: ModelConfig
-                ) -> tuple[Tensor, Tensor]:
+def vocab_ce_sums(logits: Tensor, labels: Tensor, mesh, pos: int,
+                  ignore_id: int = -1) -> tuple[Tensor, Tensor]:
+    """``layers.ce_sums`` of logits whose vocabulary is split over
+    "model": ``logits`` (..., V / M) are this rank's, the block at
+    ``pos``.  The max is taken over the group, the sum of exponentials
+    and the label's logit (from the rank that holds it) are summed over
+    it; every rank of the group returns the same sums."""
+    from repro_torch.distributed.matvec import _all_gather
+    logits = logits.float()
+    n = logits.shape[-1]
+    valid = labels != ignore_id
+    local = torch.where(valid, labels, 0).long() - pos * n
+    own = (local >= 0) & (local < n)
+    with torch.no_grad():
+        m = _all_gather(logits.amax(-1), mesh, ("model",)).amax(0)
+    se = torch.exp(logits - m[..., None]).sum(-1)
+    gold = torch.take_along_dim(logits, torch.where(own, local, 0)[..., None],
+                                dim=-1)[..., 0]
+    se, gold = leave(mesh, torch.stack([se, torch.where(own, gold, 0.0)]),
+                     small=True)[0].unbind(0)
+    nll = torch.where(valid, torch.log(se) + m - gold, 0.0)
+    return nll.sum(), valid.sum()
+
+
+def _chunked_ce(params: dict, x: Tensor, labels: Tensor, cfg: ModelConfig,
+                mesh=None) -> tuple[Tensor, Tensor]:
     """Sequence-chunked LM-head cross entropy. x: (B,S,d) final-normed.
 
     Returns (mean nll over valid tokens, n_valid).  Each chunk is
@@ -225,13 +290,14 @@ def _chunked_ce(params: dict, x: Tensor, labels: Tensor, cfg: ModelConfig
     S = x.shape[1]
     chunk = cfg.ce_chunk
     if not chunk or S % chunk or S <= chunk:
-        nll, n = _ce_chunk(params, x, labels, cfg)
+        nll, n = _ce_chunk(params, x, labels, cfg, mesh)
         return nll / n.clamp(min=1), n
     f = _remat(_ce_chunk, "nothing")
     nll = x.new_zeros((), dtype=torch.float32)
     n = torch.zeros((), dtype=torch.int64, device=x.device)
     for c in range(0, S, chunk):
-        nll_c, n_c = f(params, x[:, c:c + chunk], labels[:, c:c + chunk], cfg)
+        nll_c, n_c = f(params, x[:, c:c + chunk], labels[:, c:c + chunk], cfg,
+                       mesh)
         nll, n = nll + nll_c, n + n_c
     return nll / n.clamp(min=1), n
 
@@ -334,7 +400,7 @@ def _decoder_block(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
     x = _pin_batch(x, cfg, mesh)
     h = apply_norm(p["attn_norm"], x, cfg.norm)
     a, new_cache = attn_fn(p["attn"], h, positions, cfg, window=window,
-                           cache=cache, collect_kv=collect_kv)
+                           cache=cache, collect_kv=collect_kv, mesh=mesh)
     if cfg.post_norm:
         a = apply_norm(p["post_attn_norm"], a, cfg.norm)
     x = x + a
@@ -343,9 +409,10 @@ def _decoder_block(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
     if kind == "moe":
         m, aux = moe_mod.moe_block(p["moe"], h, cfg, mesh)
         if "shared_mlp" in p:
-            m = m + mlp(p["shared_mlp"], h, cfg.mlp_act)
+            m = m + mlp(p["shared_mlp"], h, cfg.mlp_act, mesh,
+                        cfg.moe.num_shared_experts * cfg.moe.d_ff_shared)
     else:
-        m = mlp(p["mlp"], h, cfg.mlp_act)
+        m = mlp(p["mlp"], h, cfg.mlp_act, mesh, cfg.d_ff)
     if cfg.post_norm:
         m = apply_norm(p["post_mlp_norm"], m, cfg.norm)
     return _pin_batch(x + m, cfg, mesh), new_cache, aux
@@ -389,10 +456,10 @@ def _decoder_backbone(params: dict, x: Tensor, positions: Tensor,
     return x, new_caches, aux_total
 
 
-def _lm_inputs(params: dict, batch: dict, cfg: ModelConfig
+def _lm_inputs(params: dict, batch: dict, cfg: ModelConfig, mesh=None
                ) -> tuple[Tensor, Tensor, Optional[Tensor]]:
     """Embed tokens (+ VLM image prefix). Returns (x, positions, labels)."""
-    x = _embed(params, batch["tokens"], cfg)
+    x = _embed(params, batch["tokens"], cfg, mesh)
     labels = batch.get("labels")
     if cfg.vlm is not None and "img_embeds" in batch:
         img = proj(batch["img_embeds"].to(x.dtype), params["img_proj"])
@@ -442,7 +509,8 @@ def _init_encdec(cfg: ModelConfig, gen) -> tuple[dict, dict]:
     return bag.done()
 
 
-def _whisper_encode(params: dict, frames: Tensor, cfg: ModelConfig) -> Tensor:
+def _whisper_encode(params: dict, frames: Tensor, cfg: ModelConfig,
+                    mesh=None) -> Tensor:
     """frames: (B, T, d) precomputed stub embeddings -> encoder output."""
     x = proj(frames.to(_dtype(cfg.dtype)), params["frame_proj"])
     B, T = x.shape[:2]
@@ -451,10 +519,10 @@ def _whisper_encode(params: dict, frames: Tensor, cfg: ModelConfig) -> Tensor:
     def body(x, p, w, _):
         h = apply_norm(p["attn_norm"], x, cfg.norm)
         a, _ = attn_mod.gqa_attention(p["attn"], h, pos, cfg, window=w,
-                                      causal=False)
+                                      causal=False, mesh=mesh)
         x = x + a
         h = apply_norm(p["mlp_norm"], x, cfg.norm)
-        return (x + mlp(p["mlp"], h, cfg.mlp_act), None,
+        return (x + mlp(p["mlp"], h, cfg.mlp_act, mesh, cfg.d_ff), None,
                 x.new_zeros((), dtype=torch.float32))
 
     layers = params["enc_layers"]
@@ -465,8 +533,8 @@ def _whisper_encode(params: dict, frames: Tensor, cfg: ModelConfig) -> Tensor:
 
 def _whisper_decode_stack(params: dict, x: Tensor, positions: Tensor,
                           cfg: ModelConfig, enc_out: Optional[Tensor],
-                          caches: Optional[dict], collect_kv: bool
-                          ) -> tuple[Tensor, Optional[dict]]:
+                          caches: Optional[dict], collect_kv: bool,
+                          mesh=None) -> tuple[Tensor, Optional[dict]]:
     """Decoder layers.  Cross-attention K/V come from ``enc_out`` during
     train/prefill (computed per layer) and from the cache during decode.
 
@@ -479,16 +547,17 @@ def _whisper_decode_stack(params: dict, x: Tensor, positions: Tensor,
         h = apply_norm(p["attn_norm"], x, cfg.norm)
         a, new_self = attn_mod.gqa_attention(p["attn"], h, positions, cfg,
                                              window=w, cache=self_cache,
-                                             collect_kv=collect_kv)
+                                             collect_kv=collect_kv,
+                                             mesh=mesh)
         x = x + a
         h = apply_norm(p["xattn_norm"], x, cfg.norm)
         if cache is not None:
             kv = (cache["cross_k"], cache["cross_v"])
         else:
-            kv = attn_mod.encode_cross_kv(p["xattn"], enc_out)
-        x = x + attn_mod.cross_attention(p["xattn"], h, kv, cfg)
+            kv = attn_mod.encode_cross_kv(p["xattn"], enc_out, cfg, mesh)
+        x = x + attn_mod.cross_attention(p["xattn"], h, kv, cfg, mesh)
         h = apply_norm(p["mlp_norm"], x, cfg.norm)
-        x = x + mlp(p["mlp"], h, cfg.mlp_act)
+        x = x + mlp(p["mlp"], h, cfg.mlp_act, mesh, cfg.d_ff)
         new_cache = None
         if cache is not None:
             new_cache = {"self": new_self}
@@ -567,19 +636,22 @@ def n_attn_sites(cfg: ModelConfig) -> int:
 
 
 def _shared_attn_block(shared: dict, x: Tensor, positions: Tensor,
-                       cfg: ModelConfig, cache, collect_kv: bool
+                       cfg: ModelConfig, cache, collect_kv: bool, mesh=None
                        ) -> tuple[Tensor, Optional[dict]]:
     h = apply_norm(shared["attn_norm"], x, cfg.norm)
     a, new_cache = attn_mod.gqa_attention(shared["attn"], h, positions, cfg,
-                                          cache=cache, collect_kv=collect_kv)
+                                          cache=cache, collect_kv=collect_kv,
+                                          mesh=mesh)
     x = x + a
     h = apply_norm(shared["mlp_norm"], x, cfg.norm)
-    return x + mlp(shared["mlp"], h, cfg.mlp_act), new_cache
+    return (x + mlp(shared["mlp"], h, cfg.mlp_act, mesh,
+                    cfg.hybrid.shared_attn_d_ff), new_cache)
 
 
 def _zamba_backbone(params: dict, x: Tensor, positions: Tensor,
                     cfg: ModelConfig, caches: Optional[dict],
-                    collect_kv: bool) -> tuple[Tensor, Optional[dict]]:
+                    collect_kv: bool, mesh=None
+                    ) -> tuple[Tensor, Optional[dict]]:
     """Groups of ``attn_every`` ssm layers, each followed by the shared
     attention block, ``n_sites`` times; trailing ssm layers close the
     stack.  caches = {"ssm": stacked (L, ...), "attn": stacked
@@ -599,7 +671,7 @@ def _zamba_backbone(params: dict, x: Tensor, positions: Tensor,
                            cfg.remat_policy)
         new_ssm.append(nc)
         x, na = _shared_attn_block(params["shared"], x, positions, cfg,
-                                   g_attn, collect_kv)
+                                   g_attn, collect_kv, mesh)
         new_attn.append(na)
     if body_n < L:
         tail = (_map(lambda a: a[body_n:], caches["ssm"])
@@ -655,35 +727,35 @@ def _backbone_hidden(params: dict, batch: dict, cfg: ModelConfig, mesh,
     labels)."""
     aux = None
     if cfg.family in ("dense", "moe", "vlm"):
-        x, positions, labels = _lm_inputs(params, batch, cfg)
+        x, positions, labels = _lm_inputs(params, batch, cfg, mesh)
         x, new_caches, aux = _decoder_backbone(params, x, positions, cfg,
                                                mesh, caches, collect_kv)
     elif cfg.family == "audio":
         tokens = batch["tokens"]
         labels = batch.get("labels")
-        x = _embed(params, tokens, cfg)
+        x = _embed(params, tokens, cfg, mesh)
         B, S = x.shape[:2]
-        enc_out = (_whisper_encode(params, batch["frames"], cfg)
+        enc_out = (_whisper_encode(params, batch["frames"], cfg, mesh)
                    if "frames" in batch else None)
         x, new_caches = _whisper_decode_stack(
             params, x, _positions(B, S, x.device), cfg, enc_out, caches,
-            collect_kv)
+            collect_kv, mesh)
     elif cfg.family == "ssm":
-        x = _embed(params, batch["tokens"], cfg)
+        x = _embed(params, batch["tokens"], cfg, mesh)
         labels = batch.get("labels")
         ssm_caches = caches["ssm"] if caches is not None else None
         x, new_ssm = _ssm_stack(params["layers"], x, cfg, ssm_caches,
                                 collect_kv, cfg.remat_policy)
         new_caches = {"ssm": new_ssm} if new_ssm is not None else None
     elif cfg.family == "hybrid":
-        x = _embed(params, batch["tokens"], cfg)
+        x = _embed(params, batch["tokens"], cfg, mesh)
         labels = batch.get("labels")
         B, S = x.shape[:2]
         positions = batch.get("positions")
         if positions is None:
             positions = _positions(B, S, x.device)
         x, new_caches = _zamba_backbone(params, x, positions, cfg, caches,
-                                        collect_kv)
+                                        collect_kv, mesh)
     else:
         raise ValueError(cfg.family)
     if aux is None:
@@ -699,7 +771,7 @@ def loss_fn(model, batch: dict, cfg: ModelConfig, mesh=None
     params = model.tree()
     x, _, aux, labels = _backbone_hidden(params, batch, cfg, mesh, None,
                                          False)
-    ce, n = _chunked_ce(params, x, labels, cfg)
+    ce, n = _chunked_ce(params, x, labels, cfg, mesh)
     loss = ce
     if cfg.moe is not None:
         loss = loss + cfg.moe.aux_loss_weight * aux
@@ -711,7 +783,7 @@ def prefill_step(model, batch: dict, cfg: ModelConfig, mesh=None
     """Run the full prompt, return (last-position logits (B,V), cache)."""
     params = model.tree()
     x, caches, _, _ = _backbone_hidden(params, batch, cfg, mesh, None, True)
-    return _head_logits(params, x[:, -1, :], cfg), caches
+    return _head_logits(params, x[:, -1, :], cfg, mesh), caches
 
 
 def decode_step(model, cache: dict, batch: dict, cfg: ModelConfig,
@@ -719,24 +791,25 @@ def decode_step(model, cache: dict, batch: dict, cfg: ModelConfig,
     """One-token decode.  batch = {"tokens": (B,1), "positions": (B,1)}."""
     params = model.tree()
     tokens, positions = batch["tokens"], batch["positions"]
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, mesh)
     if cfg.family in ("dense", "moe", "vlm"):
         x, new_caches, _ = _decoder_backbone(params, x, positions, cfg,
                                              mesh, cache, collect_kv=False)
     elif cfg.family == "audio":
         x, new_caches = _whisper_decode_stack(params, x, positions, cfg,
-                                              None, cache, collect_kv=False)
+                                              None, cache, collect_kv=False,
+                                              mesh=mesh)
     elif cfg.family == "ssm":
         x, new_ssm = _ssm_stack(params["layers"], x, cfg, cache["ssm"],
                                 False, cfg.remat_policy)
         new_caches = {"ssm": new_ssm}
     elif cfg.family == "hybrid":
         x, new_caches = _zamba_backbone(params, x, positions, cfg, cache,
-                                        collect_kv=False)
+                                        collect_kv=False, mesh=mesh)
     else:
         raise ValueError(cfg.family)
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return _head_logits(params, x[:, -1, :], cfg), new_caches
+    return _head_logits(params, x[:, -1, :], cfg, mesh), new_caches
 
 
 def pad_cache_to(cache: dict, cfg: ModelConfig, max_seq: int) -> dict:

@@ -29,8 +29,10 @@ of the EP group.  Each rank
   4. sums the partial outputs over the EP group in rank order (one
      collective), so y has the same bits on every rank of the group.
 
-The collectives are autograd functions (gloo's ``all_gather`` has none):
-the output sum passes its gradient through unchanged, the tokens entering
+The collectives are autograd functions (gloo's ``all_gather`` has none),
+each over its own group of the mesh ("model" for the EP sums, "data"
+for the FSDP gather): the output sum passes its gradient through
+unchanged, the tokens entering
 the local experts sum their gradient over the EP group, and the FSDP
 gather sums the expert weights' gradients over "data" and keeps this
 rank's block.  So each expert's owner gets the gradient the single-device
@@ -173,34 +175,24 @@ def _local_moe(x: Tensor, wr: Tensor, wg: Tensor, wu: Tensor, wd: Tensor,
 # --- the expert-parallel path ---------------------------------------------
 
 class _SumOut(torch.autograd.Function):
-    """Forward: the sum over ``axes`` in rank order.  Backward: the
-    gradient unchanged (every rank of the group holds the same sum and
-    continues alike)."""
+    """Forward: the sum over ``axes`` in rank order (the large-tensor
+    reduction over the group).  Backward: the gradient unchanged (every
+    rank of the group holds the same sum and continues alike)."""
 
     @staticmethod
     def forward(ctx, x, mesh, axes):
-        from repro_torch.distributed.matvec import psum
-        return psum(x, mesh, axes)
+        from repro_torch.distributed.matvec import psum_large
+        return psum_large([x], mesh, axes)[0]
 
     @staticmethod
     def backward(ctx, g):
         return g, None, None
 
 
-def _psum_many(xs, mesh, axes) -> list:
-    """Each of ``xs`` summed over ``axes`` in rank order, with one
-    collective for all of them."""
-    from repro_torch.distributed.matvec import _combine
-    from repro_torch.distributed.partition import gather_packed
-    parts = gather_packed([x.contiguous() for x in xs])
-    return [_combine(parts[j], mesh, (), axes)[0]
-            for j in range(len(xs))]
-
-
 class _SumGrad(torch.autograd.Function):
     """Forward: the identity.  Backward: the gradients summed over
     ``axes`` in rank order (each rank's own experts add their part), one
-    collective for all of them."""
+    large-tensor reduction over the group for all of them."""
 
     @staticmethod
     def forward(ctx, mesh, axes, *xs):
@@ -209,7 +201,8 @@ class _SumGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *gs):
-        return (None, None, *_psum_many(gs, ctx.mesh, ctx.axes))
+        from repro_torch.distributed.matvec import psum_large
+        return (None, None, *psum_large(gs, ctx.mesh, ctx.axes))
 
 
 class _MeanAux(torch.autograd.Function):
@@ -229,26 +222,24 @@ class _MeanAux(torch.autograd.Function):
 
 class _FsdpGather(torch.autograd.Function):
     """Forward: the expert weights' d_model blocks gathered over "data"
-    (one collective for the three).  Backward: the gradients summed over
-    "data" in rank order, this rank's block kept."""
+    (one collective over the group for the three).  Backward: the
+    gradients summed over "data" in rank order (one large-tensor
+    reduction), this rank's block kept."""
 
     @staticmethod
     def forward(ctx, mesh, wg, wu, wd):
-        from repro_torch.distributed.matvec import _combine
         from repro_torch.distributed.partition import gather_packed, my_coord
         ctx.mesh = mesh
         ctx.idx = my_coord(mesh)["data"]
         ctx.block = wg.shape[1]
-        parts = gather_packed([wg, wu, wd])
-        out = []
-        for j, dim in enumerate((1, 1, 2)):
-            blocks = _combine(parts[j], mesh, ("data",), ())
-            out.append(torch.cat(blocks, dim=dim))
-        return tuple(out)
+        parts = gather_packed([wg, wu, wd], mesh, ("data",))
+        return tuple(torch.cat(list(parts[j].unbind(0)), dim=dim)
+                     for j, dim in enumerate((1, 1, 2)))
 
     @staticmethod
     def backward(ctx, gg, gu, gd):
-        totals = _psum_many((gg, gu, gd), ctx.mesh, ("data",))
+        from repro_torch.distributed.matvec import psum_large
+        totals = psum_large((gg, gu, gd), ctx.mesh, ("data",))
         lo, b = ctx.idx * ctx.block, ctx.block
         return (None, *(t.narrow(dim, lo, b).contiguous()
                         for t, dim in zip(totals, (1, 1, 2))))

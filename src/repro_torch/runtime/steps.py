@@ -13,22 +13,30 @@ of every parameter and of its AdamW moments under
 :func:`gather_state` puts it back together).  A step
 (``build_train_step(..., mesh=mesh)``)
 
-  1. gathers the blocks with one collective: every leaf whole, except the
-     expert weights, of which each rank keeps its experts ("model") with
-     their whole d_model;
+  1. gathers the blocks over the FSDP axis ("data"), one collective a
+     group: a leaf the layers compute by its "model" block
+     (``partition.model_region``: the heads, the MLP's width and the
+     vocabulary of tensor parallelism, the experts of the MoE) keeps its
+     "model" block with every other dimension whole, every other leaf
+     comes whole;
   2. runs the loss on the rank's shard of the global batch
-     (``spec_for_batch``), the MoE blocks expert-parallel;
+     (``spec_for_batch``), tensor parallel over "model" and the MoE
+     blocks expert-parallel (``models.model``);
   3. weights each shard's cross entropy by its share of the global batch's
      valid tokens, so the loss is the exact global token mean that the
      reference's global-batch loss is;
   4. exchanges the gradients with one collective (an
      ``all_to_all_single``): each rank receives, from each rank whose
      gradient adds up to a leaf's, only its own block of that leaf, and
-     adds the blocks over the batch axes in shard order.  A leaf the EP
-     group computes alike comes from the ranks at "model" position 0 (no
-     sum over "model"), an expert weight from the ranks that own those
-     experts.  So a rank's summed block has the bits of the same block of
-     the whole summed gradient;
+     adds the blocks over the batch axes in shard order.  A leaf the
+     "model" group computes alike comes from the ranks at "model"
+     position 0 (no sum over "model"), a leaf computed by "model" blocks
+     from the ranks that hold that block.  A leaf whole on "model" that a
+     rank reads only part of inside a block (kv weights whose heads do
+     not divide "model") has its gradient summed over "model" by
+     ``layers.enter`` in the backward pass, so it too is alike on every
+     rank of the group.  So a rank's summed block has the bits of the
+     same block of the whole summed gradient;
   5. computes the global gradient norm from each rank's sum of squares of
      the blocks it owns, each element counted once (a block several ranks
      hold is counted by the one at position 0 on the axes its spec does
@@ -38,14 +46,16 @@ of every parameter and of its AdamW moments under
   6. updates AdamW on the rank's own blocks, with one NaN-guard decision
      that every rank takes alike.
 
-Memory.  Step 1 leaves every rank the parameters whole (the FSDP blocks
+Memory.  Step 1 leaves every rank the parameters it computes with: its
+"model" blocks of the split leaves and the rest whole (the FSDP blocks
 save memory between steps, not during one), with its gradient beside
 them at the end of the backward pass.  Step 4 then holds the gradient
 and the packed blocks it sends, then what it sends and what it receives.
 A rank at "model" position 0 sends every rank its block of each leaf the
-EP group computes alike, about one gradient for a leaf split over every
-mesh axis; a rank receives its blocks from the ranks of its batch axes,
-about a gradient over the "model" size.  The step is built only where the
+"model" group computes alike (a leaf whole on "model": norms, whole kv
+weights, MLA latents, the router, Mamba2 layers); a rank receives its
+blocks from the ranks of its batch axes, about a gradient over the
+"model" size.  The step is built only where the
 largest of those three moments fits the device
 (:func:`_check_exchange_fits`).
 
@@ -88,7 +98,8 @@ class Leaf(NamedTuple):
     spec: tuple                    # its spec (``distributed.partition``)
     shape: tuple                   # its whole shape
     dtype: torch.dtype
-    expert: bool                   # an expert weight (computed by its EP group)
+    model_block: bool              # computed by its "model" block (TP or EP)
+    expert: bool                   # an expert weight (EP)
 
 
 class ShardedState(NamedTuple):
@@ -144,8 +155,9 @@ def param_layout(cfg: ModelConfig, mesh) -> dict:
                 continue
             node = node[part]
         axes = tuple(node[1:] if stacked else node)
-        out[name] = Leaf(P.logical_to_spec(axes, p.shape, mesh),
-                         tuple(p.shape), p.dtype,
+        spec = P.logical_to_spec(axes, p.shape, mesh)
+        out[name] = Leaf(spec, tuple(p.shape), p.dtype,
+                         bool(P.model_region(axes, spec)),
                          bool(axes) and axes[0] == "experts")
     return out
 
@@ -197,6 +209,26 @@ def shard_state(state: TrainState, mesh, cfg: ModelConfig) -> ShardedState:
         return P.local_block(t.detach(), layout[name].spec, mesh)
     return ShardedState({k: block(k, p) for k, p in named.items()},
                         _moments(state.opt, block), layout, mesh)
+
+
+def serving_specs(layout: dict, mesh) -> dict:
+    """The spec of each leaf a rank serves with on ``mesh``: an expert
+    weight's block (the expert-parallel MoE gathers its d_model over
+    "data" a layer at a time), the "model" block of every other leaf the
+    layers compute by block, every other leaf whole."""
+    region = _regions(layout, mesh)
+    return {k: lf.spec if lf.expert else region[k]
+            for k, lf in layout.items()}
+
+
+def serving_model(model, cfg: ModelConfig, mesh):
+    """The model a rank serves with on ``mesh`` (prefill and decode): of
+    a whole ``model`` (the same on every rank), its blocks under
+    :func:`serving_specs`; copies."""
+    specs = serving_specs(param_layout(cfg, mesh), mesh)
+    return model_mod.ParamTree(_nest({
+        k: P.local_block(p.detach(), specs[k], mesh)
+        for k, p in model.named_parameters()}))
 
 
 def init_sharded_state(cfg: ModelConfig, optim_cfg: OptimConfig,
@@ -268,9 +300,8 @@ def _device_bytes(mesh) -> int:
 
 def _regions(layout: dict, mesh) -> dict:
     """What a rank computes of each leaf: the whole of it (``()``), or its
-    experts (its spec's "model" entry)."""
-    keep = ("model",) if "model" in P.mesh_sizes(mesh) else ()
-    return {k: P.restrict(lf.spec, keep) if lf.expert else ()
+    "model" block (its spec's "model" entry)."""
+    return {k: P.restrict(lf.spec, ("model",)) if lf.model_block else ()
             for k, lf in layout.items()}
 
 
@@ -280,7 +311,8 @@ def _numel(slices) -> int:
 
 def exchange_bytes(layout: dict, mesh) -> dict:
     """The bytes of a rank's side of the step: ``params`` (what it
-    gathers: each leaf whole, or its experts), ``grad`` (what it computes,
+    gathers: each leaf whole, or its "model" block), ``grad`` (what it
+    computes,
     the same), ``sent`` (the most any rank sends: a rank at "model"
     position 0) and ``received`` (every rank's); no process group is
     needed (``mesh`` may be a ``{name: size}`` mapping)."""
@@ -296,7 +328,7 @@ def exchange_bytes(layout: dict, mesh) -> dict:
         block = _numel(P.block_slices(lf.spec, lf.shape, mesh, origin))
         grad += _numel(P.block_slices(region[k], lf.shape, mesh, origin)) \
             * item
-        sent += (group if lf.expert else world) * block * item
+        sent += (group if lf.model_block else world) * block * item
         received += group * block * item
     return dict(params=grad, grad=grad, sent=sent, received=received)
 
@@ -331,19 +363,20 @@ class _Exchange(NamedTuple):
 
     The ranks are (b, m): b the position over the batch axes, m over
     "model" (the mesh's last axis, or absent: m = 0).  Rank (b, 0) sends
-    every rank (b', m') its block of each leaf the EP group computes
+    every rank (b', m') its block of each leaf the "model" group computes
     alike ("dense"); rank (b, m) sends every rank (b', m) its block of
-    each expert leaf.  So what a rank sends is, for each b', one row: the
-    dense blocks for (b', 0) and the expert ones for (b', m), then the
-    dense blocks for (b', 1) .. (b', M - 1); and what it receives one row
-    from each b': the dense blocks from (b', 0), then the expert ones from
-    (b', m).  A rank's dense blocks take ``dense_row`` bytes, its expert
-    blocks ``expert_row``; each block starts on a ``partition.ALIGN``-byte
+    each leaf computed by "model" blocks ("blocked").  So what a rank
+    sends is, for each b', one row: the dense blocks for (b', 0) and the
+    blocked ones for (b', m), then the dense blocks for (b', 1) ..
+    (b', M - 1); and what it receives one row from each b': the dense
+    blocks from (b', 0), then the blocked ones from (b', m).  A rank's
+    dense blocks take ``dense_row`` bytes, its blocked ones
+    ``blocked_row``; each block starts on a ``partition.ALIGN``-byte
     boundary."""
     dense: list         # (name, byte offset) of the dense leaves
-    experts: list       # (name, byte offset) of the expert leaves
+    blocked: list       # (name, byte offset) of the blocked leaves
     dense_row: int      # bytes of one rank's dense blocks
-    expert_row: int     # bytes of one rank's expert blocks
+    blocked_row: int    # bytes of one rank's blocked blocks
     send_counts: list   # words to each rank
     recv_counts: list   # words from each rank
     batch: tuple        # the sizes of the batch axes
@@ -363,14 +396,16 @@ def _exchange_plan(layout: dict, mesh) -> _Exchange:
     me = P.my_coord(mesh)
     n_model, pos = sizes.get("model", 1), me.get("model", 0)
     batch = tuple(n for a, n in sizes.items() if a != "model")
-    dense, experts, blocks, counted = [], [], {}, []
+    dense, blocked, blocks, counted = [], [], {}, []
     row = {False: 0, True: 0}
     for k, lf in layout.items():
         shape = tuple(sl.stop - sl.start for sl in
                       P.block_slices(lf.spec, lf.shape, mesh, me))
         blocks[k] = shape
-        (experts if lf.expert else dense).append((k, row[lf.expert]))
-        row[lf.expert] += P._padded(math.prod(shape) * lf.dtype.itemsize)
+        (blocked if lf.model_block else dense).append(
+            (k, row[lf.model_block]))
+        row[lf.model_block] += P._padded(math.prod(shape)
+                                         * lf.dtype.itemsize)
         named = P.spec_axes(lf.spec)
         if all(me[a] == 0 for a in sizes if a not in named):
             counted.append(k)
@@ -380,7 +415,7 @@ def _exchange_plan(layout: dict, mesh) -> _Exchange:
         m = c.get("model", 0)
         send.append((wd if pos == 0 else 0) + (we if m == pos else 0))
         recv.append((wd if m == 0 else 0) + (we if m == pos else 0))
-    return _Exchange(dense, experts, wd, we, [n // 4 for n in send],
+    return _Exchange(dense, blocked, wd, we, [n // 4 for n in send],
                      [n // 4 for n in recv], batch, n_model, pos,
                      tuple(counted), blocks)
 
@@ -398,7 +433,7 @@ def _exchange(grads: dict, plan: _Exchange, layout: dict, mesh,
     ``all_to_all_single``; :class:`_Exchange`).  ``grads`` is emptied
     once its blocks are packed, so the gradient is freed before the
     blocks arrive."""
-    wd, we, M, pos = plan.dense_row, plan.expert_row, plan.n_model, \
+    wd, we, M, pos = plan.dense_row, plan.blocked_row, plan.n_model, \
         plan.pos
     B = plan.batch
     head = (wd if pos == 0 else 0) + we       # the row to (b', pos)
@@ -419,7 +454,7 @@ def _exchange(grads: dict, plan: _Exchange, layout: dict, mesh,
         if rest:
             _slot(others, off, shape, dt).copy_(grid.narrow(len(B), 1,
                                                             M - 1))
-    for k, off in plan.experts:
+    for k, off in plan.blocked:
         grid = P.block_grid(grads[k], layout[k].spec, mesh, ("model",))
         _slot(first, off + (wd if pos == 0 else 0), plan.blocks[k],
               layout[k].dtype).copy_(grid)
@@ -429,7 +464,7 @@ def _exchange(grads: dict, plan: _Exchange, layout: dict, mesh,
     del flat
     rows = got.view(torch.uint8).view(-1, wd + we)
     mine = {}
-    for k, off in plan.dense + [(k, wd + o) for k, o in plan.experts]:
+    for k, off in plan.dense + [(k, wd + o) for k, o in plan.blocked]:
         mine[k] = _add(_slot(rows, off, plan.blocks[k],
                              layout[k].dtype).unbind(0))
     return {k: mine[k] for k in layout}

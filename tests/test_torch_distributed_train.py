@@ -7,12 +7,17 @@ own single-device step, on the CPU.
     arch at full size (no devices needed; the port takes a {name: size}
     mapping), and ``spec_for_batch`` likewise;
   * in gloo worlds of CPU processes (``tests/torch_train_world.py``; each
-    world spawned once for the module): a dense reduced arch's sharded
-    step on (2, 2) ("data", "model") against the single-device step on
-    the global batch (loss within 1e-5 relative, gradients and updated
-    parameters within 1e-4 of each leaf's max, tests/torch_lm_ref.py's
-    bounds), and the reduced MoE arch's on (2, 2), (1, 2) and (2, 1) at
-    the same bounds with no slot dropped and no aux loss; the
+    world spawned once for the module): the tensor-parallel sharded step
+    of three reduced archs (stablelm: heads and kv heads split; gemma2:
+    kv heads whole on (1, 4); deepseek-v2: MLA with experts) on (2, 2) and
+    (1, 4) ("data", "model"), stablelm's also on (1, 2) and (4, 1),
+    against the single-device step on the global batch (loss within 1e-5
+    relative, gradients and updated parameters within 1e-4 of each
+    leaf's max, tests/torch_lm_ref.py's bounds), and the reduced MoE
+    arch's on (2, 2), (1, 2) and (2, 1) at the same bounds with no slot
+    dropped and no aux loss; prefill and two decode tokens on (2, 2) and
+    (1, 4) against one device; ``psum_large`` bit for bit the
+    gather-then-sum ``psum``; the
     expert-parallel ``moe_block`` on (1, 2) and (2, 2)
     against the single-device ``_local_moe`` on each batch shard (y within
     1e-5 of max |y|, gradients within 1e-4); the reference's
@@ -64,6 +69,37 @@ with mesh:
                            lm_batch(LMBatchSpec(4, 32, cfg.vocab_size), 0, 0))
 for k in ("loss", "skipped", "comm_dense_bytes", "comm_compressed_bytes"):
     OUT[k] = met[k]
+
+# the loss and gradients of the (2, 4) mesh step on the port's weights
+from repro.launch import input_specs as ispec
+from repro.models import model as RM
+mesh = make_mesh((2, 4), ("data", "model"))
+struct, shard = ispec.params_struct_and_shardings(cfg, mesh)
+
+
+def build(node, path):
+    if isinstance(node, dict):
+        return {k: build(v, f"{path}:{k}") for k, v in node.items()}
+    assert IN[path].shape == node.shape, path
+    return jnp.asarray(IN[path], node.dtype)
+
+
+def flat(node, path):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            flat(v, f"{path}:{k}")
+    else:
+        OUT[path] = node
+
+
+batch = {k: jnp.asarray(IN[k]) for k in ("tokens", "labels")}
+with mesh:
+    loss, grads = jax.jit(
+        jax.value_and_grad(lambda p, b: RM.loss_fn(p, b, cfg, mesh)[0]),
+        in_shardings=(shard, ispec.batch_shardings(batch, mesh)))(
+            build(struct, "p"), batch)
+OUT["mesh24_loss"] = loss
+flat(grads, "mesh24_g")
 """
 
 MESHES = [((2, 4), ("data", "model")), ((4, 2), ("data", "model")),
@@ -175,7 +211,8 @@ def test_compressed_step_refuses_moe_and_meshes_without_pods():
     ("olmoe-1b-7b", (1, 2), True),
     ("starcoder2-15b", (16, 16), True),
     ("deepseek-v2-236b", (16, 16), False),
-    ("llava-next-34b", (2, 2), False)])
+    ("llava-next-34b", (2, 1), False),
+    ("llava-next-34b", (2, 2), True)])
 def test_sharded_step_refuses_a_mesh_whose_gradients_do_not_fit(
         monkeypatch, arch, shape, fits):
     """A rank of the sharded step holds the parameters whole beside its
@@ -183,7 +220,10 @@ def test_sharded_step_refuses_a_mesh_whose_gradients_do_not_fit(
     beside the blocks it receives: on an 80 GB card the production mesh
     fits stablelm-1.6b, olmoe-1b-7b and starcoder2-15b (the whole-gather
     exchange refused all three: world + 1 gradients), not deepseek-v2's
-    236e9 parameters whole.  The bound is the largest moment to the byte."""
+    236e9 parameters whole; llava-next-34b's 34e9 fit a (2, 2) mesh,
+    whose "model" axis halves its heads, MLP and vocabulary, not a
+    (2, 1) one that holds them whole.  The bound is the largest moment to
+    the byte."""
     from repro_torch.runtime import steps as S
     monkeypatch.setattr(S, "_device_bytes", lambda mesh: 80 * 10 ** 9)
     mesh = dict(zip(("data", "model"), shape))
@@ -209,7 +249,7 @@ def test_sharded_step_refuses_a_mesh_whose_gradients_do_not_fit(
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     ref_dir = tmp_path_factory.mktemp("reference")
-    np.savez(ref_dir / "in.npz", none=np.zeros(1))
+    np.savez(ref_dir / "in.npz", **ttw.reference_inputs())
     proc = tw.start_reference(REFERENCE, str(ref_dir / "in.npz"),
                               str(ref_dir / "ref.npz"))
     out = {}
@@ -224,7 +264,8 @@ def worlds(tmp_path_factory):
 
 
 def test_every_rank_returns_the_same_bits(worlds):
-    per_rank = {"moe22", "moe12"}         # each rank's own batch shard
+    # each rank's own batch shard, or its own blocks
+    per_rank = {"moe22", "moe12", "sv", "ref24_g", "ref24_lo", "ref24_hi"}
     for world in (2, 4, 8):
         ranks = worlds[world][1]
         for key in ranks[0]:
@@ -239,13 +280,18 @@ def test_every_rank_returns_the_same_bits(worlds):
 @pytest.mark.parametrize("world,tag", [(4, "dm22"), (4, "ms22"),
                                        (2, "ms12"), (2, "ms21"),
                                        (4, "dm41"), (4, "dm14"),
-                                       (4, "ms41"), (4, "ms14")])
+                                       (4, "ms41"), (4, "ms14"),
+                                       (2, "dm12"), (4, "gm22"),
+                                       (4, "gm14"), (4, "dv22"),
+                                       (4, "dv14")])
 def test_sharded_step_matches_single_device(worlds, world, tag):
     """The sharded step against one device on the global batch: a dense
-    reduced arch on (2, 2) ("dm22"), and the reduced MoE arch, experts over
-    "model" and the batch over "data", on (2, 2), (1, 2) and (2, 1) with
-    no slot dropped and no aux loss ("ms..": the two terms it takes by
-    batch shard)."""
+    reduced arch tensor parallel over "model" on (2, 2), (1, 2) and (1, 4)
+    and data parallel on (4, 1) ("dm.."), gemma2's with its kv heads
+    whole on (1, 4) ("gm.."), deepseek-v2's MLA and experts ("dv.."), and
+    the reduced MoE arch, experts over "model" and the batch over "data",
+    on (2, 2), (1, 2) and (2, 1) with no slot dropped and no aux loss
+    ("ms..", "dv..": the two terms it takes by batch shard)."""
     for got in worlds[world][1]:
         loss, want = float(got[f"{tag}_loss"]), float(got[f"{tag}_loss_single"])
         assert abs(loss - want) <= 1e-5 * abs(want)
@@ -264,8 +310,9 @@ def test_gradient_exchange_matches_whole_gather(worlds, mesh, kind):
     gradient, added over the batch axes in shard order, the rank's block
     cut out), on every leaf, for a dense and a MoE arch at its published
     capacity and aux loss; the norm, summed by owned blocks, within 1e-6
-    of the whole-gather norm; one all-to-all and two all-gathers a step
-    (the parameters, the loss terms and the norm's partial sums)."""
+    of the whole-gather norm; one all-to-all in the exchange, and in the
+    step beside it only the tensor-parallel sums' (none without a
+    "model" axis)."""
     tag = f"ex{mesh}{kind}"
     for got in worlds[4][1]:
         assert int(got[f"{tag}_leaves"]) > 10
@@ -273,10 +320,45 @@ def test_gradient_exchange_matches_whole_gather(worlds, mesh, kind):
         assert float(got[f"{tag}_norm_rel"]) < 1e-6
         assert np.isfinite(float(got[f"{tag}_loss"]))
         assert int(got[f"{tag}_a2a_calls"]) == 1
+        steps = int(got[f"{tag}_step_a2a_calls"])
+        assert steps == 1 if mesh == "4x1" else steps > 1
     # the loss and the norm: the same bits on every rank
     ranks = worlds[4][1]
     for key in (f"{tag}_loss", f"{tag}_gnorm"):
         assert all(float(r[key]) == float(ranks[0][key]) for r in ranks)
+
+
+@pytest.mark.parametrize("tag", ["sv22", "sv14", "svgm14"])
+def test_tp_prefill_and_decode_match_single_device(worlds, tag):
+    """Prefill and two decode tokens of reduced stablelm on (2, 2) and
+    (1, 4), and of gemma2 on (1, 4) (kv heads whole: a whole cache),
+    each rank with its serving blocks, against one device on the rank's
+    rows: logits within 1e-5 of max |logit|, the same bits on every rank
+    of a "model" group; the cache a rank holds is its kv heads' (whole
+    where they do not divide "model")."""
+    ranks = worlds[4][1]
+    M = 2 if tag.endswith("22") else 4
+    for got in ranks:
+        assert float(got[f"{tag}_logit_err"]) < 1e-5
+        whole = int(got[f"{tag}_cache_bytes_single"])
+        want = whole if tag == "svgm14" else whole // M
+        assert int(got[f"{tag}_cache_bytes"]) == want
+    for r in range(0, 4, M):
+        for q in range(r, r + M):
+            np.testing.assert_array_equal(ranks[q][f"{tag}_logit_sums"],
+                                          ranks[r][f"{tag}_logit_sums"])
+
+
+@pytest.mark.parametrize("mesh", ["22", "14"])
+def test_large_sum_matches_gather_then_sum(worlds, mesh):
+    """``psum_large`` (one all-to-all of slices, their sums, one
+    all-gather) against ``psum`` (one all-gather, the parts added in
+    shard order) over every group of (2, 2) and (1, 4), one axis order
+    against the mesh's: the same bits for f32, bf16 and f64 tensors of
+    ragged sizes, with fewer bytes received."""
+    for got in worlds[4][1]:
+        assert int(got[f"rd{mesh}_differ"]) == 0
+        assert int(got[f"rd{mesh}_bytes"]) < int(got[f"rd{mesh}_gather_bytes"])
 
 
 @pytest.mark.parametrize("world,tag", [(2, "moe12"), (4, "moe22")])
@@ -293,6 +375,39 @@ def test_ep_moe_block_matches_local_moe(worlds, world, tag):
     for r in range(0, world, mp):
         assert all(ranks[r + j][f"{tag}_y_sum"] == ranks[r][f"{tag}_y_sum"]
                    for j in range(mp))
+
+
+def test_tp_step_matches_reference_on_a_model_mesh(worlds):
+    """The port's tensor-parallel step of reduced stablelm on (2, 4)
+    ("data", "model": heads, kv heads, the MLP's width and the vocabulary
+    split four ways) against the reference's loss and gradients on a
+    (2, 4) mesh of 8 host devices (GSPMD's split of the same step), on
+    the same weights (the port's init, carried over by
+    ``bridge.reference_tree``) and batch: the loss within 1e-5 relative,
+    each rank's block of each gradient leaf within 1e-4 of that leaf's
+    max (tests/torch_lm_ref.py's bounds)."""
+    from repro_torch import bridge
+    ref = worlds["reference"]
+    tree: dict = {}
+    for key, v in ref.items():
+        if key.startswith("mesh24_g:"):
+            *path, leaf = key.split(":")[1:]
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = v
+    want = bridge.named_tensors(tree, device="cpu")
+    loss = float(ref["mesh24_loss"])
+    for got in worlds[8][1]:
+        assert abs(float(got["ref24_loss"]) - loss) <= 1e-5 * abs(loss)
+        names = [k.split(":", 1)[1] for k in got if k.startswith("ref24_g:")]
+        assert sorted(names) == sorted(want)
+        for k in names:
+            w = want[k].numpy()
+            block = w[tuple(slice(a, b) for a, b in
+                            zip(got[f"ref24_lo:{k}"], got[f"ref24_hi:{k}"]))]
+            err = float(np.abs(got[f"ref24_g:{k}"] - block).max())
+            assert err <= 1e-4 * float(np.abs(w).max()), (k, err)
 
 
 def test_sharded_train_step_runs(worlds):

@@ -11,9 +11,11 @@
     dtype sizes; and its dot FLOPs against ``FlopCounterMode`` on a step;
   * ``run_cell`` on fake worlds of 256 and 512 ranks (fake CPU tensors)
     for one reduced arch of each family; a reduced dense train cell on an
-    (8, 1) mesh against the reference's compiled HLO of the same cell (dot
-    FLOPs within 10 %; the reference compiles in a subprocess with 8
-    forced host devices);
+    (8, 1) and on a (2, 4) ("data", "model") mesh against the reference's
+    compiled HLO of the same cell (dot FLOPs within 10 %; the reference
+    compiles both in one subprocess with 8 forced host devices); the
+    expert-parallel sums of a traced rank of a 256-rank world receive
+    only their groups' bytes;
   * the sharded step's exchange on fake worlds of 8: every rank's plan
     agrees with every other's (what r sends r' is what r' expects from
     r), and a traced rank's peak stays below the whole-gather exchange's
@@ -51,20 +53,23 @@ from repro.launch.mesh import make_mesh
 from repro.runtime import steps
 cfg = get_arch("stablelm-1.6b").reduced(pin_activations=True)
 opt = OptimConfig()
-mesh = make_mesh((8, 1), ("data", "model"))
-cell = ispec.cell_inputs(cfg, ShapeConfig("t", "train", 64, 16), opt, mesh)
-fn = steps.build_train_step(cfg, opt, mesh)
-with mesh:
-    compiled = jax.jit(fn, in_shardings=cell["in_shardings"],
-                       donate_argnums=(0,)).lower(*cell["args_struct"]).compile()
-OUT["dot_flops"] = hlo_analysis.analyze(compiled.as_text()).dot_flops
+for key, shape in (("dot_flops", (8, 1)), ("dot_flops_model", (2, 4))):
+    mesh = make_mesh(shape, ("data", "model"))
+    cell = ispec.cell_inputs(cfg, ShapeConfig("t", "train", 64, 16), opt,
+                             mesh)
+    fn = steps.build_train_step(cfg, opt, mesh)
+    with mesh:
+        compiled = jax.jit(fn, in_shardings=cell["in_shardings"],
+                           donate_argnums=(0,)).lower(
+            *cell["args_struct"]).compile()
+    OUT[key] = hlo_analysis.analyze(compiled.as_text()).dot_flops
 """
 
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """The reference's (8, 1) cell, compiled in a subprocess while the
-    module's other cases run."""
+    """The reference's (8, 1) and (2, 4) cells, compiled in one
+    subprocess while the module's other cases run."""
     d = tmp_path_factory.mktemp("dryrun_ref")
     np.savez(d / "in.npz", none=np.zeros(1))
     proc = tw.start_reference(REFERENCE, str(d / "in.npz"), str(d / "ref.npz"))
@@ -261,6 +266,32 @@ FAMILY_CELLS = [("stablelm-1.6b", "train_4k"), ("olmoe-1b-7b", "decode_32k"),
                 ("zamba2-1.2b", "decode_32k")]
 
 
+def _train_collectives(arch, shape, model=16):
+    """The collectives of a dense arch's train step on a rank of a mesh
+    with a ``model``-way "model" axis, by kind, from the config.
+
+    One all-to-all for the gradient exchange; one all-gather for the
+    parameters (every leaf's FSDP group is ("pod", "data"), or "data"),
+    one for the loss terms.  Each large-tensor sum over "model"
+    (``psum_large``) is one all-to-all and one all-gather: the embedding's
+    rows where the vocabulary splits; in each layer, where its split
+    divides, the MLP's output and, in the backward pass, its input's
+    gradient, and the same two of attention; in the backward pass, each
+    CE chunk's input gradient.  The layers' recompute stops at the last
+    tensor their backward saved, before the block's closing sum, so it
+    adds no collective; a CE chunk's recompute runs its max's gather and
+    its sum-exp's gather again (the loss reads both), four gathers a
+    chunk."""
+    cfg = dataclasses.replace(get_arch(arch), **_reduced(arch))
+    assert cfg.family == "dense" and cfg.remat_policy == "nothing"
+    chunks = get_shape(shape).seq_len // cfg.ce_chunk
+    vocab = cfg.vocab_size % model == 0
+    per_layer = 2 * ((cfg.d_ff % model == 0) + (cfg.num_heads % model == 0))
+    large = vocab * (1 + chunks) + cfg.num_layers * per_layer
+    return {"all-to-all": 1 + large,
+            "all-gather": 2 + large + vocab * 4 * chunks}
+
+
 @pytest.mark.parametrize("multi_pod", [False, True],
                          ids=["pod16x16", "pod2x16x16"])
 @pytest.mark.parametrize("arch,shape", FAMILY_CELLS)
@@ -278,9 +309,9 @@ def test_run_cell_on_a_fake_world(arch, shape, multi_pod):
         "total_bytes"}
     assert rec["params_active"] <= rec["params_total"]
     if rec["kind"] == "train":
-        # the parameter gather, the loss terms, the gradient exchange
-        assert rec["collectives"]["all-gather"]["count"] == 2
-        assert rec["collectives"]["all-to-all"]["count"] == 1
+        coll = rec["collectives"]
+        want = _train_collectives(arch, shape)
+        assert {k: coll[k]["count"] for k in want} == want
     assert not torch.distributed.is_initialized()
 
 
@@ -309,6 +340,84 @@ def test_cell_on_a_data_mesh_matches_reference_flops(reference):
     want = float(reference()["dot_flops"])
     assert abs(rec["flops_per_device"] - want) / want < 0.10, \
         (rec["flops_per_device"], want)
+
+
+def test_cell_on_a_model_mesh_matches_reference_flops(reference):
+    """The same reduced dense train cell on a (2, 4) ("data", "model")
+    mesh: the port's tensor-parallel step (heads, kv heads, the MLP's
+    width and the vocabulary split 4 ways, the batch 2 ways) counts its
+    dot FLOPs a rank within 10 % of the reference's compiled HLO, whose
+    partitioner splits the same dimensions over "model"."""
+    with D.fake_world(8):
+        mesh = make_mesh((2, 4), ("data", "model"), device_type="cpu")
+        rec = D.trace_cell(get_arch(ARCH).reduced(pin_activations=True),
+                           SMALL, mesh, {"mesh": "data2model4"},
+                           device="cpu")
+    assert rec["status"] == "ok", rec
+    want = float(reference()["dot_flops_model"])
+    assert abs(rec["flops_per_device"] - want) / want < 0.10, \
+        (rec["flops_per_device"], want)
+
+
+def _large_bytes(tensors, g):
+    """The bytes a rank receives in each of the two collectives of
+    ``psum_large`` over a group of ``g``: every member's row of slices,
+    each slice a whole number of 8 bytes."""
+    row = 0
+    for t in tensors:
+        per = max(8 // t.element_size(), 1)
+        row += -(-t.numel() // (g * per)) * per * t.element_size()
+    return g * row
+
+
+def test_ep_sums_receive_only_their_groups_bytes():
+    """The expert-parallel block of a reduced MoE arch (16 experts) traced
+    as rank 0 of a fake 256-rank world on the (16, 16) mesh, forward and
+    backward: each EP sum (the output's, the tokens' and gates'
+    gradients) receives 2 x its payload from its 16-rank "model" group,
+    the FSDP gather and its gradients' sum their 16-rank "data" group's,
+    the aux mean one float from each of the 256 ranks, by kind to the
+    byte.  Gathering each sum over the world would receive 128 x the
+    EP sums' bytes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.distributed.partition import _pack
+    from repro_torch.models import moe as Mo
+    cfg = dataclasses.replace(get_arch("olmoe-1b-7b").reduced(),
+                              **_reduced("olmoe-1b-7b"))
+    moe, D_ = cfg.moe, cfg.d_model
+    E, F, k = moe.num_experts, moe.d_ff_expert, moe.top_k
+    Bl, S_ = 2, 64
+    with D.fake_world(256):
+        mesh = make_mesh((16, 16), ("data", "model"), device_type="cpu")
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            x = torch.empty(Bl, S_, D_, requires_grad=True)
+            p = {"w_router": torch.empty(D_, E, requires_grad=True),
+                 "w_gate": torch.empty(1, D_ // 16, F, requires_grad=True),
+                 "w_up": torch.empty(1, D_ // 16, F, requires_grad=True),
+                 "w_down": torch.empty(1, F, D_ // 16, requires_grad=True)}
+            mode = O.CostMode(threshold=0)
+            with mode:
+                y, aux = Mo.moe_block(p, x, cfg, mesh)
+                torch.autograd.grad(y.sum() + aux, [x, *p.values()])
+            T = Bl * S_
+            y_like = torch.empty(T, D_)
+            blocks = [torch.empty(1, D_ // 16, F), torch.empty(1, D_ // 16, F),
+                      torch.empty(1, F, D_ // 16)]
+            whole = [torch.empty(1, D_, F), torch.empty(1, D_, F),
+                     torch.empty(1, F, D_)]
+            ep = (_large_bytes([y_like], 16)
+                  + _large_bytes([y_like, torch.empty(T, k)], 16))
+            fsdp = _large_bytes(whole, 16)
+            gather = 16 * _pack(blocks).numel() * 4
+    cost = mode.cost()
+    assert cost.collective_counts["all-to-all"] == 3
+    assert cost.collective_counts["all-gather"] == 5
+    assert cost.collective_bytes["all-to-all"] == ep + fsdp
+    assert cost.collective_bytes["all-gather"] == ep + fsdp + gather \
+        + 256 * 4
+    # the world-wide gather of the output's sum alone
+    assert 256 * T * D_ * 4 > 60 * ep
 
 
 @pytest.mark.parametrize("shape,arch", [((2, 4), "olmoe-1b-7b"),

@@ -93,6 +93,53 @@ def dense_step_case(mesh, out: dict, tag: str, arch: str = ARCH) -> None:
     out[f"{tag}_param_err"] = errs["param"]
 
 
+def serve_case(mesh, out: dict, tag: str, arch: str = ARCH,
+               new_tokens: int = 2) -> None:
+    """Prefill and ``new_tokens`` decode steps of a reduced arch on
+    ``mesh``, each rank with its serving blocks (``steps.serving_model``)
+    and its batch shard, against one device on the same rows: the
+    largest logit difference over max |logit|, the cache's bytes on the
+    rank against one device's, and the logits' checksum (the same on
+    every rank of a "model" group)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import partition as P
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S_
+    cfg = get_arch(arch).reduced()
+    model, _ = M.init_model(cfg, torch.Generator().manual_seed(3))
+    batch = {"tokens": _batch(cfg, seq=16)["tokens"]}
+    local = S_.shard_batch(batch, mesh)
+    rows = P.block_slices(P.spec_for_batch(mesh, B, 2), (B, 16), mesh)[0]
+    mine = S_.serving_model(model, cfg, mesh)
+    err, scale, sums = 0.0, 0.0, []
+    caches = {}
+    for who, m, b, mesh_ in (("single", model, {"tokens": batch["tokens"]
+                                                [rows]}, None),
+                             ("mesh", mine, local, mesh)):
+        logits, cache = S_.build_prefill_step(cfg, mesh_)(m, b)
+        cache = M.pad_cache_to(cache, cfg, 16 + new_tokens)
+        steps = [logits]
+        tok = logits.argmax(-1)[:, None].int()
+        for t in range(new_tokens):
+            pos = torch.full_like(tok, 16 + t)
+            logits, cache = S_.build_decode_step(cfg, mesh_)(
+                m, cache, {"tokens": tok, "positions": pos})
+            steps.append(logits)
+            tok = logits.argmax(-1)[:, None].int()
+        caches[who] = (steps, sum(t.numel() * t.element_size() for t in
+                                  _leaves(cache)))
+    for got, want in zip(caches["mesh"][0], caches["single"][0]):
+        err = max(err, float((got - want).abs().max()))
+        scale = max(scale, float(want.abs().max()))
+        sums.append(got.double().sum().item())
+    out[f"{tag}_logit_err"] = err / scale
+    out[f"{tag}_cache_bytes"] = caches["mesh"][1]
+    out[f"{tag}_cache_bytes_single"] = caches["single"][1]
+    out[f"{tag}_logit_sums"] = np.array(sums)
+
+
 def moe_case(mesh, out: dict, tag: str, seed: int = 5) -> None:
     """The expert-parallel ``moe_block`` on this rank's batch shard with its
     expert blocks against the single-device ``_local_moe`` on every batch
@@ -239,7 +286,7 @@ def whole_gather_oracle(grads, layout, mesh):
     sq, mine = [], {}
     for i, k in enumerate(names):
         lf = layout[k]
-        if not lf.expert:
+        if not lf.model_block:
             g = S_._add([parts[i][r] for r in groups[0]])
             sq.append(g.float().square().sum())
             mine[k] = P.local_block(g, lf.spec, mesh)
@@ -266,12 +313,16 @@ def exchange_case(mesh, out: dict, tag: str, arch: str = ARCH) -> None:
     from repro_torch.runtime import steps as S_
     cfg = get_arch(arch).reduced()
     opt = OptimConfig(lr=1e-3, warmup_steps=0)
-    seen = {}
+    seen, calls = {}, {}
     exchange = S_._exchange
 
     def spy(grads, *args):
         seen.update({k: v.clone() for k, v in grads.items()})
-        return exchange(grads, *args)
+        before = collective_stats()["by_kind"]["all-to-all"]["calls"]
+        got = exchange(grads, *args)
+        calls["a2a"] = collective_stats()["by_kind"]["all-to-all"][
+            "calls"] - before
+        return got
     state = S_.shard_state(_state(cfg, opt), mesh, cfg)
     step = S_.build_train_step(cfg, opt, mesh, keep_grads=True)
     S_._exchange = spy
@@ -289,18 +340,59 @@ def exchange_case(mesh, out: dict, tag: str, arch: str = ARCH) -> None:
     out[f"{tag}_gnorm"] = float(met["grad_norm"])
     out[f"{tag}_norm_rel"] = abs(float(met["grad_norm"]) - float(norm)) \
         / float(norm)
-    out[f"{tag}_a2a_calls"] = stats["by_kind"]["all-to-all"]["calls"]
+    out[f"{tag}_a2a_calls"] = calls["a2a"]
+    out[f"{tag}_step_a2a_calls"] = stats["by_kind"]["all-to-all"]["calls"]
     out[f"{tag}_ag_calls"] = stats["by_kind"]["all-gather"]["calls"]
+
+
+def reduce_case(mesh, out: dict, tag: str) -> None:
+    """``psum_large`` against ``psum`` (the gather-then-sum) on tensors of
+    ragged sizes and three dtypes, over each group of ``mesh``'s axes,
+    one mesh order reversed: the number of sums whose bits differ, and
+    the bytes a rank receives from each."""
+    import torch
+
+    from repro_torch.distributed.matvec import (collective_stats, psum,
+                                                psum_large,
+                                                reset_collectives)
+    g = torch.Generator().manual_seed(11 + int(mesh.get_rank()))
+    xs = [torch.randn(7, 5, generator=g),
+          torch.randn(3, generator=g).bfloat16(),
+          torch.randn(2, 13, 3, generator=g).double(),
+          torch.randn(1000, generator=g)]
+    differ = 0
+    got_bytes, want_bytes = 0, 0
+    for axes in (("model",), ("data",), ("data", "model"),
+                 ("model", "data")):
+        reset_collectives()
+        big = psum_large(xs, mesh, axes)
+        got_bytes += sum(v["bytes"] for v in
+                         collective_stats()["by_kind"].values())
+        reset_collectives()
+        small = [psum(x, mesh, axes) for x in xs]
+        want_bytes += sum(v["bytes"] for v in
+                          collective_stats()["by_kind"].values())
+        differ += sum(not torch.equal(a, b) for a, b in zip(big, small))
+    out[f"{tag}_differ"] = differ
+    out[f"{tag}_bytes"] = got_bytes
+    out[f"{tag}_gather_bytes"] = want_bytes
+
+
+# the tensor-parallel train steps held against one device: a reduced arch
+# whose kv heads divide "model" (stablelm), one whose kv heads stay whole
+# on (1, 4) (gemma2: 4 heads, 2 kv heads), and MLA with experts
+# (deepseek-v2)
+TP_ARCHS = (("dm", ARCH), ("gm", "gemma2-9b"), ("dv", "deepseek-v2-236b"))
 
 
 def world4_cases(rank, world, inputs, directory):
     """(2, 2) ("data", "model"): the dense and the MoE step, the EP block,
     the reshard; on (2, 2), (4, 1) and (1, 4) the gradient exchange
     against the whole-gather oracle, and on the last two the steps
-    against one device."""
+    against one device; the tensor-parallel steps, prefill and decode
+    and the large-tensor sum on (2, 2) and (1, 4)."""
     out = {}
     mesh = _mesh((2, 2), ("data", "model"))
-    dense_step_case(mesh, out, "dm22")
     dense_step_case(mesh, out, "ms22", MOE_ARCH)
     moe_case(mesh, out, "moe22")
     reshard_case(mesh, rank, directory, out)
@@ -310,8 +402,16 @@ def world4_cases(rank, world, inputs, directory):
         for arch, kind in ((ARCH, "dense"), (MOE_ARCH, "moe")):
             exchange_case(m, out, f"ex{name}{kind}", arch)
         if shape != (2, 2):
-            dense_step_case(m, out, f"dm{shape[0]}{shape[1]}")
             dense_step_case(m, out, f"ms{shape[0]}{shape[1]}", MOE_ARCH)
+        if shape != (4, 1):
+            tag = f"{shape[0]}{shape[1]}"
+            for prefix, arch in TP_ARCHS:
+                dense_step_case(m, out, prefix + tag, arch)
+            serve_case(m, out, f"sv{tag}")
+            reduce_case(m, out, f"rd{tag}")
+    dense_step_case(_mesh((4, 1), ("data", "model")), out, "dm41")
+    serve_case(_mesh((1, 4), ("data", "model")), out, "svgm14",
+               "gemma2-9b")
     save_rank(directory, rank, out)
 
 
@@ -366,11 +466,12 @@ def _leaves(tree):
 
 
 def world2_cases(rank, world, inputs, directory):
-    """(1, 2) ("data", "model"): the EP block and the MoE step; (2, 1): the
-    MoE step; ("pod",) (2,): the
+    """(1, 2) ("data", "model"): the tensor-parallel dense step, the EP
+    block and the MoE step; (2, 1): the MoE step; ("pod",) (2,): the
     compressed step."""
     out = {}
     mesh = _mesh((1, 2), ("data", "model"))
+    dense_step_case(mesh, out, "dm12")
     moe_case(mesh, out, "moe12")
     dense_step_case(mesh, out, "ms12", MOE_ARCH)
     dense_step_case(_mesh((2, 1), ("data", "model")), out, "ms21", MOE_ARCH)
@@ -378,11 +479,58 @@ def world2_cases(rank, world, inputs, directory):
     save_rank(directory, rank, out)
 
 
+def reference_inputs(arch: str = ARCH) -> dict:
+    """The inputs of :func:`reference_mesh_case` for the reference's
+    subprocess, as numpy arrays: the port's seed-0 weights of the reduced
+    ``arch`` in the reference's pytree layout (``bridge.reference_tree``),
+    each under ``p:<path>``, and the batch's ``tokens`` and ``labels``."""
+    from repro_torch import bridge
+    from repro_torch.configs import OptimConfig, get_arch
+    cfg = get_arch(arch).reduced()
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}:{k}")
+        else:
+            out[path] = node.numpy()
+    walk(bridge.reference_tree(_state(cfg, OptimConfig()).model), "p")
+    out.update({k: v.numpy() for k, v in _batch(cfg).items()})
+    return out
+
+
+def reference_mesh_case(mesh, out: dict, tag: str, arch: str = ARCH) -> None:
+    """The sharded step of the reduced ``arch`` on :func:`reference_inputs`'
+    weights and batch: its loss and this rank's block of each gradient
+    leaf, with the block's bounds, for the test to hold against the
+    reference's step on a mesh of the same shape."""
+    from repro_torch.configs import OptimConfig, get_arch
+    from repro_torch.distributed import partition as P
+    from repro_torch.runtime import steps as S_
+    cfg = get_arch(arch).reduced()
+    opt = OptimConfig()
+    state = S_.shard_state(_state(cfg, opt), mesh, cfg)
+    _, met = S_.build_train_step(cfg, opt, mesh, keep_grads=True)(
+        state, _batch(cfg))
+    out[f"{tag}_loss"] = float(met["loss"])
+    for k, lf in state.layout.items():
+        sl = P.block_slices(lf.spec, lf.shape, mesh)
+        out[f"{tag}_g:{k}"] = met["grads"][k].numpy()
+        out[f"{tag}_lo:{k}"] = np.array([s.start for s in sl])
+        out[f"{tag}_hi:{k}"] = np.array([s.stop for s in sl])
+
+
 def world8_cases(rank, world, inputs, directory):
     """tests/test_distributed.py::test_sharded_train_step_runs: a reduced
-    MoE arch, (2, 2, 2) ("pod", "data", "model"), two real steps."""
+    MoE arch, (2, 2, 2) ("pod", "data", "model"), two real steps; and the
+    tensor-parallel step of reduced stablelm on (2, 4) ("data", "model")
+    for the reference's step on the same mesh
+    (:func:`reference_mesh_case`)."""
     from repro_torch.configs import OptimConfig, get_arch
     from repro_torch.runtime import steps as S_
+    out: dict = {}
+    reference_mesh_case(_mesh((2, 4), ("data", "model")), out, "ref24")
     mesh = _mesh((2, 2, 2), ("pod", "data", "model"))
     cfg = get_arch(MOE_ARCH).reduced()
     opt = OptimConfig(lr=1e-3)
@@ -396,6 +544,7 @@ def world8_cases(rank, world, inputs, directory):
         losses.append(float(met["loss"]))
     blocks = sorted(state.params)
     save_rank(directory, rank, {
+        **out,
         "losses": np.array(losses),
         "skipped": int(met["skipped"]),
         "param_sum": sum(state.params[k].double().sum().item()
