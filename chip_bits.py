@@ -7,6 +7,7 @@
     python3 chip_bits.py ab PARENT CHANGE OUT.json [ROUNDS]
     python3 chip_bits.py skew SEEDS
     python3 chip_bits.py tp OUT.json [sweep]
+    python3 chip_bits.py q3 OUT.json [sweep]
     python3 chip_bits.py scratch
 
 ``save`` imports ``TREE/src/repro_torch`` (a checkout of any commit of
@@ -44,7 +45,12 @@ sum of the same terms over sqrt(L + 1) u sum |a x|.  ``tp`` runs
 ``chip_smoke.py``'s phase 14 (b) tensor-parallel stablelm-1.6b run (two
 gloo ranks on the card beside one card's steps, prefill and decode) and
 phase 15 (b)'s two-rank trace of it, and with ``sweep`` phase 15 (a)'s
-dry-run sweep, alone, and writes their records to OUT.json.  ``scratch``
+dry-run sweep, alone, and writes their records to OUT.json.  ``q3`` does
+the same for phase 14 (b)'s Mamba2, batch-of-one and sequence splits
+(zamba2-1.2b's Mamba2 heads over "model" on (1, 2), its batch of one
+over "data" on (2, 1), deepseek-v2-236b's MLA latents by sequence over
+"model" on (1, 2), beside one card's) and phase 15 (b)'s two-rank trace
+of the batch of one's decode step.  ``scratch``
 prints, as JSON, the device bytes the CUDA softmax backward holds beyond
 its output (max_memory_allocated over its inputs and output) at shapes
 from (2, 16, 512, 512) to (8, 1024, 50176), f32 and bf16, beside the
@@ -497,6 +503,65 @@ def _tp_rank(rank, world, out_dir, seed):
         json.dump({"tp": rec}, fh)
 
 
+def _q3_rank(rank, world, out_dir, seed):
+    """One rank of ``q3``'s two-rank world: ``chip_smoke.q3_rank``."""
+    import json
+    import time
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.distributed.matvec import (collective_stats,
+                                                reset_collectives)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        reset_collectives()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, collective_stats()
+    rec = cs.q3_rank(rank, "cuda", seed, out_dir, timed)
+    with open(f"{out_dir}/rank{rank}.json", "w") as fh:
+        json.dump({"q3": rec}, fh)
+
+
+def q3(out: str, sweep: bool) -> None:
+    import json
+    import os
+    import shutil
+
+    import torch
+    sys.path.insert(0, "src")
+    import chip_smoke as cs
+    from repro_torch.launch.mesh import run_world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(cs.smi_line(), flush=True)
+    work = os.path.join(cs.ROOT, "build", "chip_bits_q3")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        single = cs.q3_reference(0, work)
+        run_world(_q3_rank, cs.DIST_WORLD, os.path.join(work, "rendezvous"),
+                  (work, 0), timeout_s=cs.DIST_TIMEOUT_S)
+        recs = []
+        for r in range(cs.DIST_WORLD):
+            with open(os.path.join(work, f"rank{r}.json")) as fh:
+                recs.append(json.load(fh))
+        res = dict(q3=cs.q3_check(single, recs, work))
+        res["q3_trace"] = cs.dryrun_vs_real_q3(res["q3"]["zb"]["ranks"][0])
+        if sweep:
+            os.makedirs(os.path.join(work, "sweep"))
+            res["sweep"] = cs.dryrun_sweep(os.path.join(work, "sweep"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    with open(out, "w") as fh:
+        json.dump(res, fh, default=str)
+
+
 def tp(out: str, sweep: bool) -> None:
     import json
     import os
@@ -582,6 +647,10 @@ def main(argv) -> int:
     if len(argv) in (2, 3) and argv[0] == "tp" and argv[2:] in ([],
                                                               ["sweep"]):
         tp(argv[1], argv[2:] == ["sweep"])
+        return 0
+    if len(argv) in (2, 3) and argv[0] == "q3" and argv[2:] in ([],
+                                                              ["sweep"]):
+        q3(argv[1], argv[2:] == ["sweep"])
         return 0
     if argv == ["scratch"]:
         scratch()

@@ -315,7 +315,21 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      card's and the same bits on both ranks; ms a step, the collectives a
      step with their host seconds and their calls and bytes by kind, the
      first step's peak and FlopCounterMode's FLOPs (phase 15 (b)'s real
-     rank); (c) on the same
+     rank); then the Mamba2, batch-of-one and sequence splits at
+     published widths: zamba2-1.2b (6 of 38 layers: one application of
+     its shared attention block) on (1, 2), its Mamba2 layers by heads
+     over "model", two AdamW steps at 2 x 4096 in bf16 and in f32, the
+     same bits on both ranks, whose first loss, first gradient norm and
+     second loss are within ZB_RTOL of one card's (bf16: 1e-3, 2e-2,
+     1e-3; f32: 1e-5, each f32 first-gradient block within 1e-4 of its
+     leaf's max); its batch of one (a 4096-token prompt, replicated) on
+     (2, 1), the attention cache's sequence split over "data", a prefill
+     and 4 decode steps within 2e-2 of max |logit| of one card's, the
+     first decode step's collectives and peak measured (phase 15 (b)'s
+     real rank); and deepseek-v2-236b (2 of 60 layers) on (1, 2), its
+     MLA latents' sequence split over "model", 2 x 1024 prompts, a
+     prefill and 4 decode steps within 2e-2 of max |logit| of one card's,
+     a rank's cache half of one card's; (c) on the same
      ranks the compressed step over ("pod",) (stablelm-1.6b, 2 layers, 1
      x 4096 a rank, FsvdConfig defaults): two finite steps, compressed /
      dense bytes, and the top 8 sigma of one 2048 x 5632 MLP gradient's
@@ -342,7 +356,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      (1, 2) mesh, against the real rank 0's first step: dot FLOPs within
      0.1 % of FlopCounterMode's, the collectives' calls by kind equal to
      collective_stats()'s and their bytes within 0.1 %, the peak within
-     10 % of max_memory_allocated.  It prints a {"dryrun": {...}} JSON
+     10 % of max_memory_allocated; and phase 14 (b)'s zamba2 batch-of-one
+     decode step traced as rank 0 of a fake two-rank world on (2, 1),
+     its collectives' calls and bytes by kind equal to the real rank
+     0's, its peak within 10 %.  It prints a {"dryrun": {...}} JSON
      line.
 
 The line before the last is the card as nvidia-smi reports it; the last is
@@ -5452,6 +5469,9 @@ def train_rank(rank, world, dev, seed, out_dir):
 
     # (b) stablelm-1.6b tensor parallel over "model"
     rec["tp"] = tp_rank(rank, dev, seed, out_dir, timed)
+    # (b) zamba2's Mamba2 heads, a batch of one,
+    # deepseek-v2's latents by sequence
+    rec["q3"] = q3_rank(rank, dev, seed, out_dir, timed)
 
     # (c) the compressed step over ("pod",)
     cfg = dataclasses.replace(get_arch(LM_ARCH), num_layers=TRAIN_LAYERS)
@@ -5533,16 +5553,25 @@ def tp_spec(cfg):
     return spec_for(cfg, get_shape("train_4k"), batch_override=LM_BATCH)
 
 
-def tp_serve(model, cfg, mesh, prompt, tokens=None):
+def tp_serve(model, cfg, mesh, prompt, tokens=None, batch=None,
+             measure=False):
     """A prefill of ``prompt`` and TP_DECODE decode steps on the padded
     cache, step t fed ``tokens[t]`` (one card's greedy picks) or, without
-    them, the greedy pick.  Returns (the logits of each step on the host,
-    the tokens fed, prefill ms, decode ms a token)."""
+    them, the greedy pick.  On a mesh the cache is the rank's block: its
+    sequence split over ``input_specs.decode_seq_axes`` of the global
+    ``batch`` (default: the prompt's rows).  ``measure`` takes the first
+    decode step alone: its collectives by kind and the card's peak
+    allocation during it (the rest are timed).  Returns (the logits of
+    each step on the host, the tokens fed, prefill ms, decode ms a token,
+    the cache's bytes, the sequence axes, the first step's record or
+    None)."""
     import torch
+    from repro_torch.distributed.matvec import (collective_stats,
+                                                reset_collectives)
+    from repro_torch.launch import input_specs as I
     from repro_torch.models import model as M
     from repro_torch.runtime import steps as S
     prefill = S.build_prefill_step(cfg, mesh)
-    decode = S.build_decode_step(cfg, mesh)
     sync = torch.cuda.synchronize if DEV == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
@@ -5551,18 +5580,49 @@ def tp_serve(model, cfg, mesh, prompt, tokens=None):
     prefill_ms = (time.perf_counter() - t0) * 1e3
     S0 = prompt.shape[1]
     cache = M.pad_cache_to(cache, cfg, S0 + TP_DECODE)
-    out, fed = [logits.float()], []
+    seq = ()
+    if mesh is not None:
+        seq = I.decode_seq_axes(cfg, mesh, batch or prompt.shape[0],
+                                S0 + TP_DECODE)
+        cache = I.sequence_block(cache, mesh, seq)
+    decode = S.build_decode_step(cfg, mesh, seq)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in _tree_leaves(cache))
+    out, fed, first = [logits.float()], [], None
     t0 = time.perf_counter()
     for t in range(TP_DECODE):
         tok = tokens[t] if tokens is not None else \
             logits.argmax(-1)[:, None].int()
         fed.append(tok)
-        logits, cache = decode(model, cache, {
-            "tokens": tok, "positions": torch.full_like(tok, S0 + t)})
+        batch_t = {"tokens": tok, "positions": torch.full_like(tok, S0 + t)}
+        if measure and t == 0:
+            del logits
+            sync()
+            reset_collectives()
+            if DEV == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            logits, cache = decode(model, cache, batch_t)
+            sync()
+            first = dict(by_kind=collective_stats()["by_kind"],
+                         peak_alloc=torch.cuda.max_memory_allocated()
+                         if DEV == "cuda" else 0)
+            t0 = time.perf_counter()
+        else:
+            logits, cache = decode(model, cache, batch_t)
         out.append(logits.float())
     sync()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / TP_DECODE
-    return [o.cpu() for o in out], fed, prefill_ms, decode_ms
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (
+        TP_DECODE - (first is not None))
+    return ([o.cpu() for o in out], fed, prefill_ms, decode_ms, cache_bytes,
+            list(seq), first)
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    else:
+        yield tree
 
 
 def tp_reference(seed, out_dir):
@@ -5580,8 +5640,8 @@ def tp_reference(seed, out_dir):
         seed + TP_SEED))
     prompt = lm_batch(spec, seed, 0, device=DEV)["tokens"]
     with torch.no_grad():
-        logits, fed, prefill_ms, decode_ms = tp_serve(model, cfg, None,
-                                                      prompt)
+        logits, fed, prefill_ms, decode_ms, _, _, _ = tp_serve(
+            model, cfg, None, prompt)
     torch.save([t.cpu() for t in fed], os.path.join(out_dir,
                                                     "tp_tokens.pt"))
     steps, grads = lm_train(model, cfg, OptimConfig(),
@@ -5627,8 +5687,8 @@ def tp_rank(rank, dev, seed, out_dir, timed):
         "tokens"]}, mesh)["tokens"]
     reset_collectives()
     with torch.no_grad():
-        logits, _, prefill_ms, decode_ms = tp_serve(served, cfg, mesh,
-                                                    prompt, tokens)
+        logits, _, prefill_ms, decode_ms, _, _, _ = tp_serve(
+            served, cfg, mesh, prompt, tokens)
     serve_coll = collective_stats()
     torch.save(logits, os.path.join(out_dir, f"tp_logits{rank}.pt"))
     del served
@@ -5674,13 +5734,13 @@ def tp_rank(rank, dev, seed, out_dir, timed):
     return rec
 
 
-def tp_grad_errs(blocks, layout, mesh, out_dir):
+def tp_grad_errs(blocks, layout, mesh, out_dir, name="tp_grads.pt"):
     """{leaf: max |this rank's block - one card's same block| / max |one
     card's leaf|} of the first step's gradients; one card's are read from
-    ``out_dir`` (:func:`tp_reference`)."""
+    ``out_dir``/``name`` (:func:`tp_reference`)."""
     import torch
     from repro_torch.distributed import partition as P
-    want = torch.load(os.path.join(out_dir, "tp_grads.pt"), mmap=True)
+    want = torch.load(os.path.join(out_dir, name), mmap=True)
     out = {}
     for k, lf in layout.items():
         w = want[k].to(blocks[k].device)
@@ -5774,6 +5834,338 @@ def tp_check(single, recs, out_dir):
     return out
 
 
+# (b) the Mamba2, batch-of-one and sequence splits at published widths.
+# zamba2-1.2b (d_model 2048, 64 SSD heads of 64, d_state 64) cut to
+# ZB_LAYERS of its 38 layers,
+# so that its shared attention block runs once (attn_every 6): on
+# ZB_TRAIN_SHAPE its Mamba2 layers split by heads over "model" (32 a rank)
+# and its shared block by heads and MLP columns, ZB_STEPS AdamW steps at
+# LM_BATCH x 4096 against one card's; on ZB_SERVE_SHAPE a prefill of a
+# batch of one (ZB_PROMPT tokens, replicated) and TP_DECODE decode steps,
+# its attention cache split by sequence over "data".  Every kv-head count
+# of the registry divides 2, so on two ranks the cache's sequence split
+# over "model" is shown by deepseek-v2-236b's MLA latents (no head axis):
+# its published width, DV_LAYERS layers (the dense first layer and one of
+# 160 experts), LM_BATCH x DV_PROMPT, on DV_SHAPE
+ZB_ARCH = "zamba2-1.2b"
+ZB_LAYERS = 6
+ZB_TRAIN_SHAPE = (1, 2)
+ZB_SERVE_SHAPE = (2, 1)
+ZB_STEPS = 2
+ZB_PROMPT = 4096
+# the train steps run in the published bf16 and in f32.  Bounds of the first
+# loss, the first grad norm and the second loss against one card's: in f32
+# the split's sums are the only difference (2e-7 / 1.9e-6 on the card); in
+# bf16 each rank's partial sums round once more, and the random 6-layer
+# model (tied embeddings, losses ~517) turns that into ~0.9 % of the grad
+# norm on both steps, where one card's own bf16 norm sits ~0.6 % from its
+# f32 norm (printed beside it; PERF.md): a rank missing a block's part
+# would be off by O(1)
+ZB_DTYPES = ("bfloat16", "float32")
+ZB_RTOL = {"bfloat16": dict(loss=1e-3, grad_norm=2e-2, loss2=1e-3),
+           "float32": dict(loss=1e-5, grad_norm=1e-5, loss2=1e-5)}
+ZB_F32_GRAD_TOL = 1e-4  # each f32 first-gradient block, x its leaf's max |g|
+ZB_SEED = 41            # the model's draws: seed + ZB_SEED
+DV_ARCH = "deepseek-v2-236b"
+DV_LAYERS = 2
+DV_SHAPE = (1, 2)
+DV_PROMPT = 1024
+DV_SEED = 43
+
+
+def q3_config(arch, layers, dtype=None):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype)
+    return cfg
+
+
+def q3_prompts(seed):
+    """The prompts of (b)'s two serving runs: zamba2's batch of one and
+    deepseek-v2's LM_BATCH rows."""
+    from repro_torch.data.synthetic import LMBatchSpec, lm_batch
+    zb = q3_config(ZB_ARCH, ZB_LAYERS)
+    dv = q3_config(DV_ARCH, DV_LAYERS)
+    return (lm_batch(LMBatchSpec(1, ZB_PROMPT, zb.vocab_size), seed, 7,
+                     device=DEV)["tokens"],
+            lm_batch(LMBatchSpec(LM_BATCH, DV_PROMPT, dv.vocab_size), seed, 8,
+                     device=DEV)["tokens"])
+
+
+def q3_reference(seed, out_dir):
+    """(b)'s single-card runs of zamba2 and deepseek-v2: prefill and
+    TP_DECODE greedy decode steps of each prompt (the tokens kept in
+    ``out_dir`` for the ranks), then zamba2's ZB_STEPS AdamW steps."""
+    import torch
+    from repro_torch.configs import OptimConfig
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models import model as M
+    zb_prompt, dv_prompt = q3_prompts(seed)
+    out = {}
+    for tag, arch, layers, off, prompt in (
+            ("zb", ZB_ARCH, ZB_LAYERS, ZB_SEED, zb_prompt),
+            ("dv", DV_ARCH, DV_LAYERS, DV_SEED, dv_prompt)):
+        cfg = q3_config(arch, layers)
+        model, _ = M.init_model(cfg, torch.Generator(device=DEV).manual_seed(
+            seed + off))
+        with torch.no_grad():
+            logits, fed, prefill_ms, decode_ms, cache_bytes, _, _ = tp_serve(
+                model, cfg, None, prompt)
+        torch.save([t.cpu() for t in fed], os.path.join(
+            out_dir, f"{tag}_tokens.pt"))
+        out[tag] = dict(logits=logits, prefill_ms=prefill_ms,
+                        decode_ms=decode_ms, cache_bytes=cache_bytes)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for dtype in ZB_DTYPES:
+        cfg = q3_config(ZB_ARCH, ZB_LAYERS, dtype)
+        model, _ = M.init_model(cfg, torch.Generator(device=DEV).manual_seed(
+            seed + ZB_SEED))
+        spec = tp_spec(cfg)
+        out[f"zb_{dtype}"], grads = lm_train(
+            model, cfg, OptimConfig(), [lm_batch(spec, seed, t, device=DEV)
+                                        for t in range(ZB_STEPS)], keep=0)
+        torch.save({k: g.cpu() for k, g in grads.items()},
+                   os.path.join(out_dir, f"zb_grads_{dtype}.pt"))
+        del model, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def q3_serve_rank(rank, dev, tag, cfg, off, shape, prompt, batch, seed,
+                  out_dir, measure=False):
+    """One rank's serving run of (b): its serving blocks
+    (``steps.serving_model``) prefill its rows of ``prompt`` (all of them
+    where the batch does not split) and decode one card's tokens, its
+    block of the cache; the logits saved to ``out_dir``."""
+    import torch
+    from repro_torch.distributed.matvec import (collective_stats,
+                                                reset_collectives)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    cuda = dev == "cuda"
+    mesh = make_mesh(shape, ("data", "model"), device_type=dev)
+    if cuda:
+        torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    model, _ = M.init_model(cfg, torch.Generator(device=dev).manual_seed(
+        seed + off))
+    served = S.serving_model(model, cfg, mesh)
+    del model
+    gc.collect()
+    tokens = [t.to(dev) for t in torch.load(os.path.join(
+        out_dir, f"{tag}_tokens.pt"))]
+    if batch > 1:
+        tokens = [S.shard_batch({"t": t}, mesh)["t"] for t in tokens]
+    local = S.shard_batch({"tokens": prompt}, mesh)["tokens"]
+    reset_collectives()
+    with torch.no_grad():
+        logits, _, prefill_ms, decode_ms, cache_bytes, seq, first = tp_serve(
+            served, cfg, mesh, local, tokens, batch=batch, measure=measure)
+    coll = collective_stats()
+    torch.save(logits, os.path.join(out_dir, f"{tag}_logits{rank}.pt"))
+    rec = dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
+               cache_bytes=cache_bytes, seq_axes=seq,
+               collectives=coll["calls"], collective_s=coll["seconds"],
+               param_bytes=sum(p.numel() * p.element_size()
+                               for p in served.parameters()))
+    if first is not None:
+        rec["first_decode"] = dict(by_kind=first["by_kind"],
+                                   peak_bytes=first["peak_alloc"] - base)
+    del served
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def q3_rank(rank, dev, seed, out_dir, timed):
+    """(b)'s split runs on one rank: zamba2's ZB_STEPS
+    sharded AdamW steps on ZB_TRAIN_SHAPE, its batch of one served on
+    ZB_SERVE_SHAPE (the first decode step measured for phase 15 (b)),
+    deepseek-v2's rows served on DV_SHAPE."""
+    import torch
+    from repro_torch.configs import OptimConfig
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import steps as S
+    cuda = dev == "cuda"
+    opt = OptimConfig()
+    mesh = make_mesh(ZB_TRAIN_SHAPE, ("data", "model"), device_type=dev)
+    train = {}
+    for dtype in ZB_DTYPES:
+        cfg = q3_config(ZB_ARCH, ZB_LAYERS, dtype)
+        spec = tp_spec(cfg)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        state = S.init_sharded_state(cfg, opt, torch.Generator(
+            device=dev).manual_seed(seed + ZB_SEED), mesh)
+        step = S.build_train_step(cfg, opt, mesh)
+        first = S.build_train_step(cfg, opt, mesh, keep_grads=True)
+        steps = []
+        for t in range(ZB_STEPS):
+            batch = lm_batch(spec, seed, t, device=dev)
+            (state, met), wall, coll = timed(
+                lambda: (first if t == 0 else step)(state, batch))
+            if t == 0:
+                grad_errs = tp_grad_errs(met.pop("grads"), state.layout,
+                                         mesh, out_dir,
+                                         f"zb_grads_{dtype}.pt")
+            steps.append(dict(loss=float(met["loss"]),
+                              grad_norm=float(met["grad_norm"]),
+                              skipped=int(met["skipped"]), wall_s=wall,
+                              collectives=coll["calls"],
+                              collective_s=coll["seconds"],
+                              by_kind=coll["by_kind"]))
+        train[dtype] = dict(
+            steps=steps, grad_errs=grad_errs,
+            blocked=sum(lf.model_block for lf in state.layout.values()),
+            param_bytes=sum(v.numel() * v.element_size()
+                            for v in state.params.values()),
+            peak_bytes=(torch.cuda.max_memory_allocated() - base)
+            if cuda else 0)
+        del state, step, first, met
+        gc.collect()
+    cfg = q3_config(ZB_ARCH, ZB_LAYERS)
+    zb_prompt, dv_prompt = q3_prompts(seed)
+    serve = q3_serve_rank(rank, dev, "zb", cfg, ZB_SEED, ZB_SERVE_SHAPE,
+                          zb_prompt, 1, seed, out_dir, measure=True)
+    dv = q3_serve_rank(rank, dev, "dv", q3_config(DV_ARCH, DV_LAYERS),
+                       DV_SEED, DV_SHAPE, dv_prompt, LM_BATCH, seed,
+                       out_dir)
+    return dict(train=train, serve=serve, dv=dv)
+
+
+def q3_check_train(single, per, dtype):
+    """(b)'s zamba2 steps in ``dtype``: the same bits on both ranks, the
+    first loss, first grad norm and second loss within ZB_RTOL[dtype] of
+    one card's, in f32 each first-gradient block within ZB_F32_GRAD_TOL of
+    its leaf's max |g|; prints a line."""
+    for key in ("loss", "grad_norm"):
+        vals = [[s[key] for s in p["train"][dtype]["steps"]] for p in per]
+        check(all(v == vals[0] for v in vals), f"phase 14 (b) {ZB_ARCH} "
+              f"{dtype}: {key} differs between ranks {vals}")
+    run = per[0]["train"][dtype]
+    tr = run["steps"]
+    one = single[f"zb_{dtype}"]
+    check(not any(s["skipped"] for p in per
+                  for s in p["train"][dtype]["steps"])
+          and all(math.isfinite(s["loss"]) for s in tr),
+          f"phase 14 (b) {ZB_ARCH} {dtype}: {tr}")
+    want = dict(loss=one[0]["loss"], grad_norm=one[0]["grad_norm"],
+                loss2=one[1]["loss"])
+    got = dict(loss=tr[0]["loss"], grad_norm=tr[0]["grad_norm"],
+               loss2=tr[1]["loss"])
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+    bound = ZB_RTOL[dtype]
+    errs = run["grad_errs"]
+    worst = sorted(errs, key=lambda k: -errs[k])[:3]
+    s = tr[-1]
+    print(f"phase 14 (b) {ZB_ARCH} ({ZB_LAYERS} layers, {LM_BATCH} x "
+          f"{tp_spec(q3_config(ZB_ARCH, ZB_LAYERS)).seq_len}, {dtype}) on "
+          f"('data', 'model') {ZB_TRAIN_SHAPE}, the Mamba2 heads split: "
+          f"losses {[round(q['loss'], 5) for q in tr]}, first grad norm "
+          f"{tr[0]['grad_norm']:.5f} (one card {want['loss']:.5f}, "
+          f"{want['grad_norm']:.5f}, {want['loss2']:.5f}; relative "
+          + ", ".join(f"{k} {v:.2e} (bound {bound[k]})"
+                      for k, v in rel.items())
+          + f"); {run['blocked']} leaves by 'model' block; step walls "
+          f"{[round(q['wall_s'], 3) for q in tr]} s (one card "
+          f"{[round(q['wall_ms'], 1) for q in one]} ms), collectives a "
+          f"step {s['collectives']} ({s['collective_s']:.3f} s; received "
+          f"by kind "
+          + ", ".join(f"{k} {v['calls']} x {v['bytes'] / 1e9:.3f} GB"
+                      for k, v in s["by_kind"].items() if v["calls"])
+          + f"); blocks {run['param_bytes'] / 1e9:.3f} GB; peak "
+          f"{run['peak_bytes'] / GIB:.3f} GiB; first gradients vs one "
+          f"card's, of a leaf's max |g|: "
+          + ", ".join(f"{k} {errs[k]:.2e}" for k in worst)
+          + f" (the largest of {len(errs)})", flush=True)
+    check(all(rel[k] < bound[k] for k in rel), f"phase 14 (b) {ZB_ARCH} "
+          f"{dtype} on {ZB_TRAIN_SHAPE}: {got} vs one card {want} "
+          f"(relative {rel}, bounds {bound})")
+    if dtype == "float32":
+        check(all(e < ZB_F32_GRAD_TOL for p in per
+                  for e in p["train"][dtype]["grad_errs"].values()),
+              f"phase 14 (b) {ZB_ARCH} f32: first gradients "
+              f"{[(k, errs[k]) for k in worst]} of a leaf's max |g| from "
+              f"one card's (bound {ZB_F32_GRAD_TOL})")
+    return dict(rel_vs_single=rel, single=one,
+                grad_errs=[p["train"][dtype]["grad_errs"] for p in per])
+
+
+def q3_check(single, recs, out_dir):
+    """(b)'s checks of the split runs: zamba2's steps
+    (:func:`q3_check_train`); each serving run's
+    logits the same bits on both ranks and within TP_LOGIT_TOL of max
+    |logit| of one card's, deepseek-v2's cache a rank half of one
+    card's; prints a line a run."""
+    import torch
+    per = [x["q3"] for x in recs]
+    out = dict(train={})
+    for dtype in ZB_DTYPES:
+        out["train"][dtype] = q3_check_train(single, per, dtype)
+    gaps = [abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+            for a, b in zip(single["zb_bfloat16"], single["zb_float32"])]
+    out["train"]["one_card_bf16_vs_f32"] = gaps
+    print(f"phase 14 (b) {ZB_ARCH}: one card's bf16 grad norms are "
+          + ", ".join(f"{g:.2e}" for g in gaps)
+          + " from its f32 ones (the same draws in f32)", flush=True)
+    for tag, arch, shape in (("zb", ZB_ARCH, ZB_SERVE_SHAPE),
+                             ("dv", DV_ARCH, DV_SHAPE)):
+        key = "serve" if tag == "zb" else "dv"
+        runs = [p[key] for p in per]
+        logits = [torch.load(os.path.join(out_dir, f"{tag}_logits{r}.pt"))
+                  for r in range(len(recs))]
+        check(all(all(torch.equal(a, b) for a, b in zip(lg, logits[0]))
+                  for lg in logits), f"phase 14 (b) {arch} serving on "
+              f"{shape}: the ranks' logits differ")
+        ref = single[tag]["logits"]
+        scale = max(float(w.abs().max()) for w in ref)
+        # rank 0 holds the first rows where the batch splits (LM_BATCH on
+        # a "data" axis of 1 does not)
+        errs = [float((g - w).abs().max()) / scale
+                for g, w in zip(logits[0], ref)]
+        check(max(errs) < TP_LOGIT_TOL, f"phase 14 (b) {arch} serving on "
+              f"{shape}: logits {errs} of max |logit| from one card's "
+              f"(bound {TP_LOGIT_TOL})")
+        if tag == "dv":
+            check(all(2 * r["cache_bytes"] == single[tag]["cache_bytes"]
+                      for r in runs), f"phase 14 (b) {arch}: a rank's "
+                  f"cache {runs[0]['cache_bytes']} B, one card's "
+                  f"{single[tag]['cache_bytes']} B")
+        want_axes = ["data"] if tag == "zb" else ["model"]
+        check(all(r["seq_axes"] == want_axes for r in runs),
+              f"phase 14 (b) {arch}: the cache's sequence split over "
+              f"{runs[0]['seq_axes']}, not {want_axes}")
+        r0 = runs[0]
+        print(f"phase 14 (b) {arch} serving on ('data', 'model') {shape}, "
+              f"the cache's sequence over {r0['seq_axes']}: prefill "
+              f"{r0['prefill_ms']:.1f} ms, decode {r0['decode_ms']:.1f} ms "
+              f"a token ({r0['collectives']} collectives, "
+              f"{r0['collective_s']:.3f} s; one card "
+              f"{single[tag]['prefill_ms']:.1f} / "
+              f"{single[tag]['decode_ms']:.1f} ms); a rank's cache "
+              f"{r0['cache_bytes'] / 1e6:.2f} MB (one card "
+              f"{single[tag]['cache_bytes'] / 1e6:.2f}), its blocks "
+              f"{r0['param_bytes'] / 1e9:.3f} GB; logits vs one card "
+              + ", ".join(f"{e:.2e}" for e in errs)
+              + f" of max |logit| (bound {TP_LOGIT_TOL}), the same bits "
+              f"on both ranks", flush=True)
+        out[tag] = dict(logit_errs=errs, single=dict(
+            prefill_ms=single[tag]["prefill_ms"],
+            decode_ms=single[tag]["decode_ms"],
+            cache_bytes=single[tag]["cache_bytes"]), ranks=runs)
+    return out
+
+
 def start_clis(out_dir):
     """(d) the three CLIs on the card, started side by side; returns the
     processes and their start time for :func:`finish_clis`."""
@@ -5849,6 +6241,7 @@ def phase_train(seed, single):
         refs = {"1x2": single, "2x1": single,
                 "2x1 no drops": shard_reference(seed)}
         tp_single = tp_reference(seed, out_dir)
+        q3_single = q3_reference(seed, out_dir)
         t1 = time.perf_counter()
         run_world(train_rank, DIST_WORLD, os.path.join(out_dir, "rendezvous"),
                   (DEV, seed, out_dir), timeout_s=DIST_TIMEOUT_S)
@@ -5920,8 +6313,9 @@ def phase_train(seed, single):
                          f"{o['norm_rel']:.1e} from it" if o else ""),
                       flush=True)
         rec["tp"] = tp_check(tp_single, recs, out_dir)
+        rec["q3"] = q3_check(q3_single, recs, out_dir)
         for x in recs:
-            del x["tp"]
+            del x["tp"], x["q3"]
         comp = [x["compressed"] for x in recs]
         closs = [[s["loss"] for s in c["steps"]] for c in comp]
         check(all(ls == closs[0] for ls in closs) and all(
@@ -5963,6 +6357,15 @@ def phase_train(seed, single):
         "capacity_factor 1.25 -> 8 and aux_loss_weight 0.01 -> 0",
         f"(b) tensor parallel: {LM_ARCH} num_layers 24 -> {TRAIN_LAYERS}, "
         f"global batch 256 -> {LM_BATCH}, the 'model' axis 16 -> 2",
+        f"(b) {ZB_ARCH}: num_layers 38 -> {ZB_LAYERS} (one application of "
+        f"the shared attention block); train global batch 256 -> "
+        f"{LM_BATCH} x 4096, the 'model' axis 16 -> 2; the batch of one's "
+        f"context 524288 (long_500k) -> {ZB_PROMPT} + {TP_DECODE}, the "
+        f"'data' axis 16 -> 2",
+        f"(b) {DV_ARCH}: num_layers 60 -> {DV_LAYERS} (the dense first "
+        f"layer and one MoE layer); decode_32k's batch 128 x 32768 -> "
+        f"{LM_BATCH} x ({DV_PROMPT} + {TP_DECODE}), the 'model' axis 16 -> "
+        f"2",
         f"two gloo ranks share one card (the mesh has {DIST_WORLD} ranks, "
         "not 256)", "random weights drawn on the card from --seed"]
     rec["wall_s"] = time.perf_counter() - t0
@@ -5978,6 +6381,17 @@ def phase_train(seed, single):
 # the sweep runs one dry-run process an (arch, mesh), at most DRYRUN_PROCS
 # at a time: each traces on one host core
 DRYRUN_PROCS = 8
+# the arch whose cells trace longest (deepseek-v2-236b's two-pod train cell
+# alone 138-169 s, its four cells a mesh 164-219 s on the card)
+# runs one subprocess a cell
+DRYRUN_SPLIT = ("deepseek-v2-236b",)
+# a job's trace seconds grow with the layers it traces (on the card: 1.5
+# to 2.6 s a layer for an (arch, mesh) of the other archs, more on two
+# pods; deepseek-v2-236b's train cell ~2-3 s a layer, its prefill and
+# decode ~0.5-0.8): the sweep starts the longest first, so that its wall
+# stays near its traces' sum over DRYRUN_PROCS
+DRYRUN_SHAPE_COST = {"train_4k": 3.0, "prefill_32k": 0.8, "decode_32k": 0.5,
+                     "long_500k": 0.0}
 DRYRUN_TIMEOUT_S = 900
 DRY_FLOP_RTOL = 1e-3          # trace vs FlopCounterMode on the real step
 DRY_PEAK_RTOL = 0.10          # trace vs max_memory_allocated
@@ -5985,21 +6399,33 @@ DRY_PEAK_RTOL = 0.10          # trace vs max_memory_allocated
 
 def dryrun_sweep(out_dir):
     """(a) ``python -m repro_torch.launch.dryrun`` over every (arch x shape
-    x mesh) cell on fake cuda tensors, an (arch, mesh) a subprocess: the
+    x mesh) cell on fake cuda tensors, an (arch, mesh) a subprocess, or
+    an (arch, mesh, shape) for DRYRUN_SPLIT, the longest first: the
     counts, each failed cell's reason, the wall.  Fails if a cell fails
     by an exception."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from repro_torch.configs import ARCHS
+    from repro_torch.configs import ARCHS, SHAPES, get_arch
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
-    # the two-pod jobs trace the most: they go first
-    jobs = [(arch, mesh) for mesh in ("multi", "single")
-            for arch in sorted(ARCHS)]
+    check(sorted(DRYRUN_SHAPE_COST) == sorted(SHAPES),
+          f"phase 15 (a): the shapes' costs {DRYRUN_SHAPE_COST}")
+
+    def cost(job):
+        arch, mesh, shape = job
+        per = DRYRUN_SHAPE_COST[shape] if shape else 1.6
+        return get_arch(arch).num_layers * per * (1.3 if mesh == "multi"
+                                                   else 1.0)
+    jobs = sorted([(arch, mesh, shape) for arch in sorted(ARCHS)
+                   for mesh in ("multi", "single")
+                   for shape in (sorted(SHAPES) if arch in DRYRUN_SPLIT
+                                 else [None])], key=cost, reverse=True)
 
     def run(job):
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                job[0], "--mesh", job[1], "--out", out_dir, "--device", DEV]
+        if job[2] is not None:
+            cmd += ["--shape", job[2]]
         try:
             return job, subprocess.run(cmd, cwd=ROOT, env=env,
                                        capture_output=True, text=True,
@@ -6025,8 +6451,8 @@ def dryrun_sweep(out_dir):
               if c["status"] == "failed"}
     by_reason = {r: sum(v == r for v in failed.values())
                  for r in ("memory", "check", "exception")}
-    check(len(cells) == 4 * len(jobs), f"phase 15 (a): {len(cells)} cells "
-          f"for {len(jobs)} runs of 4 shapes")
+    check(len(cells) == 2 * len(ARCHS) * len(SHAPES),
+          f"phase 15 (a): {len(cells)} cells from {len(jobs)} runs")
     keep = ("kind", "status", "failure", "error", "trace_s",
             "flops_per_device", "bytes_per_device", "memory",
             "model_flops_global")
@@ -6185,10 +6611,60 @@ def dryrun_vs_real_tp(real):
     return rec
 
 
-def phase_dryrun(seed, tp_real):
+def dryrun_vs_real_q3(real):
+    """(b) phase 14 (b)'s zamba2 batch-of-one decode rank traced as rank 0
+    of a fake two-rank world on the same (2, 1) mesh, against the real
+    rank 0's first decode step (``real``): the collectives' calls and
+    bytes by kind equal, the peak within 10 % of max_memory_allocated
+    during the step over what was allocated before the serving model."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    cfg = q3_config(ZB_ARCH, ZB_LAYERS)
+    with dryrun.fake_world(2):
+        mesh = make_mesh(ZB_SERVE_SHAPE, ("data", "model"), device_type=DEV)
+        got = dryrun.trace_cell(cfg, ShapeConfig(
+            "zb", "decode", ZB_PROMPT + TP_DECODE, 1), mesh,
+                                {"mesh": "x".join(map(str, ZB_SERVE_SHAPE))},
+                                device=DEV)
+    check(got["status"] == "ok", f"phase 15 (b) batch of one: the trace "
+          f"failed: {got.get('error')}")
+    first = real["first_decode"]
+    coll = {k: v for k, v in got["collectives"].items()
+            if k != "total_bytes"}
+    rec = dict(mesh=list(ZB_SERVE_SHAPE), trace_s=got["trace_s"],
+               collectives=coll, real_collectives=first["by_kind"],
+               peak_bytes=got["memory"]["peak_bytes"],
+               argument_bytes=got["memory"]["argument_bytes"],
+               real_peak_bytes=first["peak_bytes"],
+               peak_ratio=got["memory"]["peak_bytes"]
+               / max(first["peak_bytes"], 1))
+    print(f"phase 15 (b) {ZB_ARCH} ({ZB_LAYERS} layers) a batch of one's "
+          f"decode step on {ZB_SERVE_SHAPE}, rank 0: collectives traced / "
+          f"real by kind "
+          + ", ".join(f"{k} {coll[k]['count']} / {v['calls']} calls, "
+                      f"{coll[k]['bytes']:.6g} / {v['bytes']:.6g} B"
+                      for k, v in first["by_kind"].items() if v["calls"]
+                      or coll[k]["count"])
+          + f"; the trace's peak {rec['peak_bytes'] / GIB:.4f} GiB "
+          f"(arguments {rec['argument_bytes'] / GIB:.4f}), the rank's "
+          f"{rec['real_peak_bytes'] / GIB:.4f} GiB (ratio "
+          f"{rec['peak_ratio']:.4f}); traced in {rec['trace_s']:.1f} s",
+          flush=True)
+    check(all(coll[k]["count"] == v["calls"] and coll[k]["bytes"]
+              == v["bytes"] for k, v in first["by_kind"].items()),
+          f"phase 15 (b) batch of one: collectives {coll} vs "
+          f"{first['by_kind']}")
+    check(abs(rec["peak_ratio"] - 1) < DRY_PEAK_RTOL, f"phase 15 (b) batch "
+          f"of one: peak {rec['peak_bytes']} vs {rec['real_peak_bytes']}")
+    return rec
+
+
+def phase_dryrun(seed, tp_real, q3_real):
     """Phase 15: the dry run on the card; see the module docstring.
-    ``tp_real`` is phase 14 (b)'s tensor-parallel rank 0.  Returns the
-    {"dryrun": ...} record."""
+    ``tp_real`` is phase 14 (b)'s tensor-parallel rank 0, ``q3_real`` its
+    zamba2 batch-of-one serving rank 0.  Returns the {"dryrun": ...}
+    record."""
     import shutil
 
     import torch
@@ -6200,7 +6676,8 @@ def phase_dryrun(seed, tp_real):
     t0 = time.perf_counter()
     try:
         rec = dict(sweep=dryrun_sweep(out_dir), step=dryrun_vs_real(seed),
-                   tp_step=dryrun_vs_real_tp(tp_real))
+                   tp_step=dryrun_vs_real_tp(tp_real),
+                   batch_of_one=dryrun_vs_real_q3(q3_real))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     rec["wall_s"] = time.perf_counter() - t0
@@ -6320,7 +6797,8 @@ def main(argv=None) -> int:
         print(json.dumps({"train": trained}, default=str))
         # phase 15: the dry run, after phase 14 has freed its memory
         print(json.dumps({"dryrun": phase_dryrun(
-            args.seed, trained["tp"]["ranks"][0])}, default=str))
+            args.seed, trained["tp"]["ranks"][0],
+            trained["q3"]["zb"]["ranks"][0])}, default=str))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

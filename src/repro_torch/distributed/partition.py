@@ -75,19 +75,30 @@ RULES: dict[str, Optional[str]] = {
 
 
 # the logical axes whose "model" split the layers compute block by block:
-# tensor parallelism over heads, kv heads, the MLP's width and the
-# vocabulary, expert parallelism over the experts.  A leaf split over
-# "model" by another axis (ssm_inner) is gathered whole for its layer.
-MODEL_COMPUTE = ("vocab", "heads", "kv_heads", "mlp", "experts")
+# tensor parallelism over heads, kv heads, the MLP's width, the
+# vocabulary and the Mamba2 heads (ssm_inner), expert parallelism over the
+# experts.
+MODEL_COMPUTE = ("vocab", "heads", "kv_heads", "mlp", "experts", "ssm_inner")
+
+# leaves (by name) that the rules split over "model" but whose block is not
+# the region a layer computes with: the Mamba2 conv's weight and bias
+# carry ssm_inner on conv_dim = d_in + 2·G·N, whose contiguous blocks line
+# up neither with a rank's heads' x channels nor with the B and C channels
+# every rank reads whole.  A layer takes them whole, reads its channels
+# and has their gradients summed over "model" (``layers.enter``).
+WHOLE_IN_BLOCK = ("conv_w", "conv_b")
 
 
-def model_region(axes: Sequence[str], spec: Spec) -> Spec:
+def model_region(axes: Sequence[str], spec: Spec, name: str = "") -> Spec:
     """What a rank computes with of a leaf of logical ``axes`` under
-    ``spec``: its "model" block where the spec splits a
-    :data:`MODEL_COMPUTE` dimension over "model", else the whole leaf
+    ``spec`` (``name``: the leaf's own name, its path's last part): its
+    "model" block where the spec splits a :data:`MODEL_COMPUTE` dimension
+    over "model", else (and for :data:`WHOLE_IN_BLOCK`) the whole leaf
     (``()``)."""
-    for name, entry in zip(axes, spec):
-        if entry == "model" and name in MODEL_COMPUTE:
+    if name in WHOLE_IN_BLOCK:
+        return ()
+    for entry_name, entry in zip(axes, spec):
+        if entry == "model" and entry_name in MODEL_COMPUTE:
             return restrict(spec, ("model",))
     return ()
 

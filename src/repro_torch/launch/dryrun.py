@@ -15,24 +15,30 @@ the port's own step once under ``launch.op_analysis.CostMode``:
              ``build_compressed_train_step``), on a ``ShardedState`` of
              the rank's blocks (as ``shard_state`` cuts them) and the
              global batch (the step takes the rank's shard itself);
-  * prefill: ``build_prefill_step`` on the rank's batch shard;
-  * decode:  ``build_decode_step`` on the rank's batch shard and a cache
-             of its sequences.
+  * prefill: ``build_prefill_step`` on the rank's batch shard (the whole
+             batch on every rank where it does not split over the batch
+             axes, as the reference replicates a batch of one);
+  * decode:  ``build_decode_step`` on the rank's batch shard and its
+             block of the cache.
 
 For prefill and decode the model holds the expert weights as the rank's
 blocks (what the expert-parallel MoE takes), of each other leaf the
 layers compute by its "model" block (``partition.model_region``: heads,
-the MLP's width, the vocabulary) that block with every other dimension
-whole, and every other leaf whole (``steps.serving_specs``); the decode
-cache is the rank's block of the cell's cache under
-``input_specs.serving_cache_spec`` (kv heads over "model" where they
-divide, else whole).  A port check that refuses a cell (a ``ValueError``: the batch does not split over the
-batch axes, the train step's exchange cannot fit the device, the
-compressed step's mesh) is a failed cell, as is a cell whose traced peak
-exceeds the device's memory (the reference's OOM at compile); any other
-exception fails the cell with its traceback.  No hand-written kernel
-lies on these steps' paths (the LM steps launch none of them), so none
-needs a fake implementation here.
+the MLP's width, the vocabulary, the Mamba2 heads) that block with every
+other dimension whole, and every other leaf whole
+(``steps.serving_specs``); the decode cache is the rank's block of the
+cell's cache under ``input_specs.serving_cache_spec``, the reference's
+``_cache_leaf_spec``: kv heads (and the Mamba2 state's heads) over
+"model" where they divide, else the sequence over "model"; a batch of one
+splits the sequence over "data" (``models.attention`` combines the
+blocks' softmax partials).  A port check that refuses a cell (a
+``ValueError``: a train batch that does not split over the batch axes,
+the train step's exchange cannot fit the device, the compressed step's
+mesh) is a failed cell, as is a cell whose traced peak exceeds the
+device's memory (the reference's OOM at compile); any other exception
+fails the cell with its traceback.  No hand-written kernel lies on these
+steps' paths (the LM steps launch none of them), so none needs a fake
+implementation here.
 
 Per traced cell the record holds (the reference's keys where they mean
 the same):
@@ -217,7 +223,7 @@ def _inputs(cell, cfg, shape, mesh, device, compressed: bool) -> tuple:
     return model, cache, local
 
 
-def _step(kind, cfg, optim_cfg, mesh, compressed: bool, device_bytes):
+def _step(kind, cfg, shape, optim_cfg, mesh, compressed: bool, device_bytes):
     if kind == "train":
         if compressed:
             return steps_mod.build_compressed_train_step(
@@ -228,7 +234,8 @@ def _step(kind, cfg, optim_cfg, mesh, compressed: bool, device_bytes):
                                           device_bytes=device_bytes)
     if kind == "prefill":
         return steps_mod.build_prefill_step(cfg, mesh)
-    return steps_mod.build_decode_step(cfg, mesh)
+    return steps_mod.build_decode_step(cfg, mesh, ispec.decode_seq_axes(
+        cfg, mesh, shape.global_batch, shape.seq_len))
 
 
 # ---------------------------------------------------------------------------
@@ -265,8 +272,8 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, head: dict, *,
     try:
         cell = ispec.cell_inputs(cfg, shape, optim_cfg, mesh)
         rec["kind"] = cell["kind"]
-        fn = _step(cell["kind"], cfg, optim_cfg, mesh, compressed_grads,
-                   device_bytes)
+        fn = _step(cell["kind"], cfg, shape, optim_cfg, mesh,
+                   compressed_grads, device_bytes)
         mode, arg_bytes, trace_s = trace(fn, lambda: _inputs(
             cell, cfg, shape, mesh, device, compressed_grads))
     except ValueError as e:

@@ -10,17 +10,23 @@ the reference's layout: parameters and moments as the reference's pytree
 or a ``{name: size}`` mapping: no process group is needed.
 
 Sharding layout:
-  * batch dimensions shard over ("pod", "data") when divisible;
+  * batch dimensions shard over ("pod", "data") when divisible, else the
+    batch is whole on every rank (replicated, as a batch of one);
   * the ``long_500k`` B = 1 cells shard the *sequence* axis of KV caches
     over "data" instead (and SSM head axes over "model");
   * KV / latent caches shard kv-heads (or SSD heads) over "model" when
     divisible, else their sequence axis;
   * parameters and optimizer moments follow ``distributed.partition``.
 
-:func:`serving_cache_spec` is the part of that layout the port's decode
-step holds today (kv heads over "model" where they divide, else the
-cache whole on the rank's batch shard), and :func:`cache_block` a rank's
-block of a cell's cache under it.
+:func:`serving_cache_spec` is that layout as the port's decode step
+holds it: :func:`_cache_leaf_spec`'s, except that the cross attention's
+K / V (whisper) keep their sequence whole (the port's cross attention
+reads its K / V whole; the reference splits them like a self-attention
+cache).  :func:`cache_block` is a rank's block of a cell's cache under
+it, :func:`decode_seq_axes` the mesh axes a model's self-attention
+caches split their sequence over (the decode step's ``seq_axes``), and
+:func:`sequence_block` cuts a rank's sequence block from a prefill's
+cache (padded to its decode length) on the rank.
 """
 from __future__ import annotations
 
@@ -138,27 +144,59 @@ def _cache_leaf_spec(name: str, shape: tuple, mesh, B: int) -> tuple:
     return _strip(spec)
 
 
+# the cross attention's K / V: read whole by the port's cross attention
+_CROSS_LEAVES = ("cross_k", "cross_v")
+
+
 def serving_cache_spec(name: str, shape: tuple, mesh, B: int) -> tuple:
     """The spec of a cache leaf as the port's decode step holds it: that
-    of :func:`_cache_leaf_spec` where it splits the batch, the sequence
-    over "data" or the kv heads over "model" (the heads the
-    tensor-parallel attention computes), with no other split over
-    "model": a cache whose kv heads do not divide "model" (and the MLA
-    latents, and the Mamba2 states) stays whole on the rank's batch
-    shard."""
+    of :func:`_cache_leaf_spec`, with the cross attention's K / V whole
+    along their sequence."""
     spec = list(_cache_leaf_spec(name, shape, mesh, B))
-    nd = len(shape)
-    head = _SEQ_LEAF_AXES.get(name, (None, None, None))[2]
-    for d, entry in enumerate(spec):
-        if entry is None or "model" not in ((entry,) if isinstance(
-                entry, str) else entry):
-            continue
-        if head is not None and d == nd + head:
-            continue
-        rest = tuple(a for a in ((entry,) if isinstance(entry, str)
-                                 else entry) if a != "model")
-        spec[d] = axes_entry(rest) if rest else None
+    if name in _CROSS_LEAVES:
+        s_ax = len(shape) + _SEQ_LEAF_AXES[name][1]
+        if s_ax < len(spec):
+            spec[s_ax] = None
     return _strip(spec)
+
+
+def decode_seq_axes(cfg: ModelConfig, mesh, B: int, S: int) -> tuple:
+    """The mesh axes (shard order) over which a decode cache of ``B``
+    sequences (the global batch) of ``S`` positions splits the sequence of
+    ``cfg``'s self-attention caches under :func:`serving_cache_spec`: ()
+    where it stays whole or the model has none."""
+    if cfg.family == "ssm":
+        return ()
+    if cfg.mla is not None:
+        name, shape = "ckv", (B, S, cfg.mla.kv_lora_rank)
+    else:
+        name, shape = "k", (B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+    spec = serving_cache_spec(name, shape, mesh, B)
+    s_ax = len(shape) + _SEQ_LEAF_AXES[name][1]
+    entry = spec[s_ax] if s_ax < len(spec) else None
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def sequence_block(cache: Tree, mesh, seq_axes: tuple) -> Tree:
+    """This rank's block of ``seq_axes`` of the sequence of every
+    self-attention leaf of ``cache`` (a rank's prefill cache, padded to
+    the decode length, its sequence whole): copies; other leaves as they
+    are."""
+    from repro_torch.distributed.partition import axes_entry, block_slices
+
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if not seq_axes or name not in _SEQ_LEAF_AXES \
+                or name in _CROSS_LEAVES:
+            return tree
+        spec = [None] * tree.dim()
+        spec[tree.dim() + _SEQ_LEAF_AXES[name][1]] = axes_entry(
+            tuple(seq_axes))
+        return tree[block_slices(tuple(spec), tree.shape, mesh)].clone()
+    return walk(cache)
 
 
 def cache_block(struct: Tree, cfg: ModelConfig, shape: ShapeConfig,

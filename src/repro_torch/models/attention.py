@@ -22,10 +22,32 @@ heads they read, the f32 logits of its heads alone, and its part of the
 output projection, summed over "model".  Where the kv heads divide too,
 the rank holds its kv heads and its block of the KV cache; where they do
 not (the weights whole), it takes the kv heads its q heads map to by
-:func:`_repeat_kv`'s grouping, and a cache stays whole.  MLA splits
-``w_uq``, ``w_uk``, ``w_uv`` and ``wo`` by heads and keeps its latents
-whole; cross attention splits as GQA.  Where "model" does not divide the
-heads, the block runs whole on every rank.
+:func:`_repeat_kv`'s grouping.  MLA splits ``w_uq``, ``w_uk``, ``w_uv``
+and ``wo`` by heads and keeps its latents whole; cross attention splits
+as GQA.  Where "model" does not divide the heads, the block runs whole on
+every rank.
+
+A decode cache may split its sequence (``seq_axes``, the mesh axes of
+``launch.input_specs.decode_seq_axes``): the rank at position j of the
+group of ``seq_axes`` (n ranks) holds positions [j·S/n, (j+1)·S/n) of
+every kv head it holds, the layout the reference's
+``_cache_leaf_spec`` gives a cache whose kv heads do not divide "model"
+(its sequence over "model"; the MLA latents, which have no head axis,
+alike) and the batch of one of ``long_500k`` (its sequence over "data").
+The new token's k and v (or latents) are written by the one rank whose
+block holds its position (global positions; the causal and window masks
+take the global ``kpos``).  A rank computes the online softmax's
+partials (running max, denominator, f32 accumulator: :func:`_kv_step`)
+of the q heads it needs over its own positions and combines them over
+the group of ``seq_axes`` in shard order (:func:`_combine`): the same
+bits on every rank of the group, and the cache is never gathered.  Where
+"model" splits both the q heads and the sequence, each rank gathers the
+q of every head over "model" and computes every head's partials, then
+keeps its own heads' result.  So a rank sends, a token and a layer, B ×
+(H / M) × hd floats of q (MLA: B × (H / M) × (kv_lora + dr)) where
+"model" splits both, and B × H' × (hv + 2) floats of partials, H' the
+heads it computes (MLA: hv = kv_lora), B its batch rows.  Cross
+attention's K / V keep their sequence whole.
 """
 from __future__ import annotations
 
@@ -36,8 +58,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (ParamBag, apply_rope, block_split,
-                                       enter, leave, proj, proj_heads,
-                                       repeat_interleave)
+                                       enter, gather_model, leave, proj,
+                                       proj_heads, repeat_interleave)
 
 Tensor = torch.Tensor
 
@@ -219,16 +241,75 @@ def _blend(cache: Tensor, new: Tensor, pos: Tensor,
     ``pos: (B,)``, returning a new cache.
 
     ``blend`` — one-hot convex blend: reads and rewrites the whole cache
-    (scatter-free).  ``dus`` — writes one token slot per row.
+    (scatter-free).  ``dus`` — writes one token slot per row.  A position
+    outside ``[0, S)`` (a token of another rank's sequence block) writes
+    nothing.
     """
     if impl == "dus":
         rows = torch.arange(cache.shape[0], device=cache.device)
-        return cache.index_put((rows, pos.long()), new[:, 0].to(cache.dtype))
+        S = cache.shape[1]
+        at = pos.long().clamp(0, S - 1)
+        inside = ((pos >= 0) & (pos < S)).reshape(
+            (-1,) + (1,) * (cache.dim() - 2))
+        new = torch.where(inside, new[:, 0].to(cache.dtype), cache[rows, at])
+        return cache.index_put((rows, at), new)
     S = cache.shape[1]
     slots = torch.arange(S, device=cache.device)
     oh = (slots[None, :] == pos[:, None]).to(cache.dtype)     # (B, S)
     oh = oh.reshape(oh.shape + (1,) * (cache.dim() - 2))
     return cache * (1 - oh) + oh * new.to(cache.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode over a cache split by sequence
+# ---------------------------------------------------------------------------
+
+def _seq_block(cache: Tensor, positions: Tensor, mesh, seq_axes) -> tuple:
+    """(this rank's first position, its positions (B, S_loc)) of a cache
+    block of ``cache.shape[1]`` positions, split over ``seq_axes``."""
+    from repro_torch.distributed.partition import axes_index
+    S = cache.shape[1]
+    off = axes_index(mesh, tuple(seq_axes)) * S if seq_axes else 0
+    kpos = off + torch.arange(S, dtype=positions.dtype,
+                              device=cache.device)
+    return off, kpos[None, :].expand(cache.shape[0], S)
+
+
+def _combine(m: Tensor, l: Tensor, acc: Tensor, mesh, seq_axes) -> Tensor:
+    """``acc / l`` over the whole sequence from each rank's online-softmax
+    partials over its block (``m``, ``l``: (...), ``acc``: (..., hv), f32):
+    one gather over the group of ``seq_axes``, the blocks rescaled to the
+    group's max and added in shard order; the same bits on every rank of
+    the group.  A block no key of which is visible (its ``m`` the mask
+    value) weighs exp(NEG_INF − max) = 0."""
+    from repro_torch.distributed.matvec import _all_gather
+    rows = _all_gather(torch.cat([m[..., None], l[..., None], acc], -1),
+                       mesh, tuple(seq_axes))
+    top = rows[..., 0].amax(0)
+    num = den = None
+    for r in rows.unbind(0):
+        w = torch.exp(r[..., 0] - top)
+        den = w * r[..., 1] if den is None else den + w * r[..., 1]
+        part = w[..., None] * r[..., 2:]
+        num = part if num is None else num + part
+    return num / den.clamp(min=1e-30)[..., None]
+
+
+def _attend_seq_split(q: Tensor, k: Tensor, v: Tensor, qpos: Tensor,
+                      kpos: Tensor, window: int, scale: float,
+                      cap: Optional[float], mesh, seq_axes) -> Tensor:
+    """Causal attention of ``q`` (B, Sq, H, hd) over the whole sequence
+    of which ``k`` / ``v`` (B, S_loc, H, ·) are this rank's block at
+    global positions ``kpos``: the block's partials (:func:`_kv_step`),
+    combined over ``seq_axes``."""
+    B, Sq, H, _ = q.shape
+    m = torch.full((B, Sq, H), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Sq, H), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, H, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    m, l, acc = _kv_step(m, l, acc, q, k, v, qpos, kpos, window, scale, cap,
+                         True)
+    return _combine(m, l, acc, mesh, seq_axes).to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -270,7 +351,7 @@ def _take_kv(x: Tensor, h: int, idx) -> Tensor:
 def gqa_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
                   window: int = GLOBAL_WINDOW, cache: Optional[dict] = None,
                   collect_kv: bool = False, causal: bool = True,
-                  mesh=None) -> tuple[Tensor, Optional[dict]]:
+                  mesh=None, seq_axes=()) -> tuple[Tensor, Optional[dict]]:
     """GQA self-attention.
 
     Train: ``x: (B,S,D)``, ``positions: (B,S)``, ``cache=None``.
@@ -279,7 +360,8 @@ def gqa_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
     Decode: ``x: (B,1,D)``, ``positions: (B,1)`` = current index,
     ``cache = {"k": (B,Smax,Kv,hd), "v": ...}``; returns the new cache.
     On a mesh that splits the heads the weights, the cache and the logits
-    are this rank's (module docstring).
+    are this rank's; a decode cache may split its sequence over
+    ``seq_axes`` (module docstring).
     """
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     scale = hd ** -0.5
@@ -325,14 +407,26 @@ def gqa_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
         new_cache = {"k": k, "v": v} if collect_kv else None
     else:
         pos = positions[:, 0]                                 # (B,)
-        ck = _blend(cache["k"], k, pos, cfg.cache_update)
-        cv = _blend(cache["v"], v, pos, cfg.cache_update)
-        S = ck.shape[1]
-        kpos = torch.arange(S, dtype=positions.dtype,
-                            device=x.device)[None, :].expand(x.shape[0], S)
-        ctx = attend(q, read(ck), read(cv), positions,
-                     kpos, window=window, scale=scale,
-                     cap=cfg.attn_logit_softcap, impl="full")
+        off, kpos = _seq_block(cache["k"], positions, mesh, seq_axes)
+        ck = _blend(cache["k"], k, pos - off, cfg.cache_update)
+        cv = _blend(cache["v"], v, pos - off, cfg.cache_update)
+        if not seq_axes:
+            ctx = attend(q, read(ck), read(cv), positions,
+                         kpos, window=window, scale=scale,
+                         cap=cfg.attn_logit_softcap, impl="full")
+        elif split is not None and "model" in seq_axes:
+            # every head's partials over this rank's positions (the cache
+            # holds every kv head), then this rank's heads
+            H = cfg.num_heads
+            qa = gather_model(q, mesh, dim=2)
+            ctx = _attend_seq_split(qa, _repeat_kv(ck, H), _repeat_kv(cv, H),
+                                    positions, kpos, window, scale,
+                                    cfg.attn_logit_softcap, mesh, seq_axes)
+            ctx = ctx[:, :, split[1] * h:(split[1] + 1) * h]
+        else:
+            ctx = _attend_seq_split(q, read(ck), read(cv), positions, kpos,
+                                    window, scale, cfg.attn_logit_softcap,
+                                    mesh, seq_axes)
         new_cache = {"k": ck, "v": cv}
     return _out(proj_heads(ctx, p["wo"]), mesh, split), new_cache
 
@@ -350,7 +444,7 @@ def _rmsn(x: Tensor, w: Tensor, eps: float = 1e-6) -> Tensor:
 def mla_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
                   window: int = GLOBAL_WINDOW, cache: Optional[dict] = None,
                   collect_kv: bool = False, causal: bool = True,
-                  mesh=None) -> tuple[Tensor, Optional[dict]]:
+                  mesh=None, seq_axes=()) -> tuple[Tensor, Optional[dict]]:
     """Multi-head latent attention.
 
     The cache stores only the latents: ``{"ckv": (B,Smax,kv_lora),
@@ -392,19 +486,34 @@ def mla_attention(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
 
     # --- absorbed decode ---
     pos = positions[:, 0]
-    c_ckv = _blend(cache["ckv"], ckv, pos, cfg.cache_update)   # (B,S,r)
-    c_kr = _blend(cache["krope"], krope, pos, cfg.cache_update)  # (B,S,dr)
-    S = c_ckv.shape[1]
+    off, kpos = _seq_block(cache["ckv"], positions, mesh, seq_axes)
+    c_ckv = _blend(cache["ckv"], ckv, pos - off, cfg.cache_update)  # (B,S,r)
+    c_kr = _blend(cache["krope"], krope, pos - off,
+                  cfg.cache_update)                              # (B,S,dr)
     # fold q through W_uk: (B,1,H,dn) x (r,H,dn) -> (B,1,H,r)
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+    every = bool(seq_axes) and split is not None and "model" in seq_axes
+    if every:
+        # every head's partials over this rank's positions
+        q_lat = gather_model(q_lat, mesh, dim=2)
+        q_rope = gather_model(q_rope, mesh, dim=2)
     logits = (torch.einsum("bshr,btr->bhst", q_lat.float(), c_ckv.float())
               + torch.einsum("bshk,btk->bhst", q_rope.float(),
                              c_kr.float())) * scale
-    kpos = torch.arange(S, dtype=positions.dtype, device=x.device)[None, :]
     mask = kpos[:, None, :] <= pos[:, None, None]
     logits = torch.where(mask[:, None, :, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(c_ckv.dtype)
-    ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_ckv)   # (B,1,H,r)
+    if not seq_axes:
+        probs = torch.softmax(logits, dim=-1).to(c_ckv.dtype)
+        ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_ckv)  # (B,1,H,r)
+    else:
+        m = logits.amax(-1)                                     # (B,H,1)
+        pr = torch.exp(logits - m[..., None])
+        acc = torch.einsum("bhst,btr->bshr", pr, c_ckv.float())
+        ctx_lat = _combine(m.transpose(1, 2), pr.sum(-1).transpose(1, 2),
+                           acc, mesh, seq_axes).to(c_ckv.dtype)
+        if every:
+            h = p["w_uv"].shape[1]
+            ctx_lat = ctx_lat[:, :, split[1] * h:(split[1] + 1) * h]
     ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, p["w_uv"])  # (B,1,H,dv)
     return (_out(proj_heads(ctx, p["wo"]), mesh, split),
             {"ckv": c_ckv, "krope": c_kr})

@@ -16,8 +16,10 @@ its block (tensor parallelism, ``layers.enter`` / ``leave``: attention by
 heads, the MLP by columns and rows, the embedding lookup, the LM head and
 its cross entropy by vocabulary rows), and the MoE blocks run
 expert-parallel (``repro_torch.models.moe``); ``model`` then holds this
-rank's "model" blocks of those leaves.  A leaf the divisibility guard
-leaves whole runs whole on every rank, as do the Mamba2 layers.
+rank's "model" blocks of those leaves; the Mamba2 layers compute their
+heads' block where "model" divides the heads (``ssm_inner``,
+``repro_torch.models.ssm``).  A leaf the divisibility guard leaves whole
+runs whole on every rank.
 
 Families: dense / moe / vlm share the decoder-LM skeleton; audio is an
 encoder-decoder (whisper); ssm is a Mamba2 stack; hybrid is Zamba2 (Mamba2
@@ -393,14 +395,15 @@ def _init_decoder_lm(cfg: ModelConfig, gen) -> tuple[dict, dict]:
 
 
 def _decoder_block(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
-                   mesh, window: int, cache, kind: str, collect_kv: bool
-                   ) -> tuple[Tensor, Optional[dict], Tensor]:
+                   mesh, window: int, cache, kind: str, collect_kv: bool,
+                   seq_axes=()) -> tuple[Tensor, Optional[dict], Tensor]:
     attn_fn = (attn_mod.mla_attention if cfg.mla is not None
                else attn_mod.gqa_attention)
     x = _pin_batch(x, cfg, mesh)
     h = apply_norm(p["attn_norm"], x, cfg.norm)
     a, new_cache = attn_fn(p["attn"], h, positions, cfg, window=window,
-                           cache=cache, collect_kv=collect_kv, mesh=mesh)
+                           cache=cache, collect_kv=collect_kv, mesh=mesh,
+                           seq_axes=seq_axes)
     if cfg.post_norm:
         a = apply_norm(p["post_attn_norm"], a, cfg.norm)
     x = x + a
@@ -420,7 +423,7 @@ def _decoder_block(p: dict, x: Tensor, positions: Tensor, cfg: ModelConfig,
 
 def _decoder_backbone(params: dict, x: Tensor, positions: Tensor,
                       cfg: ModelConfig, mesh, caches: Optional[dict],
-                      collect_kv: bool
+                      collect_kv: bool, seq_axes=()
                       ) -> tuple[Tensor, Optional[dict], Tensor]:
     """Runs the prefix layers, then the homogeneous tail."""
     kinds = _layer_kinds(cfg)
@@ -433,7 +436,7 @@ def _decoder_backbone(params: dict, x: Tensor, positions: Tensor,
         cache_i = caches[f"layer{i}"] if caches is not None else None
         x, nc, aux = _decoder_block(params[f"layer{i}"], x, positions, cfg,
                                     mesh, windows[i], cache_i, "dense",
-                                    collect_kv)
+                                    collect_kv, seq_axes)
         aux_total = aux_total + aux
         if nc is not None:
             new_prefix_caches[f"layer{i}"] = nc
@@ -442,7 +445,7 @@ def _decoder_backbone(params: dict, x: Tensor, positions: Tensor,
 
     def body(x, p, w, cache):
         return _decoder_block(p, x, positions, cfg, mesh, w, cache,
-                              tail_kind, collect_kv)
+                              tail_kind, collect_kv, seq_axes)
 
     tail_caches = caches["layers"] if caches is not None else None
     x, new_tail, aux = _run_layers(body, x, params["layers"],
@@ -534,7 +537,8 @@ def _whisper_encode(params: dict, frames: Tensor, cfg: ModelConfig,
 def _whisper_decode_stack(params: dict, x: Tensor, positions: Tensor,
                           cfg: ModelConfig, enc_out: Optional[Tensor],
                           caches: Optional[dict], collect_kv: bool,
-                          mesh=None) -> tuple[Tensor, Optional[dict]]:
+                          mesh=None, seq_axes=()
+                          ) -> tuple[Tensor, Optional[dict]]:
     """Decoder layers.  Cross-attention K/V come from ``enc_out`` during
     train/prefill (computed per layer) and from the cache during decode.
 
@@ -548,7 +552,7 @@ def _whisper_decode_stack(params: dict, x: Tensor, positions: Tensor,
         a, new_self = attn_mod.gqa_attention(p["attn"], h, positions, cfg,
                                              window=w, cache=self_cache,
                                              collect_kv=collect_kv,
-                                             mesh=mesh)
+                                             mesh=mesh, seq_axes=seq_axes)
         x = x + a
         h = apply_norm(p["xattn_norm"], x, cfg.norm)
         if cache is not None:
@@ -602,11 +606,11 @@ def _init_mamba(cfg: ModelConfig, gen) -> tuple[dict, dict]:
 
 
 def _ssm_stack(layers: list, x: Tensor, cfg: ModelConfig, caches,
-               collect_kv: bool, policy: str):
+               collect_kv: bool, policy: str, mesh=None):
     def body(x, p, w, cache):
         h = apply_norm(p["norm"], x, cfg.norm)
         y, nc = ssm_mod.ssm_block(p["ssm"], h, cfg, cache,
-                                  collect_state=collect_kv)
+                                  collect_state=collect_kv, mesh=mesh)
         return x + y, nc, x.new_zeros((), dtype=torch.float32)
 
     windows = (0,) * len(layers)                  # unused by ssm
@@ -636,12 +640,12 @@ def n_attn_sites(cfg: ModelConfig) -> int:
 
 
 def _shared_attn_block(shared: dict, x: Tensor, positions: Tensor,
-                       cfg: ModelConfig, cache, collect_kv: bool, mesh=None
-                       ) -> tuple[Tensor, Optional[dict]]:
+                       cfg: ModelConfig, cache, collect_kv: bool, mesh=None,
+                       seq_axes=()) -> tuple[Tensor, Optional[dict]]:
     h = apply_norm(shared["attn_norm"], x, cfg.norm)
     a, new_cache = attn_mod.gqa_attention(shared["attn"], h, positions, cfg,
                                           cache=cache, collect_kv=collect_kv,
-                                          mesh=mesh)
+                                          mesh=mesh, seq_axes=seq_axes)
     x = x + a
     h = apply_norm(shared["mlp_norm"], x, cfg.norm)
     return (x + mlp(shared["mlp"], h, cfg.mlp_act, mesh,
@@ -650,7 +654,7 @@ def _shared_attn_block(shared: dict, x: Tensor, positions: Tensor,
 
 def _zamba_backbone(params: dict, x: Tensor, positions: Tensor,
                     cfg: ModelConfig, caches: Optional[dict],
-                    collect_kv: bool, mesh=None
+                    collect_kv: bool, mesh=None, seq_axes=()
                     ) -> tuple[Tensor, Optional[dict]]:
     """Groups of ``attn_every`` ssm layers, each followed by the shared
     attention block, ``n_sites`` times; trailing ssm layers close the
@@ -668,16 +672,16 @@ def _zamba_backbone(params: dict, x: Tensor, positions: Tensor,
                  if caches is not None else None)
         g_attn = _index(caches["attn"], g) if caches is not None else None
         x, nc = _ssm_stack(layers[lo:hi], x, cfg, g_ssm, collect_kv,
-                           cfg.remat_policy)
+                           cfg.remat_policy, mesh)
         new_ssm.append(nc)
         x, na = _shared_attn_block(params["shared"], x, positions, cfg,
-                                   g_attn, collect_kv, mesh)
+                                   g_attn, collect_kv, mesh, seq_axes)
         new_attn.append(na)
     if body_n < L:
         tail = (_map(lambda a: a[body_n:], caches["ssm"])
                 if caches is not None else None)
         x, nc = _ssm_stack(layers[body_n:], x, cfg, tail, collect_kv,
-                           cfg.remat_policy)
+                           cfg.remat_policy, mesh)
         new_ssm.append(nc)
     if caches is None and not collect_kv:
         return x, None
@@ -745,7 +749,7 @@ def _backbone_hidden(params: dict, batch: dict, cfg: ModelConfig, mesh,
         labels = batch.get("labels")
         ssm_caches = caches["ssm"] if caches is not None else None
         x, new_ssm = _ssm_stack(params["layers"], x, cfg, ssm_caches,
-                                collect_kv, cfg.remat_policy)
+                                collect_kv, cfg.remat_policy, mesh)
         new_caches = {"ssm": new_ssm} if new_ssm is not None else None
     elif cfg.family == "hybrid":
         x = _embed(params, batch["tokens"], cfg, mesh)
@@ -787,25 +791,30 @@ def prefill_step(model, batch: dict, cfg: ModelConfig, mesh=None
 
 
 def decode_step(model, cache: dict, batch: dict, cfg: ModelConfig,
-                mesh=None) -> tuple[Tensor, dict]:
-    """One-token decode.  batch = {"tokens": (B,1), "positions": (B,1)}."""
+                mesh=None, seq_axes=()) -> tuple[Tensor, dict]:
+    """One-token decode.  batch = {"tokens": (B,1), "positions": (B,1)}.
+    On a mesh the self-attention caches may split their sequence over
+    ``seq_axes`` (``launch.input_specs.decode_seq_axes``; see
+    ``models.attention``)."""
     params = model.tree()
     tokens, positions = batch["tokens"], batch["positions"]
     x = _embed(params, tokens, cfg, mesh)
     if cfg.family in ("dense", "moe", "vlm"):
         x, new_caches, _ = _decoder_backbone(params, x, positions, cfg,
-                                             mesh, cache, collect_kv=False)
+                                             mesh, cache, collect_kv=False,
+                                             seq_axes=seq_axes)
     elif cfg.family == "audio":
         x, new_caches = _whisper_decode_stack(params, x, positions, cfg,
                                               None, cache, collect_kv=False,
-                                              mesh=mesh)
+                                              mesh=mesh, seq_axes=seq_axes)
     elif cfg.family == "ssm":
         x, new_ssm = _ssm_stack(params["layers"], x, cfg, cache["ssm"],
-                                False, cfg.remat_policy)
+                                False, cfg.remat_policy, mesh)
         new_caches = {"ssm": new_ssm}
     elif cfg.family == "hybrid":
         x, new_caches = _zamba_backbone(params, x, positions, cfg, cache,
-                                        collect_kv=False, mesh=mesh)
+                                        collect_kv=False, mesh=mesh,
+                                        seq_axes=seq_axes)
     else:
         raise ValueError(cfg.family)
     x = apply_norm(params["final_norm"], x, cfg.norm)

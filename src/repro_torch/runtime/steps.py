@@ -15,8 +15,9 @@ of every parameter and of its AdamW moments under
 
   1. gathers the blocks over the FSDP axis ("data"), one collective a
      group: a leaf the layers compute by its "model" block
-     (``partition.model_region``: the heads, the MLP's width and the
-     vocabulary of tensor parallelism, the experts of the MoE) keeps its
+     (``partition.model_region``: the heads, the MLP's width, the
+     vocabulary and the Mamba2 heads of tensor parallelism, the experts
+     of the MoE) keeps its
      "model" block with every other dimension whole, every other leaf
      comes whole;
   2. runs the loss on the rank's shard of the global batch
@@ -25,18 +26,22 @@ of every parameter and of its AdamW moments under
   3. weights each shard's cross entropy by its share of the global batch's
      valid tokens, so the loss is the exact global token mean that the
      reference's global-batch loss is;
-  4. exchanges the gradients with one collective (an
-     ``all_to_all_single``): each rank receives, from each rank whose
-     gradient adds up to a leaf's, only its own block of that leaf, and
-     adds the blocks over the batch axes in shard order.  A leaf the
-     "model" group computes alike comes from the ranks at "model"
-     position 0 (no sum over "model"), a leaf computed by "model" blocks
-     from the ranks that hold that block.  A leaf whole on "model" that a
-     rank reads only part of inside a block (kv weights whose heads do
-     not divide "model") has its gradient summed over "model" by
-     ``layers.enter`` in the backward pass, so it too is alike on every
-     rank of the group.  So a rank's summed block has the bits of the
-     same block of the whole summed gradient;
+  4. exchanges the gradients: every rank of a "model" group holds the
+     same gradient of a leaf the group computes alike (a leaf whole on
+     "model"; one that a rank reads only part of inside a block, kv
+     weights whose heads do not divide "model" or the Mamba2 leaves the
+     rules keep whole, has its gradient summed over "model" by
+     ``layers.enter`` in the backward pass), and its own of a leaf
+     computed by "model" blocks.  One ``all_to_all_single``, whose rows
+     pass only between the ranks of a batch group (one "model"
+     position), brings each rank, from each rank of its group, a piece
+     of each block it owns: the block where it owns it alone, else 1/r
+     of it where r ranks own it alike (over "model" for a leaf whole on
+     "model", over "pod" for every leaf on two pods, ...).  It adds them
+     in shard order over the batch axes, and one ``all_gather`` over
+     each such group of axes puts the blocks back together.  So a
+     rank's summed block has the bits of the same block of the whole
+     summed gradient;
   5. computes the global gradient norm from each rank's sum of squares of
      the blocks it owns, each element counted once (a block several ranks
      hold is counted by the one at position 0 on the axes its spec does
@@ -50,13 +55,10 @@ Memory.  Step 1 leaves every rank the parameters it computes with: its
 "model" blocks of the split leaves and the rest whole (the FSDP blocks
 save memory between steps, not during one), with its gradient beside
 them at the end of the backward pass.  Step 4 then holds the gradient
-and the packed blocks it sends, then what it sends and what it receives.
-A rank at "model" position 0 sends every rank its block of each leaf the
-"model" group computes alike (a leaf whole on "model": norms, whole kv
-weights, MLA latents, the router, Mamba2 layers); a rank receives its
-blocks from the ranks of its batch axes, about a gradient over the
-"model" size.  The step is built only where the
-largest of those three moments fits the device
+and the rows it sends, then what it sends and what it receives, then
+what it receives and the blocks the gather rebuilds: a row a rank of its
+batch group, about a gradient over the "model" size.  The step is built
+only where the largest of those four moments fits the device
 (:func:`_check_exchange_fits`).
 
 :func:`build_compressed_train_step` is the multi-pod step with Krylov
@@ -65,15 +67,16 @@ gradient compression over "pod" (``distributed.compression``).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import os
-from typing import Any, NamedTuple
+from typing import Any, Mapping, NamedTuple
 
 import torch
 
 from repro_torch.configs.base import FsvdConfig, ModelConfig, OptimConfig
 from repro_torch.distributed import partition as P
-from repro_torch.distributed.matvec import _all_to_all
+from repro_torch.distributed.matvec import _all_gather, _all_to_all
 from repro_torch.models import model as model_mod
 from repro_torch.optim import OptState, make_optimizer
 
@@ -157,7 +160,8 @@ def param_layout(cfg: ModelConfig, mesh) -> dict:
         axes = tuple(node[1:] if stacked else node)
         spec = P.logical_to_spec(axes, p.shape, mesh)
         out[name] = Leaf(spec, tuple(p.shape), p.dtype,
-                         bool(P.model_region(axes, spec)),
+                         bool(P.model_region(axes, spec,
+                                             name.rsplit(".", 1)[-1])),
                          bool(axes) and axes[0] == "experts")
     return out
 
@@ -264,17 +268,29 @@ def gather_state(state: ShardedState) -> TrainState:
 
 def shard_batch(batch: dict, mesh) -> dict:
     """This rank's shard of a global batch (the same on every rank): the
-    batch dimension over ("pod", "data"), which must divide it."""
-    out = {}
+    batch dimension over ("pod", "data") where they divide it, else the
+    whole batch on every rank (replicated, as the reference's
+    ``batch_shardings`` places a batch of one)."""
+    return {k: v[P.block_slices(P.spec_for_batch(mesh, v.shape[0], v.dim()),
+                                v.shape, mesh)]
+            for k, v in batch.items()}
+
+
+def _check_batch_splits(batch: dict, mesh) -> None:
+    """Refuse a batch that does not split over the batch axes: a train
+    step on a replicated batch would add each sequence's gradient once a
+    batch rank in the exchange."""
+    axes = P.batch_axes(mesh)
+    sizes = P.mesh_sizes(mesh)
+    if math.prod(sizes[a] for a in axes) == 1:
+        return
     for k, v in batch.items():
-        spec = P.spec_for_batch(mesh, v.shape[0], v.dim())
-        axes = P.batch_axes(mesh)
-        if math.prod(P.mesh_sizes(mesh)[a] for a in axes) > 1 and not spec:
+        if not P.spec_for_batch(mesh, v.shape[0], v.dim()):
             raise ValueError(
                 f"batch {k!r} of {v.shape[0]} rows does not split over the "
-                f"batch axes {axes} of a {P.mesh_sizes(mesh)} mesh")
-        out[k] = v[P.block_slices(spec, v.shape, mesh)]
-    return out
+                f"batch axes {axes} of a {sizes} mesh: a train step on it "
+                f"replicated would add each sequence's gradient once a "
+                f"batch rank")
 
 
 def _contributors(mesh, model_pos: int) -> list:
@@ -309,78 +325,41 @@ def _numel(slices) -> int:
     return math.prod(sl.stop - sl.start for sl in slices)
 
 
-def exchange_bytes(layout: dict, mesh) -> dict:
-    """The bytes of a rank's side of the step: ``params`` (what it
-    gathers: each leaf whole, or its "model" block), ``grad`` (what it
-    computes,
-    the same), ``sent`` (the most any rank sends: a rank at "model"
-    position 0) and ``received`` (every rank's); no process group is
-    needed (``mesh`` may be a ``{name: size}`` mapping)."""
-    sizes = P.mesh_sizes(mesh)
-    region = _regions(layout, mesh)
-    origin = {a: 0 for a in sizes}
-    world = math.prod(sizes.values())
-    n_model = sizes.get("model", 1)
-    group = world // n_model                 # the ranks of one "model" slot
-    grad = sent = received = 0
-    for k, lf in layout.items():
-        item = lf.dtype.itemsize
-        block = _numel(P.block_slices(lf.spec, lf.shape, mesh, origin))
-        grad += _numel(P.block_slices(region[k], lf.shape, mesh, origin)) \
-            * item
-        sent += (group if lf.model_block else world) * block * item
-        received += group * block * item
-    return dict(params=grad, grad=grad, sent=sent, received=received)
-
-
-def _check_exchange_fits(layout: dict, mesh, device_bytes=None) -> None:
-    """Refuse a mesh on which a step's peak cannot fit: the largest of
-    the parameters whole with the gradient (the end of the backward
-    pass), the gradient with the packed blocks it sends, and those with
-    the blocks it receives (:func:`exchange_bytes`).  That is a lower
-    bound of the step's peak."""
-    b = exchange_bytes(layout, mesh)
-    moments = {"the parameters whole and the gradient":
-               b["params"] + b["grad"],
-               "the gradient and the blocks it sends":
-               b["grad"] + b["sent"],
-               "the blocks it sends and receives":
-               b["sent"] + b["received"]}
-    what, need = max(moments.items(), key=lambda kv: kv[1])
-    have = _device_bytes(mesh) if device_bytes is None else device_bytes
-    if need > have:
-        raise ValueError(
-            f"the sharded train step needs {what}, {need / 1e9:.1f} GB a "
-            f"rank (parameters {b['params'] / 1e9:.3f} GB, gradient "
-            f"{b['grad'] / 1e9:.3f}, sent {b['sent'] / 1e9:.3f}, received "
-            f"{b['received'] / 1e9:.3f}), more than the device's "
-            f"{have / 1e9:.1f} GB; use a smaller model or a mesh that "
-            f"splits it further")
+def _slice_len(n: int, r: int, itemsize: int) -> int:
+    """Elements a slice of a block of ``n`` elements cut into ``r``:
+    ``ceil(n / r)``, rounded up to a whole number of
+    ``partition.ALIGN`` bytes (the last slices may be short or empty)."""
+    per = max(P.ALIGN // itemsize, 1)
+    return -(-n // (r * per)) * per
 
 
 class _Exchange(NamedTuple):
     """One rank's side of step 4, fixed by the layout and the mesh.
 
     The ranks are (b, m): b the position over the batch axes, m over
-    "model" (the mesh's last axis, or absent: m = 0).  Rank (b, 0) sends
-    every rank (b', m') its block of each leaf the "model" group computes
-    alike ("dense"); rank (b, m) sends every rank (b', m) its block of
-    each leaf computed by "model" blocks ("blocked").  So what a rank
-    sends is, for each b', one row: the dense blocks for (b', 0) and the
-    blocked ones for (b', m), then the dense blocks for (b', 1) ..
-    (b', M - 1); and what it receives one row from each b': the dense
-    blocks from (b', 0), then the blocked ones from (b', m).  A rank's
-    dense blocks take ``dense_row`` bytes, its blocked ones
-    ``blocked_row``; each block starts on a ``partition.ALIGN``-byte
-    boundary."""
-    dense: list         # (name, byte offset) of the dense leaves
-    blocked: list       # (name, byte offset) of the blocked leaves
-    dense_row: int      # bytes of one rank's dense blocks
-    blocked_row: int    # bytes of one rank's blocked blocks
+    "model" (the mesh's last axis, or absent: m = 0).  Every rank of a
+    "model" group holds the same gradient of each leaf the group computes
+    alike and its own of each leaf computed by "model" blocks, so rank
+    (b, m) sends only to the ranks (b', m): one row each, with a piece of
+    every leaf's block that (b', m) owns.  The ranks that own the same
+    block (over the mesh axes its spec does not name: "model" for a leaf
+    whole on "model", "pod" for every leaf on two pods, "data" for a leaf
+    with no "embed" dimension, the MLA up-projections' blocks) take one
+    slice of it each (:func:`_slice_len` elements of it flat, the slice
+    of the rank's position over those axes); a block one rank owns is
+    its piece whole.  Each piece starts on a ``partition.ALIGN``-byte
+    boundary, the sliced ones first, grouped by their axes.  A rank adds
+    the rows it receives in shard order over b, then gathers each
+    group's summed slices over its axes (one ``all_gather`` a group) and
+    puts the blocks back together: every element is the same sum in the
+    same order as the whole block's."""
+    groups: list        # (axes, first byte, end byte, [(name, off, n)])
+    plain: list         # (name, byte offset): a block owned by one rank
+    row: int            # bytes of a row
+    slices: dict        # name -> the slice each rank (b', m) takes, by b'
     send_counts: list   # words to each rank
     recv_counts: list   # words from each rank
     batch: tuple        # the sizes of the batch axes
-    n_model: int
     pos: int            # this rank's "model" position
     counted: tuple      # the names whose block this rank counts in the norm
     blocks: dict        # name -> this rank's block shape
@@ -392,32 +371,98 @@ def _exchange_plan(layout: dict, mesh) -> _Exchange:
     if "model" in sizes and names[-1] != "model":
         raise NotImplementedError(f"the sharded step takes meshes whose "
                                   f"last axis is 'model'; got {names}")
-    P._require_row_major(mesh)
-    me = P.my_coord(mesh)
-    n_model, pos = sizes.get("model", 1), me.get("model", 0)
-    batch = tuple(n for a, n in sizes.items() if a != "model")
-    dense, blocked, blocks, counted = [], [], {}, []
-    row = {False: 0, True: 0}
+    if isinstance(mesh, Mapping):
+        me = {a: 0 for a in sizes}
+    else:
+        P._require_row_major(mesh)
+        me = P.my_coord(mesh)
+    pos = me.get("model", 0)
+    baxes = [a for a in names if a != "model"]
+    batch = tuple(sizes[a] for a in baxes)
+    dests = [dict(zip(baxes, c), model=pos)
+             for c in itertools.product(*(range(n) for n in batch))]
+    blocks, counted, by_axes, plain, slices = {}, [], {}, [], {}
     for k, lf in layout.items():
-        shape = tuple(sl.stop - sl.start for sl in
-                      P.block_slices(lf.spec, lf.shape, mesh, me))
-        blocks[k] = shape
-        (blocked if lf.model_block else dense).append(
-            (k, row[lf.model_block]))
-        row[lf.model_block] += P._padded(math.prod(shape)
-                                         * lf.dtype.itemsize)
+        blocks[k] = tuple(sl.stop - sl.start for sl in
+                          P.block_slices(lf.spec, lf.shape, mesh, me))
         named = P.spec_axes(lf.spec)
         if all(me[a] == 0 for a in sizes if a not in named):
             counted.append(k)
-    wd, we = row[False], row[True]
-    send, recv = [], []
-    for c in P.rank_coords(mesh):
-        m = c.get("model", 0)
-        send.append((wd if pos == 0 else 0) + (we if m == pos else 0))
-        recv.append((wd if m == 0 else 0) + (we if m == pos else 0))
-    return _Exchange(dense, blocked, wd, we, [n // 4 for n in send],
-                     [n // 4 for n in recv], batch, n_model, pos,
+        axes = tuple(a for a in names if a not in named and sizes[a] > 1)
+        if axes:
+            by_axes.setdefault(axes, []).append(k)
+            slices[k] = [P.axes_index(mesh, axes, d) for d in dests]
+        else:
+            plain.append(k)
+    off, groups = 0, []
+    for axes, ks in by_axes.items():
+        r = math.prod(sizes[a] for a in axes)
+        first, items = off, []
+        for k in ks:
+            item = layout[k].dtype.itemsize
+            n = _slice_len(math.prod(blocks[k]), r, item)
+            items.append((k, off, n))
+            off += P._padded(n * item)
+        groups.append((axes, first, off, items))
+    placed = []
+    for k in plain:
+        placed.append((k, off))
+        off += P._padded(math.prod(blocks[k]) * layout[k].dtype.itemsize)
+    words = [off // 4 if c.get("model", 0) == pos else 0
+             for c in (P.rank_coords(mesh) if not isinstance(mesh, Mapping)
+                       else [])]
+    return _Exchange(groups, placed, off, slices, words, words, batch, pos,
                      tuple(counted), blocks)
+
+
+def exchange_bytes(layout: dict, mesh) -> dict:
+    """The bytes of a rank's side of the step: ``params`` (what it
+    gathers: each leaf whole, or its "model" block), ``grad`` (what it
+    computes, the same), ``sent`` and ``received`` (the all-to-all's: a
+    row to and from each rank of its batch group) and ``gathered`` (the
+    summed slices of every group that owns a block alike); every rank
+    the same.  No process group is needed (``mesh`` may be a ``{name:
+    size}`` mapping)."""
+    sizes = P.mesh_sizes(mesh)
+    region = _regions(layout, mesh)
+    origin = {a: 0 for a in sizes}
+    plan = _exchange_plan(layout, dict(sizes))
+    group = math.prod(plan.batch)
+    grad = sum(_numel(P.block_slices(region[k], lf.shape, mesh, origin))
+               * lf.dtype.itemsize for k, lf in layout.items())
+    gathered = sum(math.prod(sizes[a] for a in axes) * (end - first)
+                   for axes, first, end, _ in plan.groups)
+    return dict(params=grad, grad=grad, sent=group * plan.row,
+                received=group * plan.row, gathered=gathered)
+
+
+def _check_exchange_fits(layout: dict, mesh, device_bytes=None) -> None:
+    """Refuse a mesh on which a step's peak cannot fit: the largest of
+    the parameters whole with the gradient (the end of the backward
+    pass), the gradient with the rows it sends, those with the rows it
+    receives, and the summed slices with the blocks their gather
+    rebuilds (:func:`exchange_bytes`).  That is a lower bound of the
+    step's peak."""
+    b = exchange_bytes(layout, mesh)
+    moments = {"the parameters whole and the gradient":
+               b["params"] + b["grad"],
+               "the gradient and the rows it sends":
+               b["grad"] + b["sent"],
+               "the rows it sends and receives":
+               b["sent"] + b["received"],
+               "the rows it receives and the slices it gathers":
+               b["received"] + b["gathered"]}
+    what, need = max(moments.items(), key=lambda kv: kv[1])
+    have = _device_bytes(mesh) if device_bytes is None else device_bytes
+    if need > have:
+        raise ValueError(
+            f"the sharded train step needs {what}, {need / 1e9:.1f} GB a "
+            f"rank (parameters {b['params'] / 1e9:.3f} GB, gradient "
+            f"{b['grad'] / 1e9:.3f}, sent {b['sent'] / 1e9:.3f}, received "
+            f"{b['received'] / 1e9:.3f}, gathered "
+            f"{b['gathered'] / 1e9:.3f}), more than the device's "
+            f"{have / 1e9:.1f} GB; use a smaller model or a mesh that "
+            f"splits it further")
 
 
 def _slot(buf: Tensor, off: int, shape: tuple, dtype) -> Tensor:
@@ -430,43 +475,62 @@ def _slot(buf: Tensor, off: int, shape: tuple, dtype) -> Tensor:
 def _exchange(grads: dict, plan: _Exchange, layout: dict, mesh,
               device) -> dict:
     """Step 4: this rank's block of every summed gradient (one
-    ``all_to_all_single``; :class:`_Exchange`).  ``grads`` is emptied
-    once its blocks are packed, so the gradient is freed before the
-    blocks arrive."""
-    wd, we, M, pos = plan.dense_row, plan.blocked_row, plan.n_model, \
-        plan.pos
-    B = plan.batch
-    head = (wd if pos == 0 else 0) + we       # the row to (b', pos)
-    rest = wd * (M - 1) if pos == 0 else 0    # the rows to (b', m != pos)
-    flat = torch.empty(sum(plan.send_counts), dtype=torch.float32,
+    ``all_to_all_single``, then one ``all_gather`` for each group of
+    ranks that own blocks alike; :class:`_Exchange`).  ``grads`` is
+    emptied once its pieces are packed, so the gradient is freed before
+    the rows arrive."""
+    B, pos = plan.batch, plan.pos
+    nb = len(B)
+    has_model = "model" in P.mesh_sizes(mesh)
+    flat = torch.zeros(math.prod(B) * plan.row // 4, dtype=torch.float32,
                        device=device)
-    out = flat.view(torch.uint8).view(B + (head + rest,))
-    first, others = out[..., :head], out[..., head:]
-    if rest:
-        others = others.reshape(B + (M - 1, wd))
-    no_model = "model" not in P.mesh_sizes(mesh)
-    for k, off in plan.dense if pos == 0 else ():
-        grid = P.block_grid(grads[k], layout[k].spec, mesh)
-        if no_model:
-            grid = grid.unsqueeze(len(B))
-        shape, dt = plan.blocks[k], layout[k].dtype
-        _slot(first, off, shape, dt).copy_(grid.select(len(B), 0))
-        if rest:
-            _slot(others, off, shape, dt).copy_(grid.narrow(len(B), 1,
-                                                            M - 1))
-    for k, off in plan.blocked:
-        grid = P.block_grid(grads[k], layout[k].spec, mesh, ("model",))
-        _slot(first, off + (wd if pos == 0 else 0), plan.blocks[k],
-              layout[k].dtype).copy_(grid)
+    out = flat.view(torch.uint8).view(B + (plan.row,))
+
+    def grid(k):
+        # every rank (b', m)'s block, by b'
+        lf = layout[k]
+        if lf.model_block:
+            return P.block_grid(grads[k], lf.spec, mesh, ("model",))
+        g = P.block_grid(grads[k], lf.spec, mesh)
+        return g.select(nb, pos) if has_model else g
+
+    for axes, _, _, items in plan.groups:
+        for k, off, n in items:
+            g = grid(k)
+            g = g.reshape(*g.shape[:nb], -1)
+            r = math.prod(P.mesh_sizes(mesh)[a] for a in axes)
+            if g.shape[-1] < r * n:
+                g = torch.nn.functional.pad(g, (0, r * n - g.shape[-1]))
+            idx = torch.tensor(plan.slices[k], device=device).view(
+                B + (1, 1)).expand(B + (1, n))
+            piece = torch.take_along_dim(g.unflatten(-1, (r, n)), idx,
+                                         dim=nb).squeeze(nb)
+            _slot(out, off, (n,), layout[k].dtype).copy_(piece)
+    for k, off in plan.plain:
+        _slot(out, off, plan.blocks[k], layout[k].dtype).copy_(grid(k))
     grads.clear()
-    del out, first, others
+    del out
     got = _all_to_all(flat, plan.send_counts, plan.recv_counts)
     del flat
-    rows = got.view(torch.uint8).view(-1, wd + we)
+    rows = got.view(torch.uint8).view(-1, plan.row)
     mine = {}
-    for k, off in plan.dense + [(k, wd + o) for k, o in plan.blocked]:
+    for k, off in plan.plain:
         mine[k] = _add(_slot(rows, off, plan.blocks[k],
                              layout[k].dtype).unbind(0))
+    for axes, first, end, items in plan.groups:
+        summed = torch.empty((end - first) // 4, dtype=torch.float32,
+                             device=device)
+        buf = summed.view(torch.uint8)
+        for k, off, n in items:
+            dt = layout[k].dtype
+            _slot(buf, off - first, (n,), dt).copy_(
+                _add(_slot(rows, off, (n,), dt).unbind(0)))
+        parts = _all_gather(summed, mesh, axes).view(torch.uint8)
+        for k, off, n in items:
+            mine[k] = _slot(parts, off - first, (n,), layout[k].dtype
+                            ).reshape(-1)[:math.prod(plan.blocks[k])].view(
+                                plan.blocks[k]).clone()
+        del summed, parts
     return {k: mine[k] for k in layout}
 
 
@@ -484,6 +548,7 @@ def _sharded_train_step(model_cfg: ModelConfig, optim_cfg: OptimConfig,
         else 0.0
 
     def train_step(state: ShardedState, batch: dict):
+        _check_batch_splits(batch, mesh)
         # 1. the parameters a rank computes with (one collective)
         full = P.gather_leaves([state.params[k] for k in names],
                                [layout[k].spec for k in names],
@@ -623,6 +688,7 @@ def build_compressed_train_step(model_cfg: ModelConfig,
     n_pods = sizes["pod"]
 
     def train_step(state: TrainState, batch: dict):
+        _check_batch_splits(batch, mesh)
         named = dict(state.model.named_parameters())
         local = shard_batch(batch, mesh)
         loss, met = model_mod.loss_fn(state.model, local, model_cfg)
@@ -674,9 +740,13 @@ def build_prefill_step(model_cfg: ModelConfig, mesh=None):
     return prefill
 
 
-def build_decode_step(model_cfg: ModelConfig, mesh=None):
+def build_decode_step(model_cfg: ModelConfig, mesh=None, seq_axes=()):
+    """(model, cache, batch) -> (logits, new cache).  On a mesh the cache
+    is the rank's block, its self-attention caches' sequence split over
+    ``seq_axes`` (``launch.input_specs.decode_seq_axes``; cut by
+    ``launch.input_specs.sequence_block``)."""
     def decode(model, cache, batch):
         with torch.no_grad():
             return model_mod.decode_step(model, cache, batch, model_cfg,
-                                         mesh)
+                                         mesh, seq_axes)
     return decode

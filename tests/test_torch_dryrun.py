@@ -263,16 +263,22 @@ KEYS = {"arch", "shape", "mesh", "kind", "status", "devices", "trace_s",
 FAMILY_CELLS = [("stablelm-1.6b", "train_4k"), ("olmoe-1b-7b", "decode_32k"),
                 ("llava-next-34b", "prefill_32k"),
                 ("whisper-base", "decode_32k"), ("mamba2-780m", "decode_32k"),
-                ("zamba2-1.2b", "decode_32k")]
+                ("zamba2-1.2b", "decode_32k"), ("mamba2-780m", "long_500k"),
+                ("zamba2-1.2b", "long_500k")]
 
 
-def _train_collectives(arch, shape, model=16):
+def _train_collectives(arch, shape, model=16, pods=1):
     """The collectives of a dense arch's train step on a rank of a mesh
-    with a ``model``-way "model" axis, by kind, from the config.
+    with a ``model``-way "model" axis and ``pods`` pods, by kind, from the
+    config.
 
-    One all-to-all for the gradient exchange; one all-gather for the
-    parameters (every leaf's FSDP group is ("pod", "data"), or "data"),
-    one for the loss terms.  Each large-tensor sum over "model"
+    One all-to-all for the gradient exchange, and one all-gather for
+    each group of ranks that own gradient blocks alike: the leaves whole
+    on "model" (over "model", and "pod"), the qkv biases whole on every
+    rank (over the world), and on two pods the blocks split over "model"
+    (over "pod"); one all-gather for the parameters
+    (every leaf's FSDP group is ("pod", "data"), or "data"), one for the
+    loss terms.  Each large-tensor sum over "model"
     (``psum_large``) is one all-to-all and one all-gather: the embedding's
     rows where the vocabulary splits; in each layer, where its split
     divides, the MLP's output and, in the backward pass, its input's
@@ -288,8 +294,9 @@ def _train_collectives(arch, shape, model=16):
     vocab = cfg.vocab_size % model == 0
     per_layer = 2 * ((cfg.d_ff % model == 0) + (cfg.num_heads % model == 0))
     large = vocab * (1 + chunks) + cfg.num_layers * per_layer
+    exchange = 1 + cfg.qkv_bias + (pods > 1)
     return {"all-to-all": 1 + large,
-            "all-gather": 2 + large + vocab * 4 * chunks}
+            "all-gather": 2 + exchange + large + vocab * 4 * chunks}
 
 
 @pytest.mark.parametrize("multi_pod", [False, True],
@@ -310,7 +317,7 @@ def test_run_cell_on_a_fake_world(arch, shape, multi_pod):
     assert rec["params_active"] <= rec["params_total"]
     if rec["kind"] == "train":
         coll = rec["collectives"]
-        want = _train_collectives(arch, shape)
+        want = _train_collectives(arch, shape, pods=2 if multi_pod else 1)
         assert {k: coll[k]["count"] for k in want} == want
     assert not torch.distributed.is_initialized()
 
@@ -458,10 +465,17 @@ def test_traced_rank_holds_less_than_every_gradient(shape, arch):
     assert rec["memory"]["peak_bytes"] < 9 * grad
 
 
-def test_cli_records_refused_and_skipped_cells(tmp_path, capsys):
-    """mamba2-780m's long_500k cell (batch 1) is refused by the port's
-    batch split on both meshes; stablelm-1.6b's does not apply (no
-    sub-quadratic attention).  The run exits 1."""
+def test_cli_records_refused_and_skipped_cells(tmp_path, capsys,
+                                              monkeypatch):
+    """A train cell of a batch of one (long_500k's shape, made a train
+    cell here: the reference has none) is refused by the sharded step on
+    both meshes, as a replicated batch would add each sequence's
+    gradient once a batch rank; stablelm-1.6b's long_500k does not apply
+    (no sub-quadratic attention).  The run exits 1."""
+    shape = get_shape("long_500k")
+    monkeypatch.setattr(D, "get_shape", lambda name: dataclasses.replace(
+        shape, kind="train") if name == "long_500k" else get_shape(name))
+
     def run(arch):
         D.main(["--arch", arch, "--shape", "long_500k", "--mesh", "both",
                 "--device", "cpu", "--out", str(tmp_path)])
@@ -476,6 +490,7 @@ def test_cli_records_refused_and_skipped_cells(tmp_path, capsys):
             rec = json.load(f)
         assert rec["status"] == "failed" and rec["failure"] == D.CHECK
         assert "does not split" in rec["error"]
+        assert "once a batch rank" in rec["error"]
         with open(tmp_path / f"stablelm-1.6b_long_500k_{mesh}.json") as f:
             assert json.load(f)["status"] == "skipped"
 

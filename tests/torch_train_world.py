@@ -8,6 +8,7 @@ the same rank, so the test only compares numbers.  ``gpu_sharded_case``
 is the card's (tests/test_torch_gpu.py): two ranks on cuda:0.
 """
 import functools
+import math
 import os
 
 import numpy as np
@@ -89,43 +90,56 @@ def dense_step_case(mesh, out: dict, tag: str, arch: str = ARCH) -> None:
             out[f"{tag}_loss_single"] = float(want["loss"])
             out[f"{tag}_gnorm"] = float(met["grad_norm"])
             out[f"{tag}_gnorm_single"] = float(want["grad_norm"])
+            # the leaves the layers compute by their "model" block
+            out[f"{tag}_blocked"] = sum(lf.model_block for lf in
+                                        sharded.layout.values())
     out[f"{tag}_grad_err"] = errs["grad"]
     out[f"{tag}_param_err"] = errs["param"]
 
 
 def serve_case(mesh, out: dict, tag: str, arch: str = ARCH,
-               new_tokens: int = 2) -> None:
-    """Prefill and ``new_tokens`` decode steps of a reduced arch on
-    ``mesh``, each rank with its serving blocks (``steps.serving_model``)
-    and its batch shard, against one device on the same rows: the
-    largest logit difference over max |logit|, the cache's bytes on the
-    rank against one device's, and the logits' checksum (the same on
+               new_tokens: int = 2, batch: int = B, max_seq: int = 32,
+               **overrides) -> None:
+    """Prefill and ``new_tokens`` decode steps of a reduced arch (with
+    ``overrides``) on ``mesh``, each rank with its serving blocks
+    (``steps.serving_model``), its batch shard (the whole batch where it
+    does not split) and its block of the cache, padded to ``max_seq``
+    (``input_specs.sequence_block`` over ``decode_seq_axes``), against
+    one device on the same rows: the largest logit difference over max
+    |logit|, the cache's bytes on the rank against one device's, the
+    number of sequence blocks, and the logits' checksum (the same on
     every rank of a "model" group)."""
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.distributed import partition as P
+    from repro_torch.launch import input_specs as I
     from repro_torch.models import model as M
     from repro_torch.runtime import steps as S_
-    cfg = get_arch(arch).reduced()
+    cfg = get_arch(arch).reduced(**overrides)
     model, _ = M.init_model(cfg, torch.Generator().manual_seed(3))
-    batch = {"tokens": _batch(cfg, seq=16)["tokens"]}
-    local = S_.shard_batch(batch, mesh)
-    rows = P.block_slices(P.spec_for_batch(mesh, B, 2), (B, 16), mesh)[0]
+    tokens = _batch(cfg, batch=batch, seq=16)["tokens"]
+    local = S_.shard_batch({"tokens": tokens}, mesh)
+    rows = P.block_slices(P.spec_for_batch(mesh, batch, 2), (batch, 16),
+                          mesh)[0]
+    seq = I.decode_seq_axes(cfg, mesh, batch, max_seq)
     mine = S_.serving_model(model, cfg, mesh)
     err, scale, sums = 0.0, 0.0, []
     caches = {}
-    for who, m, b, mesh_ in (("single", model, {"tokens": batch["tokens"]
-                                                [rows]}, None),
-                             ("mesh", mine, local, mesh)):
+    for who, m, b, mesh_, axes in (
+            ("single", model, {"tokens": tokens[rows]}, None, ()),
+            ("mesh", mine, local, mesh, seq)):
         logits, cache = S_.build_prefill_step(cfg, mesh_)(m, b)
-        cache = M.pad_cache_to(cache, cfg, 16 + new_tokens)
+        cache = M.pad_cache_to(cache, cfg, max_seq)
+        if mesh_ is not None:
+            cache = I.sequence_block(cache, mesh, seq)
+        decode = S_.build_decode_step(cfg, mesh_, axes)
         steps = [logits]
         tok = logits.argmax(-1)[:, None].int()
         for t in range(new_tokens):
             pos = torch.full_like(tok, 16 + t)
-            logits, cache = S_.build_decode_step(cfg, mesh_)(
-                m, cache, {"tokens": tok, "positions": pos})
+            logits, cache = decode(m, cache, {"tokens": tok,
+                                              "positions": pos})
             steps.append(logits)
             tok = logits.argmax(-1)[:, None].int()
         caches[who] = (steps, sum(t.numel() * t.element_size() for t in
@@ -134,9 +148,11 @@ def serve_case(mesh, out: dict, tag: str, arch: str = ARCH,
         err = max(err, float((got - want).abs().max()))
         scale = max(scale, float(want.abs().max()))
         sums.append(got.double().sum().item())
+    sizes = P.mesh_sizes(mesh)
     out[f"{tag}_logit_err"] = err / scale
     out[f"{tag}_cache_bytes"] = caches["mesh"][1]
     out[f"{tag}_cache_bytes_single"] = caches["single"][1]
+    out[f"{tag}_seq_blocks"] = int(np.prod([sizes[a] for a in seq]))
     out[f"{tag}_logit_sums"] = np.array(sums)
 
 
@@ -299,19 +315,23 @@ def whole_gather_oracle(grads, layout, mesh):
     return mine, torch.stack(sq).sum().sqrt()
 
 
-def exchange_case(mesh, out: dict, tag: str, arch: str = ARCH) -> None:
-    """One sharded AdamW step of a reduced arch (at its published capacity
-    and aux loss): this rank's summed gradient blocks against
-    :func:`whole_gather_oracle` on the same rank's gradients (the number
-    of leaves whose bits differ), the norm against the oracle's; the
-    loss, the norm and the collectives by kind, the same on every rank."""
+def exchange_case(mesh, out: dict, tag: str, arch: str = ARCH,
+                  **overrides) -> None:
+    """One sharded AdamW step of a reduced arch (with ``overrides``; at
+    its published capacity and aux loss): this rank's summed gradient
+    blocks against :func:`whole_gather_oracle` on the same rank's
+    gradients (the number of leaves whose bits differ), the norm against
+    the oracle's; the loss, the norm and the collectives by kind, the
+    same on every rank; the bytes of the leaves whole on "model" that
+    the exchange cuts into slices."""
     import torch
 
     from repro_torch.configs import OptimConfig, get_arch
+    from repro_torch.distributed import partition as P
     from repro_torch.distributed.matvec import (collective_stats,
                                                 reset_collectives)
     from repro_torch.runtime import steps as S_
-    cfg = get_arch(arch).reduced()
+    cfg = get_arch(arch).reduced(**overrides)
     opt = OptimConfig(lr=1e-3, warmup_steps=0)
     seen, calls = {}, {}
     exchange = S_._exchange
@@ -343,6 +363,10 @@ def exchange_case(mesh, out: dict, tag: str, arch: str = ARCH) -> None:
     out[f"{tag}_a2a_calls"] = calls["a2a"]
     out[f"{tag}_step_a2a_calls"] = stats["by_kind"]["all-to-all"]["calls"]
     out[f"{tag}_ag_calls"] = stats["by_kind"]["all-gather"]["calls"]
+    out[f"{tag}_sliced_bytes"] = sum(
+        math.prod(lf.shape) * lf.dtype.itemsize
+        for lf in state.layout.values()
+        if not lf.model_block and "model" not in P.spec_axes(lf.spec))
 
 
 def reduce_case(mesh, out: dict, tag: str) -> None:
@@ -380,17 +404,41 @@ def reduce_case(mesh, out: dict, tag: str) -> None:
 
 # the tensor-parallel train steps held against one device: a reduced arch
 # whose kv heads divide "model" (stablelm), one whose kv heads stay whole
-# on (1, 4) (gemma2: 4 heads, 2 kv heads), and MLA with experts
-# (deepseek-v2)
-TP_ARCHS = (("dm", ARCH), ("gm", "gemma2-9b"), ("dv", "deepseek-v2-236b"))
+# on (1, 4) (gemma2: 4 heads, 2 kv heads), MLA with experts
+# (deepseek-v2), and the Mamba2 layers split by heads (mamba2: 16 SSD
+# heads; zamba2: its Mamba2 layers and the shared attention block)
+TP_ARCHS = (("dm", ARCH), ("gm", "gemma2-9b"), ("dv", "deepseek-v2-236b"),
+            ("mb", "mamba2-780m"), ("zb", "zamba2-1.2b"))
+
+# prefill and decode against one device: (tag, mesh, serve_case's
+# arguments).  gemma2 (2 kv heads on (1, 4)) and deepseek-v2's MLA
+# latents split the cache's sequence over "model", as does gemma2 with 6
+# heads (the attention whole on every rank); a batch of one splits it over
+# "data" (stablelm on (4, 1); zamba2 on (2, 2), its kv heads and Mamba2
+# state by heads over "model"); mamba2 holds its state by heads
+SERVE_CASES = (("sv22", (2, 2), {}), ("sv14", (1, 4), {}),
+               ("svgm14", (1, 4), dict(arch="gemma2-9b")),
+               ("svdv14", (1, 4), dict(arch="deepseek-v2-236b")),
+               ("svgw14", (1, 4), dict(arch="gemma2-9b", num_heads=6)),
+               ("svb41", (4, 1), dict(batch=1)),
+               ("svzb22", (2, 2), dict(arch="zamba2-1.2b", batch=1)),
+               ("svmb14", (1, 4), dict(arch="mamba2-780m")))
+
+# the gradient exchange beyond a dense and a MoE arch: zamba2 (the Mamba2
+# conv, whole in its layer but split over "model" by the rules) and a
+# reduced arch with 6 heads on (1, 4), its attention weights whole on
+# "model"
+EXCHANGE_CASES = (((2, 2), "hybrid", "zamba2-1.2b", {}),
+                  ((1, 4), "hybrid", "zamba2-1.2b", {}),
+                  ((1, 4), "whole", ARCH, dict(num_heads=6, num_kv_heads=6)))
 
 
 def world4_cases(rank, world, inputs, directory):
     """(2, 2) ("data", "model"): the dense and the MoE step, the EP block,
     the reshard; on (2, 2), (4, 1) and (1, 4) the gradient exchange
     against the whole-gather oracle, and on the last two the steps
-    against one device; the tensor-parallel steps, prefill and decode
-    and the large-tensor sum on (2, 2) and (1, 4)."""
+    against one device; the tensor-parallel steps and the large-tensor
+    sum on (2, 2) and (1, 4); prefill and decode (:data:`SERVE_CASES`)."""
     out = {}
     mesh = _mesh((2, 2), ("data", "model"))
     dense_step_case(mesh, out, "ms22", MOE_ARCH)
@@ -407,11 +455,14 @@ def world4_cases(rank, world, inputs, directory):
             tag = f"{shape[0]}{shape[1]}"
             for prefix, arch in TP_ARCHS:
                 dense_step_case(m, out, prefix + tag, arch)
-            serve_case(m, out, f"sv{tag}")
             reduce_case(m, out, f"rd{tag}")
+    for shape, kind, arch, overrides in EXCHANGE_CASES:
+        exchange_case(_mesh(shape, ("data", "model")), out,
+                      f"ex{'x'.join(map(str, shape))}{kind}", arch,
+                      **overrides)
     dense_step_case(_mesh((4, 1), ("data", "model")), out, "dm41")
-    serve_case(_mesh((1, 4), ("data", "model")), out, "svgm14",
-               "gemma2-9b")
+    for tag, shape, kw in SERVE_CASES:
+        serve_case(_mesh(shape, ("data", "model")), out, tag, **kw)
     save_rank(directory, rank, out)
 
 
@@ -479,24 +530,31 @@ def world2_cases(rank, world, inputs, directory):
     save_rank(directory, rank, out)
 
 
-def reference_inputs(arch: str = ARCH) -> dict:
+# the archs held against the reference's step on a (2, 4) mesh: (tag, arch)
+REFERENCE_ARCHS = (("ref24", ARCH), ("ref24zb", "zamba2-1.2b"))
+
+
+def reference_inputs() -> dict:
     """The inputs of :func:`reference_mesh_case` for the reference's
-    subprocess, as numpy arrays: the port's seed-0 weights of the reduced
-    ``arch`` in the reference's pytree layout (``bridge.reference_tree``),
-    each under ``p:<path>``, and the batch's ``tokens`` and ``labels``."""
+    subprocess, as numpy arrays, for each of :data:`REFERENCE_ARCHS`: the
+    port's seed-0 weights of the reduced arch in the reference's pytree
+    layout (``bridge.reference_tree``), each under ``<tag>p:<path>``,
+    and the batch's ``<tag>tokens`` and ``<tag>labels``."""
     from repro_torch import bridge
     from repro_torch.configs import OptimConfig, get_arch
-    cfg = get_arch(arch).reduced()
     out = {}
+    for tag, arch in REFERENCE_ARCHS:
+        cfg = get_arch(arch).reduced()
 
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, f"{path}:{k}")
-        else:
-            out[path] = node.numpy()
-    walk(bridge.reference_tree(_state(cfg, OptimConfig()).model), "p")
-    out.update({k: v.numpy() for k, v in _batch(cfg).items()})
+        def walk(node, path):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(v, f"{path}:{k}")
+            else:
+                out[path] = node.numpy()
+        walk(bridge.reference_tree(_state(cfg, OptimConfig()).model),
+             f"{tag}p")
+        out.update({f"{tag}{k}": v.numpy() for k, v in _batch(cfg).items()})
     return out
 
 
@@ -524,13 +582,14 @@ def reference_mesh_case(mesh, out: dict, tag: str, arch: str = ARCH) -> None:
 def world8_cases(rank, world, inputs, directory):
     """tests/test_distributed.py::test_sharded_train_step_runs: a reduced
     MoE arch, (2, 2, 2) ("pod", "data", "model"), two real steps; and the
-    tensor-parallel step of reduced stablelm on (2, 4) ("data", "model")
-    for the reference's step on the same mesh
+    tensor-parallel steps of :data:`REFERENCE_ARCHS` on (2, 4) ("data",
+    "model") for the reference's step on the same mesh
     (:func:`reference_mesh_case`)."""
     from repro_torch.configs import OptimConfig, get_arch
     from repro_torch.runtime import steps as S_
     out: dict = {}
-    reference_mesh_case(_mesh((2, 4), ("data", "model")), out, "ref24")
+    for tag, arch in REFERENCE_ARCHS:
+        reference_mesh_case(_mesh((2, 4), ("data", "model")), out, tag, arch)
     mesh = _mesh((2, 2, 2), ("pod", "data", "model"))
     cfg = get_arch(MOE_ARCH).reduced()
     opt = OptimConfig(lr=1e-3)
